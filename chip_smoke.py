@@ -6,16 +6,27 @@ bounds below are taken against):
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``ray_tpu_torch/ops/csrc/``, holds each
-kernel against its plain PyTorch version at the training shapes, checks
-the flash model against the plain one, then trains ``bench.py``'s Llama
-(~349M parameters, 24 layers, GQA 16/8, head dim 64, flash attention,
-"dots" remat, bf16 compute with f32 master weights) for 2 warm-up and 5
-timed steps at batch 8 x 2048. Each phase prints one JSON line. The
-line before the last lists every kernel with its launches in the train
-phase, its error against the plain version and its times; the last line
-is ``{"ok": true, "device": {...}}``. Any failure exits nonzero, and
-without a card the script fails.
+It builds the CUDA kernels from ``ray_tpu_torch/ops/csrc/`` (one nvcc per
+source, all started together) and drives the port's two paths:
+
+- training: holds each flash-attention kernel against its plain PyTorch
+  version at the training shapes, checks the flash model against the
+  plain one, then trains ``bench.py``'s Llama (~349M parameters, 24
+  layers, GQA 16/8, head dim 64, flash attention, "dots" remat, bf16
+  compute with f32 master weights) for 2 warm-up and 5 timed steps at
+  batch 8 x 2048;
+- serving: holds the RMSNorm kernel against its plain version at the
+  serving and training shapes, checks the paged engine's greedy output
+  at Llama-3-8B widths (2 layers, f32) against full-context decoding,
+  with and without preemption, then serves 16 concurrent ragged requests
+  with the full Llama-3-8B (32 layers, bf16, random weights from a seed)
+  through ``LLMEngine``.
+
+Each phase prints one JSON line. The line before the last lists every
+kernel with its launches on its path (the train phase for the attention
+kernels, the serve phase for RMSNorm), its error against the plain
+version and its times; the last line is ``{"ok": true, "device":
+{...}}``. Any failure exits nonzero, and without a card the script fails.
 """
 
 from __future__ import annotations
@@ -27,21 +38,36 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
+
+DEVICE = "cuda"
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet, 700 W).
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
-# The kernels of the main path and the TPU kernels they replace.
+# The kernels of the main paths and the TPU kernels they replace.
 KERNELS = {
     "fwd": ("_fwd_kernel", "ray_tpu/ops/flash_attention.py:56"),
     "bwd_dq": ("_bwd_dq_kernel", "ray_tpu/ops/flash_attention.py:153"),
     "bwd_dkv": ("_bwd_dkv_kernel", "ray_tpu/ops/flash_attention.py:195"),
+    "rmsnorm": ("_rmsnorm_kernel", "ray_tpu/ops/fused.py:27"),
 }
-SOURCE = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+# The library each kernel is built into, its source, and the entry
+# function(s) of its ptxas report (the flash kernels at head dim 64).
+SOURCES = {"flash_attention": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+           "fused": "ray_tpu_torch/ops/csrc/fused.cu"}
+KERNEL_LIBRARY = {"fwd": "flash_attention", "bwd_dq": "flash_attention",
+                  "bwd_dkv": "flash_attention", "rmsnorm": "fused"}
+PTXAS_ENTRY = {"fwd": r"fwd_kernelILi64E", "bwd_dq": r"bwd_dq_kernelILi64E",
+               "bwd_dkv": r"bwd_dkv_kernelILi64E",
+               "rmsnorm": r"rmsnorm_kernel"}
 KERNEL_OUTPUTS = {"fwd": ("o",), "bwd_dq": ("dq",),
                   "bwd_dkv": ("dk", "dv")}
 
@@ -77,6 +103,43 @@ ATTENTION_TOL = {"rtol": 2 ** -5, "atol": 1e-2, "rms_tol": 1e-2}  # layer 0
 LOGITS_TOL = {"rtol": 2 ** -5, "atol": 0.16, "rms_tol": 3e-2}
 MODEL_GRAD_REL_TOL = 5e-2  # of the largest |plain| grad of each leaf
 MODEL_GRAD_RMS_TOL = 4e-2  # ||flash - plain|| / ||plain|| of each leaf
+
+# RMSNorm kernel against rms_norm_plain on the same inputs. Both sum the
+# row's squares in f32 (in other orders; the kernel's rsqrtf and fused
+# multiply-adds differ from PyTorch's in the last bits) and round one f32
+# value to x's dtype once. A bf16 element then differs by at most one bf16
+# step, 2^-7 of its magnitude, where the two f32 values straddle a
+# rounding boundary; rare flips keep the relative RMS small. An f32
+# element differs by a few f32 steps.
+RMS_BF16_TOL = {"rtol": 2 ** -7, "atol": 1e-6, "rms_tol": 4e-3}
+RMS_F32_TOL = {"rtol": 1e-5, "atol": 1e-6, "rms_tol": 1e-5}
+RMS_EPS = 1e-5
+# (rows, D, x dtype, scale dtype, row stride or None for contiguous rows):
+# one decode step's norm, one prefill chunk's, the training activations,
+# f32 (the exactness check), a D of 999 (rows not 16-byte aligned: one
+# element at a time), a D of 1001 read as vectors with a scalar tail from
+# rows 1024 apart, and every other row of a [128, 4096] tensor.
+RMSNORM_CASES = {
+    "decode_8x4096": (8, 4096, torch.bfloat16, torch.bfloat16, None),
+    "prefill_256x4096": (256, 4096, torch.bfloat16, torch.bfloat16, None),
+    "train_16384x1024": (16384, 1024, torch.bfloat16, torch.bfloat16, None),
+    "f32_8x4096": (8, 4096, torch.float32, torch.float32, None),
+    "f32_scale_8x4096": (8, 4096, torch.bfloat16, torch.float32, None),
+    "odd_d_7x999": (7, 999, torch.bfloat16, torch.bfloat16, None),
+    "tail_7x1001_stride_1024": (7, 1001, torch.bfloat16, torch.bfloat16,
+                                1024),
+    "strided_rows_64x4096": (64, 4096, torch.bfloat16, torch.bfloat16,
+                             8192),
+}
+
+# The serving engine on Llama-3-8B widths at 2 layers in f32 against
+# full-context decoding with the plain model (plain attention, plain
+# norm). The two sum in other orders (paged vs dense attention, the
+# kernel's row sums, matrix products of other shapes), which moves a
+# logit by ~1e-5 of the logits' spread (~1); a wrong mask, position or
+# block moves it by ~0.1 to 1.
+SERVE_CHECK_PROMPT_LENGTHS = (5, 40, 97, 150)
+SERVE_CHECK_LOGITS_TOL = {"rtol": 0.0, "atol": 5e-4, "rms_tol": 1e-4}
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -136,48 +199,58 @@ def phase_device() -> tuple[dict, str]:
     return device, smi[0]
 
 
-def _ptxas_report(log: str) -> dict:
-    """Registers, spills and static shared memory per kernel (D=64)."""
+def _ptxas_report(log: str, kinds) -> dict:
+    """Registers, spills and static shared memory per kernel: of the entry
+    function matching ``PTXAS_ENTRY[kind]``, the largest over its
+    instantiations where there are several."""
     report, current = {}, None
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        entry = (re.search(r"Compiling entry function '(\S+)'", line)
+                 or re.search(r"Function properties for (\S+)", line))
         if entry:
-            current = next((k for k in KERNELS if re.search(
-                rf"{k}_kernelILi64E", entry.group(1))), None)
-            continue
-        props = re.search(r"Function properties for (\S+)", line)
-        if props:
-            current = next((k for k in KERNELS if re.search(
-                rf"{k}_kernelILi64E", props.group(1))), None)
+            current = next((k for k in kinds if re.search(
+                PTXAS_ENTRY[k], entry.group(1))), None)
             continue
         if current is None:
             continue
+        stats = report.setdefault(current, {})
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
         if spill:
-            report.setdefault(current, {}).update(
-                spill_store_bytes=int(spill.group(1)),
-                spill_load_bytes=int(spill.group(2)))
+            for key, value in (("spill_store_bytes", spill.group(1)),
+                               ("spill_load_bytes", spill.group(2))):
+                stats[key] = max(stats.get(key, 0), int(value))
         used = re.search(r"Used (\d+) registers", line)
         if used:
             smem = re.search(r"(\d+) bytes smem", line)
-            report.setdefault(current, {}).update(
-                registers=int(used.group(1)),
-                static_smem_bytes=int(smem.group(1)) if smem else 0)
+            stats["registers"] = max(stats.get("registers", 0),
+                                     int(used.group(1)))
+            stats["static_smem_bytes"] = max(
+                stats.get("static_smem_bytes", 0),
+                int(smem.group(1)) if smem else 0)
     return report
 
 
 def phase_build(build, fa) -> None:
+    """Build every source at once, one nvcc each."""
     start = time.perf_counter()
-    info = build.build("flash_attention")
-    report = _ptxas_report(info["ptxas"])
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        infos = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
+    report = {}
+    for name, info in infos.items():
+        kinds = [k for k in KERNELS if KERNEL_LIBRARY[k] == name]
+        report.update(_ptxas_report(info["ptxas"], kinds))
     for kind in KERNELS:
         require(kind in report and "registers" in report[kind],
                 f"no ptxas report for the {kind} kernel")
-        report[kind]["dynamic_smem_bytes"] = fa.smem_bytes(kind, 64)
-    emit("build", source=SOURCE, nvcc_s=round(info["seconds"], 3),
+        report[kind]["dynamic_smem_bytes"] = (
+            fa.smem_bytes(kind, 64) if KERNEL_LIBRARY[kind] ==
+            "flash_attention" else 0)
+    emit("build", sources=SOURCES,
+         nvcc_s={name: round(info["seconds"], 3)
+                 for name, info in infos.items()},
          wall_s=round(time.perf_counter() - start, 3),
-         kernels_d64=report)
+         kernels=report, flash_head_dim=64)
 
 
 def _inputs(b, l, h, kvh, d, seed):
@@ -240,7 +313,7 @@ def phase_kernels(fa) -> dict:
             times = _time_slice(fa, q, k, v, o_ref, lse_ref, do, causal)
         del q, k, v, do, o_ref, lse_ref, o, lse, dq, dk, dv, ref
         torch.cuda.empty_cache()
-    for kind in KERNELS:
+    for kind in KERNEL_OUTPUTS:
         bound_ms, bound_by = _bound(kind, *cases["slice"])
         times[kind].update(bound_ms=bound_ms, bound_by=bound_by)
     emit("kernels", cases=results, times_ms=times,
@@ -251,11 +324,13 @@ def phase_kernels(fa) -> dict:
                                "middle key tile")
     slice_outputs = results["slice"]["outputs"]
     rows = {}
-    for kind, (tpu_kernel, replaces) in KERNELS.items():
+    for kind in KERNEL_OUTPUTS:
+        tpu_kernel, replaces = KERNELS[kind]
         # The worst of the kernel's outputs on the slice.
         outs = [slice_outputs[out] for out in KERNEL_OUTPUTS[kind]]
         rows[kind] = {
-            "name": kind, "route": "cuda", "source": SOURCE,
+            "name": kind, "route": "cuda",
+            "source": SOURCES[KERNEL_LIBRARY[kind]],
             "replaces": f"{replaces} ({tpu_kernel})",
             "max_abs_err": max(c["max_abs_err"] for c in outs),
             "max_err_over_bound": max(c["max_err_over_bound"] for c in outs),
@@ -462,13 +537,15 @@ def phase_train(llama, train_step, fa, device: dict,
             f"initial loss {losses[0]} is far from ln(vocab) = {ln_vocab}")
     missing = [k for k, n in launches.items() if n == 0]
     require(not missing, f"kernels not launched in the train phase: {missing}")
-    emit("profile", **_profile_step(step, state, batch, step_s))
+    emit("profile", **_profile_step(lambda: step(state, batch), step_s))
     return launches
 
 
 def _kernel_class(name: str) -> str:
     if re.search(r"(fwd|bwd_dq|bwd_dkv)_kernel", name):
         return "flash_attention"
+    if re.search(r"rmsnorm_kernel", name):
+        return "rmsnorm"
     lowered = name.lower()
     for cls, marks in (("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
                        ("reduction", ("reduce",)),
@@ -480,16 +557,16 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _profile_step(step, state, batch, step_s: float) -> dict:
-    """One more step under torch.profiler: device busy time (the union of
-    kernel intervals), its share of the unprofiled median step, and device
-    time by kernel class and by kernel."""
+def _profile_step(run_step, step_s: float) -> dict:
+    """One more step (``run_step()``) under torch.profiler: device busy
+    time (the union of kernel intervals), its share of the unprofiled
+    median step, and device time by kernel class and by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        step(state, batch)
+        run_step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     spans, by_class, by_name = [], {}, {}
@@ -525,6 +602,391 @@ def _profile_step(step, state, batch, step_s: float) -> dict:
     }
 
 
+# ------------------------------------------------------------------ serving
+
+
+def _rms_inputs(rows, d, dtype, scale_dtype, stride, seed):
+    """x [rows, D] (a view with row stride ``stride`` where given) and
+    scale [D], drawn on the card from ``seed``."""
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    base = torch.randn((rows, stride or d), generator=gen, device=DEVICE)
+    x = (3 * base).to(dtype)[:, :d]
+    if stride is None:
+        x = x.contiguous()
+    scale = (torch.randn(d, generator=gen, device=DEVICE) + 1).to(scale_dtype)
+    return x, scale
+
+
+def _rms_wrong_stats(x, scale, stats_of):
+    """RMSNorm of x with each row's statistics taken by ``stats_of`` (for
+    the bound's teeth: a plain version that is wrong on purpose)."""
+    x32 = x.float()
+    var = stats_of(x32 * x32)
+    return (x32 * torch.rsqrt(var + RMS_EPS) * scale.float()).to(x.dtype)
+
+
+def _rms_bound(rows, d, dtype) -> tuple[float, str]:
+    """x read once, out written once, scale read once at the memory rate,
+    or ~4 f32 operations per element at the f32 rate, whichever is
+    larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (2 * rows * d * size + d * size) / PEAK_BYTES_PER_S
+    t_ops = 4 * rows * d / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_rmsnorm(fused) -> dict:
+    """The RMSNorm kernel against its plain version at every case of
+    RMSNORM_CASES, the bound's teeth, and times at the decode shape and at
+    a bandwidth-sized [16384, 4096]."""
+    results = {}
+    for seed, (name, (rows, d, dtype, scale_dtype, stride)) in enumerate(
+            RMSNORM_CASES.items()):
+        x, scale = _rms_inputs(rows, d, dtype, scale_dtype, stride, seed)
+        got = fused.rms_norm_kernel(x, scale, RMS_EPS)
+        want = fused.rms_norm_plain(x, scale, RMS_EPS)
+        torch.cuda.synchronize()
+        tol = RMS_F32_TOL if dtype == torch.float32 else RMS_BF16_TOL
+        results[name] = {"shape": [rows, d], "dtype": str(dtype),
+                         "scale_dtype": str(scale_dtype),
+                         "row_stride": x.stride(0), **compare(got, want, tol)}
+    # Teeth: two plain versions that are wrong on purpose must fail the
+    # bf16 bound at the prefill shape.
+    x, scale = _rms_inputs(256, 4096, torch.bfloat16, torch.bfloat16, None,
+                           seed=100)
+    want = fused.rms_norm_plain(x, scale, RMS_EPS)
+    half = x.shape[-1] // 2
+    teeth = {
+        "mean_over_first_half": compare(_rms_wrong_stats(
+            x, scale, lambda sq: sq[:, :half].mean(-1, keepdim=True)),
+            want, RMS_BF16_TOL),
+        "next_rows_statistics": compare(_rms_wrong_stats(
+            x, scale, lambda sq: sq.mean(-1, keepdim=True).roll(-1, 0)),
+            want, RMS_BF16_TOL),
+    }
+    times = {}
+    for rows, iters in ((8, 500), (16384, 50)):
+        d = 4096
+        x, scale = _rms_inputs(rows, d, torch.bfloat16, torch.bfloat16, None,
+                               seed=200)
+        bound_ms, bound_by = _rms_bound(rows, d, torch.bfloat16)
+        times[f"{rows}x{d}"] = {
+            "kernel_ms": cuda_ms(lambda: fused.rms_norm_kernel(
+                x, scale, RMS_EPS), iters, warmup=5),
+            "plain_ms": cuda_ms(lambda: fused.rms_norm_plain(
+                x, scale, RMS_EPS), iters, warmup=5),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.rms_norm(
+                x, (d,), scale, RMS_EPS), iters, warmup=5),
+            "library_call": "torch.nn.functional.rms_norm",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    emit("rmsnorm_kernels", cases=results, teeth=teeth, times_ms=times,
+         tolerance={"bf16": RMS_BF16_TOL, "f32": RMS_F32_TOL},
+         decode_shape_note="[8, 4096] moves 131 KB: launch-bound, not "
+                           "bandwidth-bound")
+    bad = [name for name, r in results.items() if not r["ok"]]
+    require(not bad, f"the rmsnorm kernel disagrees with its plain version "
+                     f"in {bad}")
+    passed = [name for name, c in teeth.items() if c["ok"]]
+    require(not passed, f"the rmsnorm tolerance passes wrong versions: "
+                        f"{passed}")
+    decode = times["8x4096"]
+    tpu_kernel, replaces = KERNELS["rmsnorm"]
+    return {
+        "name": "rmsnorm", "route": "cuda",
+        "source": SOURCES[KERNEL_LIBRARY["rmsnorm"]],
+        "replaces": f"{replaces} ({tpu_kernel})",
+        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        "max_err_over_bound": max(r["max_err_over_bound"]
+                                  for r in results.values()),
+        "rel_rms": max(r["rel_rms"] for r in results.values()),
+        "tolerance": {"bf16": RMS_BF16_TOL, "f32": RMS_F32_TOL},
+        "shape": [8, 4096], "ms": decode["kernel_ms"],
+        **{key: decode[key] for key in ("plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "library_call")},
+        "ms_16384x4096": times["16384x4096"]["kernel_ms"],
+    }
+
+
+def _prompts(lengths, vocab, seed) -> list[list[int]]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).tolist() for n in lengths]
+
+
+def _generate(engine, prompts, max_new_tokens, temperatures=None) -> list:
+    """Submit every prompt at once, each from its own thread; per request
+    its tokens, its error, its submit time and the arrival time of each
+    token (host clock)."""
+    temperatures = temperatures or [0.0] * len(prompts)
+    records = [None] * len(prompts)
+    barrier = threading.Barrier(len(prompts))
+
+    def run(i):
+        barrier.wait()
+        submitted = time.perf_counter()
+        arrivals, tokens, error = [], [], None
+        try:
+            req = engine.submit(prompts[i], max_new_tokens=max_new_tokens,
+                                temperature=temperatures[i], stream=True)
+            for token in engine.stream_tokens(req):
+                arrivals.append(time.perf_counter())
+                tokens.append(token)
+        except Exception as exc:  # noqa: BLE001 — reported and required
+            error = repr(exc)
+        records[i] = {"tokens": tokens, "error": error,
+                      "submitted": submitted, "arrivals": arrivals}
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    require(not any(t.is_alive() for t in threads), "a request hung")
+    return records
+
+
+@torch.no_grad()
+def _greedy_full_forward(llama, params, prompt, config, steps) -> list[int]:
+    """Greedy decoding with the full-context forward of the plain model."""
+    tokens, out = list(prompt), []
+    for _ in range(steps):
+        logits = llama.forward(
+            params, torch.tensor([tokens], device=DEVICE), config)
+        out.append(int(torch.argmax(logits[0, -1])))
+        tokens.append(out[-1])
+    return out
+
+
+@torch.no_grad()
+def _prefill_last_logits(paged_model, cache_mod, params, prompt, config,
+                         block_size, chunk):
+    """The last-position logits of ``prompt`` through the engine's
+    prefill step, chunk by chunk, into a fresh pool."""
+    blocks = -(-len(prompt) // block_size)
+    pool = cache_mod.PagedKVCache.init_pool(config, 1 + blocks, block_size,
+                                            device=DEVICE)
+    table = torch.arange(1, 1 + blocks, device=DEVICE)[None, :]
+    step = paged_model.make_prefill_chunk(config, block_size)
+    for start in range(0, len(prompt), chunk):
+        n = min(chunk, len(prompt) - start)
+        tokens = torch.zeros((1, chunk), dtype=torch.int64, device=DEVICE)
+        tokens[0, :n] = torch.tensor(prompt[start:start + n], device=DEVICE)
+        positions = torch.zeros((1, chunk), dtype=torch.int64, device=DEVICE)
+        positions[0, :n] = torch.arange(start, start + n, device=DEVICE)
+        last, pool = step(params, pool, tokens, positions, table, n, n - 1)
+    return last
+
+
+def serve_check_config(llama):
+    """Llama-3-8B widths at 2 layers, f32, for the exactness check."""
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2,
+                               dtype=torch.float32, remat=False)
+
+
+def phase_serve_check(llama) -> None:
+    """The engine's exactness on the card: greedy output of 4 ragged
+    prompts equals full-context greedy decoding (token for token), the
+    prefill's last logits are within SERVE_CHECK_LOGITS_TOL of the full
+    forward's, and a pool small enough to preempt gives the same
+    outputs."""
+    from ray_tpu_torch.serve.llm_engine import LLMEngine, kv_cache
+    from ray_tpu_torch.serve.llm_engine import model as paged_model
+
+    config = serve_check_config(llama)
+    params = llama.init_params(
+        config, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    prompts = _prompts(SERVE_CHECK_PROMPT_LENGTHS, config.vocab_size, 1)
+    new_tokens, block, chunk = 16, 16, 32
+    engine_args = dict(max_batch_size=4, max_seq_len=256, block_size=block,
+                       prefill_chunk=chunk, device=DEVICE)
+    expected = [_greedy_full_forward(llama, params, p, config, new_tokens)
+                for p in prompts]
+    with torch.no_grad():
+        full = llama.forward(params, torch.tensor([prompts[-1]],
+                                                  device=DEVICE), config)
+    logits = compare(_prefill_last_logits(
+        paged_model, kv_cache, params, prompts[-1], config, block, chunk),
+        full[0, -1], SERVE_CHECK_LOGITS_TOL)
+    runs = {}
+    # Every request needs 2 to 11 blocks of 16 (25 together); 12 usable
+    # blocks force preemption.
+    for name, num_blocks in (("pressure_free", None), ("pressure", 13)):
+        engine = LLMEngine(config, params, num_blocks=num_blocks,
+                           **engine_args)
+        try:
+            records = _generate(engine, prompts, new_tokens)
+            runs[name] = {"outputs": [r["tokens"] for r in records],
+                          "errors": [r["error"] for r in records],
+                          "stats": engine.engine_stats()}
+        finally:
+            engine.shutdown()
+    identical = {name: run["outputs"] == expected
+                 for name, run in runs.items()}
+    emit("serve_check", config="llama3_8b widths, 2 layers, float32",
+         prompt_lengths=list(SERVE_CHECK_PROMPT_LENGTHS),
+         max_new_tokens=new_tokens, block_size=block, prefill_chunk=chunk,
+         token_identical=identical, prefill_last_logits=logits,
+         pressure_stats=runs["pressure"]["stats"],
+         pressure_free_stats=runs["pressure_free"]["stats"],
+         mismatches={name: [[i, run["outputs"][i], expected[i]]
+                            for i in range(len(prompts))
+                            if run["outputs"][i] != expected[i]]
+                     for name, run in runs.items()})
+    for name, run in runs.items():
+        require(not any(run["errors"]), f"serve_check {name}: "
+                                        f"{run['errors']}")
+        require(identical[name], f"serve_check {name}: the engine's greedy "
+                                 f"output differs from full-context decoding")
+    require(logits["ok"], "prefill logits disagree with the full forward")
+    stats = runs["pressure"]["stats"]
+    require(stats["preemptions"] > 0 and stats["resumes"] > 0,
+            f"the pressure run did not preempt: {stats}")
+    require(stats["finished"] == len(prompts),
+            f"pressure run finished {stats['finished']} requests")
+    del params, full
+    torch.cuda.empty_cache()
+
+
+def serve_config(llama):
+    """The served model: ``LlamaConfig.llama3_8b()`` at full width and
+    depth, bf16."""
+    return llama.LlamaConfig.llama3_8b()
+
+
+def _timed(fn, sink: list):
+    """``fn`` with the host time of each call, ending in a synchronize
+    (the engine copies the sampled tokens to the host right after),
+    appended to ``sink``."""
+    def call(*args):
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - start)
+        return out
+    return call
+
+
+def phase_serve(llama, fused, device: dict, power: str) -> int:
+    """The slice: 16 concurrent ragged requests through ``LLMEngine`` on
+    the full Llama-3-8B in bf16. Returns the RMSNorm kernel's launches in
+    the run."""
+    from ray_tpu_torch._private.tree import tree_leaves, tree_map
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    config = serve_config(llama)
+    # Random weights from a seed, cast once to bf16 as a bf16 checkpoint
+    # would be loaded; the f32 tree is freed.
+    params32 = llama.init_params(
+        config, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    params = tree_map(lambda t: t.to(torch.bfloat16), params32)
+    del params32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_requests, new_tokens, max_seq_len = 16, 64, 2048
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(32, 1025, n_requests).tolist()
+    prompts = _prompts(lengths, config.vocab_size, 3)
+    temperatures = [0.0] * 12 + [0.7] * 4
+    engine = LLMEngine(config, params, max_batch_size=8,
+                       max_seq_len=max_seq_len, block_size=16,
+                       prefill_chunk=256, device=DEVICE)
+    decode_raw = engine._decode_step
+    decode_s, prefill_s = [], []
+    try:
+        # Warm-up: one short request (allocator, cuBLAS handles).
+        warm = engine.result(engine.submit(prompts[0][:32], max_new_tokens=2),
+                             timeout_s=600)
+        require(len(warm) == 2, "warm-up request failed")
+        engine._decode_step = _timed(decode_raw, decode_s)
+        engine._prefill_step = _timed(engine._prefill_step, prefill_s)
+        before = engine.engine_stats()
+        fused.launches["rmsnorm"] = 0
+        start = time.perf_counter()
+        records = _generate(engine, prompts, new_tokens, temperatures)
+        wall = time.perf_counter() - start
+        launches = fused.launches["rmsnorm"]
+        after = engine.engine_stats()
+        peak = torch.cuda.max_memory_allocated()
+        stats = {k: after[k] - before[k] for k in after}
+        forwards = stats["decode_steps"] + stats["prefill_chunks"]
+        ttft = [r["arrivals"][0] - r["submitted"] if r["arrivals"] else None
+                for r in records]
+        decode_ms = 1e3 * statistics.median(decode_s) if decode_s else None
+        result = {
+            "config": "LlamaConfig.llama3_8b() (ray_tpu/models/llama.py:79-83)",
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "layers": config.num_layers, "dtype": "bfloat16",
+            "engine": {"max_batch_size": 8, "max_seq_len": max_seq_len,
+                       "block_size": 16, "prefill_chunk": 256,
+                       "num_blocks": engine._sched.cache.num_blocks},
+            "requests": n_requests, "prompt_lengths": lengths,
+            "max_new_tokens": new_tokens, "temperatures": temperatures,
+            "ttft_s": ttft,
+            "ttft_s_median": statistics.median(
+                [t for t in ttft if t is not None] or [math.nan]),
+            "ttft_s_max": max([t for t in ttft if t is not None]
+                              or [math.nan]),
+            "decode_step_ms_median": decode_ms,
+            "decode_steps_timed": len(decode_s),
+            "prefill_chunk_ms_median": 1e3 * statistics.median(prefill_s)
+            if prefill_s else None,
+            "prefill_chunks_timed": len(prefill_s),
+            "wall_s": wall,
+            "output_tokens_per_s": sum(len(r["tokens"]) for r in records)
+            / wall,
+            "engine_stats": stats,
+            "rmsnorm_launches": launches,
+            "rmsnorm_launches_per_forward": launches / forwards
+            if forwards else None,
+            "peak_memory_bytes": peak,
+            "card": device["kind"], "nvidia_smi": power,
+        }
+        emit("serve", **result)
+        errors = [r["error"] for r in records if r["error"]]
+        require(not errors, f"requests failed: {errors}")
+        short = [len(r["tokens"]) for r in records
+                 if len(r["tokens"]) != new_tokens]
+        require(not short, f"requests sealed with {short} tokens, not "
+                           f"{new_tokens}")
+        require(all(0 <= t < config.vocab_size for r in records
+                    for t in r["tokens"]), "a token outside [0, vocab)")
+        require(stats["batched_decode_steps"] > 0, "no batched decode step")
+        per_forward = 2 * config.num_layers + 1
+        require(launches > 0 and launches == per_forward * forwards,
+                f"rmsnorm launched {launches} times over {forwards} "
+                f"forwards, not {per_forward} per forward")
+        emit("serve_profile", **_profile_decode(engine, decode_raw,
+                                                decode_ms))
+    finally:
+        engine.shutdown()
+    del params, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_decode(engine, decode_raw, decode_ms: float) -> dict:
+    """One decode step of a full batch (8 rows at position 1000 with
+    disjoint tables) under torch.profiler."""
+    rows, width = engine.max_batch, engine.blocks_per_seq
+    gen = torch.Generator(DEVICE).manual_seed(4)
+    tokens = torch.randint(0, engine.config.vocab_size, (rows, 1),
+                           generator=gen, device=DEVICE)
+    positions = torch.full((rows,), 1000, dtype=torch.int64, device=DEVICE)
+    tables = 1 + torch.arange(rows * width, device=DEVICE).reshape(
+        rows, width) % (engine._sched.cache.num_blocks - 1)
+    temps = torch.zeros(rows, device=DEVICE)
+
+    def step():
+        decode_raw(engine.params, engine._pool, tokens, positions, tables,
+                   gen, temps)[0].cpu()
+
+    step()
+    return {"batch": rows, "position": 1000,
+            **_profile_step(step, decode_ms / 1e3)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -536,11 +998,16 @@ def main() -> int:
     from ray_tpu_torch.parallel import train_step
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    fused = importlib.import_module("ray_tpu_torch.ops.fused")
     device, power = phase_device()
     phase_build(_build, fa)
     rows = phase_kernels(fa)
     phase_model(llama)
     launches = phase_train(llama, train_step, fa, device, power)
+    torch.cuda.empty_cache()
+    rows["rmsnorm"] = phase_rmsnorm(fused)
+    phase_serve_check(llama)
+    launches["rmsnorm"] = phase_serve(llama, fused, device, power)
     for kind, row in rows.items():
         row["launches"] = launches[kind]
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}), flush=True)

@@ -15,11 +15,16 @@ torch.backends.cudnn.allow_tf32 = False
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` means the current CUDA device and raises when there is no
-    card; anything else is taken as given (``"cpu"`` only when asked)."""
+    card; anything else is taken as given (``"cpu"`` only when asked),
+    with ``"cuda"`` pinned to the current CUDA device's index so that
+    devices compare equal to the tensors made on them."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on "
                 "the CPU")
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -179,9 +179,12 @@ def _attention_block(layer: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + proj
 
 
-def _mlp_block(layer: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+def _mlp_block(layer: dict, x: torch.Tensor, config: LlamaConfig,
+               norm=rms_norm) -> torch.Tensor:
+    """``norm``: the RMSNorm to apply (the serving model passes the
+    kernel's entry point, ``ray_tpu_torch.ops.rms_norm``)."""
     dtype = config.dtype
-    normed = rms_norm(x, layer["mlp_norm"], config.rms_norm_eps)
+    normed = norm(x, layer["mlp_norm"], config.rms_norm_eps)
     gate = _proj(normed, layer["w_gate"], dtype)
     up = _proj(normed, layer["w_up"], dtype)
     hidden = torch.nn.functional.silu(gate) * up

@@ -2,5 +2,6 @@
 version (which runs for CPU tensors)."""
 
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.fused import rms_norm
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "rms_norm"]

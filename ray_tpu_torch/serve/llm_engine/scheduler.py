@@ -1,0 +1,224 @@
+"""Prefill/decode scheduler: admission, interleave, preemption,
+deadlines.
+
+A copy of ``ray_tpu/serve/llm_engine/scheduler.py`` (pure Python), over
+the port's own cache and exceptions.
+
+Request lifecycle (states are the ``TaskTimeoutError.stage`` contract:
+a budget dying in the bounded queue seals stage ``llm_queue``, one
+dying during prefill/decode seals ``llm_decode``)::
+
+    submit -> WAITING -> PREFILL -> DECODE -> finished
+                 ^          |          |
+                 +----------+----------+   (preemption: blocks freed,
+                        recompute-on-resume re-prefills prompt +
+                        generated-so-far, generation continues from
+                        the exact token it stopped at)
+
+Policy decisions (the continuous-batching loop consults these; device
+work stays in engine.py):
+
+- **admission** from a BOUNDED waiting queue (``max_waiting``;
+  full ⇒ typed :class:`CacheExhaustedError` shed at submit) — at most
+  one request prefills at a time, claimed whenever a decode row is
+  free;
+- **chunked prefill interleave**: each engine iteration runs at most
+  ONE prefill chunk, then a decode step for every active stream — a
+  10k-token prompt costs in-flight streams one chunk of extra latency
+  per step, never a stall;
+- **preemption on cache pressure**: when the block pool runs dry the
+  LOWEST-PROGRESS decode request (fewest generated tokens — the
+  cheapest recompute, ties toward the latest admit) releases its
+  blocks and re-queues at the FRONT of the waiting queue. On resume it
+  re-prefills ``prompt + output[:-1]`` and continues from
+  ``output[-1]`` — with greedy sampling the final token stream is
+  byte-identical to the unpreempted run, and the caller observes
+  exactly-once completion either way (the sealed flag is the single
+  commit point);
+- **deadline sweep**: every iteration seals requests whose budget
+  died, typed, with the stage recorded.
+
+All methods run on the engine loop thread except ``submit`` /
+``seal`` which synchronize through the engine's lock.
+"""
+
+from __future__ import annotations
+
+import queue as queue_mod
+import threading
+import time
+from collections import deque
+
+from ray_tpu_torch.exceptions import CacheExhaustedError, TaskTimeoutError
+from ray_tpu_torch.serve.llm_engine.kv_cache import PagedKVCache
+
+WAITING = "waiting"
+PREFILL = "prefill"
+DECODE = "decode"
+
+#: Stage names a request's deadline can die at.
+STAGE_QUEUE = "llm_queue"
+STAGE_DECODE = "llm_decode"
+
+
+class EngineRequest:
+    """One generation request moving through the engine."""
+
+    __slots__ = (
+        "tokens", "max_new_tokens", "temperature", "deadline", "name",
+        "state", "output", "block_table", "position", "context",
+        "prefilled", "sample_first", "remaining", "last_token",
+        "preempted", "sealed", "error", "done", "stream", "admitted_ts",
+    )
+
+    def __init__(self, tokens: "list[int]", max_new_tokens: int,
+                 temperature: float, deadline: "float | None" = None,
+                 name: str = "llm_generate", stream: bool = False):
+        self.tokens = list(tokens) or [0]
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.deadline = deadline
+        self.name = name
+        self.state = WAITING
+        self.output: "list[int]" = []
+        self.block_table: "list[int]" = []
+        self.position = 0
+        # Tokens to (re)prefill this attempt; recomputed on resume.
+        self.context: "list[int]" = list(self.tokens)
+        self.prefilled = 0
+        # The first generated token is sampled from prefill logits on
+        # the FIRST attempt only — a resumed request already knows it.
+        self.sample_first = True
+        self.remaining = int(max_new_tokens)
+        self.last_token = 0
+        self.preempted = 0
+        self.sealed = False
+        self.error: "Exception | None" = None
+        self.done = threading.Event()
+        # Streaming consumers read tokens as they are emitted;
+        # bounded memory is max_new_tokens ints either way.
+        self.stream: "queue_mod.SimpleQueue | None" = (
+            queue_mod.SimpleQueue() if stream else None)
+        self.admitted_ts = time.monotonic()
+
+    def stage(self) -> str:
+        return STAGE_QUEUE if self.state == WAITING else STAGE_DECODE
+
+
+class Scheduler:
+    """Owns the request queues and the paged-cache block accounting."""
+
+    def __init__(self, cache: PagedKVCache, max_batch: int,
+                 max_waiting: int, max_tokens_per_seq: int):
+        self.cache = cache
+        self.max_batch = max_batch
+        self.max_waiting = max_waiting
+        self.max_tokens_per_seq = max_tokens_per_seq
+        self.waiting: "deque[EngineRequest]" = deque()
+        self.prefilling: "EngineRequest | None" = None
+        self.active: "list[EngineRequest]" = []
+
+    # ------------------------------------------------------------ admission
+
+    def try_enqueue(self, req: EngineRequest) -> None:
+        """Bounded admission (caller holds the engine lock). Raises
+        typed on a full queue or a request that could NEVER fit the
+        pool — both shed through the SystemOverloadedError path."""
+        if len(self.waiting) >= self.max_waiting:
+            raise CacheExhaustedError(
+                f"engine waiting queue full ({self.max_waiting})")
+        total = min(len(req.tokens) + req.max_new_tokens,
+                    self.max_tokens_per_seq)
+        if not self.cache.fits_ever(total):
+            raise CacheExhaustedError(
+                f"request needs {self.cache.blocks_for_tokens(total)} "
+                f"KV blocks; the pool holds "
+                f"{self.cache.usable_blocks} — unservable at any load")
+        self.waiting.append(req)
+
+    def claim_prefill(self) -> "EngineRequest | None":
+        """Move the head waiting request into the prefill seat when
+        both the seat and a decode row are free."""
+        if self.prefilling is not None or not self.waiting \
+                or len(self.active) >= self.max_batch:
+            return None
+        req = self.waiting.popleft()
+        self.prefilling = req
+        req.state = PREFILL
+        req.prefilled = 0
+        # Recompute-on-resume: re-prefill everything whose k/v the
+        # preemption dropped — the prompt plus every generated token
+        # except the last (its k/v is written by the NEXT decode step,
+        # exactly as in the unpreempted trajectory).
+        if req.output:
+            req.context = req.tokens + req.output[:-1]
+            req.sample_first = False
+            req.last_token = req.output[-1]
+        else:
+            req.context = list(req.tokens)
+            req.sample_first = True
+        return req
+
+    # ----------------------------------------------------------- preemption
+
+    def pick_victim(self) -> "EngineRequest | None":
+        """Lowest-progress active request (fewest generated tokens;
+        ties toward the latest admit — it has the least sunk decode
+        work and the freshest queue position)."""
+        if not self.active:
+            return None
+        return min(self.active,
+                   key=lambda r: (len(r.output), -r.admitted_ts))
+
+    def preempt(self, victim: EngineRequest) -> None:
+        """Release the victim's blocks and push it to the FRONT of the
+        waiting queue (it resumes as soon as pressure eases)."""
+        self.cache.release(victim.block_table)
+        if victim in self.active:
+            self.active.remove(victim)
+        if self.prefilling is victim:
+            self.prefilling = None
+        victim.state = WAITING
+        victim.prefilled = 0
+        victim.preempted += 1
+        self.waiting.appendleft(victim)
+
+    # ------------------------------------------------------------ deadlines
+
+    def sweep_expired(self, now: "float | None" = None
+                      ) -> "list[EngineRequest]":
+        """Requests whose budget died (or that a caller-side wait
+        already sealed): drop them from every seat, free their blocks,
+        and return the ones THIS sweep must seal typed (already-sealed
+        ones just need their blocks reclaimed)."""
+        now = time.time() if now is None else now
+        expired: "list[EngineRequest]" = []
+
+        def dead(req: EngineRequest) -> bool:
+            return req.sealed or (req.deadline is not None
+                                  and now > req.deadline)
+
+        for req in [r for r in self.waiting if dead(r)]:
+            self.waiting.remove(req)
+            expired.append(req)
+        if self.prefilling is not None and dead(self.prefilling):
+            expired.append(self.prefilling)
+            self.prefilling = None
+        for req in [r for r in self.active if dead(r)]:
+            self.active.remove(req)
+            expired.append(req)
+        for req in expired:
+            self.cache.release(req.block_table)
+        return [r for r in expired if not r.sealed]
+
+    # -------------------------------------------------------------- queries
+
+    def depth(self) -> int:
+        """Requests the engine currently owns (the autoscaler's
+        engine-depth signal)."""
+        return (len(self.waiting) + len(self.active)
+                + (1 if self.prefilling is not None else 0))
+
+    def expired_error(self, req: EngineRequest) -> TaskTimeoutError:
+        return TaskTimeoutError(req.name, req.stage(),
+                                req.deadline or 0.0)

@@ -72,6 +72,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         place_batch({"tokens": [[1]]})
 
 
+def test_serving_entry_points_raise_without_a_card(monkeypatch):
+    """The engine and the server raise before starting a loop thread."""
+    import threading
+
+    from ray_tpu_torch.serve.llm_engine import LLMEngine, LLMEngineServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    threads = threading.active_count()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngineServer()
+    assert threading.active_count() == threads
+
+
 def test_kernel_wrappers_reject_cpu_tensors():
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
@@ -84,3 +99,12 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_bwd_dkv_kernel(q, q, q, q, lse, q)
     assert fa.launches == before
+
+
+def test_rmsnorm_kernel_wrapper_rejects_cpu_tensors():
+    fused = importlib.import_module("ray_tpu_torch.ops.fused")
+    before = dict(fused.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused.rms_norm_kernel(torch.zeros((4, 64), dtype=torch.bfloat16),
+                              torch.ones(64))
+    assert fused.launches == before

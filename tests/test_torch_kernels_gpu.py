@@ -16,6 +16,12 @@ the bottom of a binade), and the whole tensor to a relative RMS error.
 o: atol 2e-3, RMS 5e-3; dq, dk, dv: atol 1e-3, RMS 1e-3 (the bounds
 chip_smoke.py holds the kernels to, where the reasons are given). lse is
 f32 on both sides: 1e-4.
+
+The RMSNorm kernel against ``rms_norm_plain``: both compute the row's
+statistics in f32 (in other orders) and round one f32 value to x's dtype
+once. A bf16 element may then differ by one bf16 step, at most 2^-7 of its
+magnitude, and the tensor by a relative RMS of 4e-3; an f32 element by
+1e-5 of its magnitude (plus 1e-6 near 0).
 """
 
 import importlib
@@ -24,6 +30,7 @@ import pytest
 import torch
 
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+fused = importlib.import_module("ray_tpu_torch.ops.fused")
 
 
 @pytest.fixture
@@ -156,3 +163,111 @@ def test_lm_head_logits_stay_f32(cuda_device):
     torch.testing.assert_close(
         w.grad.float(), x.detach().float().reshape(-1, 256).sum(0)[:, None]
         .expand(256, 1000), atol=1e-2, rtol=2 ** -7)
+
+
+# (rows, D, dtype, row stride or None for contiguous rows): the shapes of
+# chip_smoke.py's rmsnorm phase. 999 and 1001 are no multiple of the
+# vector width: the first is read one element at a time (unaligned rows),
+# the second as vectors with a scalar tail.
+RMSNORM_CASES = {
+    "decode_bf16": (8, 4096, torch.bfloat16, None),
+    "prefill_bf16": (256, 4096, torch.bfloat16, None),
+    "train_bf16": (16384, 1024, torch.bfloat16, None),
+    "decode_f32": (8, 4096, torch.float32, None),
+    "odd_d_bf16": (7, 999, torch.bfloat16, None),
+    "tail_view_bf16": (7, 1001, torch.bfloat16, 1024),
+    "strided_rows_bf16": (64, 4096, torch.bfloat16, 2 * 4096),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RMSNORM_CASES))
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32],
+                         ids=["scale_bf16", "scale_f32"])
+def test_rmsnorm_kernel_matches_plain(cuda_device, case, scale_dtype):
+    rows, d, dtype, stride = RMSNORM_CASES[case]
+    gen = torch.Generator(cuda_device).manual_seed(rows + d)
+    width = stride or d
+    base = torch.randn((rows, width), generator=gen, device=cuda_device)
+    x = (3 * base).to(dtype)[:, :d]
+    if stride is None:
+        x = x.contiguous()
+    scale = (torch.randn(d, generator=gen, device=cuda_device) + 1).to(
+        scale_dtype)
+    before = fused.launches["rmsnorm"]
+    got = fused.rms_norm_kernel(x, scale, 1e-5)
+    want = fused.rms_norm_plain(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert fused.launches["rmsnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == (rows, d)
+    if dtype == torch.bfloat16:
+        _assert_close(got, want, atol=1e-6, rms_tol=4e-3, rtol=2 ** -7)
+    else:
+        _assert_close(got, want, atol=1e-6, rms_tol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros((4, 64), device=cuda_device, dtype=torch.bfloat16)
+    before = dict(fused.launches)
+    with pytest.raises(TypeError):
+        fused.rms_norm_kernel(x.half(), torch.ones(64, device=cuda_device))
+    with pytest.raises(ValueError):
+        fused.rms_norm_kernel(x.t(), torch.ones(4, device=cuda_device))
+    with pytest.raises(ValueError):
+        fused.rms_norm_kernel(x, torch.ones(32, device=cuda_device))
+    with pytest.raises(ValueError):
+        fused.rms_norm_kernel(x, torch.ones(64))
+    assert fused.launches == before
+
+
+@pytest.mark.gpu
+def test_rmsnorm_entry_point_backward_on_the_card(cuda_device):
+    """The autograd Function: the forward launches the kernel, the
+    backward is the analytic formula; both as on the CPU to f32 order."""
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.randn((4, 33, 256), generator=gen, device=cuda_device)
+    scale = torch.randn(256, generator=gen, device=cuda_device) + 1
+    g = torch.randn((4, 33, 256), generator=gen, device=cuda_device)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        xs, ss = (t.to(device).requires_grad_(True) for t in (x, scale))
+        out = fused.rms_norm(xs, ss)
+        results.append((out, *torch.autograd.grad(out, (xs, ss),
+                                                  g.to(device))))
+    for got, want in zip(*results):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_serving_norms_run_on_the_kernel(cuda_device):
+    """Every forward of the paged engine on the card launches the kernel
+    2 x layers + 1 times (attention, MLP and final norm), and greedy
+    decoding equals the full-context forward's (float32)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    engine = LLMEngine(cfg, max_batch_size=2, max_seq_len=64, block_size=8,
+                       prefill_chunk=8)
+    try:
+        prompt = [5, 9, 2, 7, 11, 3, 8, 1, 40, 2]
+        before = fused.launches["rmsnorm"]
+        out = engine.result(engine.submit(prompt, max_new_tokens=6),
+                            timeout_s=120)
+        stats = engine.engine_stats()
+        forwards = stats["prefill_chunks"] + stats["decode_steps"]
+        assert fused.launches["rmsnorm"] - before \
+            == (2 * cfg.num_layers + 1) * forwards
+        toks, expected = list(prompt), []
+        for _ in range(6):
+            logits = llama.forward(engine.params,
+                                   torch.tensor([toks], device=cuda_device),
+                                   cfg)
+            expected.append(int(torch.argmax(logits[0, -1])))
+            toks.append(expected[-1])
+        assert out == expected
+    finally:
+        engine.shutdown()
