@@ -9,12 +9,12 @@ bounds below are taken against):
 It builds the CUDA kernels from ``ray_tpu_torch/ops/csrc/`` (one nvcc per
 source, all started together) and drives the port's two paths:
 
-- training: holds each flash-attention kernel against its plain PyTorch
-  version at the training shapes, checks the flash model against the
-  plain one, then trains ``bench.py``'s Llama (~349M parameters, 24
-  layers, GQA 16/8, head dim 64, flash attention, "dots" remat, bf16
-  compute with f32 master weights) for 2 warm-up and 5 timed steps at
-  batch 8 x 2048;
+- training: holds each flash-attention kernel (and the delta pre-pass of
+  the dk/dv backward) against its plain PyTorch version at the training
+  shapes, checks the flash model against the plain one, then trains
+  ``bench.py``'s Llama (~349M parameters, 24 layers, GQA 16/8, head dim
+  64, flash attention, "dots" remat, bf16 compute with f32 master
+  weights) for 2 warm-up and 5 timed steps at batch 8 x 2048;
 - serving: holds the RMSNorm kernel against its plain version at the
   serving and training shapes, checks the paged engine's greedy output
   at Llama-3-8B widths (2 layers, f32) against full-context decoding,
@@ -22,10 +22,13 @@ source, all started together) and drives the port's two paths:
   with the full Llama-3-8B (32 layers, bf16, random weights from a seed)
   through ``LLMEngine``.
 
-Each phase prints one JSON line. The line before the last lists every
-kernel with its launches on its path (the train phase for the attention
-kernels, the serve phase for RMSNorm), its error against the plain
-version and its times; the last line is ``{"ok": true, "device":
+Each phase prints one JSON line. The build phase gives each kernel's
+registers, shared memory and spills (the Hopper kernels at every head
+dim). The line before the last lists every kernel with its launches on
+its path (the train phase for the attention kernels, the serve phase for
+RMSNorm), its error against the plain version, its times, and for the
+attention kernels the achieved TFLOP/s and share of the bound; the last
+line is ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero, and without a card the script fails.
 """
 
@@ -57,6 +60,8 @@ KERNELS = {
     "fwd": ("_fwd_kernel", "ray_tpu/ops/flash_attention.py:56"),
     "bwd_dq": ("_bwd_dq_kernel", "ray_tpu/ops/flash_attention.py:153"),
     "bwd_dkv": ("_bwd_dkv_kernel", "ray_tpu/ops/flash_attention.py:195"),
+    "bwd_delta": ("the rowsum(dO * O) inside _bwd_dkv_kernel",
+                  "ray_tpu/ops/flash_attention.py:227"),
     "rmsnorm": ("_rmsnorm_kernel", "ray_tpu/ops/fused.py:27"),
 }
 # The library each kernel is built into, its source, and the entry
@@ -64,12 +69,18 @@ KERNELS = {
 SOURCES = {"flash_attention": "ray_tpu_torch/ops/csrc/flash_attention.cu",
            "fused": "ray_tpu_torch/ops/csrc/fused.cu"}
 KERNEL_LIBRARY = {"fwd": "flash_attention", "bwd_dq": "flash_attention",
-                  "bwd_dkv": "flash_attention", "rmsnorm": "fused"}
+                  "bwd_dkv": "flash_attention", "bwd_delta": "flash_attention",
+                  "rmsnorm": "fused"}
 PTXAS_ENTRY = {"fwd": r"fwd_kernelILi64E", "bwd_dq": r"bwd_dq_kernelILi64E",
                "bwd_dkv": r"bwd_dkv_kernelILi64E",
+               "bwd_delta": r"bwd_delta_kernelILi64E",
                "rmsnorm": r"rmsnorm_kernel"}
+# The kernels built for Hopper's wgmma/TMA path (and their pre-pass): the
+# build phase reports them at every head dim.
+HOPPER_KERNELS = ("fwd", "bwd_dkv", "bwd_delta")
+HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_OUTPUTS = {"fwd": ("o",), "bwd_dq": ("dq",),
-                  "bwd_dkv": ("dk", "dv")}
+                  "bwd_dkv": ("dk", "dv"), "bwd_delta": ("delta",)}
 
 # Kernel against plain version, both bf16 on the same inputs. Both round p
 # and ds to bf16 before their products and the outputs to bf16, and sum in
@@ -87,9 +98,13 @@ KERNEL_OUTPUTS = {"fwd": ("o",), "bwd_dq": ("dq",),
 # _dropped_tile: 61x over the element bound, relative RMS 6.8e-2).
 O_TOL = {"rtol": 2 ** -6, "atol": 2e-3, "rms_tol": 5e-3}
 GRAD_TOL = {"rtol": 2 ** -6, "atol": 1e-3, "rms_tol": 1e-3}
-TOLERANCES = {"o": O_TOL, "dq": GRAD_TOL, "dk": GRAD_TOL, "dv": GRAD_TOL}
 # lse is f32 on both sides (|lse| < 16: an f32 step is under 2e-6).
 LSE_TOL = {"rtol": 0.0, "atol": 1e-4, "rms_tol": 1e-6}
+# delta is an f32 sum of D bf16 products on both sides, in other orders:
+# a few f32 steps of |delta| (< 40 here).
+DELTA_TOL = {"rtol": 1e-5, "atol": 1e-5, "rms_tol": 1e-6}
+TOLERANCES = {"o": O_TOL, "dq": GRAD_TOL, "dk": GRAD_TOL, "dv": GRAD_TOL,
+              "delta": DELTA_TOL}
 # Flash model against plain-attention model, both bf16 on the same weights.
 # The plain path rounds scores and probabilities to bf16 where the kernels
 # keep f32, so the two differ by that rounding (~2^-9 of each score and
@@ -199,17 +214,17 @@ def phase_device() -> tuple[dict, str]:
     return device, smi[0]
 
 
-def _ptxas_report(log: str, kinds) -> dict:
+def _ptxas_report(log: str, entries: dict) -> dict:
     """Registers, spills and static shared memory per kernel: of the entry
-    function matching ``PTXAS_ENTRY[kind]``, the largest over its
+    function matching ``entries[kind]`` (a regex), the largest over its
     instantiations where there are several."""
     report, current = {}, None
     for line in log.splitlines():
         entry = (re.search(r"Compiling entry function '(\S+)'", line)
                  or re.search(r"Function properties for (\S+)", line))
         if entry:
-            current = next((k for k in kinds if re.search(
-                PTXAS_ENTRY[k], entry.group(1))), None)
+            current = next((k for k, pattern in entries.items()
+                            if re.search(pattern, entry.group(1))), None)
             continue
         if current is None:
             continue
@@ -231,6 +246,24 @@ def _ptxas_report(log: str, kinds) -> dict:
     return report
 
 
+def _hopper_report(log: str, fa) -> dict:
+    """Registers, spills and shared memory of each Hopper kernel at every
+    head dim, and the compiler's warnings (setmaxnreg or wgmma
+    serialisation would show here)."""
+    by_dim = {}
+    for kind in HOPPER_KERNELS:
+        for d in HEAD_DIMS:
+            pattern = PTXAS_ENTRY[kind].replace("Li64E", f"Li{d}E")
+            stats = _ptxas_report(log, {kind: pattern}).get(kind, {})
+            require("registers" in stats, f"no ptxas report for {kind} at "
+                                          f"head dim {d}")
+            stats["dynamic_smem_bytes"] = fa.smem_bytes(kind, d)
+            by_dim.setdefault(kind, {})[d] = stats
+    warnings = [line.strip() for line in log.splitlines()
+                if "warning" in line.lower()]
+    return {"by_head_dim": by_dim, "ptxas_warnings": warnings}
+
+
 def phase_build(build, fa) -> None:
     """Build every source at once, one nvcc each."""
     start = time.perf_counter()
@@ -238,8 +271,8 @@ def phase_build(build, fa) -> None:
         infos = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
     report = {}
     for name, info in infos.items():
-        kinds = [k for k in KERNELS if KERNEL_LIBRARY[k] == name]
-        report.update(_ptxas_report(info["ptxas"], kinds))
+        report.update(_ptxas_report(info["ptxas"], {
+            k: PTXAS_ENTRY[k] for k in KERNELS if KERNEL_LIBRARY[k] == name}))
     for kind in KERNELS:
         require(kind in report and "registers" in report[kind],
                 f"no ptxas report for the {kind} kernel")
@@ -250,7 +283,9 @@ def phase_build(build, fa) -> None:
          nvcc_s={name: round(info["seconds"], 3)
                  for name, info in infos.items()},
          wall_s=round(time.perf_counter() - start, 3),
-         kernels=report, flash_head_dim=64)
+         kernels=report, flash_head_dim=64,
+         hopper_kernels=_hopper_report(infos["flash_attention"]["ptxas"],
+                                       fa))
 
 
 def _inputs(b, l, h, kvh, d, seed):
@@ -264,24 +299,28 @@ def _inputs(b, l, h, kvh, d, seed):
             randn(b, l, h, d))
 
 
-def _bound(kind, b, l, h, kvh, d, causal) -> tuple[float, str]:
-    """Least time for the work: tensor-core operations at the bf16 peak,
+def _bound(kind, b, l, h, kvh, d, causal) -> tuple[float, str, float]:
+    """Least time for the work, and its operations: tensor-core operations
+    at the bf16 peak (the delta pre-pass: f32 operations at the f32 peak),
     or each input read once and each output written once at the memory
     rate, whichever is larger."""
-    pairs = l * (l + 1) // 2 if causal else l * l
-    products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}[kind]
-    flops = 2 * products * d * pairs * b * h
     q_bytes, kv_bytes, lse_bytes = 2 * b * l * h * d, 2 * b * l * kvh * d, \
         4 * b * h * l
-    if kind == "fwd":
-        moved = 2 * q_bytes + 2 * kv_bytes + lse_bytes
-    elif kind == "bwd_dq":
-        moved = 4 * q_bytes + 2 * kv_bytes + lse_bytes
+    if kind == "bwd_delta":
+        flops = 2 * b * l * h * d
+        t_ops = flops / PEAK_F32_FLOPS
+        moved = 2 * q_bytes + lse_bytes
     else:
-        moved = 3 * q_bytes + 4 * kv_bytes + lse_bytes
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, moved / PEAK_BYTES_PER_S
+        pairs = l * (l + 1) // 2 if causal else l * l
+        products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}[kind]
+        flops = 2 * products * d * pairs * b * h
+        t_ops = flops / PEAK_BF16_FLOPS
+        moved = {"fwd": 2 * q_bytes + 2 * kv_bytes + lse_bytes,
+                 "bwd_dq": 4 * q_bytes + 2 * kv_bytes + lse_bytes,
+                 "bwd_dkv": 3 * q_bytes + 4 * kv_bytes + lse_bytes}[kind]
+    t_bytes = moved / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+                                       else "bytes"), flops
 
 
 def phase_kernels(fa) -> dict:
@@ -290,6 +329,7 @@ def phase_kernels(fa) -> dict:
         "slice": (8, 2048, 16, 8, 64, True),
         "mha": (2, 1024, 16, 16, 64, True),
         "tail_L200_noncausal": (2, 200, 16, 8, 64, False),
+        "d128_gqa4_L1000": (2, 1000, 16, 4, 128, True),
     }
     results = {}
     for name, (b, l, h, kvh, d, causal) in cases.items():
@@ -298,12 +338,14 @@ def phase_kernels(fa) -> dict:
         o, lse = fa.flash_fwd_kernel(q, k, v, causal)
         dq = fa.flash_bwd_dq_kernel(q, k, v, o_ref, lse_ref, do, causal)
         dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, o_ref, lse_ref, do, causal)
+        delta = fa.flash_bwd_delta_kernel(o_ref, do)
         ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref, do, causal)
+        delta_ref = fa.flash_bwd_delta_plain(o_ref, do)
         torch.cuda.synchronize()
         case = {"lse": compare(lse, lse_ref, LSE_TOL)}
         for out, (got, want) in {"o": (o, o_ref), "dq": (dq, ref[0]),
-                                 "dk": (dk, ref[1]),
-                                 "dv": (dv, ref[2])}.items():
+                                 "dk": (dk, ref[1]), "dv": (dv, ref[2]),
+                                 "delta": (delta, delta_ref)}.items():
             case[out] = compare(got, want, TOLERANCES[out])
         results[name] = {"shape": [b, l, h, kvh, d], "causal": causal,
                          "outputs": case,
@@ -311,11 +353,15 @@ def phase_kernels(fa) -> dict:
         if name == "slice":
             dropped = _dropped_tile(fa, q, k, v, o_ref, causal)
             times = _time_slice(fa, q, k, v, o_ref, lse_ref, do, causal)
-        del q, k, v, do, o_ref, lse_ref, o, lse, dq, dk, dv, ref
+        del q, k, v, do, o_ref, lse_ref, o, lse, dq, dk, dv, ref, delta, \
+            delta_ref
         torch.cuda.empty_cache()
     for kind in KERNEL_OUTPUTS:
-        bound_ms, bound_by = _bound(kind, *cases["slice"])
-        times[kind].update(bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms, bound_by, flops = _bound(kind, *cases["slice"])
+        ms = times[kind]["kernel_ms"]
+        times[kind].update(bound_ms=bound_ms, bound_by=bound_by,
+                           bound_share=bound_ms / ms,
+                           tflops=flops / (ms * 1e-3) / 1e12)
     emit("kernels", cases=results, times_ms=times,
          dropped_tile_check=dropped)
     bad = [name for name, r in results.items() if not r["ok"]]
@@ -340,8 +386,10 @@ def phase_kernels(fa) -> dict:
             "ms": times[kind]["kernel_ms"], **{
                 key: times[kind][key] for key in (
                     "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "library_call")},
+                    "library_call", "tflops", "bound_share")},
         }
+    # bwd_dkv's time is the wrapper's: the delta pre-pass, then the kernel.
+    rows["bwd_dkv"]["prepass_ms"] = times["bwd_delta"]["kernel_ms"]
     return rows
 
 
@@ -358,7 +406,8 @@ def _time_slice(fa, q, k, v, o, lse, do, causal) -> dict:
     """Kernel, plain and library times at the slice shapes. The library
     yardstick is scaled_dot_product_attention (the port never calls it):
     its forward for ``fwd``, its backward (dq, dk and dv together) for
-    both backward kernels."""
+    both backward kernels. ``bwd_dkv`` is timed through its wrapper, with
+    the delta pre-pass it launches."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
@@ -381,6 +430,13 @@ def _time_slice(fa, q, k, v, o, lse, do, causal) -> dict:
         "bwd_dkv": {
             "kernel_ms": cuda_ms(lambda: fa.flash_bwd_dkv_kernel(
                 q, k, v, o, lse, do, causal), 20),
+        },
+        # No one PyTorch call gives f32 rowsums of bf16 products as
+        # [B, H, L].
+        "bwd_delta": {
+            "kernel_ms": cuda_ms(lambda: fa.flash_bwd_delta_kernel(o, do), 20),
+            "plain_ms": cuda_ms(lambda: fa.flash_bwd_delta_plain(o, do), 20),
+            "library_ms": None, "library_call": None,
         },
     }
     plain_bwd = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
@@ -537,12 +593,19 @@ def phase_train(llama, train_step, fa, device: dict,
             f"initial loss {losses[0]} is far from ln(vocab) = {ln_vocab}")
     missing = [k for k, n in launches.items() if n == 0]
     require(not missing, f"kernels not launched in the train phase: {missing}")
+    # Remat "dots" reruns the forward in the backward: two forward launches
+    # per layer and step, one of each backward kernel.
+    layers, steps = config.num_layers, warmup + timed
+    expected = {"fwd": 2 * layers * steps, "bwd_dq": layers * steps,
+                "bwd_dkv": layers * steps, "bwd_delta": layers * steps}
+    require(launches == expected, f"train phase launches {launches}, "
+                                  f"expected {expected}")
     emit("profile", **_profile_step(lambda: step(state, batch), step_s))
     return launches
 
 
 def _kernel_class(name: str) -> str:
-    if re.search(r"(fwd|bwd_dq|bwd_dkv)_kernel", name):
+    if re.search(r"(fwd|bwd_dq|bwd_dkv|bwd_delta)_kernel", name):
         return "flash_attention"
     if re.search(r"rmsnorm_kernel", name):
         return "rmsnorm"

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``build/ray_tpu_torch/lib<name>-<hash>.so``
-at the checkout's root, at first use. The hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+at the checkout's root, at first use. The hash covers the source, every
+header ``csrc/*.cuh`` (a source may include any of them) and the flags, so
+an edited source or header is rebuilt and an unchanged tree is reused.
 The sources export a plain C interface (no PyTorch headers), which keeps
 a build to seconds; every entry point returns ``cudaGetLastError()`` and
 ``check`` turns a nonzero code into an exception.
@@ -40,15 +41,26 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def target_path(name: str, csrc: Path = CSRC,
+                build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of
+    the source, of each header in ``csrc`` (name and bytes) and of the
+    flags. Needs no ``nvcc``."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
 def build(name: str) -> dict:
     """Build ``csrc/<name>.cu`` unless it is built already. Returns
     ``{"path", "seconds", "ptxas"}``: ``seconds`` is 0.0 for a library that
     was already built, and ``ptxas`` is the compiler's ``-Xptxas -v``
     report (kept beside the library)."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    target = target_path(name)
     report = target.with_suffix(".ptxas.txt")
     seconds = 0.0
     if not target.exists():

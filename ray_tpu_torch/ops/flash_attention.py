@@ -8,10 +8,15 @@ The port of ``ray_tpu/ops/flash_attention.py``. Three kernels, in
 - ``bwd_dkv``: ``_bwd_dkv_kernel`` — dk and dv for one k tile of one kv
   head, looping over the query heads of its group and over q tiles.
 
+A fourth, ``bwd_delta``, computes delta = rowsum(dO * O) once for
+``bwd_dkv``, which the TPU kernel recomputes on every q tile it visits;
+``flash_bwd_dkv_kernel`` launches both.
+
 Beside each kernel is its plain PyTorch version (``flash_fwd_plain``,
-``flash_bwd_plain``), which computes the same function with the same
-roundings. A CPU tensor goes to the plain version; a CUDA tensor goes to
-the kernel or the call raises. ``launches`` counts each kernel's launches.
+``flash_bwd_plain``, ``flash_bwd_delta_plain``), which computes the same
+function with the same roundings. A CPU tensor goes to the plain version;
+a CUDA tensor goes to the kernel or the call raises. ``launches`` counts
+each kernel's launches.
 
 GQA is native: query head ``h`` reads kv head ``h // (H // KVH)``, and no
 repeated kv tensor is built, in the kernels or in the plain versions.
@@ -30,9 +35,9 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 
 # Launches of each kernel in this process. Only the kernel wrappers below
 # add to these, one for each launch.
-launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0, "bwd_delta": 0}
 
-_BWD_KIND = {"bwd_dq": 1, "bwd_dkv": 2}
+_SMEM_KIND = {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2, "bwd_delta": 3}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -44,9 +49,17 @@ def _lib() -> ctypes.CDLL:
         lib.rtt_flash_fwd.argtypes = ([_P] * 5 + [_I] * 6 + [ctypes.c_float]
                                       + [_LL] * 9 + [_P])
         lib.rtt_flash_fwd.restype = _I
-        lib.rtt_flash_bwd.argtypes = ([_I] + [_P] * 9 + [_I] * 6
-                                      + [ctypes.c_float] + [_LL] * 15 + [_P])
-        lib.rtt_flash_bwd.restype = _I
+        lib.rtt_flash_bwd_dq.argtypes = ([_P] * 7 + [_I] * 6
+                                         + [ctypes.c_float] + [_LL] * 15
+                                         + [_P])
+        lib.rtt_flash_bwd_dq.restype = _I
+        lib.rtt_flash_bwd_dkv.argtypes = ([_P] * 8 + [_I] * 6
+                                          + [ctypes.c_float] + [_LL] * 12
+                                          + [_P])
+        lib.rtt_flash_bwd_dkv.restype = _I
+        lib.rtt_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 4 + [_LL] * 6 \
+            + [_P]
+        lib.rtt_flash_bwd_delta.restype = _I
         lib.rtt_flash_smem_bytes.argtypes = [_I, _I]
         lib.rtt_flash_smem_bytes.restype = _LL
     return lib
@@ -109,6 +122,12 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = True):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_delta_plain(o, do):
+    """Plain PyTorch version of the ``bwd_delta`` kernel: delta [B, H, L]
+    f32, rowsum(dO * O) over the head dim."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 # ----------------------------------------------------------- kernel wrappers
 
 
@@ -119,12 +138,15 @@ def _check_view(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise TypeError(f"{name} is {t.dtype}; the CUDA kernels take bfloat16")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    # 16-byte vector loads: contiguous head dim, strides and base aligned.
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-            or t.data_ptr() % 16:
+    # 16-byte vector and TMA loads: contiguous head dim, 16-byte aligned
+    # strides and base; TMA steps over no dim of stride 0.
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            s % 8 or (s == 0 and n > 1)
+            for s, n in zip(t.stride()[:3], t.shape[:3])):
         raise ValueError(
-            f"{name} needs a contiguous head dim, strides that are multiples "
-            f"of 8 and a 16-byte aligned base (strides {t.stride()})")
+            f"{name} needs a contiguous head dim, nonzero strides that are "
+            f"multiples of 8 and a 16-byte aligned base "
+            f"(strides {t.stride()})")
 
 
 def _check_inputs(q, k, v) -> tuple[int, int, int, int, int]:
@@ -169,50 +191,82 @@ def flash_fwd_kernel(q, k, v, causal: bool = True):
     return o, lse
 
 
-def _bwd_kernel(kind, q, k, v, o, lse, do, causal):
-    b, l, h, kvh, d = _check_inputs(q, k, v)
-    _check_view("o", o, (b, l, h, d), q.device)
-    _check_view("do", do, (b, l, h, d), q.device)
-    if lse.device != q.device or lse.dtype != torch.float32 \
-            or tuple(lse.shape) != (b, h, l) or not lse.is_contiguous():
-        raise ValueError("lse must be a contiguous [B, H, L] float32 tensor "
-                         "on q's device")
-    if kind == "bwd_dq":
-        outs = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device),)
-        ptrs = (outs[0].data_ptr(), None, None)
-    else:
-        outs = tuple(torch.empty((b, l, kvh, d), dtype=q.dtype,
-                                 device=q.device) for _ in range(2))
-        ptrs = (None, outs[0].data_ptr(), outs[1].data_ptr())
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_flash_bwd(
-            _BWD_KIND[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), do.data_ptr(), *ptrs,
-            b, l, h, kvh, d, int(causal), d ** -0.5,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-            *_strides(do), stream)
-    _build.check(lib, err, f"flash {kind} kernel")
-    launches[kind] += 1
-    return outs
+def _check_lse(t, b, h, l, device) -> None:
+    if t.device != device or t.dtype != torch.float32 \
+            or tuple(t.shape) != (b, h, l) or not t.is_contiguous():
+        raise ValueError("lse must be a contiguous [B, H, L] float32 "
+                         "tensor on q's device")
 
 
 def flash_bwd_dq_kernel(q, k, v, o, lse, do, causal: bool = True):
     """Launch the ``bwd_dq`` kernel: dq [B, L, H, D] bf16."""
-    return _bwd_kernel("bwd_dq", q, k, v, o, lse, do, causal)[0]
+    b, l, h, kvh, d = _check_inputs(q, k, v)
+    _check_view("o", o, (b, l, h, d), q.device)
+    _check_view("do", do, (b, l, h, d), q.device)
+    _check_lse(lse, b, h, l, q.device)
+    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            b, l, h, kvh, d, int(causal), d ** -0.5,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+            *_strides(do), stream)
+    _build.check(lib, err, "flash bwd_dq kernel")
+    launches["bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_delta_kernel(o, do):
+    """Launch the ``bwd_delta`` kernel: delta [B, H, L] f32."""
+    if not o.is_cuda:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {o.device}")
+    if o.dim() != 4 or o.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"o must be [B, L, H, D] with D in "
+                         f"{SUPPORTED_HEAD_DIMS}, got {tuple(o.shape)}")
+    b, l, h, d = o.shape
+    _check_view("o", o, (b, l, h, d), o.device)
+    _check_view("do", do, (b, l, h, d), o.device)
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=o.device)
+    lib = _lib()
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = lib.rtt_flash_bwd_delta(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, l, h, d,
+            *_strides(o), *_strides(do), stream)
+    _build.check(lib, err, "flash bwd_delta kernel")
+    launches["bwd_delta"] += 1
+    return delta
 
 
 def flash_bwd_dkv_kernel(q, k, v, o, lse, do, causal: bool = True):
-    """Launch the ``bwd_dkv`` kernel: (dk, dv) [B, L, KVH, D] bf16."""
-    return _bwd_kernel("bwd_dkv", q, k, v, o, lse, do, causal)
+    """Launch the ``bwd_delta`` kernel, then the ``bwd_dkv`` kernel:
+    (dk, dv) [B, L, KVH, D] bf16."""
+    b, l, h, kvh, d = _check_inputs(q, k, v)
+    _check_view("do", do, (b, l, h, d), q.device)
+    _check_lse(lse, b, h, l, q.device)
+    delta = flash_bwd_delta_kernel(o, do)
+    dk, dv = (torch.empty((b, l, kvh, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, l, h, kvh, d, int(causal), d ** -0.5,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do), stream)
+    _build.check(lib, err, "flash bwd_dkv kernel")
+    launches["bwd_dkv"] += 1
+    return dk, dv
 
 
 def smem_bytes(kind: str, head_dim: int) -> int:
     """Dynamic shared memory one block of a kernel uses (builds the
     library if needed)."""
-    return _lib().rtt_flash_smem_bytes(
-        {"fwd": 0, **_BWD_KIND}[kind], head_dim)
+    return _lib().rtt_flash_smem_bytes(_SMEM_KIND[kind], head_dim)
 
 
 # ------------------------------------------------------------------ dispatch
@@ -261,8 +315,8 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 
     The signature and layout of ``ray_tpu.ops.flash_attention``.
     ``block_q``/``block_k`` are accepted for that parity and must be
-    positive; the CUDA kernels use fixed 64-row tiles and mask the ragged
-    tail, and the plain version does not tile."""
+    positive; the CUDA kernels use fixed tiles (64 or 128 rows) and mask
+    the ragged tail, and the plain version does not tile."""
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block sizes must be positive, got {block_q}, "
                          f"{block_k}")

@@ -106,6 +106,30 @@ def test_plain_fwd_bwd_match_tpu_kernels(causal):
         np.testing.assert_allclose(got.numpy(), want, **GRAD_TOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 64, 4, 32), (1, 33, 2, 16)])
+def test_plain_delta_matches_the_tpu_kernels_rowsum(shape):
+    """delta = rowsum(dO * O), which ``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel`` take per q tile, as [B, H, L] f32."""
+    rng = np.random.default_rng(5)
+    o, do = (rng.standard_normal(shape, dtype=np.float32) for _ in range(2))
+    want = jnp.sum(jnp.asarray(do) * jnp.asarray(o), axis=-1)
+    got = port.flash_bwd_delta_plain(torch.tensor(o), torch.tensor(do))
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).transpose(0, 2, 1), **OUT_TOL)
+
+
+def test_plain_delta_of_bf16_inputs_sums_in_f32():
+    rng = np.random.default_rng(6)
+    o, do = (torch.tensor(rng.standard_normal((1, 8, 2, 64),
+                                              dtype=np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    got = port.flash_bwd_delta_plain(o, do)
+    want = (o.double() * do.double()).sum(-1).transpose(1, 2)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.double(), want, atol=1e-5, rtol=1e-5)
+
+
 def test_block_sizes_must_be_positive():
     q, k, v = map(torch.tensor, _qkv(l=16))
     with pytest.raises(ValueError):

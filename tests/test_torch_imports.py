@@ -98,6 +98,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
         fa.flash_bwd_dq_kernel(q, q, q, q, lse, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_bwd_dkv_kernel(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_bwd_delta_kernel(q, q)
     assert fa.launches == before
 
 

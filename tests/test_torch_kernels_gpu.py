@@ -15,7 +15,8 @@ roundings: each element is held to atol + 2^-6 * |plain| (two steps at
 the bottom of a binade), and the whole tensor to a relative RMS error.
 o: atol 2e-3, RMS 5e-3; dq, dk, dv: atol 1e-3, RMS 1e-3 (the bounds
 chip_smoke.py holds the kernels to, where the reasons are given). lse is
-f32 on both sides: 1e-4.
+f32 on both sides: 1e-4. delta (the dk/dv pre-pass) is an f32 sum of D
+bf16 products on both sides, in other orders: 1e-5 + 1e-5 * |plain|.
 
 The RMSNorm kernel against ``rms_norm_plain``: both compute the row's
 statistics in f32 (in other orders) and round one f32 value to x's dtype
@@ -52,6 +53,19 @@ def _bf16(gen, *shape):
         torch.bfloat16)
 
 
+def _qkvdo(device, b, l, h, kvh, d, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    q, do = _bf16(gen, b, l, h, d), _bf16(gen, b, l, h, d)
+    k, v = _bf16(gen, b, l, kvh, d), _bf16(gen, b, l, kvh, d)
+    return q, k, v, do
+
+
+# The forward tiles 128 q rows by 128 keys; dk/dv 128 keys by 64 q rows.
+# L = 127, 128, 129 and 255 sit on either side of those boundaries.
+BOUNDARY_CASES = [(2, n, 4, 2, 64, causal) for n in (127, 128, 129, 255)
+                  for causal in (True, False)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,l,h,kvh,d,causal", [
     (2, 256, 8, 2, 64, True),     # GQA 4:1
@@ -59,11 +73,12 @@ def _bf16(gen, *shape):
     (1, 130, 4, 2, 128, True),    # widest head dim, ragged
     (2, 96, 4, 4, 32, True),
     (1, 70, 2, 1, 16, False),
+    *BOUNDARY_CASES,
+    (1, 1000, 8, 2, 128, True),   # widest head dim, GQA 4:1, ragged
+    (1, 256, 8, 1, 64, True),     # GQA 8:1
 ])
 def test_kernels_match_plain(cuda_device, b, l, h, kvh, d, causal):
-    gen = torch.Generator(cuda_device).manual_seed(l)
-    q, do = _bf16(gen, b, l, h, d), _bf16(gen, b, l, h, d)
-    k, v = _bf16(gen, b, l, kvh, d), _bf16(gen, b, l, kvh, d)
+    q, k, v, do = _qkvdo(cuda_device, b, l, h, kvh, d, seed=l)
     o, lse = fa.flash_fwd_kernel(q, k, v, causal)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
     grads = (fa.flash_bwd_dq_kernel(q, k, v, o_ref, lse_ref, do, causal),
@@ -96,7 +111,42 @@ def test_strided_views_and_launch_counts(cuda_device):
     for a, c in zip(views, dense):
         torch.testing.assert_close(a.grad, c.grad, atol=0, rtol=0)
     assert {k: fa.launches[k] - before[k] for k in before} == {
-        "fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+        "fwd": 2, "bwd_dq": 2, "bwd_dkv": 2, "bwd_delta": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_two_launches_give_identical_bits(cuda_device, d):
+    """No atomics and a fixed order of every sum: the forward and the dk/dv
+    kernels give the same bits on every launch."""
+    q, k, v, do = _qkvdo(cuda_device, 2, 300, 8, 2, d, seed=d)
+    first = fa.flash_fwd_kernel(q, k, v, True)
+    second = fa.flash_fwd_kernel(q, k, v, True)
+    o, lse = first
+    grads = [fa.flash_bwd_dkv_kernel(q, k, v, o, lse, do, True)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,h,d", [(2, 300, 8, 64), (1, 1000, 4, 128),
+                                     (3, 77, 2, 16), (1, 129, 4, 32)])
+def test_bwd_delta_matches_plain(cuda_device, b, l, h, d):
+    """The pre-pass against its plain version, on a strided view of dO."""
+    gen = torch.Generator(cuda_device).manual_seed(l)
+    o = _bf16(gen, b, l, h, d)
+    do = _bf16(gen, b, l, 2 * h, d)[:, :, ::2]
+    before = fa.launches["bwd_delta"]
+    got = fa.flash_bwd_delta_kernel(o, do)
+    want = fa.flash_bwd_delta_plain(o, do)
+    torch.cuda.synchronize()
+    assert fa.launches["bwd_delta"] == before + 1
+    assert got.shape == (b, h, l) and got.dtype == torch.float32
+    _assert_close(got, want, atol=1e-5, rms_tol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.gpu
@@ -136,8 +186,10 @@ def test_remat_reruns_the_forward_kernel(cuda_device, policy):
         results.append((loss, grads, launched))
     (loss0, grads0, n0), (loss1, grads1, n1) = results
     layers = cfg.num_layers
-    assert n0 == {"fwd": layers, "bwd_dq": layers, "bwd_dkv": layers}
-    assert n1 == {"fwd": 2 * layers, "bwd_dq": layers, "bwd_dkv": layers}
+    assert n0 == {"fwd": layers, "bwd_dq": layers, "bwd_dkv": layers,
+                  "bwd_delta": layers}
+    assert n1 == {"fwd": 2 * layers, "bwd_dq": layers, "bwd_dkv": layers,
+                  "bwd_delta": layers}
     torch.testing.assert_close(loss1, loss0, atol=0, rtol=0)
     for a, b in zip(grads1, grads0):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
