@@ -9,25 +9,28 @@ bounds below are taken against):
 It builds the CUDA kernels from ``ray_tpu_torch/ops/csrc/`` (one nvcc per
 source, all started together) and drives the port's two paths:
 
-- training: holds each flash-attention kernel (and the delta pre-pass of
-  the dk/dv backward) against its plain PyTorch version at the training
-  shapes, checks the flash model against the plain one, then trains
+- training: holds each flash-attention kernel (and the delta pre-pass
+  that both backward kernels read) against its plain PyTorch version at
+  the training shapes, times the whole backward beside SDPA's, checks
+  the flash model against the plain one, then trains
   ``bench.py``'s Llama (~349M parameters, 24 layers, GQA 16/8, head dim
   64, flash attention, "dots" remat, bf16 compute with f32 master
   weights) for 2 warm-up and 5 timed steps at batch 8 x 2048;
 - serving: holds the RMSNorm kernel against its plain version at the
-  serving and training shapes, checks the paged engine's greedy output
-  at Llama-3-8B widths (2 layers, f32) against full-context decoding,
-  with and without preemption, then serves 16 concurrent ragged requests
-  with the full Llama-3-8B (32 layers, bf16, random weights from a seed)
-  through ``LLMEngine``.
+  serving and training shapes, takes the host cost of its launch path
+  piece by piece at the decode shape, checks the paged engine's greedy
+  output at Llama-3-8B widths (2 layers, f32) against full-context
+  decoding, with and without preemption, then serves 16 concurrent
+  ragged requests with the full Llama-3-8B (32 layers, bf16, random
+  weights from a seed) through ``LLMEngine``.
 
 Each phase prints one JSON line. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
 dim). The line before the last lists every kernel with its launches on
 its path (the train phase for the attention kernels, the serve phase for
 RMSNorm), its error against the plain version, its times, and for the
-attention kernels the achieved TFLOP/s and share of the bound; the last
+attention kernels the achieved TFLOP/s and share of the bound, then the
+whole backward (pre-pass, dq and dk/dv) against SDPA's; the last
 line is ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero, and without a card the script fails.
 """
@@ -60,8 +63,8 @@ KERNELS = {
     "fwd": ("_fwd_kernel", "ray_tpu/ops/flash_attention.py:56"),
     "bwd_dq": ("_bwd_dq_kernel", "ray_tpu/ops/flash_attention.py:153"),
     "bwd_dkv": ("_bwd_dkv_kernel", "ray_tpu/ops/flash_attention.py:195"),
-    "bwd_delta": ("the rowsum(dO * O) inside _bwd_dkv_kernel",
-                  "ray_tpu/ops/flash_attention.py:227"),
+    "bwd_delta": ("the rowsum(dO * O) inside _bwd_dq_kernel and "
+                  "_bwd_dkv_kernel", "ray_tpu/ops/flash_attention.py:227"),
     "rmsnorm": ("_rmsnorm_kernel", "ray_tpu/ops/fused.py:27"),
 }
 # The library each kernel is built into, its source, and the entry
@@ -77,10 +80,13 @@ PTXAS_ENTRY = {"fwd": r"fwd_kernelILi64E", "bwd_dq": r"bwd_dq_kernelILi64E",
                "rmsnorm": r"rmsnorm_kernel"}
 # The kernels built for Hopper's wgmma/TMA path (and their pre-pass): the
 # build phase reports them at every head dim.
-HOPPER_KERNELS = ("fwd", "bwd_dkv", "bwd_delta")
+HOPPER_KERNELS = ("fwd", "bwd_dq", "bwd_dkv", "bwd_delta")
 HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_OUTPUTS = {"fwd": ("o",), "bwd_dq": ("dq",),
                   "bwd_dkv": ("dk", "dv"), "bwd_delta": ("delta",)}
+# The port's whole backward, one row of the kernels line beside the
+# kernels: the TPU function whose two kernels it replaces.
+WHOLE_BACKWARD = ("_flash_bwd", "ray_tpu/ops/flash_attention.py:242")
 
 # Kernel against plain version, both bf16 on the same inputs. Both round p
 # and ds to bf16 before their products and the outputs to bf16, and sum in
@@ -303,7 +309,9 @@ def _bound(kind, b, l, h, kvh, d, causal) -> tuple[float, str, float]:
     """Least time for the work, and its operations: tensor-core operations
     at the bf16 peak (the delta pre-pass: f32 operations at the f32 peak),
     or each input read once and each output written once at the memory
-    rate, whichever is larger."""
+    rate, whichever is larger. The whole backward ("flash_bwd") needs five
+    products per (row, key) pair (S, dP, dV, dK, dQ), however its kernels
+    split them."""
     q_bytes, kv_bytes, lse_bytes = 2 * b * l * h * d, 2 * b * l * kvh * d, \
         4 * b * h * l
     if kind == "bwd_delta":
@@ -312,12 +320,15 @@ def _bound(kind, b, l, h, kvh, d, causal) -> tuple[float, str, float]:
         moved = 2 * q_bytes + lse_bytes
     else:
         pairs = l * (l + 1) // 2 if causal else l * l
-        products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}[kind]
+        products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4,
+                    "flash_bwd": 5}[kind]
         flops = 2 * products * d * pairs * b * h
         t_ops = flops / PEAK_BF16_FLOPS
+        # lse and delta are [B, H, L] f32 each.
         moved = {"fwd": 2 * q_bytes + 2 * kv_bytes + lse_bytes,
-                 "bwd_dq": 4 * q_bytes + 2 * kv_bytes + lse_bytes,
-                 "bwd_dkv": 3 * q_bytes + 4 * kv_bytes + lse_bytes}[kind]
+                 "bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * lse_bytes,
+                 "bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * lse_bytes,
+                 "flash_bwd": 4 * q_bytes + 4 * kv_bytes + lse_bytes}[kind]
     t_bytes = moved / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops
@@ -336,27 +347,30 @@ def phase_kernels(fa) -> dict:
         q, k, v, do = _inputs(b, l, h, kvh, d, seed=len(results))
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
         o, lse = fa.flash_fwd_kernel(q, k, v, causal)
-        dq = fa.flash_bwd_dq_kernel(q, k, v, o_ref, lse_ref, do, causal)
-        dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, o_ref, lse_ref, do, causal)
         delta = fa.flash_bwd_delta_kernel(o_ref, do)
+        dq = fa.flash_bwd_dq_kernel(q, k, v, lse_ref, do, delta, causal)
+        dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, lse_ref, do, delta, causal)
         ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref, do, causal)
         delta_ref = fa.flash_bwd_delta_plain(o_ref, do)
+        # The whole backward is these three launches, bit for bit.
+        whole = fa.flash_bwd(q, k, v, o_ref, lse_ref, do, causal)
         torch.cuda.synchronize()
         case = {"lse": compare(lse, lse_ref, LSE_TOL)}
         for out, (got, want) in {"o": (o, o_ref), "dq": (dq, ref[0]),
                                  "dk": (dk, ref[1]), "dv": (dv, ref[2]),
                                  "delta": (delta, delta_ref)}.items():
             case[out] = compare(got, want, TOLERANCES[out])
+        same = all(torch.equal(x, y) for x, y in zip(whole, (dq, dk, dv)))
         results[name] = {"shape": [b, l, h, kvh, d], "causal": causal,
-                         "outputs": case,
-                         "ok": all(c["ok"] for c in case.values())}
+                         "outputs": case, "flash_bwd_same_bits": same,
+                         "ok": same and all(c["ok"] for c in case.values())}
         if name == "slice":
             dropped = _dropped_tile(fa, q, k, v, o_ref, causal)
             times = _time_slice(fa, q, k, v, o_ref, lse_ref, do, causal)
         del q, k, v, do, o_ref, lse_ref, o, lse, dq, dk, dv, ref, delta, \
-            delta_ref
+            delta_ref, whole
         torch.cuda.empty_cache()
-    for kind in KERNEL_OUTPUTS:
+    for kind in times:
         bound_ms, bound_by, flops = _bound(kind, *cases["slice"])
         ms = times[kind]["kernel_ms"]
         times[kind].update(bound_ms=bound_ms, bound_by=bound_by,
@@ -369,27 +383,29 @@ def phase_kernels(fa) -> dict:
     require(not dropped["ok"], "the tolerance passes an output that lost a "
                                "middle key tile")
     slice_outputs = results["slice"]["outputs"]
+    outputs = dict(KERNEL_OUTPUTS, flash_bwd=("dq", "dk", "dv"))
+    replaced = dict(KERNELS, flash_bwd=WHOLE_BACKWARD)
     rows = {}
-    for kind in KERNEL_OUTPUTS:
-        tpu_kernel, replaces = KERNELS[kind]
+    for kind in times:
+        tpu_kernel, replaces = replaced[kind]
         # The worst of the kernel's outputs on the slice.
-        outs = [slice_outputs[out] for out in KERNEL_OUTPUTS[kind]]
+        outs = [slice_outputs[out] for out in outputs[kind]]
         rows[kind] = {
             "name": kind, "route": "cuda",
-            "source": SOURCES[KERNEL_LIBRARY[kind]],
+            "source": SOURCES["flash_attention"],
             "replaces": f"{replaces} ({tpu_kernel})",
             "max_abs_err": max(c["max_abs_err"] for c in outs),
             "max_err_over_bound": max(c["max_err_over_bound"] for c in outs),
             "rel_rms": max(c["rel_rms"] for c in outs),
-            "tolerance": {out: TOLERANCES[out]
-                          for out in KERNEL_OUTPUTS[kind]},
+            "tolerance": {out: TOLERANCES[out] for out in outputs[kind]},
             "ms": times[kind]["kernel_ms"], **{
                 key: times[kind][key] for key in (
                     "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_call", "tflops", "bound_share")},
         }
-    # bwd_dkv's time is the wrapper's: the delta pre-pass, then the kernel.
-    rows["bwd_dkv"]["prepass_ms"] = times["bwd_delta"]["kernel_ms"]
+    rows["flash_bwd"]["launches_note"] = (
+        "calls of flash_bwd in the train phase; each launched bwd_delta, "
+        "bwd_dq and bwd_dkv once")
     return rows
 
 
@@ -403,17 +419,24 @@ def _dropped_tile(fa, q, k, v, o_ref, causal) -> dict:
 
 
 def _time_slice(fa, q, k, v, o, lse, do, causal) -> dict:
-    """Kernel, plain and library times at the slice shapes. The library
-    yardstick is scaled_dot_product_attention (the port never calls it):
-    its forward for ``fwd``, its backward (dq, dk and dv together) for
-    both backward kernels. ``bwd_dkv`` is timed through its wrapper, with
-    the delta pre-pass it launches."""
+    """Kernel, plain and library times at the slice shapes, each kernel
+    alone, and the whole backward (``flash_bwd``: the delta pre-pass, dq
+    and dk/dv). The library yardstick is scaled_dot_product_attention
+    (the port never calls it): its forward for ``fwd``, its backward (dq,
+    dk and dv together) for the whole backward. No one PyTorch call
+    computes dq alone, dk and dv alone, or f32 rowsums of bf16 products
+    as [B, H, L]."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
     dot = do.transpose(1, 2)
-    table = {
+    delta = fa.flash_bwd_delta_kernel(o, do)
+    plain_bwd = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
+                                                   causal), 3, warmup=1)
+    # One plain function computes dq, dk and dv together.
+    plain_note = "flash_bwd_plain: dq, dk and dv together"
+    return {
         "fwd": {
             "kernel_ms": cuda_ms(lambda: fa.flash_fwd_kernel(q, k, v, causal),
                                  20),
@@ -425,30 +448,31 @@ def _time_slice(fa, q, k, v, o, lse, do, causal) -> dict:
         },
         "bwd_dq": {
             "kernel_ms": cuda_ms(lambda: fa.flash_bwd_dq_kernel(
-                q, k, v, o, lse, do, causal), 20),
+                q, k, v, lse, do, delta, causal), 20),
+            "plain_ms": plain_bwd, "plain_call": plain_note,
+            "library_ms": None, "library_call": None,
         },
         "bwd_dkv": {
             "kernel_ms": cuda_ms(lambda: fa.flash_bwd_dkv_kernel(
-                q, k, v, o, lse, do, causal), 20),
+                q, k, v, lse, do, delta, causal), 20),
+            "plain_ms": plain_bwd, "plain_call": plain_note,
+            "library_ms": None, "library_call": None,
         },
-        # No one PyTorch call gives f32 rowsums of bf16 products as
-        # [B, H, L].
         "bwd_delta": {
             "kernel_ms": cuda_ms(lambda: fa.flash_bwd_delta_kernel(o, do), 20),
             "plain_ms": cuda_ms(lambda: fa.flash_bwd_delta_plain(o, do), 20),
             "library_ms": None, "library_call": None,
         },
+        "flash_bwd": {
+            "kernel_ms": cuda_ms(lambda: fa.flash_bwd(
+                q, k, v, o, lse, do, causal), 20),
+            "plain_ms": plain_bwd, "plain_call": plain_note,
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 20),
+            "library_call": "scaled_dot_product_attention backward "
+                            "(dq, dk, dv together)",
+        },
     }
-    plain_bwd = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
-                                                   causal), 3, warmup=1)
-    library_bwd = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), 20)
-    for kind in ("bwd_dq", "bwd_dkv"):
-        # One plain function computes dq, dk and dv together.
-        table[kind].update(plain_ms=plain_bwd, library_ms=library_bwd,
-                           library_call="scaled_dot_product_attention "
-                                        "backward (dq, dk, dv together)")
-    return table
 
 
 def _leaf_names(tree: dict, prefix: str = "") -> list[str]:
@@ -560,15 +584,27 @@ def phase_train(llama, train_step, fa, device: dict,
     torch.cuda.reset_peak_memory_stats()
     for kind in fa.launches:
         fa.launches[kind] = 0
+    # The whole backward, the kernels line's flash_bwd row, is no kernel:
+    # its calls are counted where the autograd backward makes them.
+    whole_bwd, bwd_calls = fa.flash_bwd, [0]
+
+    def counted_bwd(*args, **kwargs):
+        bwd_calls[0] += 1
+        return whole_bwd(*args, **kwargs)
+
+    fa.flash_bwd = counted_bwd
     losses, norms, times = [], [], []
-    for _ in range(warmup + timed):
-        start = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"].item())
-        norms.append(metrics["grad_norm"].item())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - start)
-    launches = dict(fa.launches)
+    try:
+        for _ in range(warmup + timed):
+            start = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+    finally:
+        fa.flash_bwd = whole_bwd
+    launches = dict(fa.launches, flash_bwd=bwd_calls[0])
     step_s = statistics.median(times[warmup:])
     tokens_per_step = batch_size * seq_len
     flops = llama.flops_per_token(config, seq_len) * tokens_per_step
@@ -594,10 +630,12 @@ def phase_train(llama, train_step, fa, device: dict,
     missing = [k for k, n in launches.items() if n == 0]
     require(not missing, f"kernels not launched in the train phase: {missing}")
     # Remat "dots" reruns the forward in the backward: two forward launches
-    # per layer and step, one of each backward kernel.
+    # per layer and step, one whole backward and one of each of its
+    # kernels.
     layers, steps = config.num_layers, warmup + timed
     expected = {"fwd": 2 * layers * steps, "bwd_dq": layers * steps,
-                "bwd_dkv": layers * steps, "bwd_delta": layers * steps}
+                "bwd_dkv": layers * steps, "bwd_delta": layers * steps,
+                "flash_bwd": layers * steps}
     require(launches == expected, f"train phase launches {launches}, "
                                   f"expected {expected}")
     emit("profile", **_profile_step(lambda: step(state, batch), step_s))
@@ -734,13 +772,32 @@ def phase_rmsnorm(fused) -> dict:
         x, scale = _rms_inputs(rows, d, torch.bfloat16, torch.bfloat16, None,
                                seed=200)
         bound_ms, bound_by = _rms_bound(rows, d, torch.bfloat16)
+
+        def no_grad_call():
+            # The serving engine's call: the entry point under no_grad.
+            with torch.no_grad():
+                return fused.rms_norm(x, scale, RMS_EPS)
+
+        calls = {
+            "kernel_ms": lambda: fused.rms_norm_kernel(x, scale, RMS_EPS),
+            "plain_ms": lambda: fused.rms_norm_plain(x, scale, RMS_EPS),
+            "library_ms": lambda: torch.nn.functional.rms_norm(
+                x, (d,), scale, RMS_EPS),
+            "rms_norm_no_grad_ms": no_grad_call,
+        }
+        # Each call timed once, in turn, as earlier PRs timed the first
+        # three; then three more rounds in turn, whose medians let the
+        # host's drift fall on all the calls alike.
+        single = {key: cuda_ms(fn, iters, warmup=5)
+                  for key, fn in calls.items()}
+        rounds = {key: [] for key in calls}
+        for _ in range(3):
+            for key, fn in calls.items():
+                rounds[key].append(cuda_ms(fn, iters, warmup=5))
         times[f"{rows}x{d}"] = {
-            "kernel_ms": cuda_ms(lambda: fused.rms_norm_kernel(
-                x, scale, RMS_EPS), iters, warmup=5),
-            "plain_ms": cuda_ms(lambda: fused.rms_norm_plain(
-                x, scale, RMS_EPS), iters, warmup=5),
-            "library_ms": cuda_ms(lambda: torch.nn.functional.rms_norm(
-                x, (d,), scale, RMS_EPS), iters, warmup=5),
+            **single, "rounds_ms": rounds,
+            "rounds_median_ms": {key: statistics.median(ms)
+                                 for key, ms in rounds.items()},
             "library_call": "torch.nn.functional.rms_norm",
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
@@ -767,7 +824,9 @@ def phase_rmsnorm(fused) -> dict:
         "tolerance": {"bf16": RMS_BF16_TOL, "f32": RMS_F32_TOL},
         "shape": [8, 4096], "ms": decode["kernel_ms"],
         **{key: decode[key] for key in ("plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "library_call")},
+                                         "library_ms", "library_call",
+                                         "rms_norm_no_grad_ms",
+                                         "rounds_median_ms")},
         "ms_16384x4096": times["16384x4096"]["kernel_ms"],
     }
 
@@ -1073,7 +1132,8 @@ def main() -> int:
     launches["rmsnorm"] = phase_serve(llama, fused, device, power)
     for kind, row in rows.items():
         row["launches"] = launches[kind]
-    print(json.dumps({"kernels": [rows[k] for k in KERNELS]}), flush=True)
+    order = (*KERNELS, "flash_bwd")
+    print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

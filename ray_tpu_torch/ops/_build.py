@@ -5,8 +5,11 @@ at the checkout's root, at first use. The hash covers the source, every
 header ``csrc/*.cuh`` (a source may include any of them) and the flags, so
 an edited source or header is rebuilt and an unchanged tree is reused.
 The sources export a plain C interface (no PyTorch headers), which keeps
-a build to seconds; every entry point returns ``cudaGetLastError()`` and
-``check`` turns a nonzero code into an exception.
+a build to seconds. ``launch`` calls an entry point on the current stream
+of a tensor's card, at the least host cost per call (a wrapper's launch
+path is what sets its time where the kernel is short); every entry point
+returns ``cudaGetLastError()`` and ``check`` turns a nonzero code into an
+exception.
 
 ``nvcc`` exists only where a CUDA toolkit is installed, and nothing here
 runs at import time.
@@ -21,6 +24,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
@@ -88,6 +93,20 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name)["path"])
         _libraries[name] = lib
     return lib
+
+
+def launch(entry, device_index: int, *args) -> int:
+    """Call the C entry point ``entry(*args, stream)`` with the raw handle of
+    the current stream of card ``device_index``; returns its code. The
+    launch goes to the calling thread's current card, so a device context
+    is entered only when that card is another one. Only CUDA builds of
+    torch have the two functions it reads, and CUDA is initialised by the
+    time tensors lie on a card."""
+    stream = torch._C._cuda_getCurrentRawStream(device_index)
+    if device_index == torch._C._cuda_getDevice():
+        return entry(*args, stream)
+    with torch.cuda.device(device_index):
+        return entry(*args, stream)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

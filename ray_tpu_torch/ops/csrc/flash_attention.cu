@@ -1,13 +1,13 @@
 // Flash attention for Hopper (sm_90a): forward, dq backward and dk/dv
 // backward, on bf16 tensor cores with f32 accumulation, and the pre-pass
-// that gives dk/dv its delta = rowsum(dO * O).
+// that gives both backward kernels their delta = rowsum(dO * O).
 //
 // Replaces the Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
 //   fwd_kernel       <- _fwd_kernel      (launched by _flash_fwd)
 //   bwd_dq_kernel    <- _bwd_dq_kernel   (launched by _flash_bwd)
 //   bwd_dkv_kernel   <- _bwd_dkv_kernel  (launched by _flash_bwd)
-//   bwd_delta_kernel <- the rowsum(dO * O) that _bwd_dkv_kernel takes on
-//                       every q tile it visits
+//   bwd_delta_kernel <- the rowsum(dO * O) that _bwd_dq_kernel and
+//                       _bwd_dkv_kernel take on every tile they visit
 //
 // What bounds them on an H100: at the training shapes (L=2048, D=64) each
 // attention kernel does ~L/2 multiply-adds per byte it must move, far
@@ -17,19 +17,20 @@
 // other side streams through shared memory) and stops causal loops at the
 // diagonal.
 //
-// fwd_kernel and bwd_dkv_kernel are built for Hopper's tensor-core path
+// The three attention kernels are built for Hopper's tensor-core path
 // (hopper.cuh): one producer warp streams tiles by TMA into a ring of
 // shared stages guarded by full/empty mbarriers, while two consumer
 // warpgroups (64 rows each, registers moved to them by setmaxnreg) run
-// wgmma on the swizzled tiles: S = Q.K^T from shared memory, O += P.V with
-// P from registers and V read MN-major, so no tile is transposed or copied
-// through registers. Masks are computed only on the diagonal tile and the
-// tile that holds L's ragged end. Causal grids launch the heaviest tiles
-// first, so the last wave is light. The TMA maps are encoded on the host
-// at each launch through cuTensorMapEncodeTiled, reached by
-// cudaGetDriverEntryPoint: the library links no libcuda. bwd_dq_kernel is
-// still the simple version: mma.sync m16n8k16 fed from padded shared
-// tiles, loads between two __syncthreads, without a pipeline.
+// wgmma on the swizzled tiles: products whose both operands are tiles
+// (S = Q.K^T, dP = dO.V^T) read shared memory K-major, and products whose
+// A is a probability or its gradient (O += P.V, dQ += dS.K, dV += P^T.dO,
+// dK += dS^T.Q) take it from registers and read the other tile MN-major,
+// so no tile is transposed or copied through registers. Masks are
+// computed only on the diagonal tile and the tile that holds L's ragged
+// end. Causal grids launch the heaviest tiles first, so the last wave is
+// light. The TMA maps are encoded on the host at each launch through
+// cuTensorMapEncodeTiled, reached by cudaGetDriverEntryPoint: the library
+// links no libcuda.
 //
 // Layout: q/o/dq are [B, L, H, D] and k/v/dk/dv are [B, L, KVH, D], read
 // through their batch/sequence/head strides (the head dim is contiguous).
@@ -79,222 +80,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ------------------------------------------- bwd_dq: the mma.sync kernel
-
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BM = WARPS * 16;  // q rows a block owns
-constexpr int BN = 64;          // keys of the streamed tile
-constexpr int LDN = BN + 8;     // padded row of a transposed tile (conflict-free)
-
-struct Params {
-  View q, k, v, o, dout;
-  const float* lse_in;  // [B, H, L]
-  bf16* dq;             // [B, L, H, D], contiguous
-  int B, L, H, KVH, causal;
-  float scale;
-};
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment (16x16, row-major) of the shared tile s at rows r0.., cols k0..
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int ld,
-                                       int r0, int k0, int lane) {
-  const bf16* p = s + (r0 + (lane >> 2)) * ld + k0 + (lane & 3) * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragment (16x8, B[k][n] = s[n0 + n][k0 + k]) of the shared tile s.
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* s, int ld,
-                                       int n0, int k0, int lane) {
-  const bf16* p = s + (n0 + (lane >> 2)) * ld + k0 + (lane & 3) * 2;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// The C fragments of two adjacent 16x8 products, rounded to bf16, form the
-// A fragment of the next product (k = the 16 columns of the pair).
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
-                                       const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Copy rows [row0, row0 + R) of one head of a view into a shared tile,
-// row-major with row stride ld and/or transposed ([D][LDN]). Rows at or
-// past `valid` are zero.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(bf16* s, int ld, bf16* st,
-                                          const bf16* g, long long sl,
-                                          int row0, int valid) {
-  constexpr int CPR = D / 8;
-  for (int i = threadIdx.x; i < R * CPR; i += THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid)
-      v = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * sl + c);
-    if (s) *reinterpret_cast<uint4*>(s + r * ld + c) = v;
-    if (st) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) st[(c + j) * LDN + r] = e[j];
-    }
-  }
-}
-
-// out[r] = sum_d a[row0 + r, d] * b[row0 + r, d] in f32 (0 past `valid`).
-// The D/8 chunks of a row sit on adjacent lanes and are summed by shuffles.
-template <int D, int R>
-__device__ __forceinline__ void row_dot(float* out, const bf16* a,
-                                        long long a_sl, const bf16* b,
-                                        long long b_sl, int row0, int valid) {
-  constexpr int CPR = D / 8;
-  static_assert((R * CPR) % THREADS == 0 && 32 % CPR == 0, "row_dot tiling");
-  for (int base = 0; base < R * CPR; base += THREADS) {
-    const int i = base + threadIdx.x;
-    const int r = i / CPR, c = (i % CPR) * 8;
-    float part = 0.f;
-    if (r < valid) {
-      uint4 va = *reinterpret_cast<const uint4*>(a + (long long)(row0 + r) * a_sl + c);
-      uint4 vb = *reinterpret_cast<const uint4*>(b + (long long)(row0 + r) * b_sl + c);
-      const bf16* ea = reinterpret_cast<const bf16*>(&va);
-      const bf16* eb = reinterpret_cast<const bf16*>(&vb);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        part += __bfloat162float(ea[j]) * __bfloat162float(eb[j]);
-    }
-#pragma unroll
-    for (int off = CPR / 2; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (i % CPR == 0) out[r] = part;
-  }
-}
-
-// Keys a q tile starting at q0 must visit.
-__device__ __forceinline__ int key_end(const Params& p, int q0) {
-  return p.causal ? min(p.L, q0 + BM) : p.L;
-}
-
-template <int D> constexpr size_t dq_smem() {
-  return sizeof(bf16) * ((2 * BM + 2 * BN) * (D + 8) + D * LDN) +
-         sizeof(float) * 2 * BM;
-}
-
-// One block: 64 query rows of one (batch, head). dq += (p * (dO.V^T - D)).K
-// over the key tiles up to the diagonal; p = exp(s - lse) from the saved lse.
-template <int D>
-__global__ void __launch_bounds__(THREADS) bwd_dq_kernel(const Params p) {
-  constexpr int LDD = D + 8;  // padded row: conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + BM * LDD;
-  bf16* sK = sDO + BM * LDD;
-  bf16* sV = sK + BN * LDD;
-  bf16* sKt = sV + BN * LDD;
-  float* sLse = reinterpret_cast<float*>(sKt + D * LDN);
-  float* sDelta = sLse + BM;
-
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BM;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const bf16* qg = p.q.p + b * p.q.sb + h * p.q.sh;
-  const bf16* dog = p.dout.p + b * p.dout.sb + h * p.dout.sh;
-  const bf16* og = p.o.p + b * p.o.sb + h * p.o.sh;
-  const bf16* kg = p.k.p + b * p.k.sb + kvh * p.k.sh;
-  const bf16* vg = p.v.p + b * p.v.sb + kvh * p.v.sh;
-  const float* lseg = p.lse_in + ((long long)b * p.H + h) * p.L;
-
-  load_tile<D, BM>(sQ, LDD, nullptr, qg, p.q.sl, q0, p.L - q0);
-  load_tile<D, BM>(sDO, LDD, nullptr, dog, p.dout.sl, q0, p.L - q0);
-  row_dot<D, BM>(sDelta, dog, p.dout.sl, og, p.o.sl, q0, p.L - q0);
-  for (int i = threadIdx.x; i < BM; i += THREADS)
-    sLse[i] = q0 + i < p.L ? lseg[q0 + i] : 0.f;
-  __syncthreads();
-
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], sQ, LDD, w * 16, kk * 16, lane);
-    load_a(dof[kk], sDO, LDD, w * 16, kk * 16, lane);
-  }
-  const int row[2] = {q0 + w * 16 + g, q0 + w * 16 + g + 8};
-  const float lse[2] = {sLse[w * 16 + g], sLse[w * 16 + g + 8]};
-  const float delta[2] = {sDelta[w * 16 + g], sDelta[w * 16 + g + 8]};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int kend = key_end(p, q0);
-  for (int k0 = 0; k0 < kend; k0 += BN) {
-    __syncthreads();
-    load_tile<D, BN>(sK, LDD, sKt, kg, p.k.sl, k0, p.L - k0);
-    load_tile<D, BN>(sV, LDD, nullptr, vg, p.v.sl, k0, p.L - k0);
-    __syncthreads();
-
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bf[2];
-        load_b(bf, sK, LDD, n * 8, kk * 16, lane);
-        mma16816(s[n], qf[kk], bf);
-        load_b(bf, sV, LDD, n * 8, kk * 16, lane);
-        mma16816(dp[n], dof[kk], bf);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t * 2 + (e & 1);
-        const int i = e >> 1;
-        const bool ok = col < p.L && (!p.causal || row[i] >= col);
-        const float pr = expf((ok ? s[n][e] * p.scale : NEG_INF) - lse[i]);
-        s[n][e] = pr * (dp[n][e] - delta[i]);  // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t da[4];
-      c_to_a(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        uint32_t bf[2];
-        load_b(bf, sKt, LDN, dn * 8, kk * 16, lane);
-        mma16816(acc[dn], da, bf);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= p.L) continue;
-    bf16* dq = p.dq + (((long long)b * p.L + row[i]) * p.H + h) * D;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dq + dn * 8 + t * 2) =
-          pack_bf16(acc[dn][2 * i] * p.scale, acc[dn][2 * i + 1] * p.scale);
-  }
-}
-
-// ------------------------------------- fwd and bwd_dkv: the Hopper kernels
+// ------------------------------------------------- warp-specialised blocks
 // Threads 0-127 are the producer warpgroup (its warp 0 issues the loads,
 // the rest idle on few registers); 128-255 and 256-383 are the two consumer
 // warpgroups, each owning 64 rows of the block's tile.
@@ -490,8 +276,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 
 // --------------------------------------------------------- backward delta
 // delta[b, h, l] = sum_d dO[b, l, h, d] * O[b, l, h, d] in f32, once, for
-// bwd_dkv_kernel to read as it reads lse. D/8 adjacent lanes own a row,
-// one 16-byte vector each, and sum it by shuffles.
+// bwd_dq_kernel and bwd_dkv_kernel to read as they read lse. D/8 adjacent
+// lanes own a row, one 16-byte vector each, and sum it by shuffles.
 template <int D>
 __global__ void __launch_bounds__(256)
     bwd_delta_kernel(const View o, const View dout, float* delta, int L,
@@ -704,6 +490,175 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
+struct DqArgs {
+  bf16* dq;            // [B, L, H, D], contiguous
+  const float* lse;    // [B, H, L]
+  const float* delta;  // [B, H, L]
+  int L, H, KVH, causal, q_tiles;
+  float scale, scale_log2;
+};
+
+// 128 q rows by 64 keys. With 128-key tiles, S, dP and the dS fragments
+// beside dQ's accumulators spilled at D = 32 and 64 (and would at 128), and
+// the kernel timed slower on the H100 at every D; a third stage and
+// waiting for S apart from dP timed slower too.
+template <int D>
+struct DqShape {
+  static constexpr int BM = 128, BN = 64, STAGES = 2;
+  using QT = hopper::Tile<BM, D>;
+  using KT = hopper::Tile<BN, D>;
+  static constexpr int Q = 0, DO = QT::BYTES, K = 2 * QT::BYTES,
+                       V = K + STAGES * KT::BYTES,
+                       BARS = V + STAGES * KT::BYTES;
+  static constexpr int SMEM = BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// ------------------------------------------------------------- backward dq
+// Replaces _bwd_dq_kernel. Bound by operations: three products per
+// (row, key) pair (S, dP, dQ), 0.104 ms of tensor-core time at the slice
+// shape (B=8, L=2048, H=16, KVH=8, D=64, causal). So the design keeps the
+// tensor cores fed and everything else off their path: one block holds
+// 128 query rows of one (batch, head); Q and dO stay resident, and each
+// row's lse (times log2(e)) and delta (from the pre-pass) sit in
+// registers. K and V tiles of the query head's kv head stream through the
+// ring. Each consumer warpgroup owns 64 rows: S = Q.K^T and dP = dO.V^T
+// from shared memory in one commit, dS = P * (dP - delta) packed to bf16 A
+// fragments as it is made, then dQ += dS.K with K read MN-major from the
+// tile that S read K-major. dQ stays in registers and is scaled and
+// rounded once.
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const DqArgs a) {
+  using S = DqShape<D>;
+  using QT = typename S::QT;
+  using KT = typename S::KT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_u32(smem);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + S::STAGES;
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int kvh = h / (a.H / a.KVH);
+  // Under a causal mask the heaviest q tiles (the last) launch first.
+  const int qt = a.causal ? a.q_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * S::BM;
+  const int kend = a.causal ? min(a.L, q0 + S::BM) : a.L;
+  const int k_tiles = (kend + S::BN - 1) / S::BN;
+  init_barriers<S::STAGES>(bar_q);
+
+  if (threadIdx.x < WG) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(bar_q, 2 * QT::BYTES);
+      hopper::tma_load_tile<QT>(base + S::Q, &tm_q, bar_q, h, q0, b);
+      hopper::tma_load_tile<QT>(base + S::DO, &tm_do, bar_q, h, q0, b);
+      for (int j = 0; j < k_tiles; ++j) {
+        const int s = j % S::STAGES;
+        hopper::mbar_wait(&empty[s], ((j / S::STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 2 * KT::BYTES);
+        hopper::tma_load_tile<KT>(base + S::K + s * KT::BYTES, &tm_k,
+                                  &full[s], kvh, j * S::BN, b);
+        hopper::tma_load_tile<KT>(base + S::V + s * KT::BYTES, &tm_v,
+                                  &full[s], kvh, j * S::BN, b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x - WG;
+    const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    const int rw = q0 + 64 * wg;  // this warpgroup's first row
+    const int row[2] = {rw + 16 * warp + lane / 4,
+                        rw + 16 * warp + lane / 4 + 8};
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = row[i] < a.L;
+      const long long r = ((long long)b * a.H + h) * a.L + row[i];
+      lse2[i] = ok ? a.lse[r] * LOG2E : 0.f;
+      dl[i] = ok ? a.delta[r] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    hopper::mbar_wait(bar_q, 0);
+
+    for (int j = 0; j < k_tiles; ++j) {
+      const int s = j % S::STAGES;
+      const int k0 = j * S::BN;
+      hopper::mbar_wait(&full[s], (j / S::STAGES) & 1);
+      // A key tile wholly after this warpgroup's rows adds nothing.
+      if (!(a.causal && k0 > rw + 63)) {
+        const uint32_t sb = hopper::opaque(base);
+        const uint32_t qb = sb + S::Q, dob = sb + S::DO;
+        const uint32_t kb = sb + S::K + s * KT::BYTES;
+        const uint32_t vb = sb + S::V + s * KT::BYTES;
+        float sc[S::BN / 2], dp[S::BN / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<S::BN>(sc, hopper::desc_k<QT>(qb, 64 * wg, kk),
+                                  hopper::desc_k<KT>(kb, 0, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<S::BN>(dp, hopper::desc_k<QT>(dob, 64 * wg, kk),
+                                  hopper::desc_k<KT>(vb, 0, kk), kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(sc);
+        hopper::fence_operands(dp);
+
+        // Only the diagonal tile and the tile holding L's end need masks.
+        // ds is packed to bf16 as it is made, so each pair of f32 values
+        // dies at once.
+        const bool edge = (a.causal && k0 + S::BN - 1 > rw) || k0 + S::BN > a.L;
+        uint32_t da[S::BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < S::BN / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float ds[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int i = 8 * kk + 2 * r + c, ri = (i >> 1) & 1;
+              const int col = k0 + 8 * (i >> 2) + col0 + (i & 1);
+              float x = sc[i];
+              if (edge && (col >= a.L || (a.causal && col > row[ri])))
+                x = NEG_INF;
+              const float p = exp2f(fmaf(x, a.scale_log2, -lse2[ri]));
+              ds[c] = p * (dp[i] - dl[ri]);
+            }
+            da[kk][r] = pack_bf16(ds[0], ds[1]);
+          }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < S::BN / 16; ++kk)
+          hopper::wgmma_rs<D>(acc, da[kk], hopper::desc_mn<KT>(kb, kk), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc);
+      }
+      release(&empty[s], lane);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= a.L) continue;
+      bf16* dq = a.dq + (((long long)b * a.L + row[i]) * a.H + h) * D + col0;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dq + 8 * n) = pack_bf16(
+            acc[4 * n + 2 * i] * a.scale, acc[4 * n + 2 * i + 1] * a.scale);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 enum Kind { FWD = 0, BWD_DQ = 1, BWD_DKV = 2, BWD_DELTA = 3 };
@@ -712,7 +667,7 @@ template <int D>
 size_t smem_bytes(int kind) {
   switch (kind) {
     case FWD: return FwdShape<D>::SMEM;
-    case BWD_DQ: return dq_smem<D>();
+    case BWD_DQ: return DqShape<D>::SMEM;
     case BWD_DKV: return DkvShape<D>::SMEM;
     default: return 0;
   }
@@ -763,14 +718,16 @@ cudaError_t launch_dkv(const CUtensorMap& q, const CUtensorMap& k,
 }
 
 template <int D>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+cudaError_t launch_dq(const CUtensorMap& q, const CUtensorMap& k,
+                      const CUtensorMap& v, const CUtensorMap& dout,
+                      const DqArgs& a, int B, cudaStream_t stream) {
   static bool configured[MAX_DEVICES] = {};
   cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(bwd_dq_kernel<D>), dq_smem<D>(),
+      reinterpret_cast<const void*>(bwd_dq_kernel<D>), DqShape<D>::SMEM,
       configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.L + BM - 1) / BM, p.B * p.H);
-  bwd_dq_kernel<D><<<grid, THREADS, dq_smem<D>(), stream>>>(p);
+  bwd_dq_kernel<D><<<dim3(B * a.H, a.q_tiles), WS_THREADS, DqShape<D>::SMEM,
+                     stream>>>(q, k, v, dout, a);
   return cudaGetLastError();
 }
 
@@ -842,31 +799,41 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                     const void* o, const void* lse, const void* dout,
+                     const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int L, int H, int KVH, int D,
                      int causal, float scale,
                      long long q_sb, long long q_sl, long long q_sh,
                      long long k_sb, long long k_sl, long long k_sh,
                      long long v_sb, long long v_sl, long long v_sh,
-                     long long o_sb, long long o_sl, long long o_sh,
                      long long do_sb, long long do_sl, long long do_sh,
                      void* stream) {
-  Params p = {};
-  p.q = view(q, q_sb, q_sl, q_sh);
-  p.k = view(k, k_sb, k_sl, k_sh);
-  p.v = view(v, v_sb, v_sl, v_sh);
-  p.o = view(o, o_sb, o_sl, o_sh);
-  p.dout = view(dout, do_sb, do_sl, do_sh);
-  p.lse_in = static_cast<const float*>(lse);
-  p.dq = static_cast<bf16*>(dq);
-  p.B = B; p.L = L; p.H = H; p.KVH = KVH; p.causal = causal; p.scale = scale;
+  if (!supported(D)) return (int)cudaErrorInvalidValue;
+  // q/dO tiles of 128 rows and k/v tiles of 64 keys at every D
+  const int qrows = DqShape<64>::BM, krows = DqShape<64>::BN;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err =
+      hopper::encode_rows(&tq, q, D, H, L, B, q_sh, q_sl, q_sb, qrows);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows(&tk, k, D, KVH, L, B, k_sh, k_sl, k_sb, krows);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows(&tv, v, D, KVH, L, B, v_sh, v_sl, v_sb, krows);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows(&tdo, dout, D, H, L, B, do_sh, do_sl, do_sb,
+                              qrows);
+  if (err != cudaSuccess) return (int)err;
+  DqArgs a = {};
+  a.dq = static_cast<bf16*>(dq);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.L = L; a.H = H; a.KVH = KVH; a.causal = causal;
+  a.q_tiles = (L + qrows - 1) / qrows;
+  a.scale = scale; a.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch_dq<16>(p, s);
-    case 32: return (int)launch_dq<32>(p, s);
-    case 64: return (int)launch_dq<64>(p, s);
-    case 128: return (int)launch_dq<128>(p, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 16: return (int)launch_dq<16>(tq, tk, tv, tdo, a, B, s);
+    case 32: return (int)launch_dq<32>(tq, tk, tv, tdo, a, B, s);
+    case 64: return (int)launch_dq<64>(tq, tk, tv, tdo, a, B, s);
+    default: return (int)launch_dq<128>(tq, tk, tv, tdo, a, B, s);
   }
 }
 
@@ -897,7 +864,6 @@ int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       long long do_sb, long long do_sl, long long do_sh,
                       void* stream) {
   if (!supported(D)) return (int)cudaErrorInvalidValue;
-  // k/v tiles of 128 rows, q/dO tiles of 64, at every D
   // k/v tiles of 128 rows and q/dO tiles of 64 at every D
   const int krows = DkvShape<64>::BM, qrows = DkvShape<64>::BQ;
   CUtensorMap tq, tk, tv, tdo;

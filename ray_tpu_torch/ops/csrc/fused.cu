@@ -23,7 +23,10 @@
 // [D], contiguous, f32 or bf16, upcast to f32. x and out are f32 or bf16.
 //
 // The entry point launches on the caller's stream, allocates nothing,
-// does not synchronise, and returns cudaGetLastError().
+// does not synchronise, and returns cudaGetLastError(). At the decode
+// shape the launch path, not the kernel, sets the time of a call: the
+// entry point takes the launch's scalars as one packed block (RmsArgs),
+// since a caller through ctypes pays for each argument it converts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,20 +147,32 @@ const char* rtt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The launch's scalars, in the layout of Python's struct format "@iiiiqf"
+// (ops/fused.py, _RMS_ARGS). A field out of order gives wrong rows, not a
+// crash: the card tests and chip_smoke.py's rmsnorm phase cover every
+// dtype pair and row stride against the plain version.
 // x and out: dtype code x_dtype (0 f32, 1 bf16); scale: scale_dtype.
-int rtt_rmsnorm(const void* x, const void* scale, void* out, int x_dtype,
-                int scale_dtype, int rows, int d, long long x_row_stride,
-                float eps, void* stream) {
+struct RmsArgs {
+  int x_dtype, scale_dtype, rows, d;
+  long long x_row_stride;
+  float eps;
+};
+
+int rtt_rmsnorm(const void* x, const void* scale, void* out,
+                const RmsArgs* a, void* stream) {
+  const int rows = a->rows, d = a->d;
+  const long long stride = a->x_row_stride;
+  const float eps = a->eps;
   if (rows < 1 || d < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == DTYPE_BF16 && scale_dtype == DTYPE_BF16)
-    return (int)launch<bf16, bf16>(x, scale, out, rows, d, x_row_stride, eps, s);
-  if (x_dtype == DTYPE_BF16 && scale_dtype == DTYPE_F32)
-    return (int)launch<bf16, float>(x, scale, out, rows, d, x_row_stride, eps, s);
-  if (x_dtype == DTYPE_F32 && scale_dtype == DTYPE_BF16)
-    return (int)launch<float, bf16>(x, scale, out, rows, d, x_row_stride, eps, s);
-  if (x_dtype == DTYPE_F32 && scale_dtype == DTYPE_F32)
-    return (int)launch<float, float>(x, scale, out, rows, d, x_row_stride, eps, s);
+  if (a->x_dtype == DTYPE_BF16 && a->scale_dtype == DTYPE_BF16)
+    return (int)launch<bf16, bf16>(x, scale, out, rows, d, stride, eps, s);
+  if (a->x_dtype == DTYPE_BF16 && a->scale_dtype == DTYPE_F32)
+    return (int)launch<bf16, float>(x, scale, out, rows, d, stride, eps, s);
+  if (a->x_dtype == DTYPE_F32 && a->scale_dtype == DTYPE_BF16)
+    return (int)launch<float, bf16>(x, scale, out, rows, d, stride, eps, s);
+  if (a->x_dtype == DTYPE_F32 && a->scale_dtype == DTYPE_F32)
+    return (int)launch<float, float>(x, scale, out, rows, d, stride, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

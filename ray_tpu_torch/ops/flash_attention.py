@@ -8,9 +8,9 @@ The port of ``ray_tpu/ops/flash_attention.py``. Three kernels, in
 - ``bwd_dkv``: ``_bwd_dkv_kernel`` — dk and dv for one k tile of one kv
   head, looping over the query heads of its group and over q tiles.
 
-A fourth, ``bwd_delta``, computes delta = rowsum(dO * O) once for
-``bwd_dkv``, which the TPU kernel recomputes on every q tile it visits;
-``flash_bwd_dkv_kernel`` launches both.
+A fourth, ``bwd_delta``, computes delta = rowsum(dO * O) once per
+backward, which the TPU kernels recompute on every tile they visit;
+``flash_bwd`` launches it and hands its result to both backward kernels.
 
 Beside each kernel is its plain PyTorch version (``flash_fwd_plain``,
 ``flash_bwd_plain``, ``flash_bwd_delta_plain``), which computes the same
@@ -50,7 +50,7 @@ def _lib() -> ctypes.CDLL:
                                       + [_LL] * 9 + [_P])
         lib.rtt_flash_fwd.restype = _I
         lib.rtt_flash_bwd_dq.argtypes = ([_P] * 7 + [_I] * 6
-                                         + [ctypes.c_float] + [_LL] * 15
+                                         + [ctypes.c_float] + [_LL] * 12
                                          + [_P])
         lib.rtt_flash_bwd_dq.restype = _I
         lib.rtt_flash_bwd_dkv.argtypes = ([_P] * 8 + [_I] * 6
@@ -180,40 +180,44 @@ def flash_fwd_kernel(q, k, v, causal: bool = True):
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, l, h, kvh, d, int(causal), d ** -0.5,
-            *_strides(q), *_strides(k), *_strides(v), stream)
+    err = _build.launch(
+        lib.rtt_flash_fwd, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, l, h, kvh, d, int(causal), d ** -0.5,
+        *_strides(q), *_strides(k), *_strides(v))
     _build.check(lib, err, "flash fwd kernel")
     launches["fwd"] += 1
     return o, lse
 
 
-def _check_lse(t, b, h, l, device) -> None:
+def _check_rows(name: str, t, b, h, l, device) -> None:
+    """lse and delta: one f32 value per (batch, head, row)."""
     if t.device != device or t.dtype != torch.float32 \
             or tuple(t.shape) != (b, h, l) or not t.is_contiguous():
-        raise ValueError("lse must be a contiguous [B, H, L] float32 "
-                         "tensor on q's device")
+        raise ValueError(f"{name} must be a contiguous [B, H, L] float32 "
+                         f"tensor on q's device")
 
 
-def flash_bwd_dq_kernel(q, k, v, o, lse, do, causal: bool = True):
-    """Launch the ``bwd_dq`` kernel: dq [B, L, H, D] bf16."""
+def _check_bwd_inputs(q, k, v, lse, do, delta):
     b, l, h, kvh, d = _check_inputs(q, k, v)
-    _check_view("o", o, (b, l, h, d), q.device)
     _check_view("do", do, (b, l, h, d), q.device)
-    _check_lse(lse, b, h, l, q.device)
+    _check_rows("lse", lse, b, h, l, q.device)
+    _check_rows("delta", delta, b, h, l, q.device)
+    return b, l, h, kvh, d
+
+
+def flash_bwd_dq_kernel(q, k, v, lse, do, delta, causal: bool = True):
+    """Launch the ``bwd_dq`` kernel: dq [B, L, H, D] bf16. ``delta`` is
+    the ``bwd_delta`` pre-pass's rowsum(dO * O)."""
+    b, l, h, kvh, d = _check_bwd_inputs(q, k, v, lse, do, delta)
     dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            b, l, h, kvh, d, int(causal), d ** -0.5,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-            *_strides(do), stream)
+    err = _build.launch(
+        lib.rtt_flash_bwd_dq, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        b, l, h, kvh, d, int(causal), d ** -0.5,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do))
     _build.check(lib, err, "flash bwd_dq kernel")
     launches["bwd_dq"] += 1
     return dq
@@ -231,33 +235,28 @@ def flash_bwd_delta_kernel(o, do):
     _check_view("do", do, (b, l, h, d), o.device)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=o.device)
     lib = _lib()
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = lib.rtt_flash_bwd_delta(
-            o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, l, h, d,
-            *_strides(o), *_strides(do), stream)
+    err = _build.launch(
+        lib.rtt_flash_bwd_delta, o.get_device(),
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, l, h, d,
+        *_strides(o), *_strides(do))
     _build.check(lib, err, "flash bwd_delta kernel")
     launches["bwd_delta"] += 1
     return delta
 
 
-def flash_bwd_dkv_kernel(q, k, v, o, lse, do, causal: bool = True):
-    """Launch the ``bwd_delta`` kernel, then the ``bwd_dkv`` kernel:
-    (dk, dv) [B, L, KVH, D] bf16."""
-    b, l, h, kvh, d = _check_inputs(q, k, v)
-    _check_view("do", do, (b, l, h, d), q.device)
-    _check_lse(lse, b, h, l, q.device)
-    delta = flash_bwd_delta_kernel(o, do)
+def flash_bwd_dkv_kernel(q, k, v, lse, do, delta, causal: bool = True):
+    """Launch the ``bwd_dkv`` kernel: (dk, dv) [B, L, KVH, D] bf16.
+    ``delta`` is the ``bwd_delta`` pre-pass's rowsum(dO * O)."""
+    b, l, h, kvh, d = _check_bwd_inputs(q, k, v, lse, do, delta)
     dk, dv = (torch.empty((b, l, kvh, d), dtype=q.dtype, device=q.device)
               for _ in range(2))
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, l, h, kvh, d, int(causal), d ** -0.5,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(do), stream)
+    err = _build.launch(
+        lib.rtt_flash_bwd_dkv, q.get_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, l, h, kvh, d, int(causal), d ** -0.5,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do))
     _build.check(lib, err, "flash bwd_dkv kernel")
     launches["bwd_dkv"] += 1
     return dk, dv
@@ -280,11 +279,14 @@ def flash_fwd(q, k, v, causal: bool = True):
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool = True):
-    """(dq, dk, dv): the plain version for CPU tensors, else the kernels."""
+    """(dq, dk, dv): the plain version for CPU tensors, else the kernels:
+    the ``bwd_delta`` pre-pass, ``bwd_dq`` and ``bwd_dkv``."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal)
-    dq = flash_bwd_dq_kernel(q, k, v, o, lse, do, causal)
-    dk, dv = flash_bwd_dkv_kernel(q, k, v, o, lse, do, causal)
+    # One pre-pass gives both kernels their delta.
+    delta = flash_bwd_delta_kernel(o, do)
+    dq = flash_bwd_dq_kernel(q, k, v, lse, do, delta, causal)
+    dk, dv = flash_bwd_dkv_kernel(q, k, v, lse, do, delta, causal)
     return dq, dk, dv
 
 

@@ -64,6 +64,33 @@ def test_grads_match_jax(shape):
     np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds), **GRAD_TOL)
 
 
+def test_no_grad_call_skips_the_autograd_function():
+    """Under no_grad (the serving engine's call) rms_norm calls the
+    forward directly: the plain version's values, no grad_fn. With grad
+    it still goes through the autograd Function, and its gradients still
+    match the reference's."""
+    x, scale, g = _inputs((4, 32, 128), seed=6)
+    xt = torch.tensor(x, requires_grad=True)
+    st = torch.tensor(scale, requires_grad=True)
+    with torch.no_grad():
+        got = rms_norm(xt, st)
+    assert got.grad_fn is None and not got.requires_grad
+    want = fused.rms_norm_plain(torch.tensor(x).reshape(-1, 128),
+                                torch.tensor(scale), 1e-5).reshape(x.shape)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert rms_norm(torch.tensor(x), torch.tensor(scale)).grad_fn is None
+
+    out = rms_norm(xt, st)
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out.detach(), got, atol=0, rtol=0)
+    _, vjp = jax.vjp(lambda a, s: jax_rms_norm(a, s, interpret=True),
+                     jnp.asarray(x), jnp.asarray(scale))
+    want_dx, want_ds = vjp(jnp.asarray(g))
+    dx, ds = torch.autograd.grad(out, (xt, st), torch.tensor(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), **GRAD_TOL)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds), **GRAD_TOL)
+
+
 def test_bf16_forward_matches_jax():
     """bf16 in and out, f32 statistics on both sides: each side rounds
     one f32 value to bf16 once, so an element may differ by one bf16 step

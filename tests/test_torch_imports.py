@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``ray_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points
-never fall back to the CPU on their own."""
+"""The port stands alone: no module of ``ray_tpu_torch``, not
+``chip_smoke.py`` and not ``rmsnorm_launch_cost.py`` imports JAX or the
+JAX package, and its entry points never fall back to the CPU on their
+own."""
 
 import ast
 import importlib
@@ -11,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "rmsnorm_launch_cost.py"]
 FORBIDDEN = ("jax", "ray_tpu")
 
 
@@ -95,9 +96,9 @@ def test_kernel_wrappers_reject_cpu_tensors():
         fa.flash_fwd_kernel(q, q, q)
     lse = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fa.flash_bwd_dq_kernel(q, q, q, q, lse, q)
+        fa.flash_bwd_dq_kernel(q, q, q, lse, q, lse)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fa.flash_bwd_dkv_kernel(q, q, q, q, lse, q)
+        fa.flash_bwd_dkv_kernel(q, q, q, lse, q, lse)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_bwd_delta_kernel(q, q)
     assert fa.launches == before

@@ -15,7 +15,7 @@ roundings: each element is held to atol + 2^-6 * |plain| (two steps at
 the bottom of a binade), and the whole tensor to a relative RMS error.
 o: atol 2e-3, RMS 5e-3; dq, dk, dv: atol 1e-3, RMS 1e-3 (the bounds
 chip_smoke.py holds the kernels to, where the reasons are given). lse is
-f32 on both sides: 1e-4. delta (the dk/dv pre-pass) is an f32 sum of D
+f32 on both sides: 1e-4. delta (the backward pre-pass) is an f32 sum of D
 bf16 products on both sides, in other orders: 1e-5 + 1e-5 * |plain|.
 
 The RMSNorm kernel against ``rms_norm_plain``: both compute the row's
@@ -60,8 +60,9 @@ def _qkvdo(device, b, l, h, kvh, d, seed):
     return q, k, v, do
 
 
-# The forward tiles 128 q rows by 128 keys; dk/dv 128 keys by 64 q rows.
-# L = 127, 128, 129 and 255 sit on either side of those boundaries.
+# The forward tiles 128 q rows by 128 keys, dq 128 q rows by 64 keys and
+# dk/dv 128 keys by 64 q rows. L = 127, 128, 129 and 255 sit on either
+# side of those boundaries.
 BOUNDARY_CASES = [(2, n, 4, 2, 64, causal) for n in (127, 128, 129, 255)
                   for causal in (True, False)]
 
@@ -81,8 +82,9 @@ def test_kernels_match_plain(cuda_device, b, l, h, kvh, d, causal):
     q, k, v, do = _qkvdo(cuda_device, b, l, h, kvh, d, seed=l)
     o, lse = fa.flash_fwd_kernel(q, k, v, causal)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
-    grads = (fa.flash_bwd_dq_kernel(q, k, v, o_ref, lse_ref, do, causal),
-             *fa.flash_bwd_dkv_kernel(q, k, v, o_ref, lse_ref, do, causal))
+    delta = fa.flash_bwd_delta_kernel(o_ref, do)
+    grads = (fa.flash_bwd_dq_kernel(q, k, v, lse_ref, do, delta, causal),
+             *fa.flash_bwd_dkv_kernel(q, k, v, lse_ref, do, delta, causal))
     grads_ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref, do, causal)
     torch.cuda.synchronize()
     assert (lse - lse_ref).abs().max().item() <= 1e-4
@@ -95,7 +97,8 @@ def test_kernels_match_plain(cuda_device, b, l, h, kvh, d, causal):
 def test_strided_views_and_launch_counts(cuda_device):
     """q, k and v as head-sliced views of one packed projection (strides,
     not copies), through the autograd Function: same result as contiguous
-    inputs, one launch of each kernel per forward and backward."""
+    inputs, one launch of each kernel per forward and backward (one delta
+    pre-pass for both backward kernels)."""
     gen = torch.Generator(cuda_device).manual_seed(0)
     b, l, h, kvh, d = 2, 128, 4, 2, 64
     packed = _bf16(gen, b, l, h + 2 * kvh, d)
@@ -117,13 +120,15 @@ def test_strided_views_and_launch_counts(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_two_launches_give_identical_bits(cuda_device, d):
-    """No atomics and a fixed order of every sum: the forward and the dk/dv
-    kernels give the same bits on every launch."""
+    """No atomics and a fixed order of every sum: the forward, dq and
+    dk/dv kernels give the same bits on every launch."""
     q, k, v, do = _qkvdo(cuda_device, 2, 300, 8, 2, d, seed=d)
     first = fa.flash_fwd_kernel(q, k, v, True)
     second = fa.flash_fwd_kernel(q, k, v, True)
     o, lse = first
-    grads = [fa.flash_bwd_dkv_kernel(q, k, v, o, lse, do, True)
+    delta = fa.flash_bwd_delta_kernel(o, do)
+    grads = [(fa.flash_bwd_dq_kernel(q, k, v, lse, do, delta, True),
+              *fa.flash_bwd_dkv_kernel(q, k, v, lse, do, delta, True))
              for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(first, second):
@@ -158,6 +163,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         fa.flash_fwd_kernel(q[..., :48], q[..., :48], q[..., :48])
     with pytest.raises(ValueError):
         fa.flash_fwd_kernel(q, q[:, :, :1].expand(1, 16, 3, 64), q)
+    lse = torch.zeros((1, 2, 16), device=cuda_device)
+    before = dict(fa.launches)
+    for kernel in (fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel):
+        with pytest.raises(ValueError):  # delta of the wrong shape
+            kernel(q, q, q, lse, q, lse[:, :, :8].contiguous())
+        with pytest.raises(ValueError):  # delta of the wrong dtype
+            kernel(q, q, q, lse, q, lse.to(torch.bfloat16))
+    assert fa.launches == before
 
 
 @pytest.mark.gpu
@@ -289,6 +302,25 @@ def test_rmsnorm_entry_point_backward_on_the_card(cuda_device):
                                                   g.to(device))))
     for got, want in zip(*results):
         torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_without_grad_launches_once(cuda_device):
+    """Under no_grad (the serving call) rms_norm launches the kernel once,
+    without the autograd Function: no grad_fn, the kernel's own output."""
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    x = torch.randn((2, 4, 4096), generator=gen, device=cuda_device).to(
+        torch.bfloat16).requires_grad_(True)
+    scale = torch.randn(4096, generator=gen, device=cuda_device).to(
+        torch.bfloat16).requires_grad_(True)
+    before = fused.launches["rmsnorm"]
+    with torch.no_grad():
+        out = fused.rms_norm(x, scale)
+    assert fused.launches["rmsnorm"] == before + 1
+    assert out.grad_fn is None and out.shape == x.shape
+    want = fused.rms_norm_kernel(x.detach().reshape(-1, 4096),
+                                 scale.detach())
+    assert torch.equal(out.reshape(-1, 4096), want)
 
 
 @pytest.mark.gpu
