@@ -22,17 +22,26 @@ source, all started together) and drives the port's two paths:
   output at Llama-3-8B widths (2 layers, f32) against full-context
   decoding, with and without preemption, then serves 16 concurrent
   ragged requests with the full Llama-3-8B (32 layers, bf16, random
-  weights from a seed) through ``LLMEngine``.
+  weights from a seed) through ``LLMEngine``;
+- the core runtime (``ray_tpu_torch.init``, ``@remote``, actors, the
+  object store): a ``num_gpus=1`` actor serves serve_check's
+  configuration token for token while a ``num_gpus=1`` task of 2 train
+  steps waits for the card and then matches the same steps taken in the
+  main thread, and a stalled engine seals a call's deadline typed
+  (runtime_check); then a ``num_gpus=1`` actor serves the serve phase's
+  16 requests as 16 concurrent actor calls, on the serve phase's weights
+  ``put`` into the store without a copy (runtime).
 
 Each phase prints one JSON line. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
 dim). The line before the last lists every kernel with its launches on
 its path (the train phase for the attention kernels, the serve phase for
-RMSNorm), its error against the plain version, its times, and for the
-attention kernels the achieved TFLOP/s and share of the bound, then the
-whole backward (pre-pass, dq and dk/dv) against SDPA's; the last
-line is ``{"ok": true, "device":
-{...}}``. Any failure exits nonzero, and without a card the script fails.
+RMSNorm) and through the runtime (``runtime_launches``), its error
+against the plain version, its times, and for the attention kernels the
+achieved TFLOP/s and share of the bound, then the whole backward
+(pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
+"device": {...}}``. Any failure exits nonzero, and without a card the
+script fails.
 """
 
 from __future__ import annotations
@@ -161,6 +170,13 @@ RMSNORM_CASES = {
 # block moves it by ~0.1 to 1.
 SERVE_CHECK_PROMPT_LENGTHS = (5, 40, 97, 150)
 SERVE_CHECK_LOGITS_TOL = {"rtol": 0.0, "atol": 5e-4, "rms_tol": 1e-4}
+
+# What a runtime phase may leave allocated on the card once its engine is
+# shut down, its actor killed and the runtime shut down: the cuBLAS
+# workspaces of the threads it ran on, far below an engine's KV pool
+# (2.15 GB) or serve_check's weights (5.95 GB).
+MEMORY_LEFT_BYTES = 512 << 20
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -558,6 +574,38 @@ def phase_model(llama) -> None:
     require(not bad, f"flash grads disagree with plain grads: {bad}")
 
 
+class _LaunchCount:
+    """The kernels' launches over one stretch of the run: the counts of
+    ``fa`` and of each of ``others`` set to 0 on entry and read on exit.
+    The whole flash backward, the kernels line's flash_bwd row, is no
+    kernel: its calls are counted where the autograd backward makes
+    them."""
+
+    def __init__(self, fa, *others):
+        self.fa, self.counts = fa, {}
+        self.tables = (fa.launches, *(module.launches for module in others))
+
+    def __enter__(self):
+        for table in self.tables:
+            for kind in table:
+                table[kind] = 0
+        self.whole_bwd, self.bwd_calls = self.fa.flash_bwd, [0]
+
+        def counted_bwd(*args, **kwargs):
+            self.bwd_calls[0] += 1
+            return self.whole_bwd(*args, **kwargs)
+
+        self.fa.flash_bwd = counted_bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_bwd = self.whole_bwd
+        for table in self.tables:
+            self.counts.update(table)
+        self.counts["flash_bwd"] = self.bwd_calls[0]
+        return False
+
+
 def phase_train(llama, train_step, fa, device: dict,
                 power: str) -> dict:
     """The slice: bench.py's model and batch through the port's entry
@@ -582,19 +630,8 @@ def phase_train(llama, train_step, fa, device: dict,
         {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for kind in fa.launches:
-        fa.launches[kind] = 0
-    # The whole backward, the kernels line's flash_bwd row, is no kernel:
-    # its calls are counted where the autograd backward makes them.
-    whole_bwd, bwd_calls = fa.flash_bwd, [0]
-
-    def counted_bwd(*args, **kwargs):
-        bwd_calls[0] += 1
-        return whole_bwd(*args, **kwargs)
-
-    fa.flash_bwd = counted_bwd
     losses, norms, times = [], [], []
-    try:
+    with _LaunchCount(fa) as count:
         for _ in range(warmup + timed):
             start = time.perf_counter()
             state, metrics = step(state, batch)
@@ -602,9 +639,7 @@ def phase_train(llama, train_step, fa, device: dict,
             norms.append(metrics["grad_norm"].item())
             torch.cuda.synchronize()
             times.append(time.perf_counter() - start)
-    finally:
-        fa.flash_bwd = whole_bwd
-    launches = dict(fa.launches, flash_bwd=bwd_calls[0])
+    launches = count.counts
     step_s = statistics.median(times[warmup:])
     tokens_per_step = batch_size * seq_len
     flops = llama.flops_per_token(config, seq_len) * tokens_per_step
@@ -990,10 +1025,26 @@ def _timed(fn, sink: list):
     return call
 
 
-def phase_serve(llama, fused, device: dict, power: str) -> int:
+# The serving engine's settings and traffic in the serve and runtime
+# phases: 16 requests at once, prompt lengths uniform in 32-1024 (seed 2),
+# 64 new tokens each, 12 greedy and 4 at temperature 0.7.
+SERVE_ENGINE = {"max_batch_size": 8, "max_seq_len": 2048, "block_size": 16,
+                "prefill_chunk": 256}
+SERVE_NEW_TOKENS = 64
+
+
+def serve_requests(config) -> tuple[list, list, list]:
+    """Prompt lengths, prompts and temperatures of the 16 requests."""
+    lengths = np.random.default_rng(2).integers(32, 1025, 16).tolist()
+    return (lengths, _prompts(lengths, config.vocab_size, 3),
+            [0.0] * 12 + [0.7] * 4)
+
+
+def phase_serve(llama, fused, device: dict, power: str) -> dict:
     """The slice: 16 concurrent ragged requests through ``LLMEngine`` on
     the full Llama-3-8B in bf16. Returns the RMSNorm kernel's launches in
-    the run."""
+    the run, the phase's numbers and the bf16 parameter tree (which the
+    runtime phase serves again)."""
     from ray_tpu_torch._private.tree import tree_leaves, tree_map
     from ray_tpu_torch.serve.llm_engine import LLMEngine
 
@@ -1006,14 +1057,10 @@ def phase_serve(llama, fused, device: dict, power: str) -> int:
     del params32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    n_requests, new_tokens, max_seq_len = 16, 64, 2048
-    rng = np.random.default_rng(2)
-    lengths = rng.integers(32, 1025, n_requests).tolist()
-    prompts = _prompts(lengths, config.vocab_size, 3)
-    temperatures = [0.0] * 12 + [0.7] * 4
-    engine = LLMEngine(config, params, max_batch_size=8,
-                       max_seq_len=max_seq_len, block_size=16,
-                       prefill_chunk=256, device=DEVICE)
+    n_requests, new_tokens = 16, SERVE_NEW_TOKENS
+    max_seq_len = SERVE_ENGINE["max_seq_len"]
+    lengths, prompts, temperatures = serve_requests(config)
+    engine = LLMEngine(config, params, **SERVE_ENGINE, device=DEVICE)
     decode_raw = engine._decode_step
     decode_s, prefill_s = [], []
     try:
@@ -1040,8 +1087,7 @@ def phase_serve(llama, fused, device: dict, power: str) -> int:
             "config": "LlamaConfig.llama3_8b() (ray_tpu/models/llama.py:79-83)",
             "params": sum(t.numel() for t in tree_leaves(params)),
             "layers": config.num_layers, "dtype": "bfloat16",
-            "engine": {"max_batch_size": 8, "max_seq_len": max_seq_len,
-                       "block_size": 16, "prefill_chunk": 256,
+            "engine": {**SERVE_ENGINE,
                        "num_blocks": engine._sched.cache.num_blocks},
             "requests": n_requests, "prompt_lengths": lengths,
             "max_new_tokens": new_tokens, "temperatures": temperatures,
@@ -1083,9 +1129,9 @@ def phase_serve(llama, fused, device: dict, power: str) -> int:
                                                 decode_ms))
     finally:
         engine.shutdown()
-    del params, engine
+    del engine
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "params": params, "result": result}
 
 
 def _profile_decode(engine, decode_raw, decode_ms: float) -> dict:
@@ -1109,6 +1155,358 @@ def _profile_decode(engine, decode_raw, decode_ms: float) -> dict:
             **_profile_step(step, decode_ms / 1e3)}
 
 
+# ------------------------------------------------------------------ runtime
+
+
+class EngineActor:
+    """The serving engine inside an actor of the port's runtime: the
+    class a user wraps ``LLMEngineServer`` in, since an actor handle
+    refuses ``__call__``. ``params`` may be an ObjectRef (actor
+    constructor arguments are passed as given, as in the reference)."""
+
+    def __init__(self, config, params, **engine_args):
+        import ray_tpu_torch
+        from ray_tpu_torch.serve.llm_engine import LLMEngineServer
+
+        if isinstance(params, ray_tpu_torch.ObjectRef):
+            params = ray_tpu_torch.get(params)
+        self.server = LLMEngineServer(config, params, **engine_args)
+        self.decode_s, self.prefill_s = [], []
+
+    def generate(self, request: dict) -> dict:
+        return self.server(request)
+
+    def stream(self, request: dict) -> dict:
+        """The tokens, and the host clock at each token's arrival."""
+        tokens, arrivals = [], []
+        for token in self.server.generate(request):
+            arrivals.append(time.perf_counter())
+            tokens.append(token)
+        return {"tokens": tokens, "arrivals": arrivals}
+
+    def data_ptrs(self) -> list[int]:
+        from ray_tpu_torch._private.tree import tree_leaves
+
+        return [t.data_ptr() for t in tree_leaves(self.server._engine.params)]
+
+    def time_steps(self) -> None:
+        """Time each decode and prefill call as the serve phase does."""
+        engine = self.server._engine
+        engine._decode_step = _timed(engine._decode_step, self.decode_s)
+        engine._prefill_step = _timed(engine._prefill_step, self.prefill_s)
+
+    def step_times(self) -> dict:
+        return {"decode_s": list(self.decode_s),
+                "prefill_s": list(self.prefill_s)}
+
+    def stats(self) -> dict:
+        return self.server.engine_stats()
+
+    def noop(self) -> None:
+        return None
+
+    def stall(self, gate: threading.Event) -> None:
+        """Wedge the engine loop at its next iteration until ``gate``."""
+        self.server._engine._prefill_tick = lambda: gate.wait(60) and False
+
+    def unstall(self) -> None:
+        del self.server._engine._prefill_tick
+
+    def shutdown(self) -> None:
+        """Stop the engine and drop it, so its KV pool is freed before
+        the next engine allocates one (killing the actor does neither)."""
+        self.server.shutdown()
+        del self.server
+
+
+def _two_train_steps(llama, train_step) -> list[float]:
+    """2 train steps of the bench model at bench width, 2 layers, 8 x 2048,
+    from seeds (their own generators: nothing shares a global RNG)."""
+    config = dataclasses.replace(bench_config(llama), num_layers=2)
+    params = llama.init_params(config,
+                               torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    optimizer = train_step.default_optimizer(
+        learning_rate=3e-4, warmup_steps=10, total_steps=1000)
+    state = train_step.create_train_state(params, optimizer, DEVICE)
+    del params
+
+    def loss(params, batch):
+        return llama.loss_fn(params, batch["tokens"], batch["targets"],
+                             config)
+
+    step = train_step.build_train_step(loss, optimizer)
+    tokens = torch.randint(0, config.vocab_size, (8, 2049),
+                           generator=torch.Generator(DEVICE).manual_seed(1),
+                           device=DEVICE)
+    batch = train_step.place_batch(
+        {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}, device=DEVICE)
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+    return losses
+
+
+def phase_runtime_check(llama, train_step, fa, fused,
+                        train_launches: dict) -> dict:
+    """The core runtime on the card: the GPU resource, a ``num_gpus=1``
+    actor serving ``serve_check``'s configuration token for token, a
+    ``num_gpus=1`` train task held back while the actor holds the GPU,
+    and a deadline sealed typed. Returns the kernels' launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.exceptions import ActorError, TaskTimeoutError
+
+    start = time.perf_counter()
+    allocated_before = torch.cuda.memory_allocated()
+    # The same two steps in the main thread, for the losses.
+    direct = _two_train_steps(llama, train_step)
+    torch.cuda.empty_cache()
+    config = serve_check_config(llama)
+    params = llama.init_params(
+        config, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    prompts = _prompts(SERVE_CHECK_PROMPT_LENGTHS, config.vocab_size, 1)
+    new_tokens = 16
+    expected = [_greedy_full_forward(llama, params, p, config, new_tokens)
+                for p in prompts]
+    rt.init(num_cpus=8)
+    try:
+        resources = rt.cluster_resources()
+        require(resources.get("GPU") == torch.cuda.device_count(),
+                f"cluster_resources() {resources}, cards "
+                f"{torch.cuda.device_count()}")
+        with _LaunchCount(fa, fused) as count:
+            actor = rt.remote(num_gpus=1, max_concurrency=4)(
+                EngineActor).remote(
+                config, params, max_batch_size=4, max_seq_len=256,
+                block_size=16, prefill_chunk=32, device=DEVICE)
+            rt.get(actor.stats.remote(), timeout=600)
+            gpu_held = rt.available_resources().get("GPU")
+            task = rt.remote(num_gpus=1)(_two_train_steps).remote(
+                llama, train_step)
+            held_back = rt.wait([task], timeout=2)[0] == []
+            outputs = [r["tokens"] for r in rt.get(
+                [actor.generate.remote({"tokens": p,
+                                        "max_new_tokens": new_tokens})
+                 for p in prompts], timeout=600)]
+            gate = threading.Event()
+            rt.get(actor.stall.remote(gate), timeout=60)
+            try:
+                rt.get(actor.generate.options(_deadline_s=1.0).remote(
+                    {"tokens": prompts[0], "max_new_tokens": 4}),
+                    timeout=60)
+                deadline_error = None
+            except ActorError as exc:
+                deadline_error = exc.cause
+            finally:
+                gate.set()
+            rt.get(actor.unstall.remote(), timeout=60)
+            rt.get(actor.shutdown.remote(), timeout=60)
+            rt.kill(actor)
+            del actor
+            losses = rt.get(task, timeout=600)
+            torch.cuda.synchronize()
+        gpu_after = rt.available_resources().get("GPU")
+    finally:
+        rt.shutdown()
+    del params
+    torch.cuda.empty_cache()
+    allocated_after = torch.cuda.memory_allocated()
+    layers = 2
+    per_step = {k: train_launches[k] / train_launches["flash_bwd"] * layers
+                for k in ("fwd", "bwd_dq", "bwd_dkv", "bwd_delta",
+                          "flash_bwd")}
+    task_per_step = {k: count.counts[k] / 2 for k in per_step}
+    stage = getattr(deadline_error, "stage", None)
+    result = {
+        "config": "llama3_8b widths, 2 layers, float32 (serve_check's)",
+        "cluster_resources": resources, "gpu_available_while_held": gpu_held,
+        "task_held_back": held_back, "token_identical": outputs == expected,
+        "mismatches": [[i, outputs[i], expected[i]]
+                       for i in range(len(prompts))
+                       if outputs[i] != expected[i]],
+        "deadline_error": type(deadline_error).__name__,
+        "deadline_stage": stage,
+        "task_losses": losses, "direct_losses": direct,
+        "losses_bitwise_equal": losses == direct,
+        "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(losses, direct)],
+        "task_flash_launches_per_step": task_per_step,
+        "train_phase_launches_per_step_at_2_layers": per_step,
+        "launches": count.counts, "gpu_available_after_kill": gpu_after,
+        "memory_allocated_before_after": [allocated_before, allocated_after],
+        "elapsed_s": time.perf_counter() - start,
+    }
+    emit("runtime_check", **result)
+    require(gpu_held == 0, f"GPU available while the actor holds it: "
+                           f"{gpu_held}")
+    require(held_back, "the num_gpus=1 task ran while the actor held the "
+                       "GPU")
+    require(outputs == expected, "the actor's greedy output differs from "
+                                 "full-context decoding")
+    require(isinstance(deadline_error, TaskTimeoutError)
+            and stage == "llm_queue",
+            f"the stalled call sealed {deadline_error!r}, not a "
+            f"TaskTimeoutError at stage llm_queue")
+    require(all(math.isclose(a, b, rel_tol=1e-3)
+                for a, b in zip(losses, direct)),
+            f"task losses {losses} vs main-thread losses {direct}")
+    require(task_per_step == per_step,
+            f"the task's flash launches per step {task_per_step}, the train "
+            f"phase's at 2 layers {per_step}")
+    require(gpu_after == 1.0, f"GPU not released after the kill: "
+                              f"{gpu_after}")
+    require(allocated_after - allocated_before < MEMORY_LEFT_BYTES,
+            f"the phase left {allocated_after - allocated_before} bytes "
+            f"allocated on the card")
+    return count.counts
+
+
+def _round_trips_us(rt, call, n: int = 200) -> dict:
+    """Host us of ``rt.get(call())`` (an empty actor method or task: the
+    runtime's own cost per call), one at a time, after 20 unmeasured."""
+    times = []
+    for i in range(20 + n):
+        start = time.perf_counter()
+        rt.get(call(), timeout=60)
+        if i >= 20:
+            times.append(1e6 * (time.perf_counter() - start))
+    times.sort()
+    return {"median": statistics.median(times), "p90": times[int(0.9 * n)],
+            "calls": n}
+
+
+def phase_runtime(llama, fa, fused, served: dict, device: dict,
+                  power: str) -> dict:
+    """The serve phase's 16 requests again, now as 16 concurrent calls of
+    a ``num_gpus=1`` actor holding the full Llama-3-8B in bf16, its
+    weights the serve phase's tree ``put`` into the store. Returns the
+    kernels' launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch._private.tree import tree_leaves
+
+    start = time.perf_counter()
+    allocated_before = torch.cuda.memory_allocated()
+    config = serve_config(llama)
+    params = served["params"]
+    lengths, prompts, temperatures = serve_requests(config)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # The store's default budget (2 GiB): weights on the card are charged
+    # past it but never spilled.
+    rt.init(num_cpus=8)
+    try:
+        store = worker.global_runtime().store
+        before = store.stats()
+        ref = rt.put(params)
+        after = store.stats()
+        charged = after["memory_used_bytes"] - before["memory_used_bytes"]
+        spilled = after["spilled_bytes_total"] \
+            - before["spilled_bytes_total"]
+        budget = after["memory_limit_bytes"]
+        actor = rt.remote(num_gpus=1, max_concurrency=16)(
+            EngineActor).remote(config, ref, **SERVE_ENGINE, device=DEVICE)
+        same_ptrs = rt.get(actor.data_ptrs.remote(), timeout=600) == [
+            t.data_ptr() for t in tree_leaves(params)]
+        # Warm-up: one short request (allocator, cuBLAS handles).
+        warm = rt.get(actor.generate.remote(
+            {"tokens": prompts[0][:32], "max_new_tokens": 2}), timeout=600)
+        require(len(warm["tokens"]) == 2, "warm-up request failed")
+        rt.get(actor.time_steps.remote(), timeout=60)
+        stats_before = rt.get(actor.stats.remote(), timeout=60)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _LaunchCount(fa, fused) as count:
+            refs, submitted = [], []
+            wall_start = time.perf_counter()
+            for prompt, temperature in zip(prompts, temperatures):
+                submitted.append(time.perf_counter())
+                refs.append(actor.stream.remote(
+                    {"tokens": prompt, "max_new_tokens": SERVE_NEW_TOKENS,
+                     "temperature": temperature}))
+            records, errors = [], []
+            for r in refs:
+                try:
+                    records.append(rt.get(r, timeout=600))
+                except Exception as exc:  # noqa: BLE001 — reported and required
+                    records.append({"tokens": [], "arrivals": []})
+                    errors.append(repr(exc))
+            wall = time.perf_counter() - wall_start
+        peak = torch.cuda.max_memory_allocated()
+        stats_after = rt.get(actor.stats.remote(), timeout=60)
+        steps = rt.get(actor.step_times.remote(), timeout=60)
+        call_us = _round_trips_us(rt, actor.noop.remote)
+        task_us = _round_trips_us(rt, rt.remote(lambda: None).remote)
+        rt.get(actor.shutdown.remote(), timeout=60)
+        rt.kill(actor)
+        gpu_after = rt.available_resources().get("GPU")
+    finally:
+        rt.shutdown()
+    torch.cuda.empty_cache()
+    allocated_after = torch.cuda.memory_allocated()
+    stats = {k: stats_after[k] - stats_before[k] for k in stats_after}
+    forwards = stats["decode_steps"] + stats["prefill_chunks"]
+    ttft = [r["arrivals"][0] - t if r["arrivals"] else None
+            for r, t in zip(records, submitted)]
+    measured = [t for t in ttft if t is not None] or [math.nan]
+    launches = count.counts["rmsnorm"]
+    serve = served["result"]
+    result = {
+        "config": "LlamaConfig.llama3_8b() (ray_tpu/models/llama.py:79-83)",
+        "params": n_params, "dtype": "bfloat16",
+        "put_bytes_charged": charged, "params_nbytes": nbytes,
+        "store_budget_bytes": budget, "put_bytes_spilled": spilled,
+        "put_zero_copy": same_ptrs, "engine": SERVE_ENGINE,
+        "requests": len(prompts), "prompt_lengths": lengths,
+        "max_new_tokens": SERVE_NEW_TOKENS, "temperatures": temperatures,
+        "ttft_s": ttft, "ttft_s_median": statistics.median(measured),
+        "ttft_s_max": max(measured),
+        "decode_step_ms_median": 1e3 * statistics.median(steps["decode_s"])
+        if steps["decode_s"] else None,
+        "decode_steps_timed": len(steps["decode_s"]),
+        "prefill_chunk_ms_median": 1e3 * statistics.median(
+            steps["prefill_s"]) if steps["prefill_s"] else None,
+        "wall_s": wall,
+        "output_tokens_per_s": sum(len(r["tokens"]) for r in records) / wall,
+        "engine_stats": stats, "rmsnorm_launches": launches,
+        "rmsnorm_launches_per_forward": launches / forwards
+        if forwards else None,
+        "peak_memory_bytes": peak, "gpu_available_after_kill": gpu_after,
+        "actor_call_round_trip_us": call_us, "task_round_trip_us": task_us,
+        "memory_allocated_before_after": [allocated_before, allocated_after],
+        "serve_phase": {k: serve[k] for k in (
+            "ttft_s_median", "ttft_s_max", "decode_step_ms_median",
+            "output_tokens_per_s", "peak_memory_bytes", "rmsnorm_launches",
+            "wall_s")},
+        "launches": count.counts, "card": device["kind"],
+        "nvidia_smi": power, "elapsed_s": time.perf_counter() - start,
+    }
+    emit("runtime", **result)
+    require(charged == nbytes == 2 * config.num_params,
+            f"put of the tree charged {charged} bytes; its tensors hold "
+            f"{nbytes}, 2 x {config.num_params} parameters")
+    require(same_ptrs, "the actor's weights are not the caller's tensors")
+    require(spilled == 0 and budget < nbytes,
+            f"put of {nbytes} bytes on the card under a {budget}-byte budget "
+            f"spilled {spilled} bytes")
+    require(not errors, f"requests failed: {errors}")
+    short = [len(r["tokens"]) for r in records
+             if len(r["tokens"]) != SERVE_NEW_TOKENS]
+    require(not short, f"requests sealed with {short} tokens, not "
+                       f"{SERVE_NEW_TOKENS}")
+    require(all(0 <= t < config.vocab_size for r in records
+                for t in r["tokens"]), "a token outside [0, vocab)")
+    per_forward = 2 * config.num_layers + 1
+    require(launches > 0 and launches == per_forward * forwards,
+            f"rmsnorm launched {launches} times over {forwards} forwards, "
+            f"not {per_forward} per forward")
+    require(gpu_after == 1.0, f"GPU not released after the kill: "
+                              f"{gpu_after}")
+    require(allocated_after - allocated_before < MEMORY_LEFT_BYTES,
+            f"the phase left {allocated_after - allocated_before} bytes "
+            f"allocated on the card")
+    return count.counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1129,9 +1527,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["rmsnorm"] = phase_rmsnorm(fused)
     phase_serve_check(llama)
-    launches["rmsnorm"] = phase_serve(llama, fused, device, power)
+    served = phase_serve(llama, fused, device, power)
+    launches["rmsnorm"] = served["launches"]
+    check = phase_runtime_check(llama, train_step, fa, fused, launches)
+    runtime = phase_runtime(llama, fa, fused, served, device, power)
+    del served
     for kind, row in rows.items():
         row["launches"] = launches[kind]
+        # The same kernels driven through the runtime: the flash kernels
+        # by runtime_check's train task, RMSNorm by both phases' actors.
+        row["runtime_launches"] = check[kind] + runtime[kind]
+    missing = [k for k, row in rows.items() if not row["runtime_launches"]]
+    require(not missing, f"kernels not launched through the runtime: "
+                         f"{missing}")
     order = (*KERNELS, "flash_bwd")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -1,0 +1,466 @@
+"""Cluster resources and task dispatch.
+
+The port of ``ray_tpu/_private/scheduler.py``, its in-process path:
+
+- ``ClusterState``: every node's total and available resources, and the
+  node a demand goes to (DEFAULT takes the least-utilized node it fits,
+  SPREAD round-robins);
+- ``Dispatcher``: tasks wait for their argument objects to seal, are
+  admitted when their resources fit, and each admitted task runs on a
+  thread of its own. Ready tasks queue by resource signature, so a task
+  that cannot be admitted (a second ``num_gpus=1`` task) holds back only
+  tasks of its own demand;
+- ``BlockedResourceContext``: a task blocked in ``get()`` gives its CPU
+  back until it wakes and keeps its GPU, so nested task graphs deeper
+  than the CPU count cannot deadlock.
+"""
+
+from __future__ import annotations
+
+import collections
+import heapq
+import itertools
+import logging
+import threading
+import time
+import traceback
+from dataclasses import dataclass, field
+from typing import Callable
+
+from ray_tpu_torch._private.ids import NodeID
+from ray_tpu_torch._private.task import TaskSpec
+
+logger = logging.getLogger("ray_tpu_torch")
+
+_DISPATCH_ORDER = itertools.count(1).__next__
+
+
+@dataclass
+class NodeState:
+    """One node's resource ledger."""
+
+    node_id: NodeID
+    total: dict[str, float]
+    available: dict[str, float]
+    labels: dict[str, str] = field(default_factory=dict)
+    alive: bool = True
+
+    def fits(self, demand: dict[str, float]) -> bool:
+        return all(self.available.get(k, 0.0) + 1e-9 >= v
+                   for k, v in demand.items())
+
+    def feasible(self, demand: dict[str, float]) -> bool:
+        return all(self.total.get(k, 0.0) + 1e-9 >= v
+                   for k, v in demand.items())
+
+    def acquire(self, demand: dict[str, float]) -> None:
+        for key, value in demand.items():
+            self.available[key] = self.available.get(key, 0.0) - value
+
+    def release(self, demand: dict[str, float]) -> None:
+        for key, value in demand.items():
+            self.available[key] = self.available.get(key, 0.0) + value
+
+    def utilization(self) -> float:
+        return max((1.0 - self.available.get(k, 0.0) / total
+                    for k, total in self.total.items() if total > 0),
+                   default=0.0)
+
+
+class ClusterState:
+    """Cluster-wide resource view and node selection."""
+
+    def __init__(self):
+        self._lock = threading.Condition()
+        self._nodes: dict[NodeID, NodeState] = {}
+        self._rr_counter = 0
+        self._infeasible_warned: set[str] = set()
+
+    def add_node(self, node: NodeState) -> None:
+        with self._lock:
+            self._nodes[node.node_id] = node
+            self._lock.notify_all()
+
+    def _sum(self, attr: str) -> dict[str, float]:
+        with self._lock:
+            out: dict[str, float] = {}
+            for node in self._nodes.values():
+                if node.alive:
+                    for k, v in getattr(node, attr).items():
+                        out[k] = out.get(k, 0.0) + v
+            return out
+
+    def total_resources(self) -> dict[str, float]:
+        return self._sum("total")
+
+    def available_resources(self) -> dict[str, float]:
+        return self._sum("available")
+
+    def pick_node(self, demand: dict[str, float],
+                  strategy) -> NodeState | None:
+        """A node the demand fits on now, by policy; None if none fits.
+        DEFAULT takes the least utilized; SPREAD round-robins over the
+        nodes it fits."""
+        with self._lock:
+            fitting = [n for n in self._nodes.values()
+                       if n.alive and n.fits(demand)]
+            if not fitting:
+                return None
+            if strategy is not None and strategy.kind == "SPREAD":
+                self._rr_counter += 1
+                return fitting[self._rr_counter % len(fitting)]
+            return min(fitting,
+                       key=lambda n: (n.utilization(), n.node_id.hex()))
+
+    def is_feasible(self, demand: dict[str, float]) -> bool:
+        with self._lock:
+            return any(n.feasible(demand) for n in self._nodes.values()
+                       if n.alive)
+
+    def warn_if_infeasible(self, name: str,
+                           demand: dict[str, float]) -> None:
+        """Warn once per name about a demand no node can ever meet (a
+        ``num_gpus`` demand on a machine without a card): the work waits
+        for such a node and never runs anywhere else."""
+        if self.is_feasible(demand):
+            return
+        with self._lock:
+            if name in self._infeasible_warned:
+                return
+            self._infeasible_warned.add(name)
+        logger.warning(
+            "%s demands %s which no node can ever satisfy; it will hang "
+            "until matching nodes join.", name, demand)
+
+    def try_acquire(self, node_id: NodeID, demand: dict[str, float]) -> bool:
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is None or not node.alive or not node.fits(demand):
+                return False
+            node.acquire(demand)
+            return True
+
+    def release(self, node_id: NodeID, demand: dict[str, float]) -> None:
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is not None:
+                node.release(demand)
+            self._lock.notify_all()
+
+    def wait_for_change(self, timeout: float) -> None:
+        with self._lock:
+            self._lock.wait(timeout)
+
+
+@dataclass(eq=False)
+class _QueuedTask:
+    # eq=False: tasks hash by identity, for the waiting set and the
+    # per-dependency index. Cancelled and claimed entries are purged
+    # lazily by the next dispatch pass.
+    spec: TaskSpec
+    run: Callable[[TaskSpec, NodeState], None]
+    order: int = field(default_factory=_DISPATCH_ORDER)
+    dep_ids: set = field(default_factory=set)
+    claimed: bool = False
+    cancelled: bool = False
+
+
+class Dispatcher:
+    """Dependency-gated, resource-admitting task dispatcher with one
+    thread per launched task."""
+
+    def __init__(self, cluster: ClusterState, store):
+        self._cluster = cluster
+        self._store = store
+        self._lock = threading.Condition()
+        # Tasks waiting on argument seals, indexed by dependency id.
+        self._waiting: set[_QueuedTask] = set()
+        self._dep_index: dict = {}
+        # Ready tasks in FIFO queues per admission signature.
+        self._ready_groups: dict[tuple, collections.deque] = {}
+        self._num_ready_live = 0
+        self._num_running = 0
+        # Return-object id -> queued task, for cancel; entries leave at
+        # claim (a running task is past cancellation).
+        self._by_return_id: dict = {}
+        # Deadline-armed queued tasks ordered by expiry.
+        self._deadline_heap: list = []
+        self._deadline_armed = 0
+        self._on_deadline = None
+        self._shutdown = False
+        self._dispatch_thread = threading.Thread(
+            target=self._dispatch_loop, name="ray_tpu_torch-dispatcher",
+            daemon=True)
+        self._dispatch_thread.start()
+        store.add_seal_listener(self._on_object_sealed)
+
+    @staticmethod
+    def _sig(spec: TaskSpec) -> tuple:
+        return (tuple(sorted(spec.resources.items())),
+                spec.scheduling_strategy.kind)
+
+    def set_deadline_hook(self, on_deadline) -> None:
+        """``on_deadline(spec, stage)`` seals a task whose deadline expired
+        while queued (stage "queued") or at its claim (stage "dispatch")."""
+        self._on_deadline = on_deadline
+
+    def _enqueue_ready_locked(self, task: _QueuedTask) -> None:
+        self._num_ready_live += 1
+        self._ready_groups.setdefault(
+            self._sig(task.spec), collections.deque()).append(task)
+
+    # ------------------------------------------------------------ submission
+
+    def submit(self, spec: TaskSpec,
+               run: Callable[[TaskSpec, NodeState], None],
+               deps: list) -> None:
+        with self._lock:
+            task = _QueuedTask(spec=spec, run=run)
+            # Checked under the lock: a dependency sealing concurrently
+            # either shows in contains() or finds the task indexed.
+            task.dep_ids = {d.id() for d in deps
+                            if not self._store.contains(d.id())}
+            if task.dep_ids:
+                self._waiting.add(task)
+                for dep_id in task.dep_ids:
+                    self._dep_index.setdefault(dep_id, set()).add(task)
+            else:
+                self._enqueue_ready_locked(task)
+            for rid in spec.return_ids:
+                self._by_return_id[rid] = task
+            if spec.deadline is not None:
+                heapq.heappush(self._deadline_heap,
+                               (spec.deadline, task.order, task))
+                self._deadline_armed += 1
+            self._lock.notify_all()
+
+    def _on_object_sealed(self, object_id) -> None:
+        with self._lock:
+            dependents = self._dep_index.pop(object_id, None)
+            for task in dependents or ():
+                if task.cancelled:
+                    continue
+                task.dep_ids.discard(object_id)
+                if not task.dep_ids:
+                    self._waiting.discard(task)
+                    self._enqueue_ready_locked(task)
+            if dependents:
+                self._lock.notify_all()
+
+    # -------------------------------------------------------------- dispatch
+
+    def _expire_deadlines(self) -> None:
+        """Cancel queued tasks whose deadline passed and hand them to the
+        deadline hook to seal."""
+        if not self._deadline_heap:
+            return
+        now = time.time()
+        expired: list = []
+        with self._lock:
+            if self._deadline_armed <= 0:
+                self._deadline_heap.clear()
+                return
+            while self._deadline_heap and self._deadline_heap[0][0] <= now:
+                _, _, task = heapq.heappop(self._deadline_heap)
+                if task.claimed or task.cancelled:
+                    continue
+                self._cancel_locked(task)
+                expired.append(task.spec)
+        for spec in expired:
+            if self._on_deadline is not None:
+                self._on_deadline(spec, "queued")
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._num_ready_live and not self._shutdown:
+                    self._lock.wait(timeout=0.2)
+                    if self._deadline_armed:
+                        break  # sweep expiries while idle
+                if self._shutdown:
+                    return
+            self._expire_deadlines()
+            if not self._drain_groups():
+                # Nothing admitted: wait for resources to free up.
+                self._cluster.wait_for_change(0.05)
+
+    def _drain_groups(self) -> int:
+        """One pass over the signature groups: each launches from its FIFO
+        head until its demand no longer fits."""
+        launched = 0
+        with self._lock:
+            for sig in [s for s, dq in self._ready_groups.items() if not dq]:
+                del self._ready_groups[sig]
+            groups = list(self._ready_groups.values())
+        for dq in groups:
+            while True:
+                with self._lock:
+                    while dq and (dq[0].claimed or dq[0].cancelled):
+                        dq.popleft()
+                    if not dq:
+                        break
+                    task = dq[0]
+                node = self._try_admit(task)
+                if node is None:
+                    break  # this signature is saturated for this pass
+                with self._lock:
+                    if dq and dq[0] is task:
+                        dq.popleft()
+                if self._claim(task, node):
+                    self._launch(task, node)
+                    launched += 1
+        return launched
+
+    def _try_admit(self, task: _QueuedTask) -> NodeState | None:
+        spec = task.spec
+        node = self._cluster.pick_node(spec.resources,
+                                       spec.scheduling_strategy)
+        if node is None:
+            self._cluster.warn_if_infeasible(f"Task {spec.name}",
+                                             spec.resources)
+            return None
+        if not self._cluster.try_acquire(node.node_id, spec.resources):
+            return None
+        return node
+
+    def _claim(self, task: _QueuedTask, node: NodeState) -> bool:
+        expired = False
+        with self._lock:
+            if task.cancelled:
+                # Cancelled after admission: give the resources back.
+                self._cluster.release(node.node_id, task.spec.resources)
+                return False
+            deadline = task.spec.deadline
+            if deadline is not None and time.time() > deadline:
+                # The budget died between enqueue and claim: never launch
+                # dead work.
+                self._cancel_locked(task)
+                self._cluster.release(node.node_id, task.spec.resources)
+                expired = True
+            else:
+                task.claimed = True
+                if deadline is not None:
+                    self._deadline_armed -= 1
+                self._num_ready_live -= 1
+                self._num_running += 1
+                for rid in task.spec.return_ids:
+                    self._by_return_id.pop(rid, None)
+        if expired and self._on_deadline is not None:
+            self._on_deadline(task.spec, "dispatch")
+        return not expired
+
+    def _launch(self, task: _QueuedTask, node: NodeState) -> None:
+        def runner():
+            try:
+                task.run(task.spec, node)
+            finally:
+                self._cluster.release(node.node_id, task.spec.resources)
+                with self._lock:
+                    self._num_running -= 1
+                    self._lock.notify_all()
+
+        threading.Thread(target=runner, daemon=True,
+                         name=f"ray_tpu_torch-task-{task.spec.name}").start()
+
+    # --------------------------------------------------------------- control
+
+    def wait_idle(self, timeout: float | None = None) -> bool:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._lock:
+            while (len(self._waiting) + self._num_ready_live
+                   + self._num_running) > 0:
+                remaining = None if deadline is None \
+                    else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    return False
+                self._lock.wait(timeout=0.1 if remaining is None
+                                else min(remaining, 0.1))
+            return True
+
+    def _cancel_locked(self, task: _QueuedTask) -> None:
+        # Caller holds the lock: flag the queued task (the dispatch pass
+        # purges it) and drop it from every index.
+        task.cancelled = True
+        if task.spec.deadline is not None:
+            self._deadline_armed -= 1
+        for rid in task.spec.return_ids:
+            self._by_return_id.pop(rid, None)
+        if not task.dep_ids:
+            self._num_ready_live -= 1
+            return
+        self._waiting.discard(task)
+        for dep_id in task.dep_ids:
+            dependents = self._dep_index.get(dep_id)
+            if dependents is not None:
+                dependents.discard(task)
+                if not dependents:
+                    del self._dep_index[dep_id]
+
+    def cancel_by_return_id(self, object_id) -> "TaskSpec | None":
+        """Cancel the not-yet-dispatched task producing ``object_id``;
+        None if it already started (a running thread cannot be stopped:
+        the reference's non-force cancel)."""
+        with self._lock:
+            task = self._by_return_id.get(object_id)
+            if task is None or task.claimed or task.cancelled:
+                return None
+            self._cancel_locked(task)
+            return task.spec
+
+    def shutdown(self) -> None:
+        with self._lock:
+            self._shutdown = True
+            self._lock.notify_all()
+        self._dispatch_thread.join(timeout=5.0)
+
+
+class BlockedResourceContext:
+    """Gives the running task's CPU back while it is blocked in ``get()``
+    or ``wait()``, and takes it again when it wakes. Accelerators stay
+    held: a task blocked on its GPU's results keeps its GPU."""
+
+    _tls = threading.local()
+
+    @classmethod
+    def current(cls):
+        return getattr(cls._tls, "ctx", None)
+
+    def __init__(self, cluster: ClusterState, node_id: NodeID,
+                 resources: dict[str, float]):
+        self._cluster = cluster
+        self._node_id = node_id
+        self._cpu_only = {k: v for k, v in resources.items() if k == "CPU"}
+        self._depth = 0
+        self._depth_lock = threading.Lock()
+
+    def __enter__(self):
+        self._tls.ctx = self
+        return self
+
+    def __exit__(self, *exc):
+        self._tls.ctx = None
+        return False
+
+    def block(self):
+        with self._depth_lock:
+            release = self._depth == 0 and bool(self._cpu_only)
+            self._depth += 1
+        if release:
+            self._cluster.release(self._node_id, self._cpu_only)
+
+    def unblock(self):
+        with self._depth_lock:
+            if self._depth <= 0:
+                return
+            self._depth -= 1
+            reacquire = self._depth == 0 and bool(self._cpu_only)
+        # Spinning is fine: we only woke because our object sealed, so the
+        # release that makes room is imminent.
+        while reacquire and not self._cluster.try_acquire(
+                self._node_id, self._cpu_only):
+            time.sleep(0.001)
+
+
+def format_traceback(exc: BaseException) -> str:
+    return "".join(traceback.format_exception(type(exc), exc,
+                                              exc.__traceback__))

@@ -1,8 +1,8 @@
 """The exceptions the port raises to its callers.
 
-Copies of the classes of ``ray_tpu/exceptions.py`` that the serving
-engine needs, with the same names, bases and attributes, so a caller
-handles the port's errors as it handles the reference's.
+Copies of the classes of ``ray_tpu/exceptions.py`` that the runtime and
+the serving engine raise, with the same names, bases and attributes, so a
+caller handles the port's errors as it handles the reference's.
 """
 
 from __future__ import annotations
@@ -28,6 +28,35 @@ class TaskError(RayTpuError):
         if self.remote_traceback:
             base += "\n\nRemote traceback:\n" + self.remote_traceback
         return base
+
+
+class ActorError(TaskError):
+    """An actor method (or its constructor) raised an exception."""
+
+
+class ActorDiedError(RayTpuError):
+    """The actor was dead when a method call was attempted."""
+
+    def __init__(self, actor_id=None, reason: str = "actor has died"):
+        self.actor_id = actor_id
+        self.reason = reason
+        super().__init__(reason)
+
+
+class ActorUnavailableError(RayTpuError):
+    """The actor is temporarily unreachable (e.g. restarting)."""
+
+
+class ObjectLostError(RayTpuError):
+    """An object could not be found in any store and had no lineage."""
+
+    def __init__(self, object_ref=None, reason: str = "object lost"):
+        self.object_ref = object_ref
+        super().__init__(reason)
+
+
+class ObjectFreedError(ObjectLostError):
+    """The object was explicitly freed."""
 
 
 class GetTimeoutError(RayTpuError, TimeoutError):
@@ -81,3 +110,28 @@ class CacheExhaustedError(SystemOverloadedError):
         return (CacheExhaustedError,
                 (self.args[0] if self.args else "KV cache exhausted",
                  self.retry_after_s))
+
+
+class TaskCancelledError(RayTpuError):
+    """The task was cancelled before it ran."""
+
+    def __init__(self, task_id=None):
+        self.task_id = task_id
+        super().__init__("task was cancelled")
+
+
+class PendingCallsLimitExceeded(RayTpuError):
+    """The actor's queue of pending calls is at ``max_pending_calls``."""
+
+
+class WorkerCrashedError(RayTpuError):
+    """A worker died while executing a task (a system failure, retried
+    while retries remain)."""
+
+
+class OutOfMemoryError(RayTpuError):
+    """The object store or a worker's heap exceeded its memory budget."""
+
+
+class PlacementGroupError(RayTpuError):
+    """Placement group creation or scheduling failed."""

@@ -474,7 +474,10 @@ class LLMEngine:
 
     def shutdown(self) -> None:
         """Stop the loop, seal every in-flight request with a
-        RuntimeError, and join the loop thread."""
+        RuntimeError, join the loop thread, and let go of the KV pool and
+        the weights. A sealed error that was raised keeps the frames it
+        passed, and through them this engine, in a reference cycle until
+        the collector runs: the pool must not wait for that."""
         self._shutdown.set()
         with self._lock:
             self._lock.notify_all()
@@ -482,6 +485,8 @@ class LLMEngine:
         for req in victims:
             self._seal(req, RuntimeError("LLM engine shut down"))
         self._loop_thread.join(timeout=5.0)
+        if not self._loop_thread.is_alive():
+            self._pool = self.params = None
 
     def __del__(self):
         shutdown = getattr(self, "_shutdown", None)  # None if __init__ raised

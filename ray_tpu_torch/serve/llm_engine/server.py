@@ -8,18 +8,20 @@ token-out, no tokenizer)::
       -> {"tokens": [int]}               (__call__, unary)
     generate(request)  -> yields int tokens as the engine emits them
 
-``deadline_s`` is the request's budget from now: the engine refuses dead
-work typed (``TaskTimeoutError`` with stage ``llm_queue`` or
-``llm_decode``). A full waiting queue or a request that never fits sheds
-``CacheExhaustedError``, a ``SystemOverloadedError``. Inheriting the
-deadline of the serving runtime's call, and the reference's legacy
-slot-server fallback, wait for the runtime's port.
+``deadline_s`` is the request's budget from now; without it the request
+inherits the deadline of the runtime call that carries it (an actor call
+made with ``.options(_deadline_s=...)``). The engine refuses dead work
+typed (``TaskTimeoutError`` with stage ``llm_queue`` or ``llm_decode``).
+A full waiting queue or a request that never fits sheds
+``CacheExhaustedError``, a ``SystemOverloadedError``. The reference's
+legacy slot-server fallback is not ported yet.
 """
 
 from __future__ import annotations
 
 import time
 
+from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch.serve.llm_engine.engine import LLMEngine
 
 
@@ -45,9 +47,11 @@ class LLMEngineServer:
 
     @staticmethod
     def _deadline(request: dict) -> "float | None":
+        """The request's own budget wins; else the runtime call's."""
         deadline_s = request.get("deadline_s")
-        return time.time() + float(deadline_s) if deadline_s is not None \
-            else None
+        if deadline_s is not None:
+            return time.time() + float(deadline_s)
+        return get_runtime_context().get_task_deadline()
 
     def _submit(self, request: dict, stream: bool):
         return self._engine.submit(

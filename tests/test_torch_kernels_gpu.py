@@ -355,3 +355,69 @@ def test_serving_norms_run_on_the_kernel(cuda_device):
         assert out == expected
     finally:
         engine.shutdown()
+
+
+@pytest.mark.gpu
+def test_gpu_task_runs_the_kernels_on_objects_in_the_store(cuda_device):
+    """A ``num_gpus=1`` task of the port's runtime takes CUDA tensors
+    ``put`` into its store (the same storage, not a copy) and runs
+    ``rms_norm`` and ``flash_attention`` on them through the kernels."""
+    import ray_tpu_torch
+
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    q, k, v, _ = _qkvdo(cuda_device, 2, 256, 8, 2, 64, seed=7)
+    x = _bf16(gen, 16, 4096)
+    scale = _bf16(gen, 4096) + 1
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        assert ray_tpu_torch.cluster_resources()["GPU"] == \
+            torch.cuda.device_count()
+        ref = ray_tpu_torch.put({"q": q, "k": k, "v": v, "x": x,
+                                 "scale": scale})
+
+        @ray_tpu_torch.remote(num_gpus=1)
+        def run(tensors):
+            with torch.no_grad():
+                return (tensors["q"].data_ptr(),
+                        ray_tpu_torch.get_runtime_context()
+                        .get_assigned_resources(),
+                        fused.rms_norm(tensors["x"], tensors["scale"]),
+                        fa.flash_attention(tensors["q"], tensors["k"],
+                                           tensors["v"], causal=True))
+
+        before = dict(fa.launches), dict(fused.launches)
+        ptr, assigned, normed, attn = ray_tpu_torch.get(run.remote(ref),
+                                                        timeout=300)
+        assert fa.launches["fwd"] == before[0]["fwd"] + 1
+        assert fused.launches["rmsnorm"] == before[1]["rmsnorm"] + 1
+    finally:
+        ray_tpu_torch.shutdown()
+    assert ptr == q.data_ptr() and assigned["GPU"] == 1.0
+    _assert_close(normed, fused.rms_norm_plain(x, scale, 1e-5),
+                  atol=1e-6, rms_tol=4e-3, rtol=2 ** -7)
+    _assert_close(attn, fa.flash_fwd_plain(q, k, v, True)[0],
+                  atol=2e-3, rms_tol=5e-3)
+
+
+@pytest.mark.gpu
+def test_put_of_cuda_tensors_past_the_budget_is_not_spilled(cuda_device):
+    """A ``put`` of CUDA tensors larger than the store's budget keeps the
+    tensors (the same ``data_ptr()``), charges their bytes and spills
+    nothing."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import worker
+
+    tree = {"w": torch.zeros(1 << 20, device=cuda_device),
+            "b": torch.zeros(4, device=cuda_device)}
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=1 << 20)
+    try:
+        ref = ray_tpu_torch.put(tree)
+        got = ray_tpu_torch.get(ref)
+        stats = worker.global_runtime().store.stats()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert got["w"].data_ptr() == tree["w"].data_ptr()
+    assert stats["device_bytes"] == (1 << 22) + 16
+    assert stats["spilled_bytes_total"] == 0

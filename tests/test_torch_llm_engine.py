@@ -17,9 +17,11 @@ port runs on the CPU (its norms through the plain RMSNorm version).
 """
 
 import dataclasses
+import gc
 import threading
 import time
 import types
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -450,6 +452,25 @@ def test_shutdown_seals_in_flight_and_refuses_new_work(engine):
     with pytest.raises(RuntimeError, match="shut down"):
         eng.submit([1])
     assert not eng._loop_thread.is_alive()
+
+
+def test_shutdown_lets_go_of_the_pool_and_the_weights(engine):
+    """After a raised, sealed error (whose traceback holds the engine's
+    frames in a reference cycle) and shutdown(), the KV pool is freed at
+    once, without the collector, and the engine no longer holds the
+    weights."""
+    eng = LLMEngine(engine.config, engine.params, device="cpu", **ENGINE)
+    req = eng.submit([1, 2, 3], max_new_tokens=4, deadline=time.time() - 1)
+    with pytest.raises(TaskTimeoutError):
+        eng.result(req, timeout_s=30)
+    pool = [weakref.ref(t) for t in eng._pool.values()]
+    gc.disable()
+    try:
+        eng.shutdown()
+        assert [ref() for ref in pool] == [None, None]
+        assert eng.params is None
+    finally:
+        gc.enable()
 
 
 def test_engine_stats_and_load_keys(engine):
