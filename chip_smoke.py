@@ -30,13 +30,25 @@ source, all started together) and drives the port's two paths:
   main thread, and a stalled engine seals a call's deadline typed
   (runtime_check); then a ``num_gpus=1`` actor serves the serve phase's
   16 requests as 16 concurrent actor calls, on the serve phase's weights
-  ``put`` into the store without a copy (runtime).
+  ``put`` into the store without a copy (runtime);
+- placement groups: a ``GPU`` bundle takes the card from the node, a
+  ``num_gpus=1`` task in it takes runtime_check's 2 train steps bitwise
+  as the driver thread does while a plain one waits for the group's
+  removal, and admission sheds a deadline-armed submit past its queue
+  cap (placement_check);
+- the serve control plane: serve_check's configuration as a deployment
+  of 2 half-GPU replicas, answered token for token through the handle,
+  streamed and over HTTP, with a deadline sealed typed through the
+  router (serve_deployment_check); then the serve phase's model, weights
+  and 16 requests as a one-replica deployment, streamed through the
+  handle from 16 threads (serve_deployment).
 
 Each phase prints one JSON line. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
 dim). The line before the last lists every kernel with its launches on
 its path (the train phase for the attention kernels, the serve phase for
-RMSNorm) and through the runtime (``runtime_launches``), its error
+RMSNorm), through the runtime (``runtime_launches``) and through the
+serve deployments (``deployment_launches``), its error
 against the plain version, its times, and for the attention kernels the
 achieved TFLOP/s and share of the bound, then the whole backward
 (pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
@@ -1504,6 +1516,474 @@ def phase_runtime(llama, fa, fused, served: dict, device: dict,
     require(allocated_after - allocated_before < MEMORY_LEFT_BYTES,
             f"the phase left {allocated_after - allocated_before} bytes "
             f"allocated on the card")
+    return count.counts, result
+
+
+# ---------------------------------------------------- placement and serve
+
+
+def _assigned() -> dict:
+    import ray_tpu_torch as rt
+
+    return rt.get_runtime_context().get_assigned_resources()
+
+
+def _until(predicate, wait_s: float = 60.0) -> bool:
+    deadline = time.monotonic() + wait_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def phase_placement_check(llama, train_step, fa) -> dict:
+    """A ``GPU`` placement group on the card: it takes the ``GPU`` from
+    the node, a ``num_gpus=1`` task in its bundle takes the 2 train steps
+    of runtime_check bitwise as the driver thread does, a plain
+    ``num_gpus=1`` task waits until the group is removed, and a
+    deadline-armed submit past ``admission_max_queue_depth`` is shed.
+    Returns the kernels' launches through the group."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.exceptions import SystemOverloadedError
+    from ray_tpu_torch.util.placement_group import (
+        placement_group,
+        placement_group_table,
+        remove_placement_group,
+    )
+    from ray_tpu_torch.util.scheduling_strategies import (
+        PlacementGroupSchedulingStrategy,
+    )
+
+    start = time.perf_counter()
+    allocated_before = torch.cuda.memory_allocated()
+    direct = _two_train_steps(llama, train_step)
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=8)
+    try:
+        group = placement_group([{"GPU": 1, "CPU": 1}],
+                                strategy="STRICT_PACK")
+        ready = group.wait(60)
+        gpu_held = rt.available_resources().get("GPU")
+        waiting = rt.remote(num_gpus=1)(_assigned).remote()
+        held_back = rt.wait([waiting], timeout=2)[0] == []
+        bundled = rt.remote(num_gpus=1)(_two_train_steps).options(
+            scheduling_strategy=PlacementGroupSchedulingStrategy(
+                placement_group=group, placement_group_bundle_index=0))
+        with _LaunchCount(fa) as count:
+            losses = rt.get(bundled.remote(llama, train_step), timeout=600)
+            torch.cuda.synchronize()
+        states = [g["state"] for g in placement_group_table().values()]
+        remove_placement_group(group)
+        waited = rt.get(waiting, timeout=60)
+        gpu_back = _until(lambda: rt.available_resources().get("GPU") == 1.0)
+        # Admission: a blocker holds the 8 CPUs, 3 tasks queue behind it
+        # (depth 4, over a cap of 2): a deadline-armed submit is shed,
+        # the deadline-free ones complete.
+        GLOBAL_CONFIG.update({"admission_max_queue_depth": 2})
+        release = threading.Event()
+        blocker = rt.remote(num_cpus=8)(release.wait).remote(60)
+        backlog = [rt.remote(num_cpus=8)(_assigned).remote()
+                   for _ in range(3)]
+        runtime = worker.global_runtime()
+        depth = runtime.dispatcher.pending_count()
+        try:
+            rt.remote(_assigned).options(_deadline_s=30).remote()
+            shed = None
+        except SystemOverloadedError as exc:
+            shed = type(exc).__name__
+        release.set()
+        rt.get([blocker, *backlog], timeout=60)
+        stats = runtime.stats()
+    finally:
+        GLOBAL_CONFIG.reset()
+        rt.shutdown()
+    torch.cuda.empty_cache()
+    allocated_after = torch.cuda.memory_allocated()
+    result = {
+        "group": "[{GPU: 1, CPU: 1}], STRICT_PACK", "ready": ready,
+        "states_while_used": states, "gpu_available_while_reserved": gpu_held,
+        "plain_task_held_back": held_back, "plain_task_assigned": waited,
+        "gpu_back_after_remove": gpu_back,
+        "task_losses": losses, "direct_losses": direct,
+        "losses_bitwise_equal": losses == direct,
+        "flash_launches_through_the_group": count.counts,
+        "admission_depth": depth, "admission_shed": shed,
+        "runtime_stats": stats,
+        "memory_allocated_before_after": [allocated_before, allocated_after],
+        "elapsed_s": time.perf_counter() - start,
+    }
+    emit("placement_check", **result)
+    require(ready and states == ["CREATED"], f"group not created: {states}")
+    require(gpu_held == 0.0, f"GPU available while reserved: {gpu_held}")
+    require(held_back, "a plain num_gpus=1 task ran while the group held "
+                       "the GPU")
+    require(losses == direct, f"bundled task losses {losses}, driver "
+                              f"thread's {direct}: not bitwise equal")
+    # 2 steps of 2 layers; remat "dots" runs each forward twice.
+    layers_steps = 2 * 2
+    expected = {"fwd": 2 * layers_steps, "bwd_dq": layers_steps,
+                "bwd_dkv": layers_steps, "bwd_delta": layers_steps,
+                "flash_bwd": layers_steps}
+    require(count.counts == expected, f"flash launches through the group "
+                                      f"{count.counts}, not {expected}")
+    require(waited == {"CPU": 1.0, "GPU": 1.0} and gpu_back,
+            f"after removal: task {waited}, GPU back {gpu_back}")
+    require(depth > 2 and shed == "SystemOverloadedError"
+            and stats["admission_shed"] == 1,
+            f"admission: depth {depth}, shed {shed}, stats {stats}")
+    require(allocated_after - allocated_before < MEMORY_LEFT_BYTES,
+            f"the phase left {allocated_after - allocated_before} bytes "
+            f"allocated on the card")
+    return count.counts
+
+
+def _served_engine():
+    """``LLMEngineServer`` as the deployments serve it, with what the
+    phases read from inside a replica: the leaves' ``data_ptr()``, the
+    requests each replica took, the step times, and a hook that wedges
+    the engine loop. ``live`` holds the replicas' instances weakly."""
+    import weakref
+
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.serve.llm_engine import LLMEngineServer
+
+    class ServedEngine(LLMEngineServer):
+        live: "weakref.WeakSet" = weakref.WeakSet()
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self._count_lock = threading.Lock()
+            self.requests = 0
+            self.decode_s, self.prefill_s = [], []
+            ServedEngine.live.add(self)
+
+        def _counted(self):
+            with self._count_lock:
+                self.requests += 1
+
+        def __call__(self, request: dict) -> dict:
+            self._counted()
+            return super().__call__(request)
+
+        def generate(self, request: dict):
+            self._counted()
+            yield from super().generate(request)
+
+        def data_ptrs(self) -> list[int]:
+            return [t.data_ptr() for t in tree_leaves(self._engine.params)]
+
+        def time_steps(self) -> None:
+            engine = self._engine
+            engine._decode_step = _timed(engine._decode_step, self.decode_s)
+            engine._prefill_step = _timed(engine._prefill_step,
+                                          self.prefill_s)
+
+        def step_times(self) -> dict:
+            return {"decode_s": list(self.decode_s),
+                    "prefill_s": list(self.prefill_s)}
+
+        def stall(self, gate: threading.Event) -> None:
+            self._engine._prefill_tick = lambda: gate.wait(60) and False
+
+        def unstall(self) -> None:
+            del self._engine._prefill_tick
+
+    return ServedEngine
+
+
+def _http_generate(port: int, request: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/", data=json.dumps(request).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def _queue_round_trips_us(n: int = 200) -> dict:
+    """Host us of one chunk through a stream's ``Queue`` actor: a ``put``
+    and a ``get``, each an actor call, one at a time, after 20
+    unmeasured."""
+    from ray_tpu_torch.util.queue import Queue
+
+    queue = Queue(maxsize=256)
+    times = []
+    try:
+        for i in range(20 + n):
+            start = time.perf_counter()
+            queue.put(("chunk", i))
+            queue.get(timeout=60)
+            if i >= 20:
+                times.append(1e6 * (time.perf_counter() - start))
+    finally:
+        queue.shutdown()
+    times.sort()
+    return {"median": statistics.median(times), "p90": times[int(0.9 * n)],
+            "chunks": n}
+
+
+def phase_serve_deployment_check(llama, fa, fused) -> dict:
+    """serve_check's configuration as a deployment of 2 replicas
+    (``num_gpus=0.5`` each) behind the handle, the router and the HTTP
+    proxy: every output token-identical to full-context decoding, both
+    replicas used, a dead deadline sealed at ``llm_queue``, the ``GPU``
+    and the card's allocation back after ``serve.shutdown()``. Returns
+    the kernels' launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    start = time.perf_counter()
+    allocated_before = torch.cuda.memory_allocated()
+    config = serve_check_config(llama)
+    params = llama.init_params(
+        config, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    prompts = _prompts(SERVE_CHECK_PROMPT_LENGTHS, config.vocab_size, 1)
+    new_tokens = 16
+    expected = [_greedy_full_forward(llama, params, p, config, new_tokens)
+                for p in prompts]
+    requests = [{"tokens": p, "max_new_tokens": new_tokens} for p in prompts]
+    served_engine = _served_engine()
+    rt.init(num_cpus=8)
+    try:
+        serve.start(http_options={"host": "127.0.0.1", "port": 0})
+        port = serve.api._proxy.port
+        app = serve.deployment(served_engine).options(
+            num_replicas=2, ray_actor_options={"num_gpus": 0.5}).bind(
+            config, params, max_batch_size=4, max_seq_len=256,
+            block_size=16, prefill_chunk=32, device=DEVICE)
+        handle = serve.run(app, name="llm_check", _wait_s=600)
+        gpu_held = rt.available_resources().get("GPU")
+        with _LaunchCount(fa, fused) as count:
+            responses = [handle.remote(r) for r in requests]
+            unary = [r.result(timeout_s=600)["tokens"] for r in responses]
+            streams = [handle.options(stream=True).generate.remote(r)
+                       for r in requests[:2]]
+            streamed = [list(s) for s in streams]
+            http = _http_generate(port, requests[2])["tokens"]
+            torch.cuda.synchronize()
+        per_replica = sorted(s.requests for s in served_engine.live)
+        gate = threading.Event()
+        for server in list(served_engine.live):
+            server.stall(gate)
+        try:
+            handle.options(deadline_s=1.0).remote(requests[0]).result(
+                timeout_s=60)
+            deadline_error = None
+        except Exception as exc:  # noqa: BLE001 — reported and required
+            deadline_error = exc
+        finally:
+            gate.set()
+        for server in list(served_engine.live):
+            server.unstall()
+        queue_us = _queue_round_trips_us()
+        serve.shutdown()
+        gpu_after = rt.available_resources().get("GPU")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    del params, app, handle
+    torch.cuda.empty_cache()
+    allocated_after = torch.cuda.memory_allocated()
+    stage = getattr(deadline_error, "stage", None)
+    identical = {"handle": unary == expected,
+                 "stream": streamed == expected[:2],
+                 "http": http == expected[2]}
+    result = {
+        "config": "llama3_8b widths, 2 layers, float32 (serve_check's)",
+        "replicas": 2, "num_gpus_per_replica": 0.5,
+        "gpu_available_while_served": gpu_held,
+        "requests": {"handle": len(unary), "stream": len(streamed),
+                     "http": 1},
+        "token_identical": identical,
+        "requests_per_replica": per_replica,
+        "deadline_error": type(deadline_error).__name__,
+        "deadline_stage": stage,
+        "queue_chunk_round_trip_us": queue_us,
+        "launches": count.counts, "gpu_available_after_shutdown": gpu_after,
+        "memory_allocated_before_after": [allocated_before, allocated_after],
+        "elapsed_s": time.perf_counter() - start,
+    }
+    emit("serve_deployment_check", **result)
+    require(all(identical.values()),
+            f"deployment output differs from full-context decoding: "
+            f"{identical}")
+    require(gpu_held == 0.0, f"GPU available while 2 x 0.5 replicas hold "
+                             f"it: {gpu_held}")
+    require(len(per_replica) == 2 and min(per_replica) >= 1,
+            f"requests per replica {per_replica}: not both used")
+    require(type(deadline_error).__name__ == "TaskTimeoutError"
+            and stage == "llm_queue",
+            f"the stalled request sealed {deadline_error!r}, not a "
+            f"TaskTimeoutError at stage llm_queue")
+    require(count.counts["rmsnorm"] > 0, "no RMSNorm launch in the "
+                                         "deployment")
+    require(gpu_after == 1.0, f"GPU after serve.shutdown(): {gpu_after}")
+    require(allocated_after - allocated_before < MEMORY_LEFT_BYTES,
+            f"the phase left {allocated_after - allocated_before} bytes "
+            f"allocated on the card")
+    return count.counts
+
+
+def phase_serve_deployment(llama, fa, fused, served: dict, runtime: dict,
+                           device: dict, power: str) -> dict:
+    """The serve phase's configuration and traffic as a deployment: one
+    ``num_gpus=1`` replica (``max_ongoing_requests=16``) holding the serve
+    phase's bf16 weights, 16 concurrent streamed requests through the
+    handle from 16 threads; then the same 16 unary, to separate what the
+    streams' chunks cost. Returns the kernels' launches of the streamed
+    requests."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.tree import tree_leaves
+
+    start = time.perf_counter()
+    allocated_before = torch.cuda.memory_allocated()
+    config = serve_config(llama)
+    params = served["params"]
+    lengths, prompts, temperatures = serve_requests(config)
+    served_engine = _served_engine()
+    rt.init(num_cpus=8)
+    try:
+        app = serve.deployment(served_engine).options(
+            num_replicas=1, max_ongoing_requests=16,
+            ray_actor_options={"num_gpus": 1}).bind(
+            config, params, **SERVE_ENGINE, device=DEVICE)
+        handle = serve.run(app, name="llm", _wait_s=600)
+        same_ptrs = handle.data_ptrs.remote().result(timeout_s=600) == [
+            t.data_ptr() for t in tree_leaves(params)]
+        warm = handle.remote({"tokens": prompts[0][:32],
+                              "max_new_tokens": 2}).result(timeout_s=600)
+        require(len(warm["tokens"]) == 2, "warm-up request failed")
+        handle.time_steps.remote().result(timeout_s=60)
+        stats_before = handle.engine_stats.remote().result(timeout_s=60)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        records = [None] * len(prompts)
+        barrier = threading.Barrier(len(prompts))
+
+        def stream(i):
+            barrier.wait()
+            request = {"tokens": prompts[i],
+                       "max_new_tokens": SERVE_NEW_TOKENS,
+                       "temperature": temperatures[i]}
+            submitted = time.perf_counter()
+            tokens, arrivals, error = [], [], None
+            try:
+                for token in handle.options(stream=True).generate.remote(
+                        request):
+                    arrivals.append(time.perf_counter())
+                    tokens.append(token)
+            except Exception as exc:  # noqa: BLE001 — reported and required
+                error = repr(exc)
+            records[i] = {"tokens": tokens, "arrivals": arrivals,
+                          "submitted": submitted, "error": error}
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(len(prompts))]
+        with _LaunchCount(fa, fused) as count:
+            wall_start = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - wall_start
+            torch.cuda.synchronize()
+        require(not any(t.is_alive() for t in threads), "a request hung")
+        peak = torch.cuda.max_memory_allocated()
+        stats_after = handle.engine_stats.remote().result(timeout_s=60)
+        steps = handle.step_times.remote().result(timeout_s=60)
+        # The same 16 requests unary (no stream, no Queue actor): what
+        # the streams' chunks cost beside the router and the replica.
+        unary_start = time.perf_counter()
+        responses = [handle.remote({"tokens": p,
+                                    "max_new_tokens": SERVE_NEW_TOKENS,
+                                    "temperature": t})
+                     for p, t in zip(prompts, temperatures)]
+        unary = [r.result(timeout_s=600)["tokens"] for r in responses]
+        unary_wall = time.perf_counter() - unary_start
+        unary_decode_s = handle.step_times.remote().result(
+            timeout_s=60)["decode_s"][len(steps["decode_s"]):]
+        serve.shutdown()
+        gpu_after = rt.available_resources().get("GPU")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    del app, handle
+    torch.cuda.empty_cache()
+    allocated_after = torch.cuda.memory_allocated()
+    stats = {k: stats_after[k] - stats_before[k] for k in stats_after
+             if isinstance(stats_after[k], (int, float))
+             and not isinstance(stats_after[k], bool)}
+    forwards = stats["decode_steps"] + stats["prefill_chunks"]
+    ttft = [r["arrivals"][0] - r["submitted"] if r["arrivals"] else None
+            for r in records]
+    measured = [t for t in ttft if t is not None] or [math.nan]
+    gaps = [b - a for r in records
+            for a, b in zip(r["arrivals"], r["arrivals"][1:])]
+    launches = count.counts["rmsnorm"]
+    serve_phase = served["result"]
+    keys = ("ttft_s_median", "ttft_s_max", "decode_step_ms_median",
+            "output_tokens_per_s", "peak_memory_bytes", "rmsnorm_launches",
+            "wall_s")
+    errors = [r["error"] for r in records if r["error"]]
+    result = {
+        "config": "LlamaConfig.llama3_8b() (ray_tpu/models/llama.py:79-83)",
+        "dtype": "bfloat16", "replicas": 1, "max_ongoing_requests": 16,
+        "engine": SERVE_ENGINE, "requests": len(prompts),
+        "prompt_lengths": lengths, "max_new_tokens": SERVE_NEW_TOKENS,
+        "temperatures": temperatures, "weights_zero_copy": same_ptrs,
+        "ttft_s": ttft, "ttft_s_median": statistics.median(measured),
+        "ttft_s_max": max(measured),
+        "decode_step_ms_median": 1e3 * statistics.median(steps["decode_s"])
+        if steps["decode_s"] else None,
+        "decode_steps_timed": len(steps["decode_s"]),
+        "prefill_chunk_ms_median": 1e3 * statistics.median(
+            steps["prefill_s"]) if steps["prefill_s"] else None,
+        "token_gap_ms_median": 1e3 * statistics.median(gaps) if gaps
+        else None,
+        "unary_pass": {
+            "decode_step_ms_median": 1e3 * statistics.median(unary_decode_s)
+            if unary_decode_s else None,
+            "wall_s": unary_wall,
+            "output_tokens_per_s": sum(len(t) for t in unary) / unary_wall},
+        "wall_s": wall,
+        "output_tokens_per_s": sum(len(r["tokens"]) for r in records) / wall,
+        "engine_stats": stats, "rmsnorm_launches": launches,
+        "rmsnorm_launches_per_forward": launches / forwards
+        if forwards else None,
+        "peak_memory_bytes": peak,
+        "peak_over_serve_phase": peak / serve_phase["peak_memory_bytes"] - 1,
+        "gpu_available_after_shutdown": gpu_after,
+        "memory_allocated_before_after": [allocated_before, allocated_after],
+        "serve_phase": {k: serve_phase[k] for k in keys},
+        "runtime_phase": {k: runtime[k] for k in keys},
+        "launches": count.counts, "card": device["kind"],
+        "nvidia_smi": power, "elapsed_s": time.perf_counter() - start,
+    }
+    emit("serve_deployment", **result)
+    require(same_ptrs, "the replica's weights are not the caller's tensors")
+    require(not errors, f"requests failed: {errors}")
+    outputs = [r["tokens"] for r in records] + unary
+    short = [len(t) for t in outputs if len(t) != SERVE_NEW_TOKENS]
+    require(not short, f"requests sealed with {short} tokens, not "
+                       f"{SERVE_NEW_TOKENS}")
+    require(all(0 <= t < config.vocab_size for tokens in outputs
+                for t in tokens), "a token outside [0, vocab)")
+    per_forward = 2 * config.num_layers + 1
+    require(launches > 0 and launches == per_forward * forwards,
+            f"rmsnorm launched {launches} times over {forwards} forwards, "
+            f"not {per_forward} per forward")
+    require(abs(result["peak_over_serve_phase"]) <= 0.01,
+            f"peak memory {peak}, the serve phase's "
+            f"{serve_phase['peak_memory_bytes']}: not within 1%")
+    require(gpu_after == 1.0, f"GPU after serve.shutdown(): {gpu_after}")
+    require(allocated_after - allocated_before < MEMORY_LEFT_BYTES,
+            f"the phase left {allocated_after - allocated_before} bytes "
+            f"allocated on the card")
     return count.counts
 
 
@@ -1530,16 +2010,30 @@ def main() -> int:
     served = phase_serve(llama, fused, device, power)
     launches["rmsnorm"] = served["launches"]
     check = phase_runtime_check(llama, train_step, fa, fused, launches)
-    runtime = phase_runtime(llama, fa, fused, served, device, power)
+    runtime, runtime_result = phase_runtime(llama, fa, fused, served, device,
+                                            power)
+    torch.cuda.empty_cache()
+    phase_placement_check(llama, train_step, fa)
+    torch.cuda.empty_cache()
+    deployment_check = phase_serve_deployment_check(llama, fa, fused)
+    torch.cuda.empty_cache()
+    deployment = phase_serve_deployment(llama, fa, fused, served,
+                                        runtime_result, device, power)
     del served
     for kind, row in rows.items():
         row["launches"] = launches[kind]
         # The same kernels driven through the runtime: the flash kernels
         # by runtime_check's train task, RMSNorm by both phases' actors.
         row["runtime_launches"] = check[kind] + runtime[kind]
+        # And through serve deployments (the serving path runs no flash
+        # kernel).
+        row["deployment_launches"] = deployment_check[kind] \
+            + deployment[kind]
     missing = [k for k, row in rows.items() if not row["runtime_launches"]]
     require(not missing, f"kernels not launched through the runtime: "
                          f"{missing}")
+    require(rows["rmsnorm"]["deployment_launches"] > 0,
+            "RMSNorm not launched through the serve deployments")
     order = (*KERNELS, "flash_bwd")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -4,7 +4,10 @@ The port of ``ray_tpu/_private/actor_runtime.py``. Each actor runs on a
 thread of the process that runs the runtime, in one of three modes:
 
 - sequential (``max_concurrency=1``): calls run one at a time, in order;
-- a thread pool of ``max_concurrency`` threads;
+- a thread pool of ``max_concurrency`` threads, and one pool of its own
+  for each concurrency group (``concurrency_groups={"control": 2}``):
+  a method marked ``@method(concurrency_group="control")`` runs there,
+  so calls of other methods that fill the main pool cannot hold it back;
 - an asyncio loop, for a class with ``async def`` methods, running up to
   ``max_concurrency`` calls at once.
 
@@ -73,6 +76,7 @@ class LocalActor:
         max_concurrency: int = 1,
         max_restarts: int = 0,
         max_pending_calls: int = -1,
+        concurrency_groups: dict[str, int] | None = None,
         creation_return_id: ObjectID | None = None,
         on_death: Callable[[ActorID, str], None] | None = None,
         on_release: Callable[[ActorID], None] | None = None,
@@ -86,6 +90,8 @@ class LocalActor:
         self._max_concurrency = max(1, max_concurrency)
         self._max_restarts = max_restarts
         self._max_pending_calls = max_pending_calls
+        self._concurrency_groups = dict(concurrency_groups or {})
+        self._method_groups = method_groups(cls)
         self._on_death = on_death
         self._on_release = on_release
         self._set_context = set_context or (lambda: None)
@@ -159,7 +165,7 @@ class LocalActor:
                 self._store.put(self._creation_return_id, None)
             if self._is_async:
                 self._run_async_loop(calls)
-            elif self._max_concurrency > 1:
+            elif self._max_concurrency > 1 or self._concurrency_groups:
                 self._run_threadpool(calls)
             else:
                 self._run_sequential(calls)
@@ -184,11 +190,18 @@ class LocalActor:
             call = None
 
     def _run_threadpool(self, calls: queue.Queue) -> None:
-        with ThreadPoolExecutor(max_workers=self._max_concurrency,
-                                initializer=self._set_context) as pool:
+        pools = {group: ThreadPoolExecutor(max_workers=size,
+                                           initializer=self._set_context)
+                 for group, size in [(None, self._max_concurrency),
+                                     *self._concurrency_groups.items()]}
+        try:
             while (call := calls.get()) is not None:
-                pool.submit(self._execute, call)
+                pools[self._method_groups.get(call.method_name)].submit(
+                    self._execute, call)
                 call = None
+        finally:
+            for pool in pools.values():
+                pool.shutdown(wait=True)
 
     def _run_async_loop(self, calls: queue.Queue) -> None:
         loop = asyncio.new_event_loop()
@@ -339,6 +352,17 @@ class LocalActor:
     def is_dead(self) -> bool:
         with self._lock:
             return self._dead
+
+
+def method_groups(cls: type) -> dict[str, str]:
+    """Method name -> the concurrency group it is marked with."""
+    groups = {}
+    for name in dir(cls):
+        group = getattr(getattr(cls, name, None),
+                        "__ray_tpu_concurrency_group__", None)
+        if group is not None:
+            groups[name] = group
+    return groups
 
 
 def exit_actor():

@@ -25,6 +25,15 @@ _DEFAULTS: dict[str, Any] = {
     # End-to-end deadline every task and actor call inherits when it
     # sets none; 0 disables.
     "task_default_deadline_s": 0.0,
+    # Admission control: with more tasks than this queued or running in
+    # the dispatcher, a deadline-armed submit raises the retryable
+    # SystemOverloadedError instead of queueing; deadline-free submits
+    # queue. 0 = unlimited.
+    "admission_max_queue_depth": 0,
+    # Serve routers push their latency window (p50/p99) to the
+    # controller at most this often: the latency autoscaler's feed.
+    # 0 disables the push.
+    "serve_latency_report_s": 1.0,
 }
 
 

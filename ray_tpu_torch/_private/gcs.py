@@ -2,8 +2,8 @@
 
 The port of ``ray_tpu/_private/gcs.py``, its in-process tables: a
 namespaced key-value store, the job, node and actor tables with named
-actors per namespace, and the task events ``timeline()`` reads. Each is
-thread-safe.
+actors per namespace, the placement groups, and the task events
+``timeline()`` reads. Each is thread-safe.
 """
 
 from __future__ import annotations
@@ -105,6 +105,8 @@ class GlobalControlService:
         self._named_actors: dict[tuple[str, str], ActorID] = {}
         self._nodes: dict[NodeID, NodeRecord] = {}
         self._jobs: dict[JobID, JobRecord] = {}
+        # PlacementGroupRecords, kept by the placement-group manager.
+        self._placement_groups: dict = {}
         self._task_events: dict[TaskID, TaskEvent] = {}
         # Events refused at the cap.
         self.task_events_dropped = 0
@@ -156,6 +158,20 @@ class GlobalControlService:
     def list_nodes(self) -> list[NodeRecord]:
         with self._lock:
             return list(self._nodes.values())
+
+    # ------------------------------------------------------ placement groups
+
+    def register_placement_group(self, record) -> None:
+        with self._lock:
+            self._placement_groups[record.pg_id] = record
+
+    def get_placement_group(self, pg_id):
+        with self._lock:
+            return self._placement_groups.get(pg_id)
+
+    def list_placement_groups(self) -> list:
+        with self._lock:
+            return list(self._placement_groups.values())
 
     # ------------------------------------------------------------------ jobs
 

@@ -19,10 +19,12 @@ count, and an object whose count reaches zero is evicted.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
 import pickle
 import threading
 import time
+import types
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -33,42 +35,87 @@ from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch.exceptions import GetTimeoutError, ObjectFreedError
 
 
-def _sizeof(value: Any) -> int:
-    """Best-effort deep size estimate without serializing.
+# Leaves whatever they hold: their attributes are code or raw data.
+_OPAQUE = (type, types.ModuleType, types.FunctionType, types.MethodType,
+           types.BuiltinFunctionType, torch.Tensor, np.ndarray,
+           str, bytes, bytearray, memoryview)
 
-    A tensor counts ``numel() * element_size()`` on any device, an array
-    its ``nbytes``; a list, tuple, set or dict counts what it holds (its
-    values, not its keys), so a parameter tree is charged the bytes of its
-    leaves. The reference counts a ``torch.Tensor`` as 64 bytes and adds
-    64 bytes and the keys for every container."""
-    t = type(value)
-    if t is int or t is float or t is bool or value is None:
-        return 64
-    if t is bytes or t is str or t is bytearray:
-        return len(value)
+
+def _children(value: Any):
+    """What a container or a plain object holds: a dict's values, the
+    items of a list, tuple or set, a dataclass's fields, an instance's
+    ``__dict__`` values; None for a leaf."""
+    if isinstance(value, dict):
+        return value.values()
+    if isinstance(value, (list, tuple, set, frozenset)):
+        return value
+    if isinstance(value, _OPAQUE):
+        return None
+    if dataclasses.is_dataclass(value):
+        return [getattr(value, f.name) for f in dataclasses.fields(value)]
+    attrs = getattr(value, "__dict__", None)
+    return attrs.values() if isinstance(attrs, dict) else None
+
+
+def _leaves(value: Any):
+    """Every leaf ``value`` holds, each container visited once (a
+    self-referencing object ends), without recursion."""
+    seen: set[int] = set()
+    stack = [value]
+    while stack:
+        item = stack.pop()
+        children = _children(item)
+        if children is None:
+            yield item
+        elif id(item) not in seen:
+            seen.add(id(item))
+            stack.extend(children)
+
+
+def _leaf_size(value: Any) -> int:
     if isinstance(value, torch.Tensor):
         return value.numel() * value.element_size()
     if isinstance(value, np.ndarray):
         return int(value.nbytes)
     if isinstance(value, (bytes, bytearray, memoryview, str)):
         return len(value)
-    if isinstance(value, (list, tuple, set)) and len(value) < 1024:
-        return sum(_sizeof(v) for v in value)
-    if isinstance(value, dict) and len(value) < 1024:
-        return sum(_sizeof(v) for v in value.values())
     return 64
+
+
+def _sizeof(value: Any) -> int:
+    """Best-effort deep size estimate without serializing.
+
+    A tensor counts ``numel() * element_size()`` on any device, an array
+    its ``nbytes``; a container or an object counts what it holds (a
+    dict's values, not its keys; a dataclass's fields; an instance's
+    ``__dict__``), however many entries, so a parameter tree or a train
+    state is charged the bytes of its leaves. The reference counts a
+    ``torch.Tensor`` as 64 bytes, adds 64 bytes and the keys for every
+    container, and sees only lists, tuples, sets and dicts of under
+    1,024 entries."""
+    return sum(_leaf_size(leaf) for leaf in _leaves(value))
 
 
 def _on_device(value: Any) -> bool:
     """Whether ``value`` holds a tensor outside host memory, found where
     ``_sizeof`` looks."""
-    if isinstance(value, torch.Tensor):
-        return value.device.type != "cpu"
-    if isinstance(value, (list, tuple, set)) and len(value) < 1024:
-        return any(_on_device(v) for v in value)
-    if isinstance(value, dict) and len(value) < 1024:
-        return any(_on_device(v) for v in value.values())
-    return False
+    return any(isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu"
+               for leaf in _leaves(value))
+
+
+class _DeviceTensorFound(Exception):
+    """A spill met a tensor outside host memory."""
+
+
+class _HostPickler(pickle.Pickler):
+    """Pickles host objects only: a tensor on a card (one ``_sizeof``
+    could not see, behind ``__slots__`` or a custom ``__reduce__``)
+    raises instead of being copied to the host."""
+
+    def persistent_id(self, obj):
+        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+            raise _DeviceTensorFound
+        return None
 
 
 @dataclass
@@ -279,10 +326,7 @@ class ObjectStore:
         # Caller holds the lock.
         path, entry.spilled_path = entry.spilled_path, None
         if path is not None:
-            try:
-                os.unlink(path)
-            except OSError:
-                pass  # already gone
+            _unlink(path)
 
     def _maybe_spill(self) -> None:
         """Past the budget, pickle the oldest sealed unpinned objects in
@@ -309,13 +353,20 @@ class ObjectStore:
         if not to_spill:
             return
         os.makedirs(self._spill_dir, exist_ok=True)
+        kept = False
         for entry in to_spill:
             path = os.path.join(self._spill_dir, entry.object_id.hex())
             try:
                 with open(path, "wb") as f:
-                    pickle.dump(entry.value, f,
-                                protocol=pickle.HIGHEST_PROTOCOL)
+                    _HostPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(
+                        entry.value)
+            except _DeviceTensorFound:
+                _unlink(path)
+                self._keep_on_device(entry)
+                kept = True
+                continue
             except Exception:  # noqa: BLE001 — unpicklable stays in memory
+                _unlink(path)
                 continue
             with self._lock:
                 if entry.pin_count == 0 and entry.spilled_path is None \
@@ -326,10 +377,21 @@ class ObjectStore:
                     self._memory_used -= entry.size_bytes
                     self._spilled_bytes_total += entry.size_bytes
                 else:
-                    try:
-                        os.unlink(path)
-                    except OSError:
-                        pass
+                    _unlink(path)
+        if kept:
+            # What it was to free is still charged, now outside the
+            # budget: choose again among the host objects.
+            self._maybe_spill()
+
+    def _keep_on_device(self, entry: ObjectEntry) -> None:
+        """The spill found a tensor on a card in ``entry``: it stays in
+        memory, charged as device bytes, outside the budget."""
+        with self._lock:
+            if not entry.on_device and entry.spilled_path is None \
+                    and entry.sealed and not entry.freed \
+                    and entry.object_id in self._entries:
+                entry.on_device = True
+                self._device_used += entry.size_bytes
 
     def close(self) -> None:
         """Drop every object and delete the spill files."""
@@ -356,6 +418,13 @@ class ObjectStore:
                 "spilled_bytes_total": self._spilled_bytes_total,
                 "restored_bytes_total": self._restored_bytes_total,
             }
+
+
+def _unlink(path: str) -> None:
+    try:
+        os.unlink(path)
+    except OSError:
+        pass  # already gone
 
 
 class ReferenceCounter:

@@ -4,9 +4,10 @@ The port of ``ray_tpu/_private/scheduler.py``, its in-process path:
 
 - ``ClusterState``: every node's total and available resources, and the
   node a demand goes to (DEFAULT takes the least-utilized node it fits,
-  SPREAD round-robins);
+  SPREAD round-robins, NODE_AFFINITY takes its node);
 - ``Dispatcher``: tasks wait for their argument objects to seal, are
-  admitted when their resources fit, and each admitted task runs on a
+  admitted when their resources fit (a placement-group task: when they
+  fit in its bundle's reservation), and each admitted task runs on a
   thread of its own. Ready tasks queue by resource signature, so a task
   that cannot be admitted (a second ``num_gpus=1`` task) holds back only
   tasks of its own demand;
@@ -29,6 +30,7 @@ from typing import Callable
 
 from ray_tpu_torch._private.ids import NodeID
 from ray_tpu_torch._private.task import TaskSpec
+from ray_tpu_torch.exceptions import PlacementGroupError
 
 logger = logging.getLogger("ray_tpu_torch")
 
@@ -96,14 +98,27 @@ class ClusterState:
     def available_resources(self) -> dict[str, float]:
         return self._sum("available")
 
-    def pick_node(self, demand: dict[str, float],
-                  strategy) -> NodeState | None:
+    def get_node(self, node_id: NodeID) -> NodeState | None:
+        with self._lock:
+            return self._nodes.get(node_id)
+
+    def pick_node(self, demand: dict[str, float], strategy,
+                  exclude: set[NodeID] | None = None) -> NodeState | None:
         """A node the demand fits on now, by policy; None if none fits.
         DEFAULT takes the least utilized; SPREAD round-robins over the
-        nodes it fits."""
+        nodes it fits; NODE_AFFINITY takes its node (a soft one falls
+        back to DEFAULT)."""
         with self._lock:
-            fitting = [n for n in self._nodes.values()
-                       if n.alive and n.fits(demand)]
+            candidates = [n for n in self._nodes.values() if n.alive
+                          and (exclude is None or n.node_id not in exclude)]
+            if strategy is not None and strategy.kind == "NODE_AFFINITY":
+                target = [n for n in candidates
+                          if n.node_id.hex() == strategy.node_id]
+                if target and target[0].fits(demand):
+                    return target[0]
+                if not strategy.soft:
+                    return None
+            fitting = [n for n in candidates if n.fits(demand)]
             if not fitting:
                 return None
             if strategy is not None and strategy.kind == "SPREAD":
@@ -147,6 +162,12 @@ class ClusterState:
                 node.release(demand)
             self._lock.notify_all()
 
+    def notify_change(self) -> None:
+        """Wake the waiters of ``wait_for_change`` (a bundle's share came
+        back)."""
+        with self._lock:
+            self._lock.notify_all()
+
     def wait_for_change(self, timeout: float) -> None:
         with self._lock:
             self._lock.wait(timeout)
@@ -169,9 +190,10 @@ class Dispatcher:
     """Dependency-gated, resource-admitting task dispatcher with one
     thread per launched task."""
 
-    def __init__(self, cluster: ClusterState, store):
+    def __init__(self, cluster: ClusterState, store, placement_groups):
         self._cluster = cluster
         self._store = store
+        self._placement_groups = placement_groups
         self._lock = threading.Condition()
         # Tasks waiting on argument seals, indexed by dependency id.
         self._waiting: set[_QueuedTask] = set()
@@ -187,6 +209,7 @@ class Dispatcher:
         self._deadline_heap: list = []
         self._deadline_armed = 0
         self._on_deadline = None
+        self._on_unplaceable = None
         self._shutdown = False
         self._dispatch_thread = threading.Thread(
             target=self._dispatch_loop, name="ray_tpu_torch-dispatcher",
@@ -196,13 +219,23 @@ class Dispatcher:
 
     @staticmethod
     def _sig(spec: TaskSpec) -> tuple:
-        return (tuple(sorted(spec.resources.items())),
-                spec.scheduling_strategy.kind)
+        strategy = spec.scheduling_strategy
+        pg = strategy.placement_group
+        return (tuple(sorted(spec.resources.items())), strategy.kind,
+                strategy.node_id, strategy.soft,
+                pg.id if pg is not None else None,
+                strategy.placement_group_bundle_index)
 
     def set_deadline_hook(self, on_deadline) -> None:
         """``on_deadline(spec, stage)`` seals a task whose deadline expired
         while queued (stage "queued") or at its claim (stage "dispatch")."""
         self._on_deadline = on_deadline
+
+    def set_unplaceable_hook(self, on_unplaceable) -> None:
+        """``on_unplaceable(spec, error)`` seals a placement-group task
+        that can never be admitted (its group removed, its bundle too
+        small)."""
+        self._on_unplaceable = on_unplaceable
 
     def _enqueue_ready_locked(self, task: _QueuedTask) -> None:
         self._num_ready_live += 1
@@ -313,6 +346,8 @@ class Dispatcher:
 
     def _try_admit(self, task: _QueuedTask) -> NodeState | None:
         spec = task.spec
+        if spec.scheduling_strategy.kind == "PLACEMENT_GROUP":
+            return self._admit_to_bundle(task)
         node = self._cluster.pick_node(spec.resources,
                                        spec.scheduling_strategy)
         if node is None:
@@ -323,19 +358,54 @@ class Dispatcher:
             return None
         return node
 
+    def _admit_to_bundle(self, task: _QueuedTask) -> NodeState | None:
+        """Take the task's demand from its bundle's reservation; None
+        while the group is pending or the bundle full. A task that can
+        never be admitted is cancelled and handed to the unplaceable
+        hook."""
+        spec = task.spec
+        strategy = spec.scheduling_strategy
+        pgs = self._placement_groups
+        args = (strategy.placement_group.id,
+                strategy.placement_group_bundle_index, spec.resources)
+        reason = pgs.unplaceable(*args)
+        if reason is None:
+            try:
+                return self._cluster.get_node(pgs.acquire_from_bundle(*args))
+            except PlacementGroupError:
+                return None  # pending, or the bundle is full for now
+        with self._lock:
+            if task.claimed or task.cancelled:
+                return None
+            self._cancel_locked(task)
+        if self._on_unplaceable is not None:
+            self._on_unplaceable(spec, PlacementGroupError(reason))
+        return None
+
+    def _release(self, task: _QueuedTask, node: NodeState) -> None:
+        """Give back what admission took: to the bundle or the node."""
+        spec = task.spec
+        strategy = spec.scheduling_strategy
+        if strategy.kind == "PLACEMENT_GROUP":
+            self._placement_groups.release_to_bundle(
+                strategy.placement_group.id,
+                strategy.placement_group_bundle_index, spec.resources)
+        else:
+            self._cluster.release(node.node_id, spec.resources)
+
     def _claim(self, task: _QueuedTask, node: NodeState) -> bool:
         expired = False
         with self._lock:
             if task.cancelled:
                 # Cancelled after admission: give the resources back.
-                self._cluster.release(node.node_id, task.spec.resources)
+                self._release(task, node)
                 return False
             deadline = task.spec.deadline
             if deadline is not None and time.time() > deadline:
                 # The budget died between enqueue and claim: never launch
                 # dead work.
                 self._cancel_locked(task)
-                self._cluster.release(node.node_id, task.spec.resources)
+                self._release(task, node)
                 expired = True
             else:
                 task.claimed = True
@@ -354,7 +424,7 @@ class Dispatcher:
             try:
                 task.run(task.spec, node)
             finally:
-                self._cluster.release(node.node_id, task.spec.resources)
+                self._release(task, node)
                 with self._lock:
                     self._num_running -= 1
                     self._lock.notify_all()
@@ -363,6 +433,13 @@ class Dispatcher:
                          name=f"ray_tpu_torch-task-{task.spec.name}").start()
 
     # --------------------------------------------------------------- control
+
+    def pending_count(self) -> int:
+        """Tasks waiting on arguments, ready and running: the depth that
+        admission control caps."""
+        with self._lock:
+            return (len(self._waiting) + self._num_ready_live
+                    + self._num_running)
 
     def wait_idle(self, timeout: float | None = None) -> bool:
         deadline = None if timeout is None else time.monotonic() + timeout

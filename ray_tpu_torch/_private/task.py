@@ -10,7 +10,7 @@ never be met, and the dispatcher warns).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
 from ray_tpu_torch._private.ids import ObjectID, TaskID
 
@@ -36,9 +36,15 @@ def normalize_resources(
 
 @dataclass
 class SchedulingStrategy:
-    """DEFAULT (the least-utilized node) or SPREAD (round-robin)."""
+    """DEFAULT (the least-utilized node), SPREAD (round-robin),
+    PLACEMENT_GROUP (a bundle's reserved resources) or NODE_AFFINITY
+    (one node; ``soft`` falls back to DEFAULT when it is full or gone)."""
 
     kind: str = "DEFAULT"
+    placement_group: Any = None
+    placement_group_bundle_index: int = -1
+    node_id: str | None = None
+    soft: bool = False
 
 
 @dataclass

@@ -41,6 +41,7 @@ from ray_tpu_torch._private.gcs import (
 from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, ObjectID, TaskID
 from ray_tpu_torch._private.object_ref import ObjectRef, ref_args, resolve_args
 from ray_tpu_torch._private.object_store import ObjectStore, ReferenceCounter
+from ray_tpu_torch._private.placement_groups import PlacementGroupManager
 from ray_tpu_torch._private.scheduler import (
     BlockedResourceContext,
     ClusterState,
@@ -51,6 +52,8 @@ from ray_tpu_torch._private.scheduler import (
 from ray_tpu_torch._private.task import SchedulingStrategy, TaskSpec
 from ray_tpu_torch.exceptions import (
     ActorDiedError,
+    PlacementGroupError,
+    SystemOverloadedError,
     TaskCancelledError,
     TaskError,
     TaskTimeoutError,
@@ -103,14 +106,24 @@ class Runtime:
             spill_dir=cfg.object_spilling_dir)
         self.reference_counter = ReferenceCounter(self.store)
         self.cluster = ClusterState()
-        self.dispatcher = Dispatcher(self.cluster, self.store)
+        self.placement_groups = PlacementGroupManager(
+            self.cluster, self.store, self.gcs)
+        self.dispatcher = Dispatcher(self.cluster, self.store,
+                                     self.placement_groups)
         self.dispatcher.set_deadline_hook(self._seal_deadline)
+        self.dispatcher.set_unplaceable_hook(self._seal_unplaceable)
+        # Failure counters (stats()): deadline-sealed tasks and
+        # admission sheds.
+        self._counter_lock = threading.Lock()
+        self._task_timeouts = 0
+        self._admission_shed = 0
         self._actors: dict[ActorID, LocalActor] = {}
         # Signalled whenever an actor lands in _actors or dies: submit
         # queues wait on it.
         self._actors_changed = threading.Condition()
         self._actor_queues: dict[ActorID, queue.Queue] = {}
-        self._actor_leases: dict[ActorID, tuple[NodeID, dict]] = {}
+        # Actor id -> (node, resources, (group id, bundle index) or None).
+        self._actor_leases: dict[ActorID, tuple] = {}
         self._futures_lock = threading.Lock()
         self._futures: dict[ObjectID,
                             list[concurrent.futures.Future]] = {}
@@ -155,9 +168,37 @@ class Runtime:
         err = TaskTimeoutError(spec.name, stage, spec.deadline or 0.0)
         for rid in spec.return_ids:
             self.store.put_error(rid, err)
+        with self._counter_lock:
+            self._task_timeouts += 1
         self.gcs.record_task_event(TaskEvent(
             spec.task_id, spec.name, "FAILED", end_time=time.time(),
             error=f"deadline expired at stage {stage!r}"))
+
+    def _seal_unplaceable(self, spec: TaskSpec,
+                          error: PlacementGroupError) -> None:
+        for rid in spec.return_ids:
+            self.store.put_error(rid, error)
+        self.gcs.record_task_event(TaskEvent(
+            spec.task_id, spec.name, "FAILED", end_time=time.time(),
+            error=str(error)))
+
+    # ------------------------------------------------------------ admission
+
+    def _admission_overload_reason(self) -> str | None:
+        """Why admission sheds right now, or None: the dispatcher's
+        backlog over ``admission_max_queue_depth`` (0: no cap)."""
+        cap = int(GLOBAL_CONFIG.admission_max_queue_depth or 0)
+        if cap > 0 and self.dispatcher.pending_count() > cap:
+            return f"dispatcher backlog over admission_max_queue_depth={cap}"
+        return None
+
+    def stats(self) -> dict:
+        """Driver-side counters: tasks sealed at their deadline, submits
+        shed at admission, and the dispatcher's depth."""
+        with self._counter_lock:
+            return {"task_timeouts": self._task_timeouts,
+                    "admission_shed": self._admission_shed,
+                    "queue_depth": self.dispatcher.pending_count()}
 
     # ---------------------------------------------------------------- tasks
 
@@ -168,15 +209,24 @@ class Runtime:
                     scheduling_strategy: SchedulingStrategy | None = None,
                     deadline_s: float | None = None) -> list[ObjectRef]:
         """Queue one task; its refs come back at once. ``deadline_s``
-        arms an end-to-end budget checked at every stage."""
+        arms an end-to-end budget checked at every stage; a
+        deadline-armed submit over the admission cap raises
+        ``SystemOverloadedError`` instead of queueing (its budget would
+        die in the backlog)."""
+        deadline = self._absolute_deadline(deadline_s)
+        if deadline is not None:
+            reason = self._admission_overload_reason()
+            if reason is not None:
+                with self._counter_lock:
+                    self._admission_shed += 1
+                raise SystemOverloadedError(reason)
         return_ids = [ObjectID() for _ in range(num_returns)]
         spec = TaskSpec(
             task_id=TaskID(), name=name, func=func, args=args,
             kwargs=kwargs, num_returns=num_returns, resources=resources,
             max_retries=max_retries, retry_exceptions=retry_exceptions,
             scheduling_strategy=scheduling_strategy or SchedulingStrategy(),
-            return_ids=return_ids,
-            deadline=self._absolute_deadline(deadline_s))
+            return_ids=return_ids, deadline=deadline)
         for rid in return_ids:
             self.store.create_pending(rid)
         refs = [ObjectRef(rid) for rid in return_ids]
@@ -197,11 +247,14 @@ class Runtime:
             task_id=spec.task_id, task_name=spec.name, job_id=self.job_id,
             node_id=node.node_id, actor_id=None,
             resources=dict(spec.resources))
+        # A bundled task's CPU is its bundle's: it is not lent to the node
+        # while the task blocks.
+        bundled = spec.scheduling_strategy.kind == "PLACEMENT_GROUP"
         try:
             args, kwargs, _ = resolve_args(
                 spec.args, spec.kwargs, lambda ref: self.get([ref])[0])
             with BlockedResourceContext(self.cluster, node.node_id,
-                                        spec.resources):
+                                        {} if bundled else spec.resources):
                 result = spec.func(*args, **kwargs)
             self._store_task_result(spec, result)
             self.gcs.record_task_event(TaskEvent(
@@ -268,6 +321,7 @@ class Runtime:
                      name: str | None = None, namespace: str | None = None,
                      resources: dict[str, float], max_concurrency: int = 1,
                      max_restarts: int = 0, max_pending_calls: int = -1,
+                     concurrency_groups: dict[str, int] | None = None,
                      scheduling_strategy: SchedulingStrategy | None = None,
                      get_if_exists: bool = False,
                      deadline_s: float | None = None
@@ -307,24 +361,25 @@ class Runtime:
 
         def start_actor():
             try:
-                node_id = self._lease_actor_resources(
+                lease = self._lease_actor_resources(
                     cls.__name__, resources, strategy, record)
-            except TimeoutError as exc:
+            except (TimeoutError, PlacementGroupError) as exc:
                 self.store.put_error(creation_rid, exc)
                 self._mark_actor_dead(actor_id, repr(exc))
                 return
+            node_id = lease[0] if lease is not None else None
             context = dict(job_id=self.job_id, task_id=None,
                            actor_id=actor_id, node_id=node_id,
                            resources=dict(resources))
             with self._actors_changed:
                 if record.state == "DEAD":
                     # Killed before it was built.
-                    if node_id is not None:
-                        self.cluster.release(node_id, resources)
+                    if lease is not None:
+                        self._release_lease(*lease)
                     self.store.put_error(creation_rid, ActorDiedError(
                         actor_id, record.death_cause or "actor has died"))
                     return
-                self._actor_leases[actor_id] = (node_id, resources)
+                self._actor_leases[actor_id] = lease
                 # ALIVE before the actor thread starts: a constructor
                 # that fails marks it DEAD, and that must be the last
                 # word.
@@ -334,6 +389,7 @@ class Runtime:
                     max_concurrency=max_concurrency,
                     max_restarts=max_restarts,
                     max_pending_calls=max_pending_calls,
+                    concurrency_groups=concurrency_groups,
                     creation_return_id=creation_rid,
                     on_death=self._mark_actor_dead,
                     on_release=self._release_actor_lease,
@@ -346,19 +402,37 @@ class Runtime:
         return actor_id, creation_ref
 
     def _lease_actor_resources(self, name: str, resources: dict, strategy,
-                               record: ActorRecord) -> NodeID | None:
-        """Take the actor's resources for its lifetime, waiting up to
-        _ACTOR_LEASE_TIMEOUT_S for them to free up; None if the actor is
-        killed while it waits."""
+                               record: ActorRecord) -> tuple | None:
+        """Take the actor's resources for its lifetime, from the node or
+        from its placement group's bundle, waiting up to
+        _ACTOR_LEASE_TIMEOUT_S for them to free up: the lease (node,
+        resources, (group id, bundle index) or None), or None if the
+        actor is killed while it waits. A bundle that can never hold
+        them raises PlacementGroupError."""
         timeout = _ACTOR_LEASE_TIMEOUT_S
         deadline = time.monotonic() + timeout
+        bundle = None
+        if strategy.kind == "PLACEMENT_GROUP":
+            bundle = (strategy.placement_group.id,
+                      strategy.placement_group_bundle_index)
         while record.state != "DEAD":
-            node = self.cluster.pick_node(resources, strategy)
-            if node is not None and self.cluster.try_acquire(node.node_id,
-                                                             resources):
-                return node.node_id
-            if node is None:
-                self.cluster.warn_if_infeasible(f"Actor {name}", resources)
+            if bundle is not None:
+                reason = self.placement_groups.unplaceable(*bundle, resources)
+                if reason is not None:
+                    raise PlacementGroupError(reason)
+                try:
+                    return (self.placement_groups.acquire_from_bundle(
+                        *bundle, resources), resources, bundle)
+                except PlacementGroupError:
+                    pass  # pending, or the bundle is full for now
+            else:
+                node = self.cluster.pick_node(resources, strategy)
+                if node is not None and self.cluster.try_acquire(
+                        node.node_id, resources):
+                    return node.node_id, resources, None
+                if node is None:
+                    self.cluster.warn_if_infeasible(f"Actor {name}",
+                                                    resources)
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"Could not lease resources {resources} for actor "
@@ -371,11 +445,23 @@ class Runtime:
         have ended."""
         lease = self._actor_leases.pop(actor_id, None)
         if lease is not None:
-            self.cluster.release(*lease)
+            self._release_lease(*lease)
+
+    def _release_lease(self, node_id: NodeID, resources: dict,
+                       bundle: tuple | None) -> None:
+        if bundle is not None:
+            self.placement_groups.release_to_bundle(*bundle, resources)
+        else:
+            self.cluster.release(node_id, resources)
 
     def _mark_actor_dead(self, actor_id: ActorID, reason: str) -> None:
         self.gcs.update_actor_state(actor_id, "DEAD", reason)
         with self._actors_changed:
+            # Its drain thread delivers what is queued (the dead actor
+            # fails it) and ends; a later call is failed at submit.
+            submit_queue = self._actor_queues.pop(actor_id, None)
+            if submit_queue is not None:
+                submit_queue.put(None)
             self._actors_changed.notify_all()
 
     def submit_actor_task(self, actor_id: ActorID, method_name: str,
@@ -393,53 +479,72 @@ class Runtime:
         call = _ActorCall(method_name, args, kwargs, return_ids,
                           deadline=self._absolute_deadline(deadline_s))
         record = self.gcs.get_actor(actor_id)
-        if record is None or (record.state == "DEAD"
-                              and actor_id not in self._actors):
+        if record is None or record.state == "DEAD":
+            # Dead for good (a restarting actor stays ALIVE).
             err = ActorDiedError(actor_id, (record.death_cause if record
                                             else None) or "actor not found")
             for rid in return_ids:
                 self.store.put_error(rid, err)
             return refs
-        self._actor_submit_queue(actor_id).put(call)
+        self._enqueue_actor_call(actor_id, call)
         return refs
 
-    def _actor_submit_queue(self, actor_id: ActorID) -> queue.Queue:
-        """The actor's submit queue, its drain thread started on first
-        use."""
+    def _enqueue_actor_call(self, actor_id: ActorID, call: _ActorCall) -> None:
+        """Put ``call`` on the actor's submit queue, starting its drain
+        thread on first use. The drain thread ends once the actor is dead
+        for good and its queue is empty (checked under the same lock), so
+        a dead actor keeps no thread."""
         with self._actors_changed:
             submit_queue = self._actor_queues.get(actor_id)
             if submit_queue is not None:
-                return submit_queue
+                submit_queue.put(call)
+                return
             submit_queue = self._actor_queues[actor_id] = queue.Queue()
+            submit_queue.put(call)
+
+        def drained() -> bool:
+            with self._actors_changed:
+                record = self.gcs.get_actor(actor_id)
+                if record is not None and record.state != "DEAD" \
+                        or not submit_queue.empty():
+                    return False
+                if self._actor_queues.get(actor_id) is submit_queue:
+                    del self._actor_queues[actor_id]
+                return True
 
         def drain():
             while (call := submit_queue.get()) is not None:
-                actor = self._wait_actor(actor_id)
-                if actor is None:
-                    err = ActorDiedError(actor_id, "actor failed to start")
-                    for rid in call.return_ids:
-                        self.store.put_error(rid, err)
-                    call = None
-                    continue
-                try:
-                    # In queue order: blocking here keeps the order.
-                    call.args, call.kwargs, _ = resolve_args(
-                        call.args, call.kwargs,
-                        lambda ref: self.get([ref])[0])
-                except Exception as exc:  # noqa: BLE001 — a failed argument fails the call
-                    for rid in call.return_ids:
-                        self.store.put_error(rid, exc)
-                    call = None
-                    continue
-                actor.submit(call)
+                self._deliver_actor_call(actor_id, call)
                 # Unbind before blocking: a stale local would keep the
                 # last call's arguments alive.
                 call = None
+                if drained():
+                    return
 
         threading.Thread(target=drain, daemon=True,
                          name=f"ray_tpu_torch-actor-submit-"
                               f"{actor_id.hex()[:8]}").start()
-        return submit_queue
+
+    def _deliver_actor_call(self, actor_id: ActorID,
+                            call: _ActorCall) -> None:
+        """Resolve the call's ObjectRef arguments and hand it to the
+        actor once it is built, in queue order (blocking here keeps the
+        order); a failed argument or an actor that never started fails
+        the call."""
+        actor = self._wait_actor(actor_id)
+        if actor is None:
+            err = ActorDiedError(actor_id, "actor failed to start")
+            for rid in call.return_ids:
+                self.store.put_error(rid, err)
+            return
+        try:
+            call.args, call.kwargs, _ = resolve_args(
+                call.args, call.kwargs, lambda ref: self.get([ref])[0])
+        except Exception as exc:  # noqa: BLE001 — a failed argument fails the call
+            for rid in call.return_ids:
+                self.store.put_error(rid, exc)
+            return
+        actor.submit(call)
 
     def _wait_actor(self, actor_id: ActorID) -> LocalActor | None:
         """The live actor once it is built; None if it died first."""
@@ -570,6 +675,7 @@ class Runtime:
             actor.kill("runtime shutdown", no_restart=True)
         for submit_queue in list(self._actor_queues.values()):
             submit_queue.put(None)
+        self.placement_groups.shutdown()
         self.dispatcher.shutdown()
         self.reference_counter.stop()
         # The runtime's parts refer to each other; dropping the objects

@@ -11,6 +11,7 @@ import functools
 
 from ray_tpu_torch._private import worker as worker_mod
 from ray_tpu_torch._private.actor_runtime import exit_actor  # noqa: F401 — re-export
+from ray_tpu_torch._private.actor_runtime import method_groups
 from ray_tpu_torch._private.ids import ActorID
 from ray_tpu_torch.remote_function import (
     _VALID_OPTIONS,
@@ -21,7 +22,7 @@ from ray_tpu_torch.remote_function import (
 _ACTOR_OPTIONS = _VALID_OPTIONS | {
     "max_concurrency", "max_restarts", "max_task_retries",
     "max_pending_calls", "lifetime", "namespace", "get_if_exists",
-    "process",
+    "process", "concurrency_groups",
 }
 
 
@@ -98,6 +99,7 @@ class ActorClass:
         if self._default_options.get("process"):
             raise ValueError("process actors are not supported by "
                              "ray_tpu_torch yet")
+
         functools.update_wrapper(self, cls, updated=[])
 
     def __call__(self, *args, **kwargs):
@@ -118,6 +120,12 @@ class ActorClass:
 
     def remote(self, *args, **kwargs) -> ActorHandle:
         opts = self._default_options
+        declared = opts.get("concurrency_groups") or {}
+        undeclared = set(method_groups(self._cls).values()) - set(declared)
+        if undeclared:
+            raise ValueError(f"{self._cls.__name__} marks methods with "
+                             f"concurrency groups {sorted(undeclared)} that "
+                             f"concurrency_groups does not declare")
         actor_id, creation_ref = worker_mod.auto_init().create_actor(
             self._cls, args, kwargs,
             name=opts.get("name"), namespace=opts.get("namespace"),
@@ -126,6 +134,7 @@ class ActorClass:
             max_concurrency=opts.get("max_concurrency", 1),
             max_restarts=opts.get("max_restarts", 0),
             max_pending_calls=opts.get("max_pending_calls", -1),
+            concurrency_groups=opts.get("concurrency_groups"),
             scheduling_strategy=_build_strategy(opts),
             get_if_exists=opts.get("get_if_exists", False),
             deadline_s=opts.get("_deadline_s"))
@@ -137,11 +146,15 @@ class ActorClass:
         return f"ActorClass({self._cls.__name__})"
 
 
-def method(num_returns: int = 1):
-    """Per-method defaults (``num_returns``) for an actor method."""
+def method(num_returns: int = 1, concurrency_group: str | None = None):
+    """Per-method defaults for an actor method: ``num_returns``, and the
+    concurrency group (declared in the actor's ``concurrency_groups``)
+    whose threads run its calls."""
 
     def decorator(fn):
         fn.__ray_tpu_num_returns__ = num_returns
+        if concurrency_group is not None:
+            fn.__ray_tpu_concurrency_group__ = concurrency_group
         return fn
 
     return decorator

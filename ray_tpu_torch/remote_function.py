@@ -12,6 +12,10 @@ from typing import Callable
 
 from ray_tpu_torch._private import worker as worker_mod
 from ray_tpu_torch._private.task import SchedulingStrategy, normalize_resources
+from ray_tpu_torch.util.scheduling_strategies import (
+    NodeAffinitySchedulingStrategy,
+    PlacementGroupSchedulingStrategy,
+)
 
 _VALID_OPTIONS = {
     "num_cpus", "num_tpus", "num_gpus", "resources", "num_returns",
@@ -22,16 +26,29 @@ _VALID_OPTIONS = {
 
 
 def _build_strategy(options: dict) -> SchedulingStrategy:
-    """DEFAULT or SPREAD; placement groups and node affinity are not
-    ported yet and are refused rather than ignored."""
+    """The options' strategy: DEFAULT, SPREAD, ``placement_group=`` (with
+    ``placement_group_bundle_index=``), or a strategy object of
+    ``util.scheduling_strategies`` (placement group, node affinity)."""
     strategy = options.get("scheduling_strategy")
     if isinstance(strategy, SchedulingStrategy):
         return strategy
-    if options.get("placement_group") is not None:
-        raise ValueError("placement groups are not supported by "
-                         "ray_tpu_torch yet")
-    if strategy in (None, "DEFAULT", "SPREAD"):
-        return SchedulingStrategy(kind=strategy or "DEFAULT")
+    if strategy == "SPREAD":
+        return SchedulingStrategy(kind="SPREAD")
+    if strategy in (None, "DEFAULT"):
+        pg = options.get("placement_group")
+        if pg is not None:
+            return SchedulingStrategy(
+                kind="PLACEMENT_GROUP", placement_group=pg,
+                placement_group_bundle_index=options.get(
+                    "placement_group_bundle_index", -1))
+        return SchedulingStrategy()
+    if isinstance(strategy, PlacementGroupSchedulingStrategy):
+        return SchedulingStrategy(
+            kind="PLACEMENT_GROUP", placement_group=strategy.placement_group,
+            placement_group_bundle_index=strategy.placement_group_bundle_index)
+    if isinstance(strategy, NodeAffinitySchedulingStrategy):
+        return SchedulingStrategy(kind="NODE_AFFINITY",
+                                  node_id=strategy.node_id, soft=strategy.soft)
     raise ValueError(f"Unsupported scheduling_strategy: {strategy!r}")
 
 

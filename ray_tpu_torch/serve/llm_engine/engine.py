@@ -484,6 +484,8 @@ class LLMEngine:
             victims = self._drain_locked()
         for req in victims:
             self._seal(req, RuntimeError("LLM engine shut down"))
+        if self._loop_thread is threading.current_thread():
+            return  # the loop ends at its next check and cannot join itself
         self._loop_thread.join(timeout=5.0)
         if not self._loop_thread.is_alive():
             self._pool = self.params = None

@@ -90,6 +90,8 @@ class LLMEngineServer:
         self._engine.shutdown()
 
     def __del__(self):
+        """Stop the engine as ``shutdown()`` does, letting go of its KV
+        pool and weights: a serve replica runs this when it is stopped."""
         engine = getattr(self, "_engine", None)
         if engine is not None:
-            engine._shutdown.set()
+            engine.shutdown()

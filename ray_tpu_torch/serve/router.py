@@ -1,0 +1,652 @@
+"""Request routing: a DeploymentHandle's requests to replicas, by the
+power of two choices.
+
+The port of ``ray_tpu/serve/router.py``. A router per (process,
+deployment) learns the replicas from the controller by long poll, picks
+two at random and sends to the one with fewer requests in flight (its
+own counts, by actor id), keeps a multiplexed model on the replica that
+last served it, sheds past ``max_queued_requests``
+(``SystemOverloadedError``), binds the request's deadline to the replica
+call, and retries a ``BackPressureError`` on another replica. Its
+latency histogram feeds the latency autoscaler: the window since the last
+push goes to the controller every ``serve_latency_report_s``. A
+replica's failure reaches the caller typed: an overload or a deadline
+raised inside the replica unwrapped, anything else as the actor error.
+
+The reference's Prometheus collector of these histograms waits for the
+port's ``util/metrics``.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from typing import Any
+
+import ray_tpu_torch
+from ray_tpu_torch._private import metrics_history, perf_plane
+from ray_tpu_torch._private.config import GLOBAL_CONFIG
+from ray_tpu_torch.exceptions import SystemOverloadedError, TaskTimeoutError
+from ray_tpu_torch.serve.long_poll import LongPollClient
+from ray_tpu_torch.serve.replica import BackPressureError
+from ray_tpu_torch.util.queue import Empty, Queue
+
+
+class DeploymentStreamingResponse:
+    """Iterator over a streaming call's chunks (reference:
+    handle.options(stream=True) -> DeploymentResponseGenerator).
+
+    Chunks arrive through a shared queue AS the replica's generator
+    yields them — consumption overlaps production (an LLM's tokens
+    stream out during decode, not after). A replica that rejects with
+    BackPressureError before producing anything is retried on another
+    replica, like the unary path.
+    """
+
+    _POLL_S = 0.2
+
+    def __init__(self, queue, object_ref, router=None, replica_idx=None,
+                 request=None, model_id=None, timeout_s: float = 300.0,
+                 started=None):
+        self._queue = queue
+        self._ref = object_ref
+        self._router = router
+        self._replica_idx = replica_idx
+        self._request = request
+        self._model_id = model_id
+        self._timeout_s = timeout_s
+        self._done = False
+        self._yielded = 0
+        self._started = started
+
+    def _release(self):
+        if self._router is not None and self._replica_idx is not None:
+            self._router._release(self._replica_idx)
+            self._replica_idx = None
+            if self._started is not None:
+                # Monotonic stamp: a wall-clock jump mid-stream must
+                # not distort the autoscaler's p50/p99 feed.
+                self._router.observe_latency(
+                    time.monotonic() - self._started)
+                self._started = None
+
+    def _close(self):
+        """Terminal cleanup: give back the replica slot and tear down
+        the per-call queue actor — one leaks per streaming request
+        otherwise. The replica's next put into the dead queue fails and
+        stops its production (early-abandon cancellation)."""
+        self._done = True
+        self._release()
+        queue, self._queue = self._queue, None
+        if queue is not None:
+            try:
+                queue.shutdown()
+            except Exception:  # noqa: BLE001 — best-effort teardown
+                pass
+
+    def _retry_backpressure(self, exc) -> bool:
+        """Reassign to another replica — only safe while no chunk has
+        been delivered (a partial stream must not restart silently).
+        The rejecting replica's in-flight count is returned first, and
+        affinity is skipped (it points at the replica that just
+        rejected)."""
+        cause = getattr(exc, "cause", exc)
+        if (self._yielded > 0 or self._router is None
+                or self._request is None or self._queue is None
+                or not isinstance(cause, BackPressureError)):
+            return False
+        self._release()
+        method_name, args, kwargs = self._request
+        idx, handle = self._router._pick(model_id=self._model_id,
+                                         skip_affinity=True)
+        self._replica_idx = idx
+        self._ref = handle.handle_request_streaming.remote(
+            method_name, args, kwargs, self._queue)
+        return True
+
+    def __iter__(self):
+        _time = time
+
+        # Stall clock, not a total budget: reset on every chunk — a
+        # healthy stream may produce far longer than timeout_s.
+        deadline = _time.monotonic() + self._timeout_s
+        # Backpressure retries are bounded with backoff, like the unary
+        # path (a saturated deployment must surface
+        # BackPressureError, not livelock hammering the router).
+        retries_left = 100
+        backoff_s = 0.01
+        try:
+            while not self._done:
+                try:
+                    kind, payload = self._queue.get(
+                        block=True, timeout=self._POLL_S)
+                except Empty:
+                    if _time.monotonic() > deadline:
+                        raise TimeoutError(
+                            "streaming response stalled past "
+                            f"{self._timeout_s}s")
+                    # No chunk yet: surface replica-call failures (e.g.
+                    # backpressure rejection, actor death) promptly —
+                    # but chunks the replica delivered BEFORE failing
+                    # may still sit in the queue (they landed after
+                    # this poll started); drain them first.
+                    ready, _ = ray_tpu_torch.wait([self._ref], timeout=0)
+                    if ready:
+                        try:
+                            ray_tpu_torch.get(self._ref)
+                        except Exception as exc:  # noqa: BLE001
+                            try:
+                                kind, payload = self._queue.get(
+                                    block=True, timeout=0.05)
+                                # Something was queued after all: fall
+                                # through to normal handling below.
+                            except Empty:
+                                if self._retry_backpressure(exc):
+                                    retries_left -= 1
+                                    if retries_left <= 0:
+                                        raise
+                                    _time.sleep(backoff_s)
+                                    backoff_s = min(backoff_s * 2, 1.0)
+                                    continue
+                                raise
+                        else:
+                            continue  # clean completion: await "end"
+                    else:
+                        continue
+                if kind == "chunk":
+                    self._yielded += 1
+                    deadline = _time.monotonic() + self._timeout_s
+                    yield payload
+                elif kind == "end":
+                    return
+                else:  # ("err", exc)
+                    if self._retry_backpressure(payload):
+                        retries_left -= 1
+                        if retries_left <= 0:
+                            raise payload
+                        _time.sleep(backoff_s)
+                        backoff_s = min(backoff_s * 2, 1.0)
+                        continue
+                    raise payload
+        finally:
+            # Runs on completion, error, AND early abandon (break /
+            # GeneratorExit): the slot and queue must never outlive the
+            # consumer.
+            self._close()
+
+    def __del__(self):
+        # Safety net for a response constructed but never iterated:
+        # the queue actor and the router's in-flight slot must not
+        # outlive the abandoned handle. Best-effort (GC-time).
+        try:
+            if not self._done:
+                self._close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+    def result(self, timeout_s: float | None = None) -> list:
+        """Materialize the whole stream (unary-style convenience)."""
+        if timeout_s is not None:
+            self._timeout_s = timeout_s
+        return list(self)
+
+
+# Ray's own name for it.
+DeploymentResponseGenerator = DeploymentStreamingResponse
+
+
+class DeploymentResponse:
+    """Future-like result of handle.remote() (reference:
+    python/ray/serve/handle.py DeploymentResponse).
+
+    A replica that rejects with BackPressureError is retried on another
+    replica transparently (the reference pow-2 scheduler requeues
+    rejected requests the same way).
+    """
+
+    def __init__(self, object_ref, router=None, replica_idx=None,
+                 request=None, model_id=None, deadline=None,
+                 started=None):
+        self._ref = object_ref
+        self._router = router
+        self._replica_idx = replica_idx
+        self._request = request  # (method_name, args, kwargs)
+        self._model_id = model_id  # multiplex affinity on retries
+        self._deadline = deadline  # absolute; re-armed on retries
+        self._started = started  # router latency stamp (assign time)
+
+    def _release(self):
+        if self._router is not None and self._replica_idx is not None:
+            self._router._release(self._replica_idx)
+            self._replica_idx = None
+            if self._started is not None:
+                # End-to-end router latency (assign → final release,
+                # backpressure retries included): the per-deployment
+                # p99 the autoscaler consumes. Monotonic stamp — a
+                # wall-clock jump must not distort the feed.
+                self._router.observe_latency(
+                    time.monotonic() - self._started)
+                self._started = None
+
+    def result(self, timeout_s: float | None = None):
+        deadline = (time.monotonic() + timeout_s
+                    if timeout_s is not None else None)
+        # Without a deadline, bound the backpressure retries so a
+        # permanently saturated deployment surfaces BackPressureError
+        # instead of livelocking the caller.
+        retries_left = 100 if deadline is None else None
+        backoff_s = 0.01
+        while True:
+            try:
+                value = ray_tpu_torch.get(self._ref, timeout=timeout_s)
+                self._release()
+                return value
+            except Exception as exc:  # noqa: BLE001 — inspect for backpressure
+                cause = getattr(exc, "cause", exc)
+                # Typed overload/expiry raised INSIDE the replica (the
+                # LLM engine's CacheExhaustedError shed, a deadline
+                # dying in its internal queue) surfaces unwrapped so
+                # handle callers and the proxy's 503/504 mapping see
+                # the same types the router-level paths raise.
+                if isinstance(cause, (SystemOverloadedError,
+                                      TaskTimeoutError)) \
+                        and not isinstance(cause, BackPressureError):
+                    self._release()
+                    raise cause from exc
+                retriable = (isinstance(cause, BackPressureError)
+                             and self._router is not None
+                             and self._request is not None)
+                if retriable and self._deadline is not None \
+                        and time.time() > self._deadline:
+                    # The request's inherited budget died while every
+                    # replica kept rejecting: typed expiry (the proxy
+                    # maps it to 504), never a late execution.
+                    self._release()
+                    raise TaskTimeoutError(
+                        self._request[0] if self._request else "",
+                        "serve_queue", self._deadline) from exc
+                if not retriable or (deadline is not None
+                                     and time.monotonic() > deadline):
+                    self._release()
+                    raise
+                if retries_left is not None:
+                    retries_left -= 1
+                    if retries_left <= 0:
+                        self._release()
+                        raise
+                # Transfer the in-flight slot to the retry target FIRST
+                # and hold it through the backoff: a backing-off retry
+                # still occupies deployment queue capacity, so the
+                # router's max_queued_requests check sees it and sheds
+                # NEW arrivals instead of letting the queue grow hidden.
+                old_idx, self._replica_idx = self._replica_idx, None
+                idx, handle = self._router._pick(
+                    model_id=self._model_id, skip_affinity=True)
+                self._replica_idx = idx
+                if old_idx is not None:
+                    self._router._release(old_idx)
+                sleep_s = backoff_s
+                if deadline is not None:
+                    sleep_s = min(sleep_s, max(0.0,
+                                               deadline - time.monotonic()))
+                time.sleep(sleep_s)
+                backoff_s = min(backoff_s * 2, 1.0)
+                self._ref = Router._bind_deadline(
+                    handle.handle_request, self._deadline).remote(
+                    *self._request)
+                if deadline is not None:
+                    timeout_s = max(0.0, deadline - time.monotonic())
+
+    def _to_object_ref(self):
+        return self._ref
+
+
+class Router:
+    """One per (process, deployment): tracks replica membership via
+    long-poll and assigns requests."""
+
+    def __init__(self, controller_handle, app_name: str,
+                 deployment_name: str):
+        self._controller = controller_handle
+        self._key = f"replicas::{app_name}::{deployment_name}"
+        self._app_name = app_name
+        self._deployment_name = deployment_name
+        self._lock = threading.Lock()
+        # max_queued_requests shedding: fetched lazily from the
+        # controller's deployment config (invalidated on membership
+        # pushes — a redeploy may change it); requests over the limit
+        # are rejected with a retryable SystemOverloadedError instead
+        # of queueing unboundedly. shed_total feeds the overload bench.
+        self._max_queued: int | None = None
+        self.shed_total = 0
+        # Always-on per-deployment latency histogram (assign→release,
+        # perf_plane log buckets): exported as ray_tpu_serve_latency_*
+        # and queryable live via latency_stats() — the p99 feed the
+        # latency-driven replica autoscaler consumes.
+        self._latency = perf_plane.StageHistogram()
+        # Latency push: routers report their live p50/p99 to the
+        # controller at most every serve_latency_report_s (0 disables)
+        # — the controller-side LatencyPolicy reads the freshest
+        # report per deployment. Fire-and-forget; a missed report just
+        # ages the feed (the policy freezes on stale feeds).
+        self._report_interval_s = float(
+            GLOBAL_CONFIG.serve_latency_report_s)
+        self._last_report_ts = 0.0
+        # Previous cumulative snapshot: reports ship the WINDOW since
+        # the last push (bucket-wise subtraction), so the controller's
+        # policy sees the live p99, not an all-time aggregate a past
+        # overload skewed forever.
+        self._last_window_snap: dict | None = None
+        self._replicas: list[Any] = []          # ActorHandles
+        # In-flight counts keyed by replica IDENTITY (actor id), so
+        # membership changes neither zero live load nor cross-release a
+        # different replica that inherited a list index.
+        self._inflight: dict[Any, int] = {}
+        # model_id → replica key that last served it (multiplex affinity).
+        self._model_affinity: dict[str, Any] = {}
+        self._have_replicas = threading.Event()
+        self._long_poll = LongPollClient(
+            controller_handle, {self._key: self._update_replicas})
+
+    @staticmethod
+    def _rkey(handle) -> Any:
+        return getattr(handle, "_actor_id", None) or id(handle)
+
+    def _update_replicas(self, handles: list) -> None:
+        with self._lock:
+            self._replicas = list(handles or [])
+            self._max_queued = None  # redeploy may have changed it
+            keep = {self._rkey(h) for h in self._replicas}
+            self._inflight = {k: v for k, v in self._inflight.items()
+                              if k in keep}
+            self._model_affinity = {m: k for m, k
+                                    in self._model_affinity.items()
+                                    if k in keep}
+        if handles:
+            self._have_replicas.set()
+        else:
+            self._have_replicas.clear()
+
+    def _pick(self, model_id: str | None = None,
+              skip_affinity: bool = False) -> tuple[Any, Any]:
+        """Power of two choices on local in-flight counts; multiplexed
+        requests stick to the replica that last served their model id
+        (reference: the pow-2 scheduler's multiplex locality
+        preference). Backpressure retries pass skip_affinity so an
+        overloaded affine replica doesn't pin the request while other
+        replicas sit idle (affinity re-points to the new replica).
+        Returns (replica_key, handle)."""
+        with self._lock:
+            n = len(self._replicas)
+            if n == 0:
+                raise RuntimeError("no replicas")
+            handle = None
+            if model_id is not None and not skip_affinity:
+                affine_key = self._model_affinity.get(model_id)
+                if affine_key is not None:
+                    for replica in self._replicas:
+                        if self._rkey(replica) == affine_key:
+                            handle = replica
+                            break
+            if handle is None:
+                if n == 1:
+                    handle = self._replicas[0]
+                else:
+                    a, b = random.sample(range(n), 2)
+                    ha, hb = self._replicas[a], self._replicas[b]
+                    handle = ha if self._inflight.get(self._rkey(ha), 0) \
+                        <= self._inflight.get(self._rkey(hb), 0) else hb
+            key = self._rkey(handle)
+            if model_id is not None:
+                self._model_affinity[model_id] = key
+            self._inflight[key] = self._inflight.get(key, 0) + 1
+            return key, handle
+
+    def _release(self, key: Any) -> None:
+        with self._lock:
+            if self._inflight.get(key, 0) > 0:
+                self._inflight[key] -= 1
+
+    def observe_latency(self, dt_s: float) -> None:
+        self._latency.observe(max(0.0, dt_s))
+        if self._report_interval_s <= 0:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_report_ts < self._report_interval_s:
+                return
+            self._last_report_ts = now
+        try:
+            # Async fire-and-forget: the caller's request path must
+            # never block on the control plane.
+            self._controller.report_latency.remote(
+                self._app_name, self._deployment_name,
+                self.latency_window_stats())
+        except Exception:  # noqa: BLE001 — controller down mid-teardown
+            pass
+
+    # THE windowed-latency summary implementation lives in
+    # metrics_history (the history plane generalized this router's
+    # bucket-subtraction trick); kept as a method alias so call sites
+    # and tests read the same.
+    _summarize = staticmethod(metrics_history.summarize)
+
+    def latency_stats(self) -> dict:
+        """Live latency summary for this deployment: count / mean /
+        p50 / p99 (bucket-interpolated upper bounds; all-time)."""
+        return self._summarize(self._latency.snapshot())
+
+    def latency_window_stats(self) -> dict:
+        """Same summary over the window SINCE THE LAST CALL (bucket
+        subtraction of cumulative snapshots) — what the autoscale
+        report ships: a past overload must stop dominating p99 the
+        moment traffic recovers."""
+        snap = self._latency.snapshot()
+        with self._lock:
+            prev, self._last_window_snap = self._last_window_snap, snap
+        return metrics_history.summarize(
+            metrics_history.snapshot_delta(snap, prev))
+
+    def _max_queued_limit(self) -> int:
+        """DeploymentConfig.max_queued_requests, cached (-1 =
+        unlimited; controller unreachable degrades to unlimited)."""
+        with self._lock:
+            cached = self._max_queued
+        if cached is not None:
+            return cached
+        try:
+            limit = int(ray_tpu_torch.get(self._controller.get_max_queued
+                                    .remote(self._app_name,
+                                            self._deployment_name),
+                                    timeout=5.0))
+        except Exception:  # noqa: BLE001 — controller busy/unreachable
+            return -1  # don't cache: retry the fetch next request
+        with self._lock:
+            self._max_queued = limit
+        return limit
+
+    def _check_shed(self) -> None:
+        """Reject at the router when the deployment's in-flight count
+        is at max_queued_requests (typed + retryable; HTTP maps to
+        503)."""
+        limit = self._max_queued_limit()
+        if limit < 0:
+            return
+        with self._lock:
+            total = sum(self._inflight.values())
+            if total >= limit:
+                self.shed_total += 1
+                raise SystemOverloadedError(
+                    f"deployment {self._deployment_name} at "
+                    f"max_queued_requests={limit} "
+                    f"({total} in flight)")
+
+    @staticmethod
+    def _bind_deadline(method, deadline: "float | None"):
+        """Arm the replica actor call with the request's REMAINING
+        budget (deadline is absolute, time.time()); an already-dead
+        budget still issues with ~0 remaining so the refusal is typed
+        (TaskTimeoutError), not a silent hang."""
+        if deadline is None:
+            return method
+        return method.options(
+            _deadline_s=max(0.001, deadline - time.time()))
+
+    def assign_request(self, method_name: str, args: tuple, kwargs: dict,
+                       timeout_s: float = 30.0,
+                       model_id: str | None = None,
+                       stream_queue=None,
+                       deadline_s: float | None = None,
+                       ) -> "DeploymentResponse":
+        if not self._have_replicas.wait(timeout_s):
+            raise TimeoutError(
+                f"Deployment {self._deployment_name}: no replicas came up "
+                f"within {timeout_s}s")
+        self._check_shed()
+        # Latency stamps are monotonic; the request DEADLINE stays
+        # wall-clock absolute (_bind_deadline rebases it vs time.time()
+        # on every retry hop).
+        started = time.monotonic()
+        deadline = (time.time() + deadline_s
+                    if deadline_s is not None else None)
+        idx, handle = self._pick(model_id=model_id)
+        if stream_queue is not None:
+            ref = self._bind_deadline(
+                handle.handle_request_streaming, deadline).remote(
+                method_name, args, kwargs, stream_queue)
+            return DeploymentStreamingResponse(
+                stream_queue, ref, router=self, replica_idx=idx,
+                request=(method_name, args, kwargs), model_id=model_id,
+                started=started)
+        ref = self._bind_deadline(
+            handle.handle_request, deadline).remote(
+            method_name, args, kwargs)
+        # Backpressure rejections are retried on another replica inside
+        # DeploymentResponse.result() (reference: pow-2 scheduler
+        # requeues on replica rejection).
+        return DeploymentResponse(
+            ref, router=self, replica_idx=idx,
+            request=(method_name, args, kwargs), model_id=model_id,
+            deadline=deadline, started=started)
+
+    def shutdown(self) -> None:
+        self._long_poll.stop()
+
+
+_routers_lock = threading.Lock()
+_routers: dict[tuple[str, str], Router] = {}
+
+
+def get_or_create_router(controller_handle, app_name: str,
+                         deployment_name: str) -> Router:
+    with _routers_lock:
+        key = (app_name, deployment_name)
+        router = _routers.get(key)
+        if router is None:
+            router = Router(controller_handle, app_name, deployment_name)
+            _routers[key] = router
+        return router
+
+
+def clear_routers() -> None:
+    with _routers_lock:
+        for router in _routers.values():
+            router.shutdown()
+        _routers.clear()
+
+
+class DeploymentHandle:
+    """User-facing handle (reference: python/ray/serve/handle.py
+    DeploymentHandle): ``handle.remote(...)``, ``handle.method.remote``,
+    ``handle.options(method_name=...)``."""
+
+    def __init__(self, deployment_name: str, app_name: str,
+                 controller_handle, method_name: str = "__call__"):
+        self._deployment_name = deployment_name
+        self._app_name = app_name
+        self._controller = controller_handle
+        self._method_name = method_name
+
+    def options(self, method_name: str | None = None,
+                multiplexed_model_id: str | None = None,
+                stream: bool | None = None,
+                deadline_s: float | None = None,
+                _deadline_s: float | None = None,
+                ) -> "DeploymentHandle":
+        """``deadline_s`` (or ``_deadline_s``, the runtime's spelling)
+        arms each request's end-to-end budget: the replica call inherits
+        what is left of it."""
+        if deadline_s is None:
+            deadline_s = _deadline_s
+        handle = DeploymentHandle(
+            self._deployment_name, self._app_name, self._controller,
+            method_name or self._method_name)
+        handle._model_id = (multiplexed_model_id
+                            if multiplexed_model_id is not None
+                            else getattr(self, "_model_id", None))
+        handle._stream = (stream if stream is not None
+                          else getattr(self, "_stream", False))
+        handle._deadline_s = (deadline_s if deadline_s is not None
+                              else getattr(self, "_deadline_s", None))
+        return handle
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        handle = DeploymentHandle(
+            self._deployment_name, self._app_name, self._controller, name)
+        handle._model_id = getattr(self, "_model_id", None)
+        handle._stream = getattr(self, "_stream", False)
+        handle._deadline_s = getattr(self, "_deadline_s", None)
+        return handle
+
+    def remote(self, *args, **kwargs) -> DeploymentResponse:
+        from ray_tpu_torch.serve.multiplex import MODEL_ID_KWARG
+
+        router = get_or_create_router(
+            self._controller, self._app_name, self._deployment_name)
+        model_id = getattr(self, "_model_id", None)
+        if model_id is not None:
+            kwargs = {**kwargs, MODEL_ID_KWARG: model_id}
+        stream_queue = None
+        if getattr(self, "_stream", False):
+            # One channel per streaming call; BOUNDED so a producer
+            # outpacing the consumer blocks instead of buffering the
+            # whole stream in the queue actor.
+            stream_queue = Queue(maxsize=256)
+        try:
+            return router.assign_request(
+                self._method_name, args, kwargs, model_id=model_id,
+                stream_queue=stream_queue,
+                deadline_s=getattr(self, "_deadline_s", None))
+        except BaseException:
+            # assign failed before a response took ownership: the
+            # queue actor must not leak.
+            if stream_queue is not None:
+                try:
+                    stream_queue.shutdown()
+                except Exception:  # noqa: BLE001
+                    pass
+            raise
+
+    def __reduce__(self):
+        # Rebuild from names inside another process/replica.
+        return (_rebuild_handle,
+                (self._deployment_name, self._app_name, self._method_name,
+                 getattr(self, "_model_id", None),
+                 getattr(self, "_stream", False),
+                 getattr(self, "_deadline_s", None)))
+
+
+def _rebuild_handle(deployment_name, app_name, method_name, model_id=None,
+                    stream=False, deadline_s=None):
+    from ray_tpu_torch.serve.api import _get_controller
+
+    handle = DeploymentHandle(
+        deployment_name, app_name, _get_controller(), method_name)
+    if model_id is not None:
+        handle._model_id = model_id
+    handle._stream = stream
+    handle._deadline_s = deadline_s
+    return handle

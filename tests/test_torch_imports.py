@@ -88,6 +88,35 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch):
     assert threading.active_count() == threads
 
 
+def test_serving_a_deployment_raises_without_a_card(monkeypatch):
+    """``serve.run`` of an ``LLMEngineServer`` deployment without
+    ``device="cpu"`` fails typed at the replica's construction (the
+    engine's RuntimeError as the actor error's cause): no replica serves
+    on the CPU, and none is started again."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.exceptions import ActorError
+    from ray_tpu_torch.serve.llm_engine import LLMEngineServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        app = serve.deployment(LLMEngineServer).bind()
+        with pytest.raises(ActorError) as err:
+            serve.run(app, name="llm_app")
+        status = serve.status()["llm_app::LLMEngineServer"]
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    assert isinstance(err.value.cause, RuntimeError)
+    assert "device='cpu'" in str(err.value.cause)
+    assert status["status"] == "DEPLOY_FAILED"
+    assert status["running_replicas"] == 0
+
+
 def test_kernel_wrappers_reject_cpu_tensors():
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)

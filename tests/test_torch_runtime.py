@@ -16,6 +16,7 @@ the head node's ``GPU`` count is detected, ``_sizeof`` counts tensors, a
 """
 
 import logging
+import os
 import threading
 
 import numpy as np
@@ -25,7 +26,9 @@ import torch
 import ray_tpu
 import ray_tpu_torch
 from ray_tpu_torch._private import accelerators
-from ray_tpu_torch._private.object_store import _sizeof
+from ray_tpu_torch._private.ids import ObjectID
+from ray_tpu_torch._private.object_store import ObjectStore, _on_device, _sizeof
+from ray_tpu_torch.parallel.train_step import TrainState
 
 RUNTIMES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
 WAIT_S = 10.0  # bound on every event and barrier wait
@@ -492,6 +495,75 @@ def test_objects_on_a_device_are_charged_but_never_spilled():
 
     assert _run(scenario, ray_tpu_torch, object_store_memory=30_000) == \
         [65536 + 16 + 16384, 65536 + 16, 0, True, 4096.0]
+
+
+def _store_scenario(tmp_path, device_object) -> list:
+    """ROADMAP queue 3's steps on an ``ObjectStore`` of 1 MiB: ``put``
+    the object beside a 800,000-byte batch, then a 1,600,000-byte array.
+    [charged, on_device, device_bytes, spilled_bytes_total, the first
+    object's spill path, files left in the spill directory, the same
+    object back]."""
+    store = ObjectStore(1 << 20, str(tmp_path))
+    first, second = ObjectID(), ObjectID()
+    value = {"state": device_object, "batch": np.zeros(200_000, np.int32)}
+    store.put(first, value)
+    store.put(second, np.zeros(400_000, np.int32))
+    entry = store._entries[first]
+    stats = store.stats()
+    files = sorted(os.listdir(tmp_path)) if tmp_path.exists() else []
+    return [entry.size_bytes, entry.on_device, stats["device_bytes"],
+            stats["spilled_bytes_total"], entry.spilled_path,
+            files == [second.hex()], store.get(first) is value]
+
+
+def test_a_train_state_holding_a_device_tensor_is_charged_and_never_spilled(
+        tmp_path):
+    """A dataclass (the port's ``TrainState``) holding a tensor on a card
+    is charged its leaves' bytes and stays in memory; only the host array
+    put after it spills. The parent store saw 64 bytes of host memory
+    there and pickled the tensor to disk."""
+    state = TrainState(params={"w": torch.empty(1 << 20, device="meta")},
+                       opt_state={})
+    assert _sizeof(state) == (4 << 20) + 64 and _on_device(state)
+    charged = (4 << 20) + 64 + 800_000
+    assert _store_scenario(tmp_path, state) == \
+        [charged, True, charged, 1_600_000, None, True, True]
+
+
+def test_a_list_of_1100_device_tensors_is_charged_and_never_spilled(tmp_path):
+    """No entry cap: a list past 1,024 entries is walked (the parent
+    charged it 64 bytes and spilled it)."""
+    tensors = [torch.empty(1024, device="meta") for _ in range(1100)]
+    assert _sizeof(tensors) == 1100 * 4096 and _on_device(tensors)
+    charged = 1100 * 4096 + 800_000
+    assert _store_scenario(tmp_path, tensors) == \
+        [charged, True, charged, 1_600_000, None, True, True]
+
+
+class _Slotted:
+    """Holds a tensor where the size walk does not look."""
+
+    __slots__ = ("tensor", "me")
+
+    def __init__(self, tensor):
+        self.tensor, self.me = tensor, self
+
+
+def test_the_spill_refuses_a_device_tensor_the_size_walk_cannot_see(tmp_path):
+    """The pickle of a spill raises on a tensor outside host memory: the
+    object stays in memory, its bytes move to ``device_bytes`` and no
+    partial file is left. A self-referencing object ends the walk."""
+    class Cyclic:
+        pass
+
+    cyclic = Cyclic()
+    cyclic.me, cyclic.data = cyclic, np.zeros(4, np.int64)
+    assert _sizeof(cyclic) == 32 and not _on_device([cyclic, {"c": cyclic}])
+    hidden = _Slotted(torch.empty(1 << 20, device="meta"))
+    assert _sizeof(hidden) == 64 and not _on_device(hidden)
+    charged = 64 + 800_000
+    assert _store_scenario(tmp_path, hidden) == \
+        [charged, True, charged, 1_600_000, None, True, True]
 
 
 def test_infeasible_gpu_demand_warns_and_never_runs(caplog):
