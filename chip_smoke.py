@@ -16,6 +16,14 @@ source, all started together) and drives the port's two paths:
   ``bench.py``'s Llama (~349M parameters, 24 layers, GQA 16/8, head dim
   64, flash attention, "dots" remat, bf16 compute with f32 master
   weights) for 2 warm-up and 5 timed steps at batch 8 x 2048;
+- the mesh path: the same steps through bench.py's own path (a
+  ``DeviceMesh`` of one rank on NCCL, the params as DTensors placed per
+  ``param_logical_axes``, the batch by ``shard_batch``, the flash kernels
+  through ``flash_attention_gspmd``), held against the train phase's
+  losses and grad norms (mesh_train); then ring and Ulysses attention at
+  [8, 2048, 16, 64] against plain attention (f32) and the fwd kernel
+  (bf16), and bench.py's model with ``attention="ring"`` against
+  ``"plain"`` (ring_check);
 - serving: holds the RMSNorm kernel against its plain version at the
   serving and training shapes, takes the host cost of its launch path
   piece by piece at the decode shape, checks the paged engine's greedy
@@ -47,8 +55,9 @@ Each phase prints one JSON line. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
 dim). The line before the last lists every kernel with its launches on
 its path (the train phase for the attention kernels, the serve phase for
-RMSNorm), through the runtime (``runtime_launches``) and through the
-serve deployments (``deployment_launches``), its error
+RMSNorm), through the mesh path (``mesh_launches``), through the runtime
+(``runtime_launches``) and through the serve deployments
+(``deployment_launches``), its error
 against the plain version, its times, and for the attention kernels the
 achieved TFLOP/s and share of the bound, then the whole backward
 (pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
@@ -618,28 +627,36 @@ class _LaunchCount:
         return False
 
 
-def phase_train(llama, train_step, fa, device: dict,
-                power: str) -> dict:
-    """The slice: bench.py's model and batch through the port's entry
-    points, 2 warm-up and 5 timed steps."""
+def _bench_training(llama, train_step):
+    """bench.py's model, its params from seed 0, the optimizer and the
+    step of the train phases."""
     config = bench_config(llama)
-    batch_size, seq_len, warmup, timed = 8, 2048, 2, 5
     params = llama.init_params(config, torch.Generator("cuda").manual_seed(0))
     optimizer = train_step.default_optimizer(
         learning_rate=3e-4, warmup_steps=10, total_steps=1000)
-    state = train_step.create_train_state(params, optimizer)
-    del params
 
     def loss(params, batch):
         return llama.loss_fn(params, batch["tokens"], batch["targets"],
                              config)
 
-    step = train_step.build_train_step(loss, optimizer)
+    return config, params, optimizer, train_step.build_train_step(
+        loss, optimizer)
+
+
+def _bench_batch(config, batch_size: int, seq_len: int) -> dict:
+    """bench.py's batch from seed 1: tokens and next-token targets."""
     tokens = torch.randint(0, config.vocab_size, (batch_size, seq_len + 1),
                            generator=torch.Generator("cuda").manual_seed(1),
                            device="cuda")
-    batch = train_step.place_batch(
-        {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]})
+    return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+
+
+def _run_steps(llama, fa, config, step, state, batch, warmup: int,
+               timed: int, batch_size: int, seq_len: int, device: dict,
+               power: str) -> tuple[dict, dict]:
+    """``warmup + timed`` steps with the kernels' launches counted: the
+    phase's result (losses, grad norms, step times, tokens/s, MFU, peak
+    memory) and the state after the steps."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times = [], [], []
@@ -668,25 +685,228 @@ def phase_train(llama, train_step, fa, device: dict,
                               for k, n in launches.items()},
         "card": device["kind"], "nvidia_smi": power,
     }
+    return result, state
+
+
+def _check_train_launches(phase: str, launches: dict, layers: int,
+                          steps: int) -> None:
+    """Remat "dots" reruns the forward in the backward: two forward
+    launches per layer and step, one whole backward and one of each of
+    its kernels."""
+    missing = [k for k, n in launches.items() if n == 0]
+    require(not missing, f"kernels not launched in the {phase} phase: "
+                         f"{missing}")
+    expected = {"fwd": 2 * layers * steps, "bwd_dq": layers * steps,
+                "bwd_dkv": layers * steps, "bwd_delta": layers * steps,
+                "flash_bwd": layers * steps}
+    require(launches == expected, f"{phase} phase launches {launches}, "
+                                  f"expected {expected}")
+
+
+def phase_train(llama, train_step, fa, device: dict,
+                power: str) -> dict:
+    """The slice: bench.py's model and batch through the port's entry
+    points, 2 warm-up and 5 timed steps. Returns the phase's result."""
+    batch_size, seq_len, warmup, timed = 8, 2048, 2, 5
+    config, params, optimizer, step = _bench_training(llama, train_step)
+    state = train_step.create_train_state(params, optimizer)
+    del params
+    batch = train_step.place_batch(_bench_batch(config, batch_size, seq_len))
+    result, state = _run_steps(llama, fa, config, step, state, batch, warmup,
+                               timed, batch_size, seq_len, device, power)
     emit("train", **result)
+    losses, norms = result["loss"], result["grad_norm"]
     require(all(math.isfinite(x) for x in losses + norms),
             "non-finite loss or grad norm")
     ln_vocab = math.log(config.vocab_size)
     require(0.5 * ln_vocab < losses[0] < 2.5 * ln_vocab,
             f"initial loss {losses[0]} is far from ln(vocab) = {ln_vocab}")
-    missing = [k for k, n in launches.items() if n == 0]
-    require(not missing, f"kernels not launched in the train phase: {missing}")
-    # Remat "dots" reruns the forward in the backward: two forward launches
-    # per layer and step, one whole backward and one of each of its
-    # kernels.
-    layers, steps = config.num_layers, warmup + timed
-    expected = {"fwd": 2 * layers * steps, "bwd_dq": layers * steps,
-                "bwd_dkv": layers * steps, "bwd_delta": layers * steps,
-                "flash_bwd": layers * steps}
-    require(launches == expected, f"train phase launches {launches}, "
-                                  f"expected {expected}")
-    emit("profile", **_profile_step(lambda: step(state, batch), step_s))
-    return launches
+    _check_train_launches("train", result["launches"], config.num_layers,
+                          warmup + timed)
+    emit("profile", **_profile_step(lambda: step(state, batch),
+                                    result["step_s_median"]))
+    return result
+
+
+# The mesh path against the train phase, on the same seed and batch:
+# __graft_entry__.py:42-44's trajectory bound.
+MESH_TRAIN_RTOL, MESH_TRAIN_ATOL = 2e-3, 1e-4
+
+
+def phase_mesh_train(llama, train_step, fa, device: dict, power: str,
+                     train: dict) -> dict:
+    """bench.py's own mesh path (bench.py:67-81) at its full width: a
+    mesh of one rank on NCCL (``build_mesh(MeshConfig(dp=1))``), the
+    params placed per ``param_logical_axes`` as DTensors by
+    ``create_train_state``, the batch by ``shard_batch``, the flash
+    kernels through ``flash_attention_gspmd``; 2 warm-up and 5 timed
+    steps on the train phase's seed and batch, held against its losses
+    and grad norms. Returns the phase's result."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    require(not dist.is_initialized(), "a process group exists already")
+    mesh = build_mesh(MeshConfig(dp=1))
+    try:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"mesh on {dist.get_backend()} over {dist.get_world_size()} "
+                f"ranks, expected NCCL over 1")
+        batch_size, seq_len, warmup, timed = 8, 2048, 2, 5
+        config, params, optimizer, step = _bench_training(llama, train_step)
+        state = train_step.create_train_state(
+            params, optimizer, mesh, llama.param_logical_axes(config))
+        del params
+
+        def placed(state) -> bool:
+            return all(isinstance(p, DTensor) and p.device_mesh is mesh
+                       for p in tree_leaves(state.params)
+                       + tree_leaves(state.opt_state["mu"]))
+
+        require(placed(state), "params are not DTensors on the mesh")
+        batch = train_step.shard_batch(
+            _bench_batch(config, batch_size, seq_len), mesh)
+        require(all(isinstance(t, DTensor) for t in batch.values()),
+                "the batch is not DTensors")
+        result, state = _run_steps(llama, fa, config, step, state, batch,
+                                   warmup, timed, batch_size, seq_len,
+                                   device, power)
+        require(placed(state), "params left the mesh during the steps")
+        got = np.array([result["loss"], result["grad_norm"]])
+        want = np.array([train["loss"], train["grad_norm"]])
+        diff = np.abs(got - want)
+        ok = bool(np.all(diff <= MESH_TRAIN_ATOL
+                         + MESH_TRAIN_RTOL * np.abs(want)))
+        placements = {name: str(list(p.placements)) for name, p in zip(
+            _leaf_names(state.params), tree_leaves(state.params))}
+        result.update(
+            mesh={"dim_names": list(mesh.mesh_dim_names),
+                  "shape": list(mesh.shape), "backend": "nccl",
+                  "world_size": 1},
+            param_placements=placements,
+            against_train={
+                "max_abs_loss_diff": float(diff[0].max()),
+                "max_abs_grad_norm_diff": float(diff[1].max()),
+                "bitwise": bool(np.array_equal(got, want)),
+                "rtol": MESH_TRAIN_RTOL, "atol": MESH_TRAIN_ATOL, "ok": ok,
+                "train_step_s_median": train["step_s_median"],
+                "train_tokens_per_s": train["tokens_per_s"],
+                "train_mfu": train["mfu"],
+                "train_peak_memory_bytes": train["peak_memory_bytes"]})
+        emit("mesh_train", **result)
+        require(ok, f"mesh path losses/grad norms {got.tolist()} disagree "
+                    f"with the train phase's {want.tolist()}")
+        _check_train_launches("mesh_train", result["launches"],
+                              config.num_layers, warmup + timed)
+        emit("mesh_profile", **_profile_step(lambda: step(state, batch),
+                                             result["step_s_median"]))
+        del state, batch
+        return result
+    finally:
+        dist.destroy_process_group()
+
+
+# Ring and Ulysses attention at bench.py's attention shape in a world of
+# one. At f32 against plain attention: tests/test_parallel.py:88-89's
+# bound. At bf16 against the fwd kernel: the ring rounds its scores,
+# probabilities and row sums to bf16, and Ulysses (plain attention on
+# its heads) its scores and probabilities, as the reference's bf16
+# einsums do, where the kernel keeps them in f32. A score s rounded to
+# bf16 moves by up to 2^-9 |s| (|s| < 6 at this shape), which moves its
+# probability by up to ~1%; the first causal rows attend to a few keys,
+# so that change reaches their outputs unaveraged: ~1% of |v| (< 4.5),
+# up to ~4e-2. Elsewhere the roundings average out: the whole tensor
+# stays within phase_model's relative RMS bound for plain attention
+# against the kernels (ATTENTION_TOL's 1e-2). A wrong mask or a lost
+# block moves the RMS by 1e-1 or more. Measured on the CPU at
+# [1, 2048, 2, 64] before the first card run: relative RMS 5.1e-3 and
+# 6.2e-3 (ring, causal and full), 4.2e-3 and 5.0e-3 (plain), above
+# phase_kernels' O_TOL (5e-3, which holds a kernel against a plain
+# version with its own roundings).
+RING_F32_TOL = {"rtol": 2e-5, "atol": 2e-5, "rms_tol": 2e-5}
+RING_BF16_TOL = {"rtol": 2 ** -5, "atol": 4e-2, "rms_tol": 1e-2}
+# The model with attention="ring" against "plain", f32 (test_llama.py:
+# 110-111).
+RING_LOGITS_TOL = {"rtol": 3e-2, "atol": 3e-2, "rms_tol": 3e-2}
+
+
+def phase_ring_check(llama, fa) -> dict:
+    """ring_attention_sharded and ulysses_attention (inside local_map) on
+    a mesh of one rank at [8, 2048, 16, 64], causal and full: f32 against
+    plain_attention, bf16 against the fwd kernel; then a no_grad forward
+    of bench.py's model (f32) with attention="ring", its params placed on
+    the mesh, against attention="plain"."""
+    import functools
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.ring_attention import (
+        RING_SPEC,
+        plain_attention,
+        ring_attention_sharded,
+        ulysses_attention,
+    )
+    from ray_tpu_torch.parallel.sharding import placements, shard_params
+
+    require(not dist.is_initialized(), "a process group exists already")
+    mesh = build_mesh(MeshConfig(dp=1))
+    try:
+        b, l, h, d = 8, 2048, 16, 64
+        gen = torch.Generator("cuda").manual_seed(5)
+        qkv32 = [torch.randn((b, l, h, d), generator=gen, device="cuda")
+                 for _ in range(3)]
+        where = placements(mesh, RING_SPEC)
+        checks = {}
+        for dtype, tol in ((torch.float32, RING_F32_TOL),
+                           (torch.bfloat16, RING_BF16_TOL)):
+            q, k, v = (x.to(dtype) for x in qkv32)
+            for causal in (True, False):
+                if dtype == torch.float32:
+                    want = plain_attention(q, k, v, causal=causal)
+                else:
+                    want = fa.flash_fwd_kernel(q, k, v, causal)[0]
+                ring = ring_attention_sharded(q, k, v, mesh, causal=causal)
+                ulysses = local_map(
+                    functools.partial(ulysses_attention, axis_name="sp",
+                                      causal=causal, mesh=mesh),
+                    out_placements=where, in_placements=(where,) * 3,
+                    device_mesh=mesh)(*(distribute_tensor(x, mesh, where)
+                                        for x in (q, k, v))).full_tensor()
+                key = f"{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+                checks[f"ring_{key}"] = compare(ring, want, tol)
+                checks[f"ulysses_{key}"] = compare(ulysses, want, tol)
+                del want, ring, ulysses
+            del q, k, v
+        del qkv32
+        torch.cuda.empty_cache()
+
+        config = dataclasses.replace(bench_config(llama), dtype=torch.float32)
+        params = llama.init_params(config,
+                                   torch.Generator("cuda").manual_seed(0))
+        tokens = _bench_batch(config, 8, 2048)["tokens"]
+        with torch.no_grad():
+            plain = llama.forward(params, tokens, dataclasses.replace(
+                config, attention="plain"))
+            ring = llama.forward(
+                shard_params(params, mesh, llama.param_logical_axes(config)),
+                tokens, dataclasses.replace(config, attention="ring"))
+            ring = ring.full_tensor()
+        checks["model_ring_logits_f32"] = compare(ring, plain,
+                                                  RING_LOGITS_TOL)
+        del params, plain, ring
+        torch.cuda.empty_cache()
+        emit("ring_check", shape=[b, l, h, d], world_size=1,
+             mesh=list(mesh.mesh_dim_names), checks=checks)
+        bad = [name for name, c in checks.items() if not c["ok"]]
+        require(not bad, f"ring/Ulysses checks failed: {bad}")
+        return checks
+    finally:
+        dist.destroy_process_group()
 
 
 def _kernel_class(name: str) -> str:
@@ -1239,7 +1459,7 @@ def _two_train_steps(llama, train_step) -> list[float]:
                                torch.Generator(DEVICE).manual_seed(0), DEVICE)
     optimizer = train_step.default_optimizer(
         learning_rate=3e-4, warmup_steps=10, total_steps=1000)
-    state = train_step.create_train_state(params, optimizer, DEVICE)
+    state = train_step.create_train_state(params, optimizer, device=DEVICE)
     del params
 
     def loss(params, batch):
@@ -2003,7 +2223,13 @@ def main() -> int:
     phase_build(_build, fa)
     rows = phase_kernels(fa)
     phase_model(llama)
-    launches = phase_train(llama, train_step, fa, device, power)
+    train = phase_train(llama, train_step, fa, device, power)
+    launches = train["launches"]
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh_train(llama, train_step, fa, device, power,
+                                     train)["launches"]
+    torch.cuda.empty_cache()
+    phase_ring_check(llama, fa)
     torch.cuda.empty_cache()
     rows["rmsnorm"] = phase_rmsnorm(fused)
     phase_serve_check(llama)
@@ -2022,6 +2248,9 @@ def main() -> int:
     del served
     for kind, row in rows.items():
         row["launches"] = launches[kind]
+        # bench.py's mesh path (mesh_train); training's norms are
+        # llama.rms_norm, as in the reference, so RMSNorm has none.
+        row["mesh_launches"] = mesh_launches.get(kind, 0)
         # The same kernels driven through the runtime: the flash kernels
         # by runtime_check's train task, RMSNorm by both phases' actors.
         row["runtime_launches"] = check[kind] + runtime[kind]

@@ -7,11 +7,26 @@ before the gather, f32 rms_norm/rope statistics, f32 logits) and the same
 remat policies. The layers run as a Python loop over the stacked weights in
 place of ``lax.scan``.
 
-``attention="flash"`` goes through ``ray_tpu_torch.ops.flash_attention``
-(CUDA kernels on the card, GQA-native); ``"plain"`` through
-``plain_attention`` with repeated kv, as the reference does. Still to be
-ported: MoE, ring attention, the chunked-vocab loss, the KV-cache forward
-and the logical sharding axes.
+``attention="flash"`` goes through ``flash_attention_gspmd`` (the CUDA
+kernels on the card, GQA-native, on each rank's local shards when the
+tensors are DTensors); ``"plain"`` through ``plain_attention`` with
+repeated kv, as the reference does; ``"ring"`` through
+``ring_attention_gspmd`` over the ``sp`` axis, and ``"ring_local"``
+through ``ring_attention`` on local shards (inside ``local_map``).
+
+Parameters placed on a mesh (``param_logical_axes`` through
+``parallel.sharding.shard_params`` or ``create_train_state``) are
+DTensors, and the forward then runs on DTensors. Where the reference
+leaves the activations' layout to GSPMD's propagation, the port pins the
+residual stream to ``RESIDUAL`` at the embedding and after each block,
+and the attention's output before its projection, which keeps DTensor's
+op-by-op propagation on layouts it handles. The sequence stays whole
+outside the attention: DTensor cannot fold a sequence-split [B, L, E]
+into the [B*L, E] operand of a matrix product and back, so ``sp`` splits
+the ring's (and Ulysses') work, and every ``sp`` rank computes the
+projections and the MLP of the whole sequence. Still to be ported: MoE
+(and its logical axes), the manual ``tp_axis`` path of the pipeline, the
+chunked-vocab loss and the KV-cache forward.
 """
 
 from __future__ import annotations
@@ -20,6 +35,8 @@ import dataclasses
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -27,8 +44,25 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.ops.flash_attention import flash_attention
-from ray_tpu_torch.parallel.ring_attention import plain_attention
+from ray_tpu_torch.ops.flash_attention import (
+    GSPMD_SPEC,
+    flash_attention_gspmd,
+)
+from ray_tpu_torch.parallel.ring_attention import (
+    plain_attention,
+    ring_attention,
+    ring_attention_gspmd,
+    shard_attention,
+)
+from ray_tpu_torch.parallel.sharding import (
+    constrain,
+    logical_to_spec,
+    placements,
+)
+
+ATTENTION = ("plain", "flash", "ring", "ring_local")
+# The layout of the residual stream on a mesh (see the module docstring).
+RESIDUAL = ("batch", None, "embed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +83,8 @@ class LlamaConfig:
     # weight-activation matmul outputs and recomputes the rest, the flash
     # forward included.
     remat_policy: str = "full"
-    # "plain" (full attention) or "flash" (the flash kernels).
+    # "plain" (full attention), "flash" (the flash kernels), "ring" (ring
+    # attention over the sp axis) or "ring_local" (inside local_map).
     attention: str = "plain"
 
     @staticmethod
@@ -126,6 +161,29 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     }
 
 
+def param_logical_axes(config: LlamaConfig | None = None) -> dict:
+    """Logical sharding axes per param (leading stacked-layer dim = None).
+
+    tp → heads/mlp/vocab; fsdp → embed; norms replicated. Dense models
+    only: the port has no MoE yet."""
+    return {
+        "embed": {"tokens": ("vocab", "embed")},
+        "layers": {
+            "attn_norm": (None, "norm"),
+            "wq": (None, "embed", "heads", None),
+            "wk": (None, "embed", "kv_heads", None),
+            "wv": (None, "embed", "kv_heads", None),
+            "wo": (None, "heads", None, "embed"),
+            "mlp_norm": (None, "norm"),
+            "w_gate": (None, "embed", "mlp"),
+            "w_up": (None, "embed", "mlp"),
+            "w_down": (None, "mlp", "embed"),
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 # ------------------------------------------------------------------- forward
 
 
@@ -136,13 +194,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * scale).to(x.dtype)
 
 
+def _replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A constant ``t`` as a replicated DTensor on ``like``'s mesh where
+    ``like`` is a DTensor (DTensor ops take no plain tensor), else ``t``."""
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding. x: [B, L, H, D], positions: [B, L]."""
     d = x.shape[-1]
     exponent = -torch.arange(0, d // 2, dtype=torch.float32,
                              device=x.device) / (d // 2)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exponent)
+    freqs = _replicated(torch.pow(torch.tensor(
+        theta, dtype=torch.float32, device=x.device), exponent), positions)
     angles = positions[..., None].float() * freqs  # [B, L, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -168,13 +236,26 @@ def _attention_block(layer: dict, x: torch.Tensor, positions: torch.Tensor,
     v = _proj(normed, layer["wv"], dtype)
     if config.attention == "flash":
         # GQA-native: the kernels index the kv head of each query head.
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention_gspmd(q, k, v, causal=True)
     else:
         if kv != h:
             k = k.repeat_interleave(h // kv, dim=2)
             v = v.repeat_interleave(h // kv, dim=2)
-        out = plain_attention(q, k, v, causal=True)
+        if config.attention == "ring":
+            out = ring_attention_gspmd(q, k, v, causal=True)
+        elif config.attention == "ring_local":
+            # Already on local shards, inside local_map over a mesh with
+            # an "sp" axis (the ambient mesh).
+            out = ring_attention(q, k, v, axis_name="sp", causal=True)
+        elif isinstance(q, DTensor):
+            # The causal mask is a plain tensor: run on local shards.
+            out = shard_attention(
+                lambda q, k, v, mesh: plain_attention(q, k, v, causal=True),
+                q, k, v, None, GSPMD_SPEC)
+        else:
+            out = plain_attention(q, k, v, causal=True)
     b, l = x.shape[:2]
+    out = _pin(out, "batch", None, "heads", None)
     proj = out.reshape(b, l, h * d) @ layer["wo"].to(dtype).reshape(h * d, -1)
     return x + proj
 
@@ -191,10 +272,18 @@ def _mlp_block(layer: dict, x: torch.Tensor, config: LlamaConfig,
     return x + _proj(hidden, layer["w_down"], dtype)
 
 
+def _pin(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """``x`` in the layout of ``logical_axes`` (the residual stream's by
+    default) on a DTensor's mesh; a plain tensor as it is."""
+    if isinstance(x, DTensor):
+        return constrain(x, x.device_mesh, *(logical_axes or RESIDUAL))
+    return x
+
+
 def _layer(layer: dict, x: torch.Tensor, positions: torch.Tensor,
            config: LlamaConfig) -> torch.Tensor:
-    return _mlp_block(layer, _attention_block(layer, x, positions, config),
-                      config)
+    x = _pin(_attention_block(layer, x, positions, config))
+    return _pin(_mlp_block(layer, x, config))
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -237,24 +326,70 @@ def _lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``mm(out_dtype=)``, so there (and for f32 operands) both operands are
     upcast to f32 instead."""
     if x.is_cuda and x.dtype != torch.float32:
+        if isinstance(x, DTensor):
+            return _lm_head_local(x, w)
         out = _F32Logits.apply(x.reshape(-1, x.shape[-1]), w)
         return out.view(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 
 
+def _lm_head_local(x: DTensor, w: DTensor) -> DTensor:
+    """``_F32Logits`` on local shards (DTensor has no rule for
+    ``mm(out_dtype=)``): x split as the tokens (batch and sequence), w
+    whole over the embedding and split over tp by vocab, the logits split
+    as x and by vocab. x's gradient is then a partial sum over tp, w's
+    over the axes that split the tokens."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    x_at = placements(mesh, logical_to_spec(("batch", "sequence", "embed")))
+    w_at = placements(mesh, (None, "tp"))
+    out_at = placements(mesh, logical_to_spec(("batch", "sequence",
+                                               "vocab")))
+    dx_at = [Partial() if a == "tp" else p for a, p in zip(names, x_at)]
+    dw_at = [Partial() if a in ("dp", "fsdp", "sp") else p
+             for a, p in zip(names, w_at)]
+
+    def inner(x, w):
+        out = _F32Logits.apply(x.reshape(-1, x.shape[-1]), w)
+        return out.view(*x.shape[:-1], w.shape[-1])
+
+    return local_map(inner, out_placements=out_at,
+                     in_placements=(x_at, w_at),
+                     in_grad_placements=(dx_at, dw_at), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
+
+
 def forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
             positions: torch.Tensor | None = None) -> torch.Tensor:
-    """tokens [B, L] → logits [B, L, V] f32, on the params' device."""
-    if config.attention not in ("plain", "flash"):
-        raise ValueError(f"attention={config.attention!r}: this port has "
-                         f"'plain' and 'flash'")
+    """tokens [B, L] → logits [B, L, V] f32, on the params' device.
+
+    ``positions`` are the *global* token positions (RoPE and the causal
+    mask under sequence parallelism need them where ``tokens`` is a local
+    shard, as in ``"ring_local"``). With DTensor params the tokens and
+    positions are placed as ``("batch", None)`` on their mesh (a plain
+    tensor is taken as the global one) and the logits are a DTensor."""
+    if config.attention not in ATTENTION:
+        raise ValueError(f"attention={config.attention!r}: expected one of "
+                         f"{ATTENTION}")
     if config.remat and config.remat_policy not in _REMAT_CONTEXT:
         raise ValueError(f"remat_policy={config.remat_policy!r}: expected "
                          f"'full' or 'dots'")
     b, l = tokens.shape
     if positions is None:
         positions = torch.arange(l, device=tokens.device).expand(b, l)
-    x = params["embed"]["tokens"].to(config.dtype)[tokens]
+    # The reference's gather table[tokens], as an embedding lookup: on
+    # DTensors, from the whole table (DTensor's rules for index_put,
+    # indexing's backward, and for a gather from a vocab-split table, a
+    # masked partial sum, do not hold in every release; its rules for an
+    # embedding from a replicated table do), and the same op without a
+    # mesh, so that both paths sum the table's gradient in one order.
+    table = params["embed"]["tokens"].to(config.dtype)
+    if isinstance(table, DTensor):
+        mesh = table.device_mesh
+        tokens = constrain(tokens, mesh, "batch", None)
+        positions = constrain(positions.contiguous(), mesh, "batch", None)
+        table = constrain(table, mesh, None, None)
+    x = _pin(torch.nn.functional.embedding(tokens, table))
     # unbind, not indexing: its backward stacks the per-layer grads once
     # instead of adding a full-size zero tensor per layer.
     names = sorted(params["layers"])
@@ -274,7 +409,17 @@ def forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean next-token CE as logsumexp(logits) - logits[target]."""
+    """Mean next-token CE as logsumexp(logits) - logits[target].
+
+    DTensor logits are first gathered over the vocab (DTensor's
+    vocab-split gather leaves a masked partial sum that its later ops
+    mishandle), with the targets placed as the tokens."""
+    if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        logits = constrain(logits, mesh, "batch", "sequence", None)
+        targets = constrain(targets, mesh, "batch", "sequence")
+        if mask is not None:
+            mask = constrain(mask, mesh, "batch", "sequence")
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = lse - picked

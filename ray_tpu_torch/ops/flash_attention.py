@@ -27,8 +27,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.parallel.ring_attention import shard_attention
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -323,3 +325,26 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
         raise ValueError(f"block sizes must be positive, got {block_q}, "
                          f"{block_k}")
     return FlashAttention.apply(q, k, v, causal)
+
+
+# Batch over (dp, fsdp), heads over tp, the sequence whole (ring
+# attention owns the sp axis).
+GSPMD_SPEC = (("dp", "fsdp"), None, "tp", None)
+
+
+def flash_attention_gspmd(q, k, v, causal: bool = True, block_q: int = 512,
+                          block_k: int = 512):
+    """Flash attention callable from inside a model whose tensors are
+    DTensors: the kernels launch by ``data_ptr`` and take no DTensor, so
+    the call drops into ``local_map`` over the inputs' mesh, with batch
+    over (dp, fsdp), heads over tp and the sequence whole, and runs
+    ``flash_attention`` on each rank's local shards (the CUDA kernels on
+    the card, their plain versions on the CPU). Plain tensors are not
+    sharded, ambient mesh or not: this is then exactly
+    ``flash_attention``."""
+    if not isinstance(q, DTensor):
+        return flash_attention(q, k, v, causal, block_q, block_k)
+    return shard_attention(
+        lambda q, k, v, mesh: flash_attention(q, k, v, causal, block_q,
+                                              block_k),
+        q, k, v, None, GSPMD_SPEC)

@@ -1,9 +1,13 @@
 """The training step: AdamW with warmup-cosine and global-norm clipping.
 
-The port of ``ray_tpu/parallel/train_step.py`` on one device. The
-optimizer follows ``optax.chain(optax.clip_by_global_norm(max_norm),
-optax.adamw(warmup_cosine_decay_schedule(0, peak, warmup, total), b1=0.9,
-b2=0.95, weight_decay=wd))`` exactly:
+The port of ``ray_tpu/parallel/train_step.py``. With a mesh, the
+parameters (and so the AdamW moments, the gradients and every update) are
+DTensors placed per the logical-axis rules, and the batch is placed by
+``shard_batch``, as the reference's GSPMD step places them; without one,
+plain tensors on one device. The optimizer follows
+``optax.chain(optax.clip_by_global_norm(max_norm), optax.adamw(
+warmup_cosine_decay_schedule(0, peak, warmup, total), b1=0.9, b2=0.95,
+weight_decay=wd))`` exactly:
 
 - clipping is ``g if norm < max_norm else g / norm * max_norm``, with no
   epsilon (``torch.nn.utils.clip_grad_norm_`` adds one, so it is not used);
@@ -24,9 +28,12 @@ import math
 from typing import Any, Callable
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch._private.tree import tree_leaves, tree_map
+from ray_tpu_torch.parallel.sharding import placements, shard_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,19 +102,35 @@ class TrainState:
 
 
 def create_train_state(params: Any, optimizer: AdamW,
+                       mesh: DeviceMesh | None = None,
+                       logical_axes: Any | None = None,
                        device=None) -> TrainState:
     """Copy ``params`` to ``device`` as float32 and build the optimizer
     state. The copy is taken even where ``params`` already lies there, so
-    the in-place updates never write into the caller's tensors."""
+    the in-place updates never write into the caller's tensors.
+
+    With a mesh, the copies are placed on it per ``logical_axes`` (the
+    rules' guess, ``infer_param_logical_axes``, when None) as DTensors,
+    on the mesh's device type, and the AdamW moments follow them (they
+    are ``zeros_like`` the params)."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh, got {mesh!r} (pass the "
+                        f"device as device=)")
+    if device is None and mesh is not None:
+        device = mesh.device_type
     device = resolve_device(device)
     params = tree_map(
-        lambda p: p.detach().to(device, torch.float32, copy=True)
-        .requires_grad_(True), params)
+        lambda p: p.detach().to(device, torch.float32, copy=True), params)
+    if mesh is not None:
+        params = shard_params(params, mesh, logical_axes)
+    params = tree_map(lambda p: p.requires_grad_(True), params)
     return TrainState(params, optimizer.init(params), 0)
 
 
 def global_norm(tensors: list) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
+    """sqrt of the sum of squares of every element (``optax.global_norm``).
+    Over DTensors each sum is a partial sum over the shards, and the
+    square root takes the total: the norm is global."""
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
@@ -122,9 +145,14 @@ def build_train_step(loss_fn: Callable[..., torch.Tensor],
     def step(state: TrainState, batch: Any):
         leaves = tree_leaves(state.params)
         loss = loss_fn(state.params, batch)
+        if isinstance(loss, DTensor):
+            # The loss of a sharded batch is a partial mean on each rank.
+            loss = loss.full_tensor()
         grads = torch.autograd.grad(loss, leaves)
         grad_norm = global_norm(grads)
         optimizer.update_(leaves, grads, state.opt_state, grad_norm)
+        if isinstance(grad_norm, DTensor):
+            grad_norm = grad_norm.full_tensor()
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "step": state.step}
         state.step += 1
@@ -145,3 +173,20 @@ def place_batch(batch: Any, device=None) -> Any:
         return t.to(device)
 
     return tree_map(place, batch)
+
+
+def shard_batch(batch: Any, mesh: DeviceMesh, seq_axes: bool = True) -> Any:
+    """Place a host batch (as ``place_batch`` takes it, the same on every
+    rank) on the mesh: leading dim over (dp, fsdp), second dim (sequence)
+    over sp when present."""
+
+    def place(t):
+        if t.ndim >= 2 and seq_axes:
+            spec = (("dp", "fsdp"), "sp")
+        elif t.ndim >= 1:
+            spec = (("dp", "fsdp"),)
+        else:
+            spec = ()
+        return distribute_tensor(t, mesh, placements(mesh, spec))
+
+    return tree_map(place, place_batch(batch, mesh.device_type))

@@ -12,7 +12,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "rmsnorm_launch_cost.py"]
+    ROOT / "chip_smoke.py", ROOT / "rmsnorm_launch_cost.py",
+    # The ranks that tests/test_torch_parallel.py spawns import torch only.
+    ROOT / "tests" / "torch_parallel_ranks.py"]
+MESH_MODULES = ("_private/dist.py", "parallel/mesh.py", "parallel/sharding.py",
+                "parallel/ring_attention.py")
 FORBIDDEN = ("jax", "ray_tpu")
 
 
@@ -36,6 +40,27 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_neither_jax_nor_ray_tpu(path):
     bad = [name for name in _imported_modules(path) if _forbidden(name)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_mesh_modules_are_checked():
+    checked = {str(p.relative_to(ROOT / "ray_tpu_torch"))
+               for p in PORT_FILES if "ray_tpu_torch" in p.parts}
+    assert set(MESH_MODULES) <= checked
+
+
+def test_mesh_entry_points_raise_without_a_card(monkeypatch):
+    """No card: the mesh raises before any process group exists, and
+    never falls back to gloo on the CPU."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import build_mesh, single_axis_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not dist.is_initialized()
+    for entry in (build_mesh, single_axis_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    assert not dist.is_initialized()
 
 
 def test_forbidden_matches_only_the_jax_packages():

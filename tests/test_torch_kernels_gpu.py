@@ -209,6 +209,45 @@ def test_remat_reruns_the_forward_kernel(cuda_device, policy):
 
 
 @pytest.mark.gpu
+def test_flash_attention_gspmd_on_a_world_of_one(cuda_device):
+    """flash_attention_gspmd on DTensors over a CUDA mesh of one rank
+    (NCCL) against flash_attention on the same tensors: the kernels run on
+    the local shards (one launch of each per forward and backward) and
+    give the same bits, output and gradients."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.sharding import logical_to_spec, placements
+
+    created = not dist.is_initialized()
+    mesh = build_mesh(MeshConfig(dp=1))
+    try:
+        q, k, v, do = _qkvdo(cuda_device, 2, 256, 8, 2, 64, seed=3)
+        where = placements(mesh, logical_to_spec(
+            ("batch", "sequence", "heads", None)))
+        placed = [distribute_tensor(x, mesh, where).requires_grad_(True)
+                  for x in (q, k, v)]
+        plain = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        before = dict(fa.launches)
+        out = fa.flash_attention_gspmd(*placed, causal=True)
+        assert isinstance(out, DTensor)
+        out.backward(distribute_tensor(do, mesh, where))
+        launched = {kind: fa.launches[kind] - before[kind] for kind in before}
+        want = fa.flash_attention(*plain, causal=True)
+        want.backward(do)
+        assert launched == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1,
+                            "bwd_delta": 1}
+        torch.testing.assert_close(out.full_tensor(), want, atol=0, rtol=0)
+        for a, b in zip(placed, plain):
+            torch.testing.assert_close(a.grad.full_tensor(), b.grad, atol=0,
+                                       rtol=0)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
 def test_lm_head_logits_stay_f32(cuda_device):
     """bf16 operands, f32 logits: equal to the f32 product of the same bf16
     values up to f32 summation order (1e-4 relative), never rounded

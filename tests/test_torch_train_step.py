@@ -60,7 +60,7 @@ def _jax_trajectory(cfg, params, tokens, warmup):
 def _port_trajectory(cfg, params, tokens, warmup):
     optimizer = default_optimizer(learning_rate=1e-3, warmup_steps=warmup,
                                   total_steps=10)
-    state = create_train_state(params, optimizer, "cpu")
+    state = create_train_state(params, optimizer, device="cpu")
 
     def loss(p, batch):
         return llama.loss_fn(p, batch["tokens"], batch["targets"], cfg)
@@ -129,7 +129,8 @@ def test_update_matches_optax(grad_scale):
     ref_state = ref_opt.init(ref_params)
     opt = default_optimizer(learning_rate=1e-2, warmup_steps=2,
                             total_steps=10)
-    state = create_train_state(params_from_numpy(params, "cpu"), opt, "cpu")
+    state = create_train_state(params_from_numpy(params, "cpu"), opt,
+                               device="cpu")
     leaves = tree_leaves(state.params)
     for g in grads:
         updates, ref_state = ref_opt.update(jax.tree.map(jnp.asarray, g),
@@ -150,7 +151,7 @@ def test_train_state_copies_callers_params():
     before = params["lm_head"].clone()
     opt = default_optimizer(learning_rate=1e-3, warmup_steps=0,
                             total_steps=10)
-    state = create_train_state(params, opt, "cpu")
+    state = create_train_state(params, opt, device="cpu")
     step = build_train_step(
         lambda p, b: llama.loss_fn(p, b["tokens"], b["targets"], cfg), opt)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9))
