@@ -21,6 +21,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (
     DTensor,
+    Partial,
     Placement,
     Replicate,
     Shard,
@@ -112,6 +113,16 @@ def placements(mesh: DeviceMesh, spec: Sequence) -> list[Placement]:
                                  f"twice in spec {tuple(spec)}")
             out[mesh_dim] = Shard(dim)
     return out
+
+
+def partial_over(mesh: DeviceMesh, at: Sequence[Placement],
+                 axes: Sequence[str]) -> list[Placement]:
+    """``at`` with ``Partial()`` at the mesh dim of each axis in ``axes``
+    (those the mesh has): the placements of a value, such as a gradient
+    inside ``local_map``, of which each rank on those axes holds a
+    partial sum."""
+    names = mesh.mesh_dim_names or ()
+    return [Partial() if a in axes else p for a, p in zip(names, at)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,7 @@ JAX package, and its entry points never fall back to the CPU on their
 own."""
 
 import ast
+import dataclasses
 import importlib
 from pathlib import Path
 
@@ -13,10 +14,13 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "rmsnorm_launch_cost.py",
-    # The ranks that tests/test_torch_parallel.py spawns import torch only.
-    ROOT / "tests" / "torch_parallel_ranks.py"]
+    # The ranks that tests/test_torch_parallel.py and
+    # tests/test_torch_pipeline.py spawn import torch only.
+    ROOT / "tests" / "torch_parallel_ranks.py",
+    ROOT / "tests" / "torch_pipeline_ranks.py"]
 MESH_MODULES = ("_private/dist.py", "parallel/mesh.py", "parallel/sharding.py",
                 "parallel/ring_attention.py")
+MOE_PIPELINE_MODULES = ("models/moe.py", "parallel/pipeline.py")
 FORBIDDEN = ("jax", "ray_tpu")
 
 
@@ -46,6 +50,24 @@ def test_the_mesh_modules_are_checked():
     checked = {str(p.relative_to(ROOT / "ray_tpu_torch"))
                for p in PORT_FILES if "ray_tpu_torch" in p.parts}
     assert set(MESH_MODULES) <= checked
+
+
+def test_the_moe_and_pipeline_modules_are_checked():
+    checked = {str(p.relative_to(ROOT / "ray_tpu_torch"))
+               for p in PORT_FILES if "ray_tpu_torch" in p.parts}
+    assert set(MOE_PIPELINE_MODULES) <= checked
+    assert ROOT / "tests" / "torch_pipeline_ranks.py" in PORT_FILES
+
+
+def test_moe_init_raises_without_a_card(monkeypatch):
+    from ray_tpu_torch.models import llama, moe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        moe.init_moe_params(torch.Generator(), 8, 16, 2, 1)
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), num_experts=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama.init_params(cfg, torch.Generator())
 
 
 def test_mesh_entry_points_raise_without_a_card(monkeypatch):

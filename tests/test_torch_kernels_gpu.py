@@ -248,6 +248,76 @@ def test_flash_attention_gspmd_on_a_world_of_one(cuda_device):
 
 
 @pytest.mark.gpu
+def test_moe_mlp_on_the_card_matches_the_cpu(cuda_device):
+    """moe_mlp at f32 on the card against the same call on the CPU, on
+    the same weights and input (TF32 is off, so both sum f32 products in
+    other orders): output and aux to 1e-5, every gradient to 1e-4."""
+    from ray_tpu_torch.models import moe
+
+    gen = torch.Generator().manual_seed(0)
+    layer = {k: v[0] for k, v in moe.init_moe_params(
+        gen, 64, 128, 4, 1, device="cpu").items()}
+    x = torch.randn((2, 64, 64), generator=gen)
+    runs = []
+    for device in ("cpu", cuda_device):
+        weights = {k: v.detach().clone().to(device).requires_grad_(True)
+                   for k, v in layer.items()}
+        xd = x.clone().to(device).requires_grad_(True)
+        out, aux = moe.moe_mlp(weights, xd, dtype=torch.float32)
+        (out.square().sum() + aux).backward()
+        runs.append((out, aux, xd.grad,
+                     *(weights[k].grad for k in sorted(weights))))
+    (out, aux, *grads), (out_gpu, aux_gpu, *grads_gpu) = runs
+    torch.testing.assert_close(out_gpu.cpu(), out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux_gpu.cpu(), aux, atol=1e-5, rtol=1e-5)
+    for a, b in zip(grads_gpu, grads):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_llama_pipeline_forward_on_a_world_of_one(cuda_device):
+    """llama_pipeline_forward with flash attention (bf16) on a CUDA mesh
+    of one rank (NCCL), params placed per param_logical_axes: at one
+    microbatch it computes what llama.forward does, bit for bit; at two,
+    the same logits from half-size products (bf16 rounding apart), each
+    microbatch's stage launching the forward kernel once a layer."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.pipeline import llama_pipeline_forward
+    from ray_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), attention="flash",
+                              num_kv_heads=2)
+    params = llama.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128), device=cuda_device,
+                           generator=torch.Generator(cuda_device).manual_seed(1))
+    created = not dist.is_initialized()
+    mesh = build_mesh(MeshConfig(pp=1))
+    try:
+        placed = shard_params(params, mesh, llama.param_logical_axes(cfg))
+        with torch.no_grad():
+            want = llama.forward(params, tokens, cfg)
+            one = llama_pipeline_forward(placed, tokens, cfg, 1, 1)
+            before = fa.launches["fwd"]
+            two = llama_pipeline_forward(placed, tokens, cfg, 1, 2)
+            launched = fa.launches["fwd"] - before
+        assert isinstance(one, DTensor)
+        torch.testing.assert_close(one.full_tensor(), want, atol=0, rtol=0)
+        assert launched == 2 * cfg.num_layers
+        two = two.full_tensor()
+        assert torch.isfinite(two).all()
+        assert ((two - want).norm() / want.norm()).item() < 1e-2
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
 def test_lm_head_logits_stay_f32(cuda_device):
     """bf16 operands, f32 logits: equal to the f32 product of the same bf16
     values up to f32 summation order (1e-4 relative), never rounded

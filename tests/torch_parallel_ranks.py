@@ -5,10 +5,12 @@ port only (never JAX): the test spawns its functions, and keeps the JAX
 oracle in its own process.
 
 ``start_ranks`` starts the world, ``join_ranks`` waits for it and
-``rank_main`` is one rank. Every rank
-writes ``rank<r>.pkl`` into the output directory: each case's results
-(numpy arrays and plain values) and the traceback of each case that
-raised.
+``rank_main`` is one rank, running the ``CASES`` of a module (this one by
+default; ``tests/torch_pipeline_ranks.py`` passes its own). Every rank
+writes ``rank<r>.pkl`` into the output directory after each case: each
+finished case's results (numpy arrays and plain values) and the
+traceback of each case that raised, so a case that hangs costs only
+itself and the cases after it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import functools
+import importlib
 import os
 import pickle
 import time
@@ -283,7 +286,15 @@ CASES = (case_ring, case_ulysses, case_flash, case_ring_logits,
          case_ring_local_logits, case_train, case_shard_batch, case_lm_head)
 
 
-def rank_main(rank: int, store: str, out_dir: str, inputs: dict) -> None:
+def _write(out_dir: str, rank: int, record: dict) -> None:
+    path = Path(out_dir) / f"rank{rank}.pkl"
+    tmp = path.with_suffix(".tmp")
+    tmp.write_bytes(pickle.dumps(record))
+    tmp.replace(path)
+
+
+def rank_main(rank: int, store: str, out_dir: str, inputs: dict,
+              module: str = __name__) -> None:
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     torch.set_num_threads(1)
     # Eight busy ranks beside the suite's other workers: yield the CPU to
@@ -292,29 +303,29 @@ def rank_main(rank: int, store: str, out_dir: str, inputs: dict) -> None:
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=WORLD,
                             timeout=COLLECTIVE_TIMEOUT)
-    results, errors, seconds = {}, {}, {}
+    record = {"results": {}, "errors": {}, "seconds": {}}
     try:
-        for case in CASES:
+        for case in importlib.import_module(module).CASES:
             start = time.perf_counter()
             try:
-                results.update(case(inputs))
+                record["results"].update(case(inputs))
             except Exception:  # noqa: BLE001 - reported by the test
-                errors[case.__name__] = traceback.format_exc()
-            seconds[case.__name__] = time.perf_counter() - start
+                record["errors"][case.__name__] = traceback.format_exc()
+            record["seconds"][case.__name__] = time.perf_counter() - start
+            _write(out_dir, rank, record)
     finally:
-        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
-            pickle.dump({"results": results, "errors": errors,
-                         "seconds": seconds}, f)
+        _write(out_dir, rank, record)
         dist.destroy_process_group()
 
 
-def start_ranks(out_dir: Path, inputs: dict) -> list:
+def start_ranks(out_dir: Path, inputs: dict, module: str = __name__) -> list:
     """Spawn the WORLD ranks (``spawn`` context, a ``file://`` store in
-    ``out_dir``, so that concurrent runs never share a port)."""
+    ``out_dir``, so that concurrent runs never share a port), each
+    running ``module``'s ``CASES``."""
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=rank_main,
                          args=(rank, str(out_dir / "store"), str(out_dir),
-                               inputs), daemon=True)
+                               inputs, module), daemon=True)
              for rank in range(WORLD)]
     for proc in procs:
         proc.start()
