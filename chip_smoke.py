@@ -32,6 +32,17 @@ source, all started together) and drives the port's two paths:
   train's and the plain model's own microbatched drift beside
   (pipeline_train); ``ce_chunk=256`` against the full logits
   (ce_chunk_check);
+- the collective API and Train: four thread actors on a quarter of the
+  card each run every op of ``util/collective`` on [4096, 4096] f32 and
+  bf16 tensors on the card, bitwise against the same ops on the CPU;
+  ``util/collective/nccl.py``'s helpers and primitives on NCCL at a
+  world of one; ``TorchTrainer`` with two workers on half the card each,
+  its replicas bitwise equal after every step (collective_check); then
+  bench.py's mesh path as ``MeshTrainer``'s train loop (one worker on the
+  card's ``GPU``, ``train.get_mesh()``): 7 steps with the TrainState
+  checkpointed at steps 1, 3 and 5 (two kept), held against mesh_train,
+  then a run that fails after step 3 and resumes from its checkpoint,
+  bitwise the first run on steps 4-6 (trainer);
 - serving: holds the RMSNorm kernel against its plain version at the
   serving and training shapes, takes the host cost of its launch path
   piece by piece at the decode shape, checks the paged engine's greedy
@@ -64,7 +75,8 @@ registers, shared memory and spills (the Hopper kernels at every head
 dim). The line before the last lists every kernel with its launches on
 its path (the train phase for the attention kernels, the serve phase for
 RMSNorm), through the mesh path (``mesh_launches``), through the MoE and
-the pipeline (``moe_launches``, ``pipeline_launches``), through the runtime
+the pipeline (``moe_launches``, ``pipeline_launches``), through
+``MeshTrainer`` (``trainer_launches``), through the runtime
 (``runtime_launches``) and through the serve deployments
 (``deployment_launches``), its error
 against the plain version, its times, and for the attention kernels the
@@ -1266,6 +1278,474 @@ def phase_ce_chunk_check(llama, train_step) -> dict:
             f"chunked grad norm {chunked['grad_norm']} vs full "
             f"{full['grad_norm']}")
     return result
+
+
+# collective_check (a): four thread actors on a quarter of the card each
+# run every op of util/collective on integer-valued [4096, 4096] tensors,
+# on the card and then on the CPU: the store adds, multiplies and
+# compares in arrival order, and on these values every order gives the
+# same bits, so each card result must equal its CPU twin bit for bit.
+COLLECTIVE_WORLD = 4
+COLLECTIVE_SHAPE = (4096, 4096)
+COLLECTIVE_TIMED = 5  # allreduces timed on rank 0, after one warm-up
+# collective_check (c): two TorchTrainer workers on half the card each;
+# their hooks wait for each other, so run on the card's one shared
+# autograd thread they would hang until the store's timeout.
+DDP_STEPS, DDP_DEADLINE_S = 5, 120.0
+
+
+class CollectiveRank:
+    """One rank of collective_check's store group."""
+
+    def __init__(self, rank: int, world: int, group: str):
+        from ray_tpu_torch.util import collective
+
+        self.rank, self.world, self.group = rank, world, group
+        collective.init_collective_group(world, rank, group_name=group)
+
+    def _ops(self, device: str, dtype: torch.dtype) -> dict:
+        from ray_tpu_torch.util import collective as col
+
+        gen = torch.Generator().manual_seed(self.rank)
+
+        def ints(low, high):
+            return torch.randint(low, high, COLLECTIVE_SHAPE,
+                                 generator=gen).to(device, dtype)
+
+        x = ints(-8, 9)
+        # Factors of +-1 and +-2: every product of 4 is a power of two.
+        factors = ints(1, 3) * (ints(0, 2) * 2 - 1)
+        g, nxt = self.group, (self.rank + 1) % self.world
+        out = {"allreduce_sum": col.allreduce(x, g),
+               "allreduce_product": col.allreduce(factors, g,
+                                                  col.ReduceOp.PRODUCT),
+               "allreduce_min": col.allreduce(x, g, col.ReduceOp.MIN),
+               "allreduce_max": col.allreduce(x, g, col.ReduceOp.MAX),
+               "broadcast": col.broadcast(x, src_rank=2, group_name=g),
+               "reducescatter": col.reducescatter(x, g)}
+        for r, t in enumerate(col.allgather(x, g)):
+            out[f"allgather_{r}"] = t
+        col.send(x, nxt, g)
+        out["recv"] = col.recv((self.rank - 1) % self.world, g)
+        col.barrier(g)
+        require((col.get_rank(g), col.get_world_size(g))
+                == (self.rank, self.world), "rank or world size wrong")
+        return out
+
+    def check(self, dtype: torch.dtype) -> dict:
+        """Every op on the card, then on the CPU: per op, whether the
+        card's result is bitwise the CPU's, on the card, in ``dtype``."""
+        on_card = self._ops(DEVICE, dtype)
+        torch.cuda.synchronize()
+        on_cpu = self._ops("cpu", dtype)
+        return {name: {"bitwise": torch.equal(t.cpu(), on_cpu[name]),
+                       "device": str(t.device), "dtype": str(t.dtype)[6:]}
+                for name, t in on_card.items()}
+
+    def time_allreduce(self, dtype: torch.dtype) -> list:
+        """Host ms of each of COLLECTIVE_TIMED allreduces of one
+        [4096, 4096] tensor on the card, its kernels synchronised."""
+        from ray_tpu_torch.util import collective as col
+
+        x = torch.ones(COLLECTIVE_SHAPE, device=DEVICE, dtype=dtype)
+        col.allreduce(x, self.group)
+        times = []
+        for _ in range(COLLECTIVE_TIMED):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            col.allreduce(x, self.group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        return times
+
+
+def _nccl_world_of_one() -> dict:
+    """util/collective/nccl.py on NCCL at a world of one: each host
+    helper and in-SPMD primitive against what a world of one gives (the
+    input itself), on the card; psum's gradient."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import set_mesh
+    from ray_tpu_torch.util.collective import nccl
+
+    require(not dist.is_initialized(), "a process group exists already")
+    mesh = nccl.default_mesh(device=DEVICE)
+    try:
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        require(dist.get_backend() == backend and dist.get_world_size() == 1,
+                f"nccl.default_mesh on {dist.get_backend()}")
+        x = np.random.default_rng(7).integers(-8, 9, (1, 64, 32)) \
+            .astype(np.float32)
+        checks = {name: bool(np.array_equal(getattr(nccl, name)(x, mesh), want))
+                  for name, want in (("device_allreduce", x[0]),
+                                     ("device_allgather", x),
+                                     ("device_reducescatter", x),
+                                     ("device_ring_shift", x))}
+        t = torch.tensor(x[0], device=DEVICE)
+        with set_mesh(mesh):
+            results = {
+                "psum": (nccl.psum(t, "x"), t),
+                "pmean": (nccl.pmean(t, "x"), t),
+                "pmax": (nccl.pmax(t, "x"), t),
+                "pmin": (nccl.pmin(t, "x"), t),
+                "all_gather": (nccl.all_gather(t, "x"), t[None]),
+                "all_gather_tiled": (nccl.all_gather(t, "x", axis=1,
+                                                     tiled=True), t),
+                "ppermute": (nccl.ppermute(t, "x", [(0, 0)]), t),
+                "all_to_all_tiled": (nccl.all_to_all(t, "x", 1, 0,
+                                                     tiled=True), t)}
+            checks.update({name: bool(torch.equal(got, want)
+                                      and got.device.type == DEVICE)
+                           for name, (got, want) in results.items()})
+            checks["axis_index"] = nccl.axis_index("x") == 0
+            leaf = t.clone().requires_grad_(True)
+            nccl.psum(leaf, "x").sum().backward()
+            checks["psum_grad"] = bool(torch.equal(leaf.grad,
+                                                   torch.ones_like(t)))
+        return checks
+    finally:
+        dist.destroy_process_group()
+
+
+def _ddp_loop(config):
+    """collective_check (c): per dtype, a small MLP on the card, its
+    init and data different per rank, through prepare_model; 5 Adam
+    steps with the gradients clipped to norm 1 between backward and the
+    step, the ranks' flattened gradients gathered once clipped and their
+    weights after each step (the step's time includes the first
+    gather)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.torch import _group_name, prepare_model
+    from ray_tpu_torch.util import collective
+
+    rank = train.get_context().get_world_rank()
+    gen = torch.Generator(DEVICE).manual_seed(100 + rank)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = torch.nn.Sequential(
+            torch.nn.Linear(256, 1024), torch.nn.GELU(),
+            torch.nn.Linear(1024, 1024), torch.nn.GELU(),
+            torch.nn.Linear(1024, 1)).to(DEVICE, dtype)
+        with torch.no_grad():
+            for p in model.parameters():
+                # Weights normal with std fan_in^-1/2, biases 0.
+                p.copy_(torch.randn(p.shape, generator=gen, device=DEVICE)
+                        * p.shape[-1] ** -0.5 if p.ndim == 2 else 0)
+        model = prepare_model(model)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        x = torch.randn((512, 256), generator=gen, device=DEVICE).to(dtype)
+        y = x.float().sum(1, keepdim=True).div(16).tanh().to(dtype)
+        equal, grads_equal, on_card, losses, step_ms = [], [], [], [], []
+        for _ in range(DDP_STEPS):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            opt.zero_grad()
+            loss = (model(x) - y).float().pow(2).mean()
+            loss.backward()
+            torch.nn.utils.clip_grad_norm_(model.parameters(), 1.0)
+            # The clipped gradients, before the step: equal across ranks
+            # only if clipping acted on the average in .grad.
+            grads = collective.allgather(
+                torch.cat([p.grad.flatten() for p in model.parameters()]),
+                group_name=_group_name())
+            opt.step()
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            grads_equal.append(all(torch.equal(g, grads[0]) for g in grads))
+            flat = torch.cat([p.detach().flatten()
+                              for p in model.parameters()])
+            gathered = collective.allgather(flat, group_name=_group_name())
+            equal.append(all(torch.equal(g, gathered[0]) for g in gathered))
+            on_card.append(all(g.device.type == DEVICE and g.dtype == dtype
+                               for g in gathered))
+        out[str(dtype)[6:]] = {"replicas_bitwise_equal": equal,
+                               "grads_bitwise_equal": grads_equal,
+                               "on_card": on_card, "loss": losses,
+                               "step_ms": step_ms}
+    train.report(out)
+
+
+def phase_collective_check(device: dict, power: str) -> dict:
+    """(a) util/collective's store on cuda tensors, f32 and bf16, bitwise
+    against the CPU; (b) util/collective/nccl.py on NCCL at a world of
+    one; (c) TorchTrainer's DDP on the card with two thread workers."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    start = time.perf_counter()
+    allocated_before = torch.cuda.memory_allocated()
+    rt.init(num_cpus=8)
+    try:
+        ranks = [rt.remote(CollectiveRank).options(num_gpus=0.25).remote(
+            r, COLLECTIVE_WORLD, "collective_check")
+            for r in range(COLLECTIVE_WORLD)]
+        gpu_while_ranks = rt.available_resources().get("GPU")
+        store = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            per_rank = rt.get([a.check.remote(dtype) for a in ranks],
+                              timeout=300)
+            store[str(dtype)[6:]] = per_rank
+        allreduce_ms = {
+            str(dtype)[6:]: rt.get([a.time_allreduce.remote(dtype)
+                                    for a in ranks], timeout=300)[0]
+            for dtype in (torch.float32, torch.bfloat16)}
+        for a in ranks:
+            rt.kill(a)
+        gpu_after_ranks = _until(
+            lambda: rt.available_resources().get("GPU") == 1.0)
+        nccl_checks = _nccl_world_of_one()
+        ddp_start = time.perf_counter()
+        ddp = train.TorchTrainer(
+            _ddp_loop, scaling_config=train.ScalingConfig(
+                num_workers=2, use_gpu=True, gpus_per_worker=0.5),
+            run_config=train.RunConfig(report_timeout_s=DDP_DEADLINE_S)
+        ).fit()
+        ddp_s = time.perf_counter() - ddp_start
+        gpu_after_ddp = _until(
+            lambda: rt.available_resources().get("GPU") == 1.0)
+    finally:
+        rt.shutdown()
+    torch.cuda.empty_cache()
+    bad_store = sorted({f"{dtype}:{op}" for dtype, per_rank in store.items()
+                        for checks in per_rank for op, c in checks.items()
+                        if not (c["bitwise"] and c["device"].startswith(
+                            DEVICE) and c["dtype"] == dtype)})
+    result = {
+        "store": {"world": COLLECTIVE_WORLD, "shape": list(COLLECTIVE_SHAPE),
+                  "actor_gpus": 0.25, "gpu_available_while_ranks_live":
+                  gpu_while_ranks, "ops": sorted(store["float32"][0]),
+                  "not_bitwise_or_off_card": bad_store,
+                  "allreduce_ms_rank0": allreduce_ms,
+                  "allreduce_ms_median": {
+                      k: statistics.median(v)
+                      for k, v in allreduce_ms.items()}},
+        "nccl_world_of_one": nccl_checks,
+        "ddp": {"workers": 2, "gpus_per_worker": 0.5, "error": repr(
+            ddp.error) if ddp.error else None, "seconds": ddp_s,
+                "deadline_s": DDP_DEADLINE_S, "per_dtype": ddp.metrics},
+        "gpu_back": [gpu_after_ranks, gpu_after_ddp],
+        "memory_allocated_before_after": [allocated_before,
+                                          torch.cuda.memory_allocated()],
+        "elapsed_s": time.perf_counter() - start,
+        "card": device["kind"], "nvidia_smi": power,
+    }
+    emit("collective_check", **result)
+    require(gpu_while_ranks == 0.0, f"GPU left while 4 x 0.25 held: "
+                                    f"{gpu_while_ranks}")
+    require(not bad_store, f"store ops not bitwise on the card: {bad_store}")
+    require(all(nccl_checks.values()), f"nccl at a world of one: "
+                                       f"{nccl_checks}")
+    require(ddp.error is None and ddp_s < DDP_DEADLINE_S,
+            f"TorchTrainer on the card: {ddp.error!r} after {ddp_s:.1f} s")
+    for dtype, run in ddp.metrics.items():
+        require(run["replicas_bitwise_equal"] == [True] * DDP_STEPS
+                and run["grads_bitwise_equal"] == [True] * DDP_STEPS
+                and run["on_card"] == [True] * DDP_STEPS,
+                f"{dtype} replicas not bitwise equal on the card: {run}")
+        require(run["loss"][-1] < run["loss"][0],
+                f"{dtype} loss did not fall: {run['loss']}")
+    require(gpu_after_ranks and gpu_after_ddp, "GPU not back")
+    return result
+
+
+# The trainer phase: bench.py's mesh path as MeshTrainer's loop, 7 steps
+# with the whole TrainState checkpointed at steps 1, 3 and 5 (two kept),
+# then the same run failing once after step 3's report and resuming
+# from step 3's checkpoint.
+TRAINER_STEPS = 7
+TRAINER_CKPT_STEPS = (1, 3, 5)
+TRAINER_CRASH_AFTER = 3
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def _trainer_loop(config):
+    """bench.py's model, seeds and batch on ``train.get_mesh()`` (a world
+    of one on NCCL), resumed from ``train.get_checkpoint()`` when there is
+    one; reports floats only."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step
+
+    def leaves(state):
+        return tree_leaves(state.params) + tree_leaves(
+            state.opt_state["mu"]) + tree_leaves(state.opt_state["nu"])
+
+    mesh = train.get_mesh(device=DEVICE)
+    model, params, optimizer, step = _bench_training(llama, train_step)
+    state = train_step.create_train_state(
+        params, optimizer, mesh, llama.param_logical_axes(model))
+    del params
+    resumed = {}
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        start = time.perf_counter()
+        template = state
+        state = ckpt.to_state(template)
+        torch.cuda.synchronize()
+        resumed["restore_s"] = time.perf_counter() - start
+        resumed["restored_dtensors_placed"] = all(
+            isinstance(got, DTensor) and got.placements == like.placements
+            and got.device_mesh == like.device_mesh
+            for got, like in zip(leaves(state), leaves(template)))
+        resumed["resumed_at"] = state.step
+        del template
+    batch = train_step.shard_batch(_bench_batch(model, 8, 2048), mesh)
+    crash = config["crash"]
+    for i in range(state.step, TRAINER_STEPS):
+        start = time.perf_counter()
+        state, metrics = step(state, batch)
+        report = {"step": i, "loss": metrics["loss"].item(),
+                  "grad_norm": metrics["grad_norm"].item()}
+        torch.cuda.synchronize()
+        report["step_s"] = time.perf_counter() - start
+        report.update(resumed)
+        resumed = {}
+        checkpoint = None
+        if i in TRAINER_CKPT_STEPS:
+            start = time.perf_counter()
+            checkpoint = train.Checkpoint.from_state(state)
+            report["save_s"] = time.perf_counter() - start
+            report["checkpoint_bytes"] = _dir_bytes(checkpoint.path)
+        train.report(report, checkpoint=checkpoint)
+        if crash is not None and i == TRAINER_CRASH_AFTER \
+                and not crash.is_set():
+            crash.set()
+            raise RuntimeError("injected failure after step 3's report")
+
+
+def phase_trainer(llama, fa, device: dict, power: str, mesh: dict) -> dict:
+    """bench.py's Llama through ``MeshTrainer`` (one worker on the
+    card's ``GPU``): 7 steps checkpointed at 1, 3 and 5, held against
+    mesh_train's losses and grad norms; then a run that fails after step
+    3 and resumes from its checkpoint, bitwise the first run on steps
+    4-6. Returns the kernels' launches through the first run."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    require(not dist.is_initialized(), "a process group exists already")
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
+    runs = {}
+    rt.init(num_cpus=8)
+    try:
+        for name, crash in (("straight", None),
+                            ("resumed", threading.Event())):
+            # Checkpoints are written under the temporary directory and
+            # moved into storage there: a rename, not a copy.
+            storage = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            try:
+                with _LaunchCount(fa) as count:
+                    result = train.MeshTrainer(
+                        _trainer_loop, train_loop_config={"crash": crash},
+                        scaling_config=train.ScalingConfig(num_workers=1,
+                                                           use_gpu=True),
+                        run_config=train.RunConfig(
+                            name=name, storage_path=storage,
+                            checkpoint_config=train.CheckpointConfig(
+                                num_to_keep=2),
+                            failure_config=train.FailureConfig(
+                                max_failures=1 if crash else 0))).fit()
+                    torch.cuda.synchronize()
+                kept = sorted(os.listdir(os.path.join(storage, name)))
+            finally:
+                shutil.rmtree(storage, ignore_errors=True)
+            elapsed = time.perf_counter() - start
+            torch.cuda.empty_cache()
+            runs[name] = {
+                "error": repr(result.error) if result.error else None,
+                "history": result.metrics_history,
+                "checkpoints_kept": len(kept),
+                "launches": count.counts, "elapsed_s": elapsed,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "gpu_back": _until(
+                    lambda: rt.available_resources().get("GPU") == 1.0),
+                "memory_allocated_after": torch.cuda.memory_allocated()}
+            require(result.error is None, f"trainer run {name}: "
+                                          f"{result.error!r}")
+    finally:
+        rt.shutdown()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    straight, resumed = runs["straight"]["history"], runs["resumed"]["history"]
+    got = np.array([[m["loss"] for m in straight],
+                    [m["grad_norm"] for m in straight]])
+    want = np.array([mesh["loss"], mesh["grad_norm"]])
+    diff = np.abs(got - want)
+    ok = bool(got.shape == want.shape and np.all(
+        diff <= MESH_TRAIN_ATOL + MESH_TRAIN_RTOL * np.abs(want)))
+
+    def numbers(history):
+        return [(m["step"], m["loss"], m["grad_norm"]) for m in history]
+
+    restored = [m for m in resumed if "restore_s" in m]
+    saves = [m["save_s"] for run in (straight, resumed) for m in run
+             if "save_s" in m]
+    result = {
+        "config": "bench.py:50-54", "batch": [8, 2048],
+        "steps": TRAINER_STEPS, "checkpoint_steps": list(TRAINER_CKPT_STEPS),
+        "crash_after_step": TRAINER_CRASH_AFTER,
+        "loss": got[0].tolist(), "grad_norm": got[1].tolist(),
+        "against_mesh_train": {
+            "max_abs_loss_diff": float(diff[0].max()),
+            "max_abs_grad_norm_diff": float(diff[1].max()),
+            "bitwise": bool(np.array_equal(got, want)),
+            "rtol": MESH_TRAIN_RTOL, "atol": MESH_TRAIN_ATOL, "ok": ok},
+        "resumed_steps": [m["step"] for m in resumed],
+        "resumed_bitwise_steps_4_6": numbers(resumed)[4:]
+        == numbers(straight)[4:],
+        "resumed_bitwise_all": numbers(resumed) == numbers(straight),
+        "restored": restored,
+        "step_s": [m["step_s"] for m in straight],
+        "step_s_median": statistics.median(m["step_s"]
+                                           for m in straight[2:]),
+        "mesh_train_step_s_median": mesh["step_s_median"],
+        "save_s": saves, "checkpoint_bytes": [m["checkpoint_bytes"]
+                                              for m in straight
+                                              if "checkpoint_bytes" in m],
+        "runs": {name: {k: v for k, v in run.items() if k != "history"}
+                 for name, run in runs.items()},
+        "memory_allocated_before": allocated_before,
+        "card": device["kind"], "nvidia_smi": power,
+    }
+    emit("trainer", **result)
+    require(ok, f"trainer losses/grad norms {got.tolist()} disagree with "
+                f"mesh_train's {want.tolist()}")
+    require(result["resumed_steps"] == list(range(TRAINER_STEPS)),
+            f"resumed run's steps {result['resumed_steps']}")
+    require(result["resumed_bitwise_steps_4_6"],
+            "the resumed steps 4-6 are not bitwise the straight run's")
+    require(len(restored) == 1 and restored[0]["resumed_at"]
+            == TRAINER_CRASH_AFTER + 1
+            and restored[0]["restored_dtensors_placed"],
+            f"restore: {restored}")
+    for name, run in runs.items():
+        require(run["checkpoints_kept"] == 2, f"{name}: kept "
+                                              f"{run['checkpoints_kept']}")
+        require(run["gpu_back"], f"{name}: GPU not back after fit()")
+        left = run["memory_allocated_after"] - allocated_before
+        require(abs(left) <= 0.01 * allocated_before,
+                f"{name}: {left} bytes more allocated after fit() than "
+                f"before ({allocated_before})")
+        _check_train_launches(f"trainer ({name})", run["launches"],
+                              bench_config(llama).num_layers, TRAINER_STEPS)
+    return runs["straight"]["launches"]
 
 
 def _kernel_class(name: str) -> str:
@@ -2585,8 +3065,8 @@ def main() -> int:
     train = phase_train(llama, train_step, fa, device, power)
     launches = train["launches"]
     torch.cuda.empty_cache()
-    mesh_launches = phase_mesh_train(llama, train_step, fa, device, power,
-                                     train)["launches"]
+    mesh = phase_mesh_train(llama, train_step, fa, device, power, train)
+    mesh_launches = mesh["launches"]
     torch.cuda.empty_cache()
     phase_ring_check(llama, fa)
     torch.cuda.empty_cache()
@@ -2595,6 +3075,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipeline_launches = phase_pipeline_train(llama, train_step, fa, device,
                                              power, train)["launches"]
+    torch.cuda.empty_cache()
+    phase_collective_check(device, power)
+    torch.cuda.empty_cache()
+    trainer_launches = phase_trainer(llama, fa, device, power, mesh)
+    del mesh
     torch.cuda.empty_cache()
     phase_ce_chunk_check(llama, train_step)
     torch.cuda.empty_cache()
@@ -2622,6 +3107,9 @@ def main() -> int:
         # the dense model through the pipeline (pipeline_train).
         row["moe_launches"] = moe_launches.get(kind, 0)
         row["pipeline_launches"] = pipeline_launches.get(kind, 0)
+        # bench.py's mesh path as MeshTrainer's train loop (trainer); as
+        # in every training path, RMSNorm has none.
+        row["trainer_launches"] = trainer_launches.get(kind, 0)
         # The same kernels driven through the runtime: the flash kernels
         # by runtime_check's train task, RMSNorm by both phases' actors.
         row["runtime_launches"] = check[kind] + runtime[kind]
@@ -2629,6 +3117,9 @@ def main() -> int:
         # kernel).
         row["deployment_launches"] = deployment_check[kind] \
             + deployment[kind]
+    missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
+    require(not missing, f"kernels not launched through the trainer: "
+                         f"{missing}")
     missing = [k for k, row in rows.items() if not row["runtime_launches"]]
     require(not missing, f"kernels not launched through the runtime: "
                          f"{missing}")

@@ -22,11 +22,15 @@ from __future__ import annotations
 
 import datetime
 import os
+import threading
 
 import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
+# The workers of a thread gang share the process's one default group:
+# the first to get here brings it up, the others take it.
+_INIT_LOCK = threading.Lock()
 
 
 def backend_for(device: torch.device) -> str:
@@ -45,22 +49,24 @@ def ensure_process_group(device: torch.device,
     backend = backend_for(device)
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    if dist.is_initialized():
-        have = dist.get_backend()
-        if backend not in have:
-            raise RuntimeError(
-                f"the default process group's backend is {have!r}; "
-                f"{device.type} tensors need {backend!r}")
-        return
-    kwargs = {}
-    if device.type == "cuda":
-        kwargs["device_id"] = torch.device("cuda", torch.cuda.current_device())
-    if "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend, init_method="env://",
-                                timeout=timeout, **kwargs)
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1, timeout=timeout, **kwargs)
+    with _INIT_LOCK:
+        if dist.is_initialized():
+            have = dist.get_backend()
+            if backend not in have:
+                raise RuntimeError(
+                    f"the default process group's backend is {have!r}; "
+                    f"{device.type} tensors need {backend!r}")
+            return
+        kwargs = {}
+        if device.type == "cuda":
+            kwargs["device_id"] = torch.device("cuda",
+                                               torch.cuda.current_device())
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://",
+                                    timeout=timeout, **kwargs)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1, timeout=timeout, **kwargs)
 
 
 def set_group_timeouts(mesh, timeout: datetime.timedelta = DEFAULT_TIMEOUT

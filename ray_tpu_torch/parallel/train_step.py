@@ -1,4 +1,5 @@
-"""The training step: AdamW with warmup-cosine and global-norm clipping.
+"""The training step: AdamW with warmup-cosine and global-norm clipping
+(and a plain Adam, ``optax.adam``'s counterpart).
 
 The port of ``ray_tpu/parallel/train_step.py``. With a mesh, the
 parameters (and so the AdamW moments, the gradients and every update) are
@@ -36,6 +37,27 @@ from ray_tpu_torch._private.tree import tree_leaves, tree_map
 from ray_tpu_torch.parallel.sharding import placements, shard_params
 
 
+def _adam_state(params: Any) -> dict:
+    """The update count and zero first and second moments."""
+    zeros = lambda p: torch.zeros_like(p, memory_format=torch.preserve_format)
+    return {"count": 0, "mu": tree_map(zeros, params),
+            "nu": tree_map(zeros, params)}
+
+
+def _adam_updates(b1: float, b2: float, eps: float, grads, state: dict):
+    """Advance each moment pair of ``state`` by its gradient in place and
+    yield the bias-corrected step ``mu_hat / (sqrt(nu_hat) + eps)``, one
+    per parameter; the caller applies it and bumps ``state["count"]``."""
+    count = state["count"]
+    c1 = 1 - b1 ** (count + 1)
+    c2 = 1 - b2 ** (count + 1)
+    for g, mu, nu in zip(grads, tree_leaves(state["mu"]),
+                         tree_leaves(state["nu"])):
+        mu.mul_(b1).add_(g, alpha=1 - b1)
+        nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+        yield (mu / c1) / (torch.sqrt(nu / c2) + eps)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """Global-norm clipping then AdamW on a warmup-cosine schedule."""
@@ -57,9 +79,7 @@ class AdamW:
         return self.learning_rate * 0.5 * (1 + math.cos(math.pi * t / decay_steps))
 
     def init(self, params: Any) -> dict:
-        zeros = lambda p: torch.zeros_like(p, memory_format=torch.preserve_format)
-        return {"count": 0, "mu": tree_map(zeros, params),
-                "nu": tree_map(zeros, params)}
+        return _adam_state(params)
 
     @torch.no_grad()
     def update_(self, params: list, grads: list, state: dict,
@@ -67,18 +87,35 @@ class AdamW:
         """Apply one update to ``params`` and ``state`` in place."""
         count = state["count"]
         lr = self.lr(count)
-        c1 = 1 - self.B1 ** (count + 1)
-        c2 = 1 - self.B2 ** (count + 1)
         clip = grad_norm >= self.max_grad_norm
-        for p, g, mu, nu in zip(params, grads, tree_leaves(state["mu"]),
-                                tree_leaves(state["nu"])):
-            g = torch.where(clip, g / grad_norm * self.max_grad_norm, g)
-            mu.mul_(self.B1).add_(g, alpha=1 - self.B1)
-            nu.mul_(self.B2).addcmul_(g, g, value=1 - self.B2)
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.EPS)
+        grads = (torch.where(clip, g / grad_norm * self.max_grad_norm, g)
+                 for g in grads)
+        for p, update in zip(params, _adam_updates(
+                self.B1, self.B2, self.EPS, grads, state)):
             update.add_(p, alpha=self.weight_decay)
             p.add_(update, alpha=-lr)
         state["count"] = count + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8 outside
+    the square root, a constant rate, no clipping and no weight decay;
+    ``AdamW``'s interface (``update_`` ignores ``grad_norm``)."""
+
+    learning_rate: float
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def init(self, params: Any) -> dict:
+        return _adam_state(params)
+
+    @torch.no_grad()
+    def update_(self, params: list, grads: list, state: dict,
+                grad_norm: torch.Tensor) -> None:
+        for p, update in zip(params, _adam_updates(
+                self.B1, self.B2, self.EPS, grads, state)):
+            p.add_(update, alpha=-self.learning_rate)
+        state["count"] += 1
 
 
 def default_optimizer(learning_rate: float = 3e-4,
@@ -101,7 +138,7 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(params: Any, optimizer: AdamW,
+def create_train_state(params: Any, optimizer: AdamW | Adam,
                        mesh: DeviceMesh | None = None,
                        logical_axes: Any | None = None,
                        device=None) -> TrainState:
@@ -135,7 +172,7 @@ def global_norm(tensors: list) -> torch.Tensor:
 
 
 def build_train_step(loss_fn: Callable[..., torch.Tensor],
-                     optimizer: AdamW) -> Callable:
+                     optimizer: AdamW | Adam) -> Callable:
     """Return ``step(state, batch) -> (state, metrics)``.
 
     ``loss_fn(params, batch) -> scalar``. The step updates ``state`` in

@@ -17,11 +17,22 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     # The ranks that tests/test_torch_parallel.py and
     # tests/test_torch_pipeline.py spawn import torch only.
     ROOT / "tests" / "torch_parallel_ranks.py",
-    ROOT / "tests" / "torch_pipeline_ranks.py"]
+    ROOT / "tests" / "torch_pipeline_ranks.py",
+    ROOT / "tests" / "torch_collective_ranks.py"]
 MESH_MODULES = ("_private/dist.py", "parallel/mesh.py", "parallel/sharding.py",
                 "parallel/ring_attention.py")
 MOE_PIPELINE_MODULES = ("models/moe.py", "parallel/pipeline.py")
 FORBIDDEN = ("jax", "ray_tpu")
+# The collective API and the Train library, imported in a fresh
+# interpreter where importing jax or ray_tpu raises.
+TRAIN_COLLECTIVE_MODULES = (
+    "ray_tpu_torch.util.collective", "ray_tpu_torch.util.collective.store",
+    "ray_tpu_torch.util.collective.collective",
+    "ray_tpu_torch.util.collective.nccl", "ray_tpu_torch.models.mlp",
+    "ray_tpu_torch.train", "ray_tpu_torch.train.config",
+    "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.session",
+    "ray_tpu_torch.train.worker_group", "ray_tpu_torch.train.trainer",
+    "ray_tpu_torch.train.torch", "ray_tpu_torch.train.huggingface")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -187,3 +198,44 @@ def test_rmsnorm_kernel_wrapper_rejects_cpu_tensors():
         fused.rms_norm_kernel(torch.zeros((4, 64), dtype=torch.bfloat16),
                               torch.ones(64))
     assert fused.launches == before
+
+
+def test_train_and_collective_modules_import_with_jax_blocked():
+    import subprocess
+    import sys
+
+    code = "\n".join([
+        "import importlib, sys",
+        "class Block:",
+        "    def find_spec(self, name, path=None, target=None):",
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:",
+        "            raise ImportError('blocked: ' + name)",
+        "sys.meta_path.insert(0, Block())",
+        f"for name in {TRAIN_COLLECTIVE_MODULES!r}:",
+        "    importlib.import_module(name)",
+        "print(sorted(m for m in sys.modules",
+        f"             if m.split('.')[0] in {FORBIDDEN!r}))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_train_and_collective_entry_points_raise_without_a_card(
+        monkeypatch):
+    """No card: the worker's mesh, the MLP's init and the device plane's
+    mesh raise, and none falls back to the CPU."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import mlp
+    from ray_tpu_torch.util.collective import nccl
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (train.get_mesh, nccl.default_mesh,
+                  lambda: mlp.init_params(mlp.MLPConfig(),
+                                          torch.Generator())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    assert not dist.is_initialized()

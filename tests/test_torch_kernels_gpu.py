@@ -530,3 +530,140 @@ def test_put_of_cuda_tensors_past_the_budget_is_not_spilled(cuda_device):
     assert got["w"].data_ptr() == tree["w"].data_ptr()
     assert stats["device_bytes"] == (1 << 22) + 16
     assert stats["spilled_bytes_total"] == 0
+
+
+@pytest.mark.gpu
+def test_store_allreduce_of_cuda_bf16_tensors(cuda_device):
+    """Two thread actors allreduce bf16 tensors on the card through the
+    collective store: the sum stays bf16 on the card, each rank's its
+    own copy, bitwise the same sum taken on the CPU."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util import collective
+
+    @ray_tpu_torch.remote(num_gpus=0.5)
+    class Rank:
+        def __init__(self, rank):
+            self.rank = rank
+            collective.init_collective_group(2, rank, group_name="gpu_ar")
+
+        def run(self, device):
+            gen = torch.Generator().manual_seed(self.rank)
+            x = torch.randint(-64, 64, (1024, 1024), generator=gen)
+            return collective.allreduce(
+                x.to(device, torch.bfloat16), group_name="gpu_ar")
+
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        ranks = [Rank.remote(r) for r in range(2)]
+        on_card = ray_tpu_torch.get([a.run.remote(cuda_device)
+                                     for a in ranks], timeout=120)
+        on_cpu = ray_tpu_torch.get([a.run.remote("cpu") for a in ranks],
+                                   timeout=120)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert on_card[0].data_ptr() != on_card[1].data_ptr()
+    for got, want in zip(on_card, on_cpu):
+        assert got.is_cuda and got.dtype == torch.bfloat16
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_torch_trainer_hooks_on_the_card_keep_replicas_equal(cuda_device):
+    """Two TorchTrainer workers on one card: the gradient hooks wait for
+    the other rank, so they must run on the worker's thread and not on
+    the card's one autograd thread; the fit ends well inside the
+    deadline, the gradients are bitwise equal across ranks once clipped,
+    and the replicas after every step."""
+    import time
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.torch import _group_name, prepare_model
+    from ray_tpu_torch.util import collective
+
+    def loop(config):
+        rank = train.get_context().get_world_rank()
+        gen = torch.Generator(cuda_device).manual_seed(rank)
+        model = torch.nn.Sequential(
+            torch.nn.Linear(64, 128), torch.nn.Tanh(),
+            torch.nn.Linear(128, 1)).to(cuda_device)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    device=cuda_device) * 0.1)
+        model = prepare_model(model)
+        opt = torch.optim.SGD(model.parameters(), lr=0.05)
+        x = torch.randn((256, 64), generator=gen, device=cuda_device)
+        equal = []
+        for _ in range(5):
+            opt.zero_grad()
+            model(x).pow(2).mean().backward()
+            torch.nn.utils.clip_grad_norm_(model.parameters(), 0.5)
+            grads = collective.allgather(
+                torch.cat([p.grad.flatten() for p in model.parameters()]),
+                group_name=_group_name())
+            opt.step()
+            flat = torch.cat([p.detach().flatten()
+                              for p in model.parameters()])
+            gathered = collective.allgather(flat, group_name=_group_name())
+            equal.append(torch.equal(grads[0], grads[1])
+                         and torch.equal(gathered[0], gathered[1]))
+        train.report({"equal": equal})
+
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        start = time.perf_counter()
+        result = train.TorchTrainer(
+            loop, scaling_config=train.ScalingConfig(
+                num_workers=2, use_gpu=True, gpus_per_worker=0.5),
+            run_config=train.RunConfig(report_timeout_s=30)).fit()
+        seconds = time.perf_counter() - start
+    finally:
+        ray_tpu_torch.shutdown()
+    assert result.error is None, result.error
+    assert seconds < 30
+    assert result.metrics["equal"] == [True] * 5
+
+
+@pytest.mark.gpu
+def test_dcp_round_trip_of_a_cuda_train_state(cuda_device, tmp_path):
+    """A TrainState on the card after one step: restored into a fresh
+    state on the card bit for bit, step and count included."""
+    import dataclasses
+
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.train_step import (
+        build_train_step,
+        create_train_state,
+        default_optimizer,
+        place_batch,
+    )
+    from ray_tpu_torch.train import Checkpoint
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    optimizer = default_optimizer(learning_rate=1e-2, warmup_steps=1,
+                                  total_steps=50)
+    params = llama.init_params(
+        cfg, torch.Generator(cuda_device).manual_seed(0), cuda_device)
+    state = create_train_state(params, optimizer)
+    tokens = torch.randint(0, 256, (2, 17),
+                           generator=torch.Generator().manual_seed(1))
+    batch = place_batch({"tokens": tokens[:, :-1],
+                         "targets": tokens[:, 1:]})
+    step = build_train_step(
+        lambda p, b: llama.loss_fn(p, b["tokens"], b["targets"], cfg),
+        optimizer)
+    state, _ = step(state, batch)
+    restored = Checkpoint.from_state(state, str(tmp_path / "c")).to_state(
+        create_train_state(params, optimizer))
+
+    def leaves(s):
+        return tree_leaves(s.params) + tree_leaves(s.opt_state["mu"]) \
+            + tree_leaves(s.opt_state["nu"])
+
+    assert (restored.step, restored.opt_state["count"]) == (1, 1)
+    for got, want in zip(leaves(restored), leaves(state)):
+        assert got.is_cuda and torch.equal(got, want.detach())
