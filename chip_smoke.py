@@ -68,7 +68,16 @@ source, all started together) and drives the port's two paths:
   streamed and over HTTP, with a deadline sealed typed through the
   router (serve_deployment_check); then the serve phase's model, weights
   and 16 requests as a one-replica deployment, streamed through the
-  handle from 16 threads (serve_deployment).
+  handle from 16 threads (serve_deployment);
+- worker processes: ``init(process_workers=2)``, a pool task (no card)
+  and a ``num_gpus=1`` process actor (its one card) taking CUDA tensors
+  across the boundary, the actor's ``fwd`` launch bitwise the driver's,
+  its crash and the card's memory coming back, a 2-process gloo gang
+  (process_check); the trainer phase's two runs through a gang of one
+  process (NCCL world of one, the crash an exit of the process),
+  held to the trainer phase (process_trainer); the runtime phase's
+  serving actor as a process actor making Llama-3-8B on its own card,
+  greedy outputs token for token the serve phase's (process_serve).
 
 Each phase prints one JSON line. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
@@ -77,8 +86,9 @@ its path (the train phase for the attention kernels, the serve phase for
 RMSNorm), through the mesh path (``mesh_launches``), through the MoE and
 the pipeline (``moe_launches``, ``pipeline_launches``), through
 ``MeshTrainer`` (``trainer_launches``), through the runtime
-(``runtime_launches``) and through the serve deployments
-(``deployment_launches``), its error
+(``runtime_launches``), through the serve deployments
+(``deployment_launches``) and in worker processes
+(``process_launches``), its error
 against the plain version, its times, and for the attention kernels the
 achieved TFLOP/s and share of the bound, then the whole backward
 (pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
@@ -1564,10 +1574,34 @@ def _dir_bytes(path: str) -> int:
                for root, _, names in os.walk(path) for name in names)
 
 
+def _raise_once(done: threading.Event):
+    """The trainer phase's injected failure: a RuntimeError, the first
+    time only."""
+    def crash():
+        if not done.is_set():
+            done.set()
+            raise RuntimeError("injected failure after step 3's report")
+    return crash
+
+
+def _exit_once(marker: str):
+    """The process gang's injected failure: its process exits, the first
+    time only (a marker file, as the next attempt is another process)."""
+    def crash():
+        import os
+
+        if not os.path.exists(marker):
+            open(marker, "w").close()
+            os._exit(1)
+    return crash
+
+
 def _trainer_loop(config):
     """bench.py's model, seeds and batch on ``train.get_mesh()`` (a world
     of one on NCCL), resumed from ``train.get_checkpoint()`` when there is
-    one; reports floats only."""
+    one; reports floats only, and ``config["extra"]()``'s fields when
+    given. ``config["crash"]`` (or None) is called after step 3's
+    report."""
     from torch.distributed.tensor import DTensor
 
     from ray_tpu_torch import train
@@ -1599,7 +1633,7 @@ def _trainer_loop(config):
         resumed["resumed_at"] = state.step
         del template
     batch = train_step.shard_batch(_bench_batch(model, 8, 2048), mesh)
-    crash = config["crash"]
+    crash, extra = config["crash"], config.get("extra", dict)
     for i in range(state.step, TRAINER_STEPS):
         start = time.perf_counter()
         state, metrics = step(state, batch)
@@ -1615,19 +1649,20 @@ def _trainer_loop(config):
             checkpoint = train.Checkpoint.from_state(state)
             report["save_s"] = time.perf_counter() - start
             report["checkpoint_bytes"] = _dir_bytes(checkpoint.path)
+        report.update(extra())
         train.report(report, checkpoint=checkpoint)
-        if crash is not None and i == TRAINER_CRASH_AFTER \
-                and not crash.is_set():
-            crash.set()
-            raise RuntimeError("injected failure after step 3's report")
+        if crash is not None and i == TRAINER_CRASH_AFTER:
+            crash()
 
 
-def phase_trainer(llama, fa, device: dict, power: str, mesh: dict) -> dict:
+def phase_trainer(llama, fa, device: dict, power: str,
+                  mesh: dict) -> tuple[dict, dict]:
     """bench.py's Llama through ``MeshTrainer`` (one worker on the
     card's ``GPU``): 7 steps checkpointed at 1, 3 and 5, held against
     mesh_train's losses and grad norms; then a run that fails after step
     3 and resumes from its checkpoint, bitwise the first run on steps
-    4-6. Returns the kernels' launches through the first run."""
+    4-6. Returns the kernels' launches through the first run, and the
+    phase's result."""
     import os
     import shutil
     import tempfile
@@ -1644,7 +1679,7 @@ def phase_trainer(llama, fa, device: dict, power: str, mesh: dict) -> dict:
     rt.init(num_cpus=8)
     try:
         for name, crash in (("straight", None),
-                            ("resumed", threading.Event())):
+                            ("resumed", _raise_once(threading.Event()))):
             # Checkpoints are written under the temporary directory and
             # moved into storage there: a rename, not a copy.
             storage = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
@@ -1745,7 +1780,7 @@ def phase_trainer(llama, fa, device: dict, power: str, mesh: dict) -> dict:
                 f"before ({allocated_before})")
         _check_train_launches(f"trainer ({name})", run["launches"],
                               bench_config(llama).num_layers, TRAINER_STEPS)
-    return runs["straight"]["launches"]
+    return runs["straight"]["launches"], result
 
 
 def _kernel_class(name: str) -> str:
@@ -2202,7 +2237,8 @@ def phase_serve(llama, fused, device: dict, power: str) -> dict:
         engine.shutdown()
     del engine
     torch.cuda.empty_cache()
-    return {"launches": launches, "params": params, "result": result}
+    return {"launches": launches, "params": params, "result": result,
+            "tokens": [r["tokens"] for r in records]}
 
 
 def _profile_decode(engine, decode_raw, decode_ms: float) -> dict:
@@ -3045,6 +3081,531 @@ def phase_serve_deployment(llama, fa, fused, served: dict, runtime: dict,
             f"allocated on the card")
     return count.counts
 
+# ------------------------------------------------------ worker processes
+
+# The card's free memory after a process on it ends: back within this of
+# its value before the process started (process_check, process_serve).
+PROCESS_FREE_TOL_BYTES = 64 << 20
+PROCESS_STARTS = 3  # GPU actor starts timed
+SPMD_MEAN = float(np.mean(np.arange(8, dtype=np.float32)[:, None] ** 2
+                          * np.ones((1, 4))))
+
+
+def _free_bytes() -> int:
+    """The card's free bytes, device-wide (every process's use)."""
+    return torch.cuda.mem_get_info()[0]
+
+
+def _free_back(before: int, tol: float, wait_s: float = 60.0) -> int:
+    """The card's free bytes once they are back within ``tol`` of
+    ``before`` (the OS frees a dead process's context a moment after it
+    exits), or the last reading after ``wait_s``."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        free = _free_bytes()
+        if free >= before - tol or time.monotonic() > deadline:
+            return free
+        time.sleep(0.1)
+
+
+def _pool_probe(t):
+    """A pool task: its pid, the cards it sees, and the tensor it got."""
+    import os
+
+    return (os.getpid(), torch.cuda.device_count(),
+            os.environ.get("CUDA_VISIBLE_DEVICES"), t.device.type, t)
+
+
+def _noop():
+    return None
+
+
+class ProcessKernelActor:
+    """A ``num_gpus=1`` process actor: what it sees, the ``fwd`` kernel
+    on inputs the driver sends, and a crash."""
+
+    def __init__(self):
+        import importlib
+
+        torch.zeros(1, device="cuda")  # its own CUDA context, now
+        self.fa = importlib.import_module(
+            "ray_tpu_torch.ops.flash_attention")
+
+    def info(self, t):
+        import os
+
+        return (os.getpid(), torch.cuda.device_count(),
+                os.environ.get("CUDA_VISIBLE_DEVICES"), t.device.type, t)
+
+    def fwd(self, q, k, v):
+        self.fa.launches["fwd"] = 0
+        o, lse = self.fa.flash_fwd_kernel(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        return o, lse, self.fa.launches["fwd"]
+
+    def noop(self):
+        return None
+
+    def crash(self):
+        import os
+
+        os._exit(1)
+
+
+def _spmd_mean_loop(config):
+    """tests/test_train_spmd.py's global mean on a gloo gang of two
+    processes: each rank holds 4 of the 8 rows of arange(8)**2."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+
+    rank = train.get_context().get_world_rank()
+    rows = torch.arange(4 * rank, 4 * rank + 4, dtype=torch.float32)
+    batch = rows[:, None] * torch.ones(1, 4)
+    total = (batch * batch).sum()
+    dist.all_reduce(total)
+    train.report({"mean": float(total) / 32, "world": dist.get_world_size(),
+                  "backend": dist.get_backend()})
+
+
+def phase_process_check(fa, device: dict, power: str, runtime: dict) -> dict:
+    """Real processes on the card's machine, at small shapes:
+    ``init(process_workers=2)``; a pool task in another pid that sees no
+    card and gets a CUDA bf16 tensor as a bitwise CPU copy; a ``num_gpus=1``
+    process actor that sees its one card, gets CUDA tensors on it, runs
+    the ``fwd`` kernel on the driver's inputs bitwise as the driver does,
+    then dies in a call (``ActorDiedError``) and gives the card's memory
+    back; a 2-process gloo gang's global mean; the host cost of starting
+    a worker of each kind and of an empty call."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.worker_pool import PoolWorker
+    from ray_tpu_torch.exceptions import ActorDiedError
+
+    start = time.perf_counter()
+    x = torch.randn(256, 512, generator=torch.Generator(DEVICE).manual_seed(5),
+                    device=DEVICE).to(torch.bfloat16)
+    q, k, v, _ = _inputs(8, 2048, 16, 8, 64, seed=11)
+    o_ref, lse_ref = fa.flash_fwd_kernel(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rt.init(num_cpus=8, process_workers=2)
+    try:
+        pid, cards, visible, kind, back = rt.get(
+            rt.remote(_pool_probe).remote(x), timeout=300)
+        pool = {"other_pid": pid != os.getpid(), "cards": cards,
+                "cuda_visible_devices": visible, "arrived_on": kind,
+                "bitwise": torch.equal(back, x.cpu())}
+        fork_ms = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            worker = PoolWorker(1000 + i)
+            worker.request(("ping",))
+            fork_ms.append(1e3 * (time.perf_counter() - t0))
+            worker.stop()
+        actor_cls = rt.remote(process=True, num_gpus=1)(ProcessKernelActor)
+        torch.cuda.empty_cache()
+        baseline = _free_bytes()
+        boot_ms = []
+        for _ in range(PROCESS_STARTS - 1):
+            t0 = time.perf_counter()
+            starter = actor_cls.remote()
+            rt.get(starter.noop.remote(), timeout=300)
+            boot_ms.append(1e3 * (time.perf_counter() - t0))
+            rt.kill(starter)
+        # The timed actors' contexts are gone.
+        free_before = _free_back(baseline, PROCESS_FREE_TOL_BYTES)
+        t0 = time.perf_counter()  # the last start timed is this actor's
+        actor = actor_cls.remote()
+        rt.get(actor.noop.remote(), timeout=300)
+        boot_ms.append(1e3 * (time.perf_counter() - t0))
+        a_pid, a_cards, a_visible, a_kind, a_back = rt.get(
+            actor.info.remote(x), timeout=300)
+        o, lse, a_launches = rt.get(actor.fwd.remote(q, k, v), timeout=300)
+        gpu_actor = {
+            "other_pid": a_pid not in (os.getpid(), pid), "cards": a_cards,
+            "cuda_visible_devices": a_visible, "arrived_on": a_kind,
+            "tensor_back_on": a_back.device.type,
+            "bitwise": torch.equal(a_back, x),
+            "fwd_output_on": o.device.type, "fwd_launches": a_launches,
+            "fwd_bitwise": torch.equal(o, o_ref) and torch.equal(lse, lse_ref)}
+        task_us = _round_trips_us(rt, rt.remote(_noop).remote)
+        call_us = _round_trips_us(rt, actor.noop.remote)
+        try:
+            rt.get(actor.crash.remote(), timeout=120)
+            crash_error = None
+        except Exception as exc:  # noqa: BLE001 — reported and required
+            crash_error = exc
+        del o, lse, a_back, back
+        torch.cuda.empty_cache()
+        free_after = _free_back(free_before, PROCESS_FREE_TOL_BYTES)
+        # The failed call comes back first; the lease once the runtime
+        # has seen the process end.
+        _until(lambda: rt.available_resources().get("GPU") == 1.0)
+        gpu_after = rt.available_resources().get("GPU")
+        with tempfile.TemporaryDirectory() as storage:
+            gang = train.MeshTrainer(
+                _spmd_mean_loop, dist_config="auto",
+                scaling_config=train.ScalingConfig(num_workers=2,
+                                                   use_process_workers=True),
+                run_config=train.RunConfig(storage_path=storage,
+                                           report_timeout_s=120.0)).fit()
+    finally:
+        rt.shutdown()
+    result = {
+        "pool_task": pool, "gpu_process_actor": gpu_actor,
+        "fwd_shape": [8, 2048, 16, 8, 64],
+        "crash_error": type(crash_error).__name__,
+        "free_bytes_before_after": [free_before, free_after],
+        "gpu_available_after_crash": gpu_after,
+        "gloo_gang": {"error": repr(gang.error) if gang.error else None,
+                      **gang.metrics, "expected_mean": SPMD_MEAN},
+        "cpu_worker_start_ms": fork_ms,
+        "cpu_worker_start_ms_median": statistics.median(fork_ms),
+        "gpu_actor_start_ms": boot_ms,
+        "gpu_actor_start_ms_median": statistics.median(boot_ms),
+        "pool_task_round_trip_us": task_us,
+        "process_actor_call_round_trip_us": call_us,
+        "thread_runtime_phase": {
+            "task_round_trip_us": runtime["task_round_trip_us"],
+            "actor_call_round_trip_us": runtime["actor_call_round_trip_us"]},
+        "card": device["kind"], "nvidia_smi": power,
+        "elapsed_s": time.perf_counter() - start,
+    }
+    emit("process_check", **result)
+    require(pool == {"other_pid": True, "cards": 0,
+                     "cuda_visible_devices": "", "arrived_on": "cpu",
+                     "bitwise": True}, f"pool task: {pool}")
+    # The actor's CUDA_VISIBLE_DEVICES names the leased card (index 0 of
+    # the cards this process sees).
+    leased = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+    require(gpu_actor["other_pid"] and a_cards == 1 and a_visible == leased
+            and a_kind == "cuda" and gpu_actor["tensor_back_on"] == "cuda"
+            and gpu_actor["bitwise"], f"GPU process actor: {gpu_actor}")
+    require(gpu_actor["fwd_output_on"] == "cuda" and a_launches == 1
+            and gpu_actor["fwd_bitwise"],
+            f"the actor's fwd launch differs from the driver's: {gpu_actor}")
+    require(isinstance(crash_error, ActorDiedError),
+            f"the crashed call raised {crash_error!r}, not ActorDiedError")
+    require(abs(free_after - free_before) <= PROCESS_FREE_TOL_BYTES,
+            f"free memory {free_after} after the actor died, "
+            f"{free_before} before it started")
+    require(gpu_after == 1.0, f"GPU after the crash: {gpu_after}")
+    require(gang.error is None and gang.metrics.get("world") == 2
+            and abs(gang.metrics.get("mean", math.nan) - SPMD_MEAN) <= 1e-5,
+            f"gloo gang: {result['gloo_gang']}")
+    return result
+
+
+def _process_trainer_loop(config):
+    """``_trainer_loop`` in a gang process: every report also carries the
+    kernels' launches counted in this process, its peak memory and its
+    pid."""
+    import importlib
+    import os
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    count = _LaunchCount(fa).__enter__()
+
+    def extra():
+        return {"launches": {**fa.launches, "flash_bwd": count.bwd_calls[0]},
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "pid": os.getpid()}
+
+    return _trainer_loop({**config, "extra": extra})
+
+
+def phase_process_trainer(llama, fa, device: dict, power: str,
+                          trainer: dict) -> dict:
+    """The trainer phase's two runs again through a process gang: one
+    gang process (``use_process_workers=True``, ``dist_config="auto"``, a
+    world of one on NCCL) trains bench.py's Llama 7 steps with DCP saves
+    at 1, 3 and 5; the second run's process exits after step 3's report
+    on its first attempt, and the next gang resumes from that
+    checkpoint. Held to the trainer phase's losses and grad norms.
+    Returns the flash kernels' launches counted in the straight run's
+    process."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    require(not dist.is_initialized(), "a process group exists already")
+    runs = {}
+    rt.init(num_cpus=8)
+    try:
+        for name in ("straight", "resumed"):
+            storage = tempfile.mkdtemp(prefix="chip_smoke_ptrainer_")
+            crash = _exit_once(os.path.join(storage, "crashed")) \
+                if name == "resumed" else None
+            torch.cuda.empty_cache()
+            free_before = _free_bytes()
+            start = time.perf_counter()
+            try:
+                result = train.MeshTrainer(
+                    _process_trainer_loop, dist_config="auto",
+                    train_loop_config={"crash": crash},
+                    scaling_config=train.ScalingConfig(
+                        num_workers=1, use_gpu=True,
+                        use_process_workers=True),
+                    run_config=train.RunConfig(
+                        name=name, storage_path=storage,
+                        checkpoint_config=train.CheckpointConfig(
+                            num_to_keep=2),
+                        failure_config=train.FailureConfig(
+                            max_failures=1 if crash else 0))).fit()
+                kept = sorted(p for p in os.listdir(os.path.join(storage,
+                                                                 name)))
+            finally:
+                shutil.rmtree(storage, ignore_errors=True)
+            elapsed = time.perf_counter() - start
+            free_after = _free_back(free_before, 0.01 * free_before)
+            runs[name] = {
+                "error": repr(result.error) if result.error else None,
+                "history": result.metrics_history,
+                "checkpoints_kept": len(kept), "elapsed_s": elapsed,
+                "gpu_back": _until(
+                    lambda: rt.available_resources().get("GPU") == 1.0),
+                "free_bytes_before_after": [free_before, free_after]}
+            require(result.error is None, f"process trainer run {name}: "
+                                          f"{result.error!r}")
+    finally:
+        rt.shutdown()
+    straight, resumed = runs["straight"]["history"], runs["resumed"]["history"]
+    got = np.array([[m["loss"] for m in straight],
+                    [m["grad_norm"] for m in straight]])
+    want = np.array([trainer["loss"], trainer["grad_norm"]])
+    diff = np.abs(got - want)
+    ok = bool(got.shape == want.shape and np.all(
+        diff <= MESH_TRAIN_ATOL + MESH_TRAIN_RTOL * np.abs(want)))
+    tail = np.array([[m["loss"], m["grad_norm"]] for m in resumed[4:]])
+    tail_want = np.array([[m["loss"], m["grad_norm"]] for m in straight[4:]])
+    resumed_ok = bool(tail.shape == tail_want.shape and np.all(
+        np.abs(tail - tail_want)
+        <= MESH_TRAIN_ATOL + MESH_TRAIN_RTOL * np.abs(tail_want)))
+    launches = straight[-1]["launches"]
+    restored = [{k: m[k] for k in ("step", "restore_s", "resumed_at",
+                                   "restored_dtensors_placed", "pid")}
+                for m in resumed if "restore_s" in m]
+    result = {
+        "config": "bench.py:50-54", "batch": [8, 2048],
+        "scaling": "1 process worker, use_gpu, dist_config='auto' (NCCL, "
+                   "world 1)",
+        "steps": TRAINER_STEPS, "checkpoint_steps": list(TRAINER_CKPT_STEPS),
+        "crash_after_step": TRAINER_CRASH_AFTER,
+        "loss": got[0].tolist(), "grad_norm": got[1].tolist(),
+        "against_trainer": {
+            "max_abs_loss_diff": float(diff[0].max()),
+            "max_abs_grad_norm_diff": float(diff[1].max()),
+            "bitwise": bool(np.array_equal(got, want)),
+            "rtol": MESH_TRAIN_RTOL, "atol": MESH_TRAIN_ATOL, "ok": ok},
+        "resumed_steps": [m["step"] for m in resumed],
+        "resumed_steps_4_6_ok": resumed_ok,
+        "resumed_bitwise_steps_4_6": bool(np.array_equal(tail, tail_want)),
+        "resumed_pids": [m["pid"] for m in resumed],
+        "restored": restored, "launches_in_the_process": launches,
+        "step_s": [m["step_s"] for m in straight],
+        "step_s_median": statistics.median(m["step_s"]
+                                           for m in straight[2:]),
+        "trainer_step_s_median": trainer["step_s_median"],
+        "save_s": [m["save_s"] for run in (straight, resumed) for m in run
+                   if "save_s" in m],
+        "trainer_save_s": trainer["save_s"],
+        "process_max_memory_allocated": straight[-1]["max_memory_allocated"],
+        "runs": {name: {k: v for k, v in run.items() if k != "history"}
+                 for name, run in runs.items()},
+        "card": device["kind"], "nvidia_smi": power,
+    }
+    emit("process_trainer", **result)
+    require(ok, f"process trainer losses/grad norms {got.tolist()} disagree "
+                f"with the trainer phase's {want.tolist()}")
+    require(result["resumed_steps"] == list(range(TRAINER_STEPS)),
+            f"resumed run's steps {result['resumed_steps']}")
+    require(resumed_ok, "the resumed steps 4-6 are not within the bound of "
+                        "the straight run's")
+    require(len(restored) == 1 and restored[0]["resumed_at"]
+            == TRAINER_CRASH_AFTER + 1
+            and restored[0]["restored_dtensors_placed"],
+            f"restore: {restored}")
+    require(len(set(result["resumed_pids"])) == 2,
+            f"the resumed run's steps ran in {result['resumed_pids']}")
+    for name, run in runs.items():
+        require(run["checkpoints_kept"] == 2, f"{name}: kept "
+                                              f"{run['checkpoints_kept']}")
+        require(run["gpu_back"], f"{name}: GPU not back after fit()")
+        before, after = run["free_bytes_before_after"]
+        require(abs(after - before) <= 0.01 * before,
+                f"{name}: free memory {after} after fit(), {before} before")
+    _check_train_launches("process_trainer (straight)", launches,
+                          bench_config(llama).num_layers, TRAINER_STEPS)
+    require(launches == trainer["launches"],
+            f"launches in the gang process {launches}, the trainer "
+            f"phase's {trainer['launches']}")
+    return launches
+
+
+class ProcessServeActor(EngineActor):
+    """``EngineActor`` in a process of its own: it makes the serve phase's
+    weights itself, on its card (never pickled), and counts what the
+    phase reads there."""
+
+    def __init__(self, **engine_args):
+        from ray_tpu_torch._private.tree import tree_map
+        from ray_tpu_torch.models import llama
+
+        config = serve_config(llama)
+        params32 = llama.init_params(
+            config, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+        params = tree_map(lambda t: t.to(torch.bfloat16), params32)
+        del params32
+        torch.cuda.empty_cache()
+        super().__init__(config, params, **engine_args)
+
+    def reset_counters(self) -> None:
+        import importlib
+
+        importlib.import_module("ray_tpu_torch.ops.fused").launches[
+            "rmsnorm"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def counters(self) -> dict:
+        import importlib
+        import os
+
+        torch.cuda.synchronize()
+        return {"rmsnorm": importlib.import_module(
+                    "ray_tpu_torch.ops.fused").launches["rmsnorm"],
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "pid": os.getpid()}
+
+
+def phase_process_serve(llama, served: dict, served_tokens: list,
+                        runtime: dict, device: dict, power: str) -> dict:
+    """The runtime phase's serving actor as a ``num_gpus=1`` process actor
+    (its class from ``__main__``, sent by value), Llama-3-8B in bf16 made
+    in the actor's process from the serve phase's seed, serving the serve
+    phase's 16 requests. Returns the RMSNorm launches counted there."""
+    import os
+
+    import ray_tpu_torch as rt
+
+    start = time.perf_counter()
+    config = serve_config(llama)
+    lengths, prompts, temperatures = serve_requests(config)
+    torch.cuda.empty_cache()
+    free_before = _free_bytes()
+    rt.init(num_cpus=8)
+    try:
+        boot = time.perf_counter()
+        actor = rt.remote(process=True, num_gpus=1, max_concurrency=16)(
+            ProcessServeActor).remote(**SERVE_ENGINE, device=DEVICE)
+        warm = rt.get(actor.generate.remote(
+            {"tokens": prompts[0][:32], "max_new_tokens": 2}), timeout=900)
+        boot_s = time.perf_counter() - boot
+        require(len(warm["tokens"]) == 2, "warm-up request failed")
+        rt.get(actor.time_steps.remote(), timeout=60)
+        stats_before = rt.get(actor.stats.remote(), timeout=60)
+        rt.get(actor.reset_counters.remote(), timeout=60)
+        refs, submitted = [], []
+        wall_start = time.perf_counter()
+        for prompt, temperature in zip(prompts, temperatures):
+            submitted.append(time.perf_counter())
+            refs.append(actor.stream.remote(
+                {"tokens": prompt, "max_new_tokens": SERVE_NEW_TOKENS,
+                 "temperature": temperature}))
+        records, errors = [], []
+        for r in refs:
+            try:
+                records.append(rt.get(r, timeout=600))
+            except Exception as exc:  # noqa: BLE001 — reported and required
+                records.append({"tokens": [], "arrivals": []})
+                errors.append(repr(exc))
+        wall = time.perf_counter() - wall_start
+        counters = rt.get(actor.counters.remote(), timeout=60)
+        stats_after = rt.get(actor.stats.remote(), timeout=60)
+        steps = rt.get(actor.step_times.remote(), timeout=60)
+        rt.get(actor.shutdown.remote(), timeout=60)
+        rt.kill(actor)
+        gpu_after = rt.available_resources().get("GPU")
+    finally:
+        rt.shutdown()
+    free_after = _free_back(free_before, PROCESS_FREE_TOL_BYTES)
+    stats = {k: stats_after[k] - stats_before[k] for k in stats_after}
+    forwards = stats["decode_steps"] + stats["prefill_chunks"]
+    # The clocks of both processes are the host's monotonic clock.
+    ttft = [r["arrivals"][0] - t if r["arrivals"] else None
+            for r, t in zip(records, submitted)]
+    measured = [t for t in ttft if t is not None] or [math.nan]
+    outputs = [r["tokens"] for r in records]
+    greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
+    launches = counters["rmsnorm"]
+    keys = ("ttft_s_median", "ttft_s_max", "decode_step_ms_median",
+            "output_tokens_per_s", "peak_memory_bytes", "rmsnorm_launches",
+            "wall_s")
+    result = {
+        "config": "LlamaConfig.llama3_8b() (ray_tpu/models/llama.py:79-83)",
+        "dtype": "bfloat16", "actor": "process=True, num_gpus=1, "
+                                      "max_concurrency=16",
+        "engine": SERVE_ENGINE, "requests": len(prompts),
+        "prompt_lengths": lengths, "max_new_tokens": SERVE_NEW_TOKENS,
+        "temperatures": temperatures,
+        "actor_pid_not_driver": counters["pid"] != os.getpid(),
+        "actor_start_and_warm_up_s": boot_s,
+        "greedy_token_identical": all(outputs[i] == served_tokens[i]
+                                      for i in greedy),
+        "sampled_token_identical": [outputs[i] == served_tokens[i]
+                                    for i in range(len(outputs))
+                                    if i not in greedy],
+        "ttft_s": ttft, "ttft_s_median": statistics.median(measured),
+        "ttft_s_max": max(measured),
+        "decode_step_ms_median": 1e3 * statistics.median(steps["decode_s"])
+        if steps["decode_s"] else None,
+        "prefill_chunk_ms_median": 1e3 * statistics.median(
+            steps["prefill_s"]) if steps["prefill_s"] else None,
+        "wall_s": wall,
+        "output_tokens_per_s": sum(len(t) for t in outputs) / wall,
+        "engine_stats": stats, "rmsnorm_launches": launches,
+        "rmsnorm_launches_per_forward": launches / forwards
+        if forwards else None,
+        "peak_memory_bytes": counters["peak_memory_bytes"],
+        "peak_over_serve_phase": counters["peak_memory_bytes"]
+        / served["peak_memory_bytes"] - 1,
+        "gpu_available_after_kill": gpu_after,
+        "free_bytes_before_after": [free_before, free_after],
+        "serve_phase": {k: served[k] for k in keys},
+        "runtime_phase": {k: runtime[k] for k in keys},
+        "card": device["kind"], "nvidia_smi": power,
+        "elapsed_s": time.perf_counter() - start,
+    }
+    emit("process_serve", **result)
+    require(result["actor_pid_not_driver"], "the actor ran in the driver")
+    require(not errors, f"requests failed: {errors}")
+    short = [len(t) for t in outputs if len(t) != SERVE_NEW_TOKENS]
+    require(not short, f"requests sealed with {short} tokens, not "
+                       f"{SERVE_NEW_TOKENS}")
+    require(result["greedy_token_identical"],
+            "the process actor's greedy outputs differ from the serve "
+            "phase's")
+    per_forward = 2 * config.num_layers + 1
+    require(launches > 0 and launches == per_forward * forwards,
+            f"rmsnorm launched {launches} times in the actor's process over "
+            f"{forwards} forwards, not {per_forward} per forward")
+    require(abs(result["peak_over_serve_phase"]) <= 0.01,
+            f"peak memory {counters['peak_memory_bytes']}, the serve "
+            f"phase's {served['peak_memory_bytes']}: not within 1%")
+    require(gpu_after == 1.0, f"GPU after the kill: {gpu_after}")
+    require(abs(free_after - free_before) <= PROCESS_FREE_TOL_BYTES,
+            f"free memory {free_after} after the kill, {free_before} "
+            f"before the actor started")
+    return {"rmsnorm": launches}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3078,7 +3639,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_collective_check(device, power)
     torch.cuda.empty_cache()
-    trainer_launches = phase_trainer(llama, fa, device, power, mesh)
+    trainer_launches, trainer = phase_trainer(llama, fa, device, power, mesh)
     del mesh
     torch.cuda.empty_cache()
     phase_ce_chunk_check(llama, train_step)
@@ -3097,7 +3658,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     deployment = phase_serve_deployment(llama, fa, fused, served,
                                         runtime_result, device, power)
+    served_result, served_tokens = served["result"], served["tokens"]
     del served
+    torch.cuda.empty_cache()
+    phase_process_check(fa, device, power, runtime_result)
+    torch.cuda.empty_cache()
+    process_launches = phase_process_trainer(
+        llama, fa, device, power, {**trainer, "launches": trainer_launches})
+    process_launches.update(phase_process_serve(
+        llama, served_result, served_tokens, runtime_result, device, power))
     for kind, row in rows.items():
         row["launches"] = launches[kind]
         # bench.py's mesh path (mesh_train); training's norms are
@@ -3117,6 +3686,9 @@ def main() -> int:
         # kernel).
         row["deployment_launches"] = deployment_check[kind] \
             + deployment[kind]
+        # And in worker processes: the flash kernels in process_trainer's
+        # gang process, RMSNorm in process_serve's actor process.
+        row["process_launches"] = process_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
                          f"{missing}")
@@ -3125,6 +3697,9 @@ def main() -> int:
                          f"{missing}")
     require(rows["rmsnorm"]["deployment_launches"] > 0,
             "RMSNorm not launched through the serve deployments")
+    missing = [k for k, row in rows.items() if not row["process_launches"]]
+    require(not missing, f"kernels not launched in a worker process: "
+                         f"{missing}")
     order = (*KERNELS, "flash_bwd")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

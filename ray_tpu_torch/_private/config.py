@@ -1,7 +1,7 @@
 """Runtime configuration flags.
 
-The port of ``ray_tpu/_private/config.py``, with the knobs the in-process
-runtime reads. Each flag is declared once in ``_DEFAULTS`` and can be
+The port of ``ray_tpu/_private/config.py``, with the knobs the runtime
+and its worker pool read. Each flag is declared once in ``_DEFAULTS`` and can be
 overridden by a ``RAY_TPU_TORCH_<NAME>`` environment variable and by
 ``init(system_config={...})``.
 """
@@ -30,6 +30,21 @@ _DEFAULTS: dict[str, Any] = {
     # SystemOverloadedError instead of queueing; deadline-free submits
     # queue. 0 = unlimited.
     "admission_max_queue_depth": 0,
+    # Worker processes (``init(process_workers=N)`` overrides the pool
+    # size; 0: tasks run on threads of this process).
+    "worker_pool_size": 0,
+    # Growth cap of the pool for nested submission (0: 4 x size + 8).
+    "worker_pool_max_size": 0,
+    "worker_startup_timeout_s": 30.0,
+    # Pool results up to this size come back through the pipe; larger
+    # ones in a shared-memory segment of their own.
+    "worker_inline_result_kb": 64,
+    # Small immutable values cross the pipe in the raw tag encoding
+    # instead of a pickle.
+    "raw_framing": True,
+    # Worker processes' output goes to per-session files, tailed back to
+    # this process's stdout.
+    "log_to_driver": True,
     # Serve routers push their latency window (p50/p99) to the
     # controller at most this often: the latency autoscaler's feed.
     # 0 disables the push.

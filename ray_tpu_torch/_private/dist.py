@@ -16,6 +16,8 @@ the default group and (``set_group_timeouts``) in a mesh's groups.
 
 The backend is NCCL for ``cuda`` and gloo for ``cpu``; there is no
 fallback from one to the other. Each rank's card is ``LOCAL_RANK``'s.
+``init_world`` forms the world of a process gang's member at the
+rendezvous its trainer picked.
 """
 
 from __future__ import annotations
@@ -67,6 +69,22 @@ def ensure_process_group(device: torch.device,
         else:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, timeout=timeout, **kwargs)
+
+
+def init_world(backend: str, init_method: str, world_size: int, rank: int,
+               timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+               **kwargs) -> None:
+    """Form the default group of a process gang's member: ``rank`` of
+    ``world_size`` at the ``init_method`` rendezvous; on NCCL, on this
+    process's card (``LOCAL_RANK``'s among those it sees, 0 when unset:
+    a process actor sees only the cards it leased)."""
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        kwargs["device_id"] = torch.device("cuda",
+                                           torch.cuda.current_device())
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank,
+                            timeout=timeout, **kwargs)
 
 
 def set_group_timeouts(mesh, timeout: datetime.timedelta = DEFAULT_TIMEOUT

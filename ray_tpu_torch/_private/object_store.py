@@ -152,6 +152,8 @@ class ObjectStore:
         self._restored_bytes_total = 0
         # Called outside the lock with each sealed id.
         self._seal_listeners: list[Callable[[ObjectID], None]] = []
+        # Called once an object's value is dropped (freed or evicted).
+        self._free_listeners: list[Callable[[ObjectID], None]] = []
 
     # ------------------------------------------------------------------ put
 
@@ -196,6 +198,17 @@ class ObjectStore:
         for cb in listeners:
             cb(object_id)
         self._maybe_spill()
+
+    def add_free_listener(self, cb: Callable[[ObjectID], None]) -> None:
+        with self._lock:
+            self._free_listeners.append(cb)
+
+    def _notify_freed(self, object_ids) -> None:
+        with self._lock:
+            listeners = list(self._free_listeners)
+        for cb in listeners:
+            for oid in object_ids:
+                cb(oid)
 
     def add_seal_listener(self, cb: Callable[[ObjectID], None]) -> None:
         with self._lock:
@@ -302,6 +315,7 @@ class ObjectStore:
                 entry.freed = True
                 entry.sealed = True
             self._lock.notify_all()
+        self._notify_freed(object_ids)
 
     def evict(self, object_id: ObjectID) -> None:
         """Drop an object entirely (its reference count reached zero)."""
@@ -313,6 +327,7 @@ class ObjectStore:
                     and entry.spilled_path is None:
                 self._uncharge(entry)
             self._unlink_spill(entry)
+        self._notify_freed([object_id])
 
     def _uncharge(self, entry: ObjectEntry) -> None:
         # Caller holds the lock; the entry is in memory.
@@ -402,6 +417,7 @@ class ObjectStore:
             self._memory_used = 0
             self._device_used = 0
             self._seal_listeners.clear()
+            self._free_listeners.clear()
             self._lock.notify_all()
 
     # ----------------------------------------------------------------- stats

@@ -23,6 +23,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 
+from ray_tpu_torch._private.accelerators import CardLedger
 from ray_tpu_torch._private.ids import NodeID, ObjectID, PlacementGroupID
 from ray_tpu_torch.exceptions import PlacementGroupError
 
@@ -37,6 +38,8 @@ class BundleReservation:
     committed: bool = False
     # Resources lent out to tasks and actors scheduled in the bundle.
     in_use: dict[str, float] = field(default_factory=dict)
+    # The card shares the bundle holds on its node, lent out in turn.
+    cards: CardLedger | None = None
 
 
 @dataclass
@@ -110,13 +113,16 @@ class PlacementGroupManager:
         for bundle in record.bundles:
             node = self._pick_bundle_node(record.strategy, bundle, used_nodes,
                                           placed)
-            if node is None or not self._cluster.try_acquire(
-                    node.node_id, bundle.resources):
+            shares = None if node is None else self._cluster.try_acquire(
+                node.node_id, bundle.resources)
+            if shares is None:
                 for taken in placed:
-                    self._cluster.release(taken.node_id, taken.resources)
+                    self._cluster.release(taken.node_id, taken.resources,
+                                          taken.cards.capacity)
                     taken.node_id = None
                 return False
             bundle.node_id = node.node_id
+            bundle.cards = CardLedger(shares)
             placed.append(bundle)
             used_nodes.add(node.node_id)
         for bundle in record.bundles:
@@ -167,28 +173,34 @@ class PlacementGroupManager:
         return None
 
     def acquire_from_bundle(self, pg_id: PlacementGroupID, bundle_index: int,
-                            demand: dict[str, float]) -> NodeID:
+                            demand: dict[str, float]
+                            ) -> tuple[NodeID, dict[int, float]]:
         """Lend ``demand`` from a committed bundle to a task or actor;
-        its node. Raises PlacementGroupError when the group is not
-        ready or no bundle has room now."""
+        its node and the card shares of its GPU. Raises
+        PlacementGroupError when the group is not ready or no bundle has
+        room now."""
         with self._lock:
             record = self._gcs.get_placement_group(pg_id)
             if record is None or record.state != "CREATED":
                 raise PlacementGroupError(
                     f"Placement group {pg_id.hex()} is not ready")
             for bundle in self._candidates(record, bundle_index):
-                if all(bundle.resources.get(k, 0.0)
-                       - bundle.in_use.get(k, 0.0) + 1e-9 >= v
-                       for k, v in demand.items()):
+                shares = bundle.cards.pick(demand.get("GPU", 0.0))
+                if shares is not None and all(
+                        bundle.resources.get(k, 0.0)
+                        - bundle.in_use.get(k, 0.0) + 1e-9 >= v
+                        for k, v in demand.items()):
+                    bundle.cards.take(shares)
                     for k, v in demand.items():
                         bundle.in_use[k] = bundle.in_use.get(k, 0.0) + v
-                    return bundle.node_id
+                    return bundle.node_id, shares
             raise PlacementGroupError(
                 f"No capacity in placement group {pg_id.hex()} bundle "
                 f"{bundle_index} for {demand}")
 
     def release_to_bundle(self, pg_id: PlacementGroupID, bundle_index: int,
-                          demand: dict[str, float]) -> None:
+                          demand: dict[str, float],
+                          shares: dict[int, float]) -> None:
         """Give a task's or actor's share back to its bundle, or to the
         bundle's node once the group is removed."""
         to_node = None
@@ -198,14 +210,17 @@ class PlacementGroupManager:
                 return
             for bundle in self._candidates(record, bundle_index):
                 if all(bundle.in_use.get(k, 0.0) + 1e-9 >= v
-                       for k, v in demand.items()):
+                       for k, v in demand.items()) \
+                        and all(i in bundle.cards.capacity for i in shares):
                     for k, v in demand.items():
                         bundle.in_use[k] = bundle.in_use.get(k, 0.0) - v
                     if record.state == "REMOVED":
                         to_node = bundle.node_id
+                    else:
+                        bundle.cards.give(shares)
                     break
         if to_node is not None:
-            self._cluster.release(to_node, demand)
+            self._cluster.release(to_node, demand, shares)
         else:
             self._cluster.notify_change()
 
@@ -231,7 +246,8 @@ class PlacementGroupManager:
                 bundle.committed = False
                 self._cluster.release(bundle.node_id, {
                     k: v - bundle.in_use.get(k, 0.0)
-                    for k, v in bundle.resources.items()})
+                    for k, v in bundle.resources.items()},
+                    {i: f for i, f in bundle.cards.free.items() if f > 0})
 
     def shutdown(self) -> None:
         """Remove every group: their reservation threads end."""

@@ -28,6 +28,7 @@ import traceback
 from dataclasses import dataclass, field
 from typing import Callable
 
+from ray_tpu_torch._private.accelerators import CardLedger
 from ray_tpu_torch._private.ids import NodeID
 from ray_tpu_torch._private.task import TaskSpec
 from ray_tpu_torch.exceptions import PlacementGroupError
@@ -46,20 +47,33 @@ class NodeState:
     available: dict[str, float]
     labels: dict[str, str] = field(default_factory=dict)
     alive: bool = True
+    # The cards behind the GPU count, and each one's free share.
+    cards: CardLedger = None
+
+    def __post_init__(self):
+        if self.cards is None:
+            self.cards = CardLedger.for_count(self.total.get("GPU", 0.0))
 
     def fits(self, demand: dict[str, float]) -> bool:
         return all(self.available.get(k, 0.0) + 1e-9 >= v
-                   for k, v in demand.items())
+                   for k, v in demand.items()) \
+            and self.cards.pick(demand.get("GPU", 0.0)) is not None
 
     def feasible(self, demand: dict[str, float]) -> bool:
         return all(self.total.get(k, 0.0) + 1e-9 >= v
                    for k, v in demand.items())
 
-    def acquire(self, demand: dict[str, float]) -> None:
+    def acquire(self, demand: dict[str, float]) -> dict[int, float]:
+        """Take ``demand`` (it fits); the card shares of its GPU."""
+        shares = self.cards.pick(demand.get("GPU", 0.0))
+        self.cards.take(shares)
         for key, value in demand.items():
             self.available[key] = self.available.get(key, 0.0) - value
+        return shares
 
-    def release(self, demand: dict[str, float]) -> None:
+    def release(self, demand: dict[str, float],
+                shares: dict[int, float]) -> None:
+        self.cards.give(shares)
         for key, value in demand.items():
             self.available[key] = self.available.get(key, 0.0) + value
 
@@ -147,19 +161,22 @@ class ClusterState:
             "%s demands %s which no node can ever satisfy; it will hang "
             "until matching nodes join.", name, demand)
 
-    def try_acquire(self, node_id: NodeID, demand: dict[str, float]) -> bool:
+    def try_acquire(self, node_id: NodeID, demand: dict[str, float]
+                    ) -> "dict[int, float] | None":
+        """Take ``demand`` on the node: the card shares of its GPU
+        (``{}`` without one), or None when it does not fit."""
         with self._lock:
             node = self._nodes.get(node_id)
             if node is None or not node.alive or not node.fits(demand):
-                return False
-            node.acquire(demand)
-            return True
+                return None
+            return node.acquire(demand)
 
-    def release(self, node_id: NodeID, demand: dict[str, float]) -> None:
+    def release(self, node_id: NodeID, demand: dict[str, float],
+                shares: dict[int, float] | None = None) -> None:
         with self._lock:
             node = self._nodes.get(node_id)
             if node is not None:
-                node.release(demand)
+                node.release(demand, shares or {})
             self._lock.notify_all()
 
     def notify_change(self) -> None:
@@ -354,8 +371,10 @@ class Dispatcher:
             self._cluster.warn_if_infeasible(f"Task {spec.name}",
                                              spec.resources)
             return None
-        if not self._cluster.try_acquire(node.node_id, spec.resources):
+        shares = self._cluster.try_acquire(node.node_id, spec.resources)
+        if shares is None:
             return None
+        spec.gpu_shares = shares
         return node
 
     def _admit_to_bundle(self, task: _QueuedTask) -> NodeState | None:
@@ -371,7 +390,8 @@ class Dispatcher:
         reason = pgs.unplaceable(*args)
         if reason is None:
             try:
-                return self._cluster.get_node(pgs.acquire_from_bundle(*args))
+                node_id, spec.gpu_shares = pgs.acquire_from_bundle(*args)
+                return self._cluster.get_node(node_id)
             except PlacementGroupError:
                 return None  # pending, or the bundle is full for now
         with self._lock:
@@ -389,9 +409,11 @@ class Dispatcher:
         if strategy.kind == "PLACEMENT_GROUP":
             self._placement_groups.release_to_bundle(
                 strategy.placement_group.id,
-                strategy.placement_group_bundle_index, spec.resources)
+                strategy.placement_group_bundle_index, spec.resources,
+                spec.gpu_shares)
         else:
-            self._cluster.release(node.node_id, spec.resources)
+            self._cluster.release(node.node_id, spec.resources,
+                                  spec.gpu_shares)
 
     def _claim(self, task: _QueuedTask, node: NodeState) -> bool:
         expired = False
@@ -525,17 +547,24 @@ class BlockedResourceContext:
         if release:
             self._cluster.release(self._node_id, self._cpu_only)
 
-    def unblock(self):
+    def unblock(self, force: bool = False):
+        """Take the CPU again once the last nested wait ends (``force``:
+        whatever the depth)."""
         with self._depth_lock:
             if self._depth <= 0:
                 return
-            self._depth -= 1
+            self._depth = 0 if force else self._depth - 1
             reacquire = self._depth == 0 and bool(self._cpu_only)
         # Spinning is fine: we only woke because our object sealed, so the
         # release that makes room is imminent.
-        while reacquire and not self._cluster.try_acquire(
-                self._node_id, self._cpu_only):
+        while reacquire and self._cluster.try_acquire(
+                self._node_id, self._cpu_only) is None:
             time.sleep(0.001)
+
+    def drain(self):
+        """Undo a wait that was given up (or whose worker died while
+        blocked): the task holds its CPU again."""
+        self.unblock(force=True)
 
 
 def format_traceback(exc: BaseException) -> str:

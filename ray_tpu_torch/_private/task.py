@@ -66,3 +66,7 @@ class TaskSpec:
     # instead of running dead work.
     deadline: float | None = None
     attempt: int = 0
+    # Applied in a pool worker (env_vars, working_dir, py_modules).
+    runtime_env: dict | None = None
+    # The card shares of its GPU lease, set at admission.
+    gpu_shares: dict[int, float] = field(default_factory=dict)

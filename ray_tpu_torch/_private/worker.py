@@ -1,21 +1,28 @@
 """The process's runtime and the core public API.
 
-The port of ``ray_tpu/_private/worker.py``, its in-process path: what
-``ray_tpu.init()`` builds with no ``address`` and no process workers.
-Tasks and actors run on threads of the process that called ``init()``,
-which owns the card. ``Runtime`` composes the object store, the
-control-plane tables, the cluster's resources (one head node: ``CPU``,
-the detected ``GPU``s and any custom resources) and the dispatcher; the
-module functions (``init``/``get``/``put``/``wait``/...) drive the
-process's one runtime.
+The port of ``ray_tpu/_private/worker.py``, its single-host path: what
+``ray_tpu.init()`` builds with no ``address``. ``Runtime`` composes the
+object store, the control-plane tables, the cluster's resources (one
+head node: ``CPU``, the detected ``GPU``s and any custom resources) and
+the dispatcher; the module functions (``init``/``get``/``put``/...)
+drive the process's one runtime.
 
-A task or actor thread starts on device 0 (CUDA's current device is per
-thread; on a host with several cards a task picks its own with
-``torch.cuda.set_device``) and on the default stream (PyTorch's current
-stream is per thread too), so work that a task enqueues on the card is
-ordered before work any other thread enqueues there after it: a CUDA
-tensor a task returns is sealed without a synchronize, and a consumer on
-the default stream reads it safely.
+Tasks and actors run on threads of the process that called ``init()``,
+which owns the card, unless ``init(process_workers=N)`` starts a pool of
+worker processes (``worker_pool.py``): a task then runs in a pool worker
+when it can be pickled and asks for no ``GPU`` (an unpicklable one falls
+back to a thread, as in the reference), and ``@remote(process=True)``
+gives an actor a process of its own. Code in those processes calls this
+runtime back through the client server (``util/client/server.py``).
+
+A ``GPU`` lease names its cards: an in-thread task or actor runs on its
+lease's first card (``torch.cuda.set_device`` on its thread, when the
+card exists) and on the default stream (PyTorch's current stream is per
+thread too), so work that a task enqueues on the card is ordered before
+work any other thread enqueues there after it: a CUDA tensor a task
+returns is sealed without a synchronize, and a consumer on the default
+stream reads it safely. A process actor sees its cards, and only them,
+in ``CUDA_VISIBLE_DEVICES``.
 """
 
 from __future__ import annotations
@@ -23,12 +30,16 @@ from __future__ import annotations
 import atexit
 import concurrent.futures
 import logging
+import os
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Sequence
 
-from ray_tpu_torch._private import accelerators
+import torch
+
+from ray_tpu_torch._private import accelerators, worker_client
 from ray_tpu_torch._private.actor_runtime import LocalActor, _ActorCall
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.gcs import (
@@ -57,6 +68,7 @@ from ray_tpu_torch.exceptions import (
     TaskCancelledError,
     TaskError,
     TaskTimeoutError,
+    WorkerCrashedError,
 )
 
 logger = logging.getLogger("ray_tpu_torch")
@@ -67,6 +79,20 @@ _ACTOR_LEASE_TIMEOUT_S = 300.0
 # How long kill() waits for the killed actor's running calls to return;
 # past it, the actor's resources come back when they do.
 _KILL_WAIT_S = 10.0
+
+
+def _in_worker_process() -> bool:
+    from ray_tpu_torch._private.worker_pool import IN_WORKER_ENV
+
+    return bool(os.environ.get(IN_WORKER_ENV))
+
+
+def _use_cards(shares: dict[int, float]) -> None:
+    """Run this thread on its lease's first card, when that card
+    exists."""
+    if shares and torch.cuda.is_available() \
+            and min(shares) < torch.cuda.device_count():
+        torch.cuda.set_device(min(shares))
 
 
 class RuntimeContext:
@@ -95,7 +121,8 @@ class Runtime:
                  num_gpus: float | None = None,
                  resources: dict[str, float] | None = None,
                  object_store_memory: int | None = None,
-                 namespace: str = "default"):
+                 namespace: str = "default",
+                 process_workers: int | None = None):
         cfg = GLOBAL_CONFIG
         self.namespace = namespace
         self.job_id = JobID()
@@ -122,7 +149,8 @@ class Runtime:
         # queues wait on it.
         self._actors_changed = threading.Condition()
         self._actor_queues: dict[ActorID, queue.Queue] = {}
-        # Actor id -> (node, resources, (group id, bundle index) or None).
+        # Actor id -> (node, resources, (group id, bundle index) or None,
+        # card shares).
         self._actor_leases: dict[ActorID, tuple] = {}
         self._futures_lock = threading.Lock()
         self._futures: dict[ObjectID,
@@ -139,6 +167,150 @@ class Runtime:
             {k: v for k, v in head.items() if v > 0},
             labels={"node_type": "head"})
         self.gcs.register_job(JobRecord(self.job_id))
+        self._start_process_plane(
+            cfg.worker_pool_size if process_workers is None
+            else process_workers)
+
+    # ------------------------------------------------- worker processes
+
+    def _start_process_plane(self, pool_size: int) -> None:
+        """The pieces worker processes use: the segment directory, the
+        client server (started at the first process spawn, so a runtime
+        of threads pays nothing), the log monitor and the pool."""
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.shm_store import ShmClient, ShmDirectory
+
+        serialization.init_raw_from_config()
+        self.shm_directory = ShmDirectory()
+        self.shm_client = ShmClient()
+        self.store.add_free_listener(self._on_object_freed)
+        self.worker_pool = None
+        self.worker_client_server = None
+        self.log_monitor = None
+        # Task token -> the BlockedResourceContext of a pool task, for a
+        # nested get() that arrives with the token.
+        self._inflight_blocks: dict[str, BlockedResourceContext] = {}
+        self._inflight_blocks_lock = threading.Lock()
+        self._func_blobs: "weakref.WeakKeyDictionary" = \
+            weakref.WeakKeyDictionary()
+        self._promote_lock = threading.Lock()
+        if not pool_size or pool_size <= 0:
+            return
+        from ray_tpu_torch._private import worker_pool as pool_mod
+
+        self.ensure_client_server()
+        if GLOBAL_CONFIG.log_to_driver:
+            import tempfile
+            import uuid
+
+            from ray_tpu_torch._private.log_monitor import LogMonitor
+
+            # One directory per session: a second init() in this process
+            # must not replay the first one's logs.
+            log_dir = os.path.join(
+                tempfile.gettempdir(),
+                f"ray_tpu_torch_session_{os.getpid()}_"
+                f"{uuid.uuid4().hex[:6]}", "logs")
+            os.environ[pool_mod.LOG_DIR_ENV] = log_dir
+            self.log_monitor = LogMonitor(log_dir).start()
+        # N workers with torch's default thread count each would
+        # oversubscribe the host.
+        os.environ[pool_mod.THREADS_ENV] = str(
+            max(1, (os.cpu_count() or 1) // int(pool_size)))
+        self.worker_pool = pool_mod.WorkerPool(
+            int(pool_size), self.shm_directory, self.shm_client)
+
+    def ensure_client_server(self) -> None:
+        """Start the client server on first need; processes spawned after
+        it find it in their environment."""
+        if self.worker_client_server is not None:
+            return
+        from ray_tpu_torch.util.client import ClientServer
+
+        self.worker_client_server = ClientServer().start()
+        os.environ[worker_client.ADDRESS_ENV] = \
+            self.worker_client_server.address
+
+    def lookup_block_context(self, token: str):
+        """The block context of a pool task in flight."""
+        with self._inflight_blocks_lock:
+            return self._inflight_blocks.get(token)
+
+    def _on_object_freed(self, object_id: ObjectID) -> None:
+        name = self.shm_directory.free(object_id)
+        if name is not None:
+            self.shm_client.close_segment(name)
+
+    def _function_blob(self, func) -> tuple[str, bytes]:
+        """A task function pickled once per identity (the reference's
+        function manager exports each function once); closures are
+        captured at the first export, as there."""
+        import hashlib
+
+        from ray_tpu_torch._private import serialization
+
+        try:
+            cached = self._func_blobs.get(func)
+        except TypeError:  # a callable that cannot be weakly keyed
+            cached = None
+        if cached is not None:
+            return cached
+        blob = serialization.dumps_function(func)
+        entry = (hashlib.sha1(blob).hexdigest(), blob)
+        try:
+            self._func_blobs[func] = entry
+        except TypeError:
+            pass
+        return entry
+
+    def _promote_to_shm(self, ref: ObjectRef):
+        """Make an object of this process readable by worker processes:
+        its segment, written at the first use."""
+        from ray_tpu_torch._private.shm_store import ShmObjectWriter
+
+        with self._promote_lock:
+            desc = self.shm_directory.lookup(ref.id())
+            if desc is None:
+                desc, seg = ShmObjectWriter.put(self.store.get(ref.id()))
+                self.shm_directory.register(ref.id(), desc, seg)
+            return desc
+
+    def _try_execute_on_pool(self, spec: TaskSpec, node: NodeState,
+                             bundled: bool) -> bool:
+        """Run the task in a pool worker behind the serialization
+        boundary; False (the caller runs it on a thread) when its
+        function or arguments cannot be pickled."""
+        from ray_tpu_torch._private.worker_pool import _RemoteTaskError
+
+        try:
+            args_blob = self.worker_pool.marshal_args(
+                spec.args, spec.kwargs, self._promote_to_shm)
+            digest, func_blob = self._function_blob(spec.func)
+        except Exception:  # noqa: BLE001 — not picklable: run in-thread
+            return False
+        # A nested get() from the worker carries this token and gives the
+        # task's CPU back here while it blocks.
+        token = spec.task_id.hex()
+        with self._inflight_blocks_lock:
+            self._inflight_blocks[token] = BlockedResourceContext(
+                self.cluster, node.node_id, {} if bundled else spec.resources)
+        try:
+            results = self.worker_pool.run_task_blobs(
+                digest, func_blob, args_blob, spec.num_returns,
+                spec.return_ids, runtime_env=spec.runtime_env,
+                task_token=token)
+        except _RemoteTaskError as rte:
+            rte.cause.__ray_tpu_remote_tb__ = rte.remote_tb
+            raise rte.cause from None
+        finally:
+            with self._inflight_blocks_lock:
+                ctx = self._inflight_blocks.pop(token)
+            # A worker that died in a blocked get() left the CPU given
+            # away: take it back before the dispatcher releases it.
+            ctx.drain()
+        for rid, value in results:
+            self.store.put(rid, value)
+        return True
 
     def add_node(self, resources: dict[str, float],
                  labels: dict[str, str] | None = None) -> NodeID:
@@ -207,12 +379,18 @@ class Runtime:
                     max_retries: int = 0,
                     retry_exceptions: bool | list = False,
                     scheduling_strategy: SchedulingStrategy | None = None,
+                    runtime_env: dict | None = None,
                     deadline_s: float | None = None) -> list[ObjectRef]:
-        """Queue one task; its refs come back at once. ``deadline_s``
+        """Queue one task; its refs come back at once. ``runtime_env``
+        applies in a pool worker (a task on a thread ignores it).
+        ``deadline_s``
         arms an end-to-end budget checked at every stage; a
         deadline-armed submit over the admission cap raises
         ``SystemOverloadedError`` instead of queueing (its budget would
         die in the backlog)."""
+        from ray_tpu_torch._private.worker_pool import validate_runtime_env
+
+        validate_runtime_env(runtime_env)
         deadline = self._absolute_deadline(deadline_s)
         if deadline is not None:
             reason = self._admission_overload_reason()
@@ -226,7 +404,8 @@ class Runtime:
             kwargs=kwargs, num_returns=num_returns, resources=resources,
             max_retries=max_retries, retry_exceptions=retry_exceptions,
             scheduling_strategy=scheduling_strategy or SchedulingStrategy(),
-            return_ids=return_ids, deadline=deadline)
+            return_ids=return_ids, deadline=deadline,
+            runtime_env=runtime_env)
         for rid in return_ids:
             self.store.create_pending(rid)
         refs = [ObjectRef(rid) for rid in return_ids]
@@ -246,17 +425,24 @@ class Runtime:
         RuntimeContext.set(
             task_id=spec.task_id, task_name=spec.name, job_id=self.job_id,
             node_id=node.node_id, actor_id=None,
-            resources=dict(spec.resources))
+            resources=dict(spec.resources),
+            gpu_ids=sorted(spec.gpu_shares))
         # A bundled task's CPU is its bundle's: it is not lent to the node
         # while the task blocks.
         bundled = spec.scheduling_strategy.kind == "PLACEMENT_GROUP"
         try:
-            args, kwargs, _ = resolve_args(
-                spec.args, spec.kwargs, lambda ref: self.get([ref])[0])
-            with BlockedResourceContext(self.cluster, node.node_id,
-                                        {} if bundled else spec.resources):
-                result = spec.func(*args, **kwargs)
-            self._store_task_result(spec, result)
+            # A task that asks for GPU stays on a thread of this process,
+            # as the reference's TPU tasks do.
+            if self.worker_pool is None or "GPU" in spec.resources \
+                    or not self._try_execute_on_pool(spec, node, bundled):
+                _use_cards(spec.gpu_shares)
+                args, kwargs, _ = resolve_args(
+                    spec.args, spec.kwargs, lambda ref: self.get([ref])[0])
+                with BlockedResourceContext(
+                        self.cluster, node.node_id,
+                        {} if bundled else spec.resources):
+                    result = spec.func(*args, **kwargs)
+                self._store_task_result(spec, result)
             self.gcs.record_task_event(TaskEvent(
                 spec.task_id, spec.name, "FINISHED", start_time=start,
                 end_time=time.time(), node_id=node.node_id.hex()))
@@ -271,9 +457,11 @@ class Runtime:
         if self._maybe_retry(spec, exc):
             return
         # A task error that is already typed (a failed dependency, a
-        # cancellation) passes through unwrapped.
-        error = exc if isinstance(exc, (TaskError, TaskCancelledError)) \
-            else TaskError(exc, format_traceback(exc), spec.name)
+        # cancellation, its worker's death) passes through unwrapped.
+        error = exc if isinstance(
+            exc, (TaskError, TaskCancelledError, WorkerCrashedError)) \
+            else TaskError(exc, getattr(exc, "__ray_tpu_remote_tb__", None)
+                           or format_traceback(exc), spec.name)
         for rid in spec.return_ids:
             self.store.put_error(rid, error)
         self.gcs.record_task_event(TaskEvent(
@@ -281,11 +469,13 @@ class Runtime:
             end_time=time.time(), error=repr(exc)))
 
     def _maybe_retry(self, spec: TaskSpec, exc: BaseException) -> bool:
-        """Resubmit while retries remain: an actor's death always, an
-        application error as ``retry_exceptions`` allows."""
+        """Resubmit while retries remain: a system failure (an actor's or
+        a worker's death) always, an application error as
+        ``retry_exceptions`` allows."""
         if spec.attempt >= spec.max_retries:
             return False
-        if isinstance(exc, ActorDiedError) or spec.retry_exceptions is True:
+        if isinstance(exc, (ActorDiedError, WorkerCrashedError)) \
+                or spec.retry_exceptions is True:
             retry = True
         elif isinstance(spec.retry_exceptions, (list, tuple)):
             retry = any(isinstance(exc, t) for t in spec.retry_exceptions)
@@ -323,12 +513,20 @@ class Runtime:
                      max_restarts: int = 0, max_pending_calls: int = -1,
                      concurrency_groups: dict[str, int] | None = None,
                      scheduling_strategy: SchedulingStrategy | None = None,
-                     get_if_exists: bool = False,
+                     get_if_exists: bool = False, process: bool = False,
+                     runtime_env: dict | None = None,
                      deadline_s: float | None = None
                      ) -> tuple[ActorID, ObjectRef]:
         """Register the actor, then lease its resources and build it on a
-        thread of its own. ``deadline_s`` is the default budget of each of
-        its calls."""
+        thread of its own, or (``process=True``) in a worker process of
+        its own, which ``runtime_env`` applies to. ``deadline_s`` is the
+        default budget of each of its calls."""
+        from ray_tpu_torch._private.worker_pool import (
+            ProcessActor,
+            validate_runtime_env,
+        )
+
+        validate_runtime_env(runtime_env)
         ns = namespace or self.namespace
         if name is not None and get_if_exists:
             existing = self.gcs.get_named_actor(name, ns)
@@ -367,10 +565,20 @@ class Runtime:
                 self.store.put_error(creation_rid, exc)
                 self._mark_actor_dead(actor_id, repr(exc))
                 return
-            node_id = lease[0] if lease is not None else None
+            node_id, shares = (lease[0], lease[3]) if lease is not None \
+                else (None, {})
             context = dict(job_id=self.job_id, task_id=None,
                            actor_id=actor_id, node_id=node_id,
-                           resources=dict(resources))
+                           resources=dict(resources),
+                           gpu_ids=sorted(shares))
+
+            def set_context():
+                RuntimeContext.set(**context)
+                _use_cards(shares)
+
+            if process:
+                # The process finds the client server in its environment.
+                self.ensure_client_server()
             with self._actors_changed:
                 if record.state == "DEAD":
                     # Killed before it was built.
@@ -384,16 +592,33 @@ class Runtime:
                 # that fails marks it DEAD, and that must be the last
                 # word.
                 self.gcs.update_actor_state(actor_id, "ALIVE")
-                self._actors[actor_id] = LocalActor(
-                    actor_id, cls, args, kwargs, self.store,
-                    max_concurrency=max_concurrency,
-                    max_restarts=max_restarts,
-                    max_pending_calls=max_pending_calls,
-                    concurrency_groups=concurrency_groups,
-                    creation_return_id=creation_rid,
-                    on_death=self._mark_actor_dead,
-                    on_release=self._release_actor_lease,
-                    set_context=lambda: RuntimeContext.set(**context))
+                if process:
+                    actor = ProcessActor(
+                        actor_id, cls, args, kwargs, self,
+                        max_restarts=max_restarts,
+                        max_pending_calls=max_pending_calls,
+                        max_concurrency=max_concurrency,
+                        concurrency_groups=concurrency_groups,
+                        creation_return_id=creation_rid,
+                        on_death=self._mark_actor_dead,
+                        on_release=self._release_actor_lease,
+                        runtime_env=runtime_env, gpu_ids=sorted(shares))
+                else:
+                    if runtime_env:
+                        logger.warning("actor %s runs on a thread: its "
+                                       "runtime_env is ignored (pass "
+                                       "process=True)", cls.__name__)
+                    actor = LocalActor(
+                        actor_id, cls, args, kwargs, self.store,
+                        max_concurrency=max_concurrency,
+                        max_restarts=max_restarts,
+                        max_pending_calls=max_pending_calls,
+                        concurrency_groups=concurrency_groups,
+                        creation_return_id=creation_rid,
+                        on_death=self._mark_actor_dead,
+                        on_release=self._release_actor_lease,
+                        set_context=set_context)
+                self._actors[actor_id] = actor
                 self._actors_changed.notify_all()
 
         threading.Thread(target=start_actor, daemon=True,
@@ -406,9 +631,9 @@ class Runtime:
         """Take the actor's resources for its lifetime, from the node or
         from its placement group's bundle, waiting up to
         _ACTOR_LEASE_TIMEOUT_S for them to free up: the lease (node,
-        resources, (group id, bundle index) or None), or None if the
-        actor is killed while it waits. A bundle that can never hold
-        them raises PlacementGroupError."""
+        resources, (group id, bundle index) or None, card shares), or
+        None if the actor is killed while it waits. A bundle that can
+        never hold them raises PlacementGroupError."""
         timeout = _ACTOR_LEASE_TIMEOUT_S
         deadline = time.monotonic() + timeout
         bundle = None
@@ -421,15 +646,17 @@ class Runtime:
                 if reason is not None:
                     raise PlacementGroupError(reason)
                 try:
-                    return (self.placement_groups.acquire_from_bundle(
-                        *bundle, resources), resources, bundle)
+                    node_id, shares = self.placement_groups \
+                        .acquire_from_bundle(*bundle, resources)
+                    return node_id, resources, bundle, shares
                 except PlacementGroupError:
                     pass  # pending, or the bundle is full for now
             else:
                 node = self.cluster.pick_node(resources, strategy)
-                if node is not None and self.cluster.try_acquire(
-                        node.node_id, resources):
-                    return node.node_id, resources, None
+                shares = None if node is None else self.cluster.try_acquire(
+                    node.node_id, resources)
+                if shares is not None:
+                    return node.node_id, resources, None, shares
                 if node is None:
                     self.cluster.warn_if_infeasible(f"Actor {name}",
                                                     resources)
@@ -448,11 +675,12 @@ class Runtime:
             self._release_lease(*lease)
 
     def _release_lease(self, node_id: NodeID, resources: dict,
-                       bundle: tuple | None) -> None:
+                       bundle: tuple | None, shares: dict) -> None:
         if bundle is not None:
-            self.placement_groups.release_to_bundle(*bundle, resources)
+            self.placement_groups.release_to_bundle(*bundle, resources,
+                                                    shares)
         else:
-            self.cluster.release(node_id, resources)
+            self.cluster.release(node_id, resources, shares)
 
     def _mark_actor_dead(self, actor_id: ActorID, reason: str) -> None:
         self.gcs.update_actor_state(actor_id, "DEAD", reason)
@@ -546,7 +774,7 @@ class Runtime:
             return
         actor.submit(call)
 
-    def _wait_actor(self, actor_id: ActorID) -> LocalActor | None:
+    def _wait_actor(self, actor_id: ActorID):
         """The live actor once it is built; None if it died first."""
         with self._actors_changed:
             while actor_id not in self._actors:
@@ -677,11 +905,32 @@ class Runtime:
             submit_queue.put(None)
         self.placement_groups.shutdown()
         self.dispatcher.shutdown()
+        self._stop_process_plane()
         self.reference_counter.stop()
         # The runtime's parts refer to each other; dropping the objects
         # here frees what they hold (tensors on the card) at once.
         self.store.close()
         self.gcs.finish_job(self.job_id)
+
+    def _stop_process_plane(self) -> None:
+        from ray_tpu_torch._private import worker_pool as pool_mod
+
+        if self.worker_pool is not None:
+            self.worker_pool.shutdown()
+        pool_mod.stop_factory()
+        if self.worker_client_server is not None:
+            self.worker_client_server.stop()
+            os.environ.pop(worker_client.ADDRESS_ENV, None)
+        os.environ.pop(pool_mod.THREADS_ENV, None)
+        if self.log_monitor is not None:
+            import shutil
+
+            self.log_monitor.stop()
+            os.environ.pop(pool_mod.LOG_DIR_ENV, None)
+            shutil.rmtree(os.path.dirname(self.log_monitor.log_dir),
+                          ignore_errors=True)
+        self.shm_client.close_all()
+        self.shm_directory.shutdown()
 
 
 # --------------------------------------------------------------------------
@@ -693,18 +942,31 @@ _runtime_lock = threading.Lock()
 _atexit_registered = False
 
 
-def global_runtime() -> Runtime | None:
-    return _runtime
+def global_runtime():
+    """This process's runtime; in a worker process, the proxy to its
+    driver's (made at first use, as refs may unpickle before any call)."""
+    if _runtime is not None or not _in_worker_process():
+        return _runtime
+    active = worker_client.active_worker_runtime()
+    if active is not None or not os.environ.get(worker_client.ADDRESS_ENV):
+        return active
+    return worker_client.get_worker_runtime()
 
 
 def init(*, num_cpus: float | None = None, num_gpus: float | None = None,
          resources: dict[str, float] | None = None,
          object_store_memory: int | None = None,
          namespace: str = "default", ignore_reinit_error: bool = False,
-         system_config: dict | None = None) -> Runtime:
+         system_config: dict | None = None,
+         process_workers: int | None = None) -> Runtime:
     """Start the process's runtime. ``num_gpus`` sets the head node's
-    ``GPU`` count (by default ``torch.cuda.device_count()``)."""
+    ``GPU`` count (by default ``torch.cuda.device_count()``);
+    ``process_workers`` starts that many worker processes (by default
+    ``worker_pool_size``, 0). In a worker process the public API goes to
+    the driver's runtime, and this returns its proxy."""
     global _runtime, _atexit_registered
+    if _in_worker_process():
+        return worker_client.get_worker_runtime()
     with _runtime_lock:
         if _runtime is not None:
             if ignore_reinit_error:
@@ -716,7 +978,8 @@ def init(*, num_cpus: float | None = None, num_gpus: float | None = None,
         _runtime = Runtime(num_cpus=num_cpus, num_gpus=num_gpus,
                            resources=resources,
                            object_store_memory=object_store_memory,
-                           namespace=namespace)
+                           namespace=namespace,
+                           process_workers=process_workers)
         if not _atexit_registered:
             atexit.register(shutdown)
             _atexit_registered = True
@@ -736,7 +999,8 @@ def is_initialized() -> bool:
 
 
 def auto_init() -> Runtime:
-    """The process's runtime, started with the defaults if need be."""
+    """The process's runtime, started with the defaults if need be (in a
+    worker process, the proxy to the driver's)."""
     runtime = _runtime
     return runtime if runtime is not None else init(ignore_reinit_error=True)
 

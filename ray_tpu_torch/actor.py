@@ -1,8 +1,9 @@
 """Actors: ``ActorClass``, ``ActorHandle`` and method calls.
 
-The port of ``ray_tpu/actor.py``. An actor runs in the calling process
-and a handle pickles to its actor id, so it can be passed to tasks and
-other actors of the same process.
+The port of ``ray_tpu/actor.py``. An actor runs on a thread of the
+calling process, or (``process=True``) in a worker process of its own;
+a handle pickles to its actor id, so it can be passed to tasks and other
+actors, in this process or in a worker process.
 """
 
 from __future__ import annotations
@@ -96,9 +97,6 @@ class ActorClass:
         bad = set(self._default_options) - _ACTOR_OPTIONS
         if bad:
             raise ValueError(f"Invalid actor options: {sorted(bad)}")
-        if self._default_options.get("process"):
-            raise ValueError("process actors are not supported by "
-                             "ray_tpu_torch yet")
 
         functools.update_wrapper(self, cls, updated=[])
 
@@ -137,6 +135,8 @@ class ActorClass:
             concurrency_groups=opts.get("concurrency_groups"),
             scheduling_strategy=_build_strategy(opts),
             get_if_exists=opts.get("get_if_exists", False),
+            process=bool(opts.get("process", False)),
+            runtime_env=opts.get("runtime_env"),
             deadline_s=opts.get("_deadline_s"))
         handle = ActorHandle(actor_id, self._cls.__name__)
         handle._creation_ref = creation_ref  # keeps a constructor's error observable

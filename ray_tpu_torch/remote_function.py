@@ -76,6 +76,7 @@ class RemoteFunction:
             max_retries=opts.get("max_retries", 0),
             retry_exceptions=opts.get("retry_exceptions", False),
             scheduling_strategy=_build_strategy(opts),
+            runtime_env=opts.get("runtime_env"),
             deadline_s=opts.get("_deadline_s"),
         )
         functools.update_wrapper(self, func)

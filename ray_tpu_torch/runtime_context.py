@@ -2,8 +2,9 @@
 
 The port of ``ray_tpu/runtime_context.py``. Inside a task or an actor,
 ``get_assigned_resources()`` gives the resources it holds (``GPU``
-included); the reference gives ``{}`` for a task on a thread of its
-process and no actor id inside an actor.
+included) and ``get_gpu_ids()`` the cards its ``GPU`` lease names; the
+reference gives ``{}`` for a task on a thread of its process and no
+actor id inside an actor, and has no card indices.
 """
 
 from __future__ import annotations
@@ -51,6 +52,12 @@ class RuntimeContextAPI:
 
     def get_assigned_resources(self) -> dict:
         return dict(_Ctx.current().get("resources", {}))
+
+    def get_gpu_ids(self) -> list[int]:
+        """The card indices of this task's or actor's ``GPU`` lease, as
+        this process counts its cards (a process actor sees its own in
+        ``CUDA_VISIBLE_DEVICES`` instead)."""
+        return list(_Ctx.current().get("gpu_ids", []))
 
     def get_task_deadline(self) -> float | None:
         """The running call's absolute end-to-end deadline

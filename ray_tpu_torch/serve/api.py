@@ -6,10 +6,11 @@ the dependencies first (their places in the init arguments become
 ``DeploymentHandle``s inside the consuming replica) and waits for the
 application's replicas to be built.
 
-Where the port differs: ``run`` checks each deployment's actor options
-before deploying (``ray_actor_options={"process": True}`` is refused
-with a ``ValueError``: process actors are not ported), and raises the
-error of a replica whose constructor failed (an engine server without a
+A replica is an actor thread of this process, or with
+``ray_actor_options={"process": True}`` a process actor, as in the
+reference. Where the port differs: ``run`` checks each deployment's
+actor options before deploying (an unknown one raises ``ValueError``),
+and raises the error of a replica whose constructor failed (an engine server without a
 card and without ``device="cpu"``, say) instead of handing back a handle
 to a deployment that can never serve.
 """
@@ -96,7 +97,7 @@ def _deploy_graph(app: Application, app_name: str, controller) -> None:
 
     dep: Deployment = app.deployment
     # Refused here, not in the controller's reconcile loop: options no
-    # replica actor takes (process actors, unknown keys) raise ValueError.
+    # replica actor takes (unknown keys) raise ValueError.
     replica_actor_class(dep.ray_actor_options)
     init_args = tuple(convert(a) for a in app.init_args)
     init_kwargs = {k: convert(v) for k, v in app.init_kwargs.items()}

@@ -40,8 +40,9 @@ _STOP_WAIT_S = 60.0
 
 def replica_actor_class(ray_actor_options: dict | None):
     """The replica actor class with the deployment's actor options, 16
-    threads unless they say otherwise, and the control group. Raises
-    ValueError for options no actor takes (``process``, unknown keys)."""
+    threads unless they say otherwise, and the control group (a process
+    replica runs its calls on that many threads of its process). Raises
+    ValueError for options no actor takes."""
     opts = dict(ray_actor_options or {})
     opts.setdefault("max_concurrency", 16)
     opts["concurrency_groups"] = {**CONTROL_CONCURRENCY,

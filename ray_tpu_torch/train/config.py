@@ -2,9 +2,9 @@
 
 The port of ``ray_tpu/train/config.py``. For the card, the reference's
 ``use_tpu``/``chips_per_worker`` are ``use_gpu``/``gpus_per_worker``,
-asking for the ``GPU`` resource, as ``num_gpus`` does. Gangs of process
-workers are not ported (ROADMAP queue 1, item 6): a worker is an actor
-thread of the driver's process.
+asking for the ``GPU`` resource, as ``num_gpus`` does. A worker is an
+actor thread of the driver's process, or with ``use_process_workers``
+a process actor of its own (``worker_env`` set in its environment).
 """
 
 from __future__ import annotations
@@ -17,8 +17,11 @@ from typing import Any
 class ScalingConfig:
     """How many workers and what each worker holds.
 
-    num_workers: actor count in the worker group (threads of this
-    process).
+    num_workers: actor count in the worker group.
+    use_process_workers: one process per worker (a process actor) in
+    place of a thread of this process; with ``use_gpu`` each process
+    sees the card it leased.
+    worker_env: environment variables of each worker process.
     """
 
     num_workers: int = 1
@@ -26,15 +29,8 @@ class ScalingConfig:
     resources_per_worker: dict[str, float] = field(default_factory=dict)
     placement_strategy: str = "PACK"
     gpus_per_worker: float = 0
-    # Process workers (one process per gang member) are ROADMAP item 6.
     use_process_workers: bool = False
-
-    def __post_init__(self):
-        if self.use_process_workers:
-            raise ValueError(
-                "ScalingConfig(use_process_workers=True): process worker "
-                "gangs are not ported yet (ROADMAP queue 1, item 6); the "
-                "workers are actor threads of this process")
+    worker_env: dict[str, str] | None = None
 
     def worker_resources(self) -> dict[str, float]:
         res = dict(self.resources_per_worker)

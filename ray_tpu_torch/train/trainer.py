@@ -122,7 +122,7 @@ class DataParallelTrainer(BaseTrainer):
                      resume: Checkpoint | None) -> Result:
         results_queue: queue.Queue = queue.Queue()
         stop_event = threading.Event()
-        group = WorkerGroup(self.scaling_config)
+        group = WorkerGroup(self.scaling_config, stop=self.run_config.stop)
         config = dict(self.train_loop_config)
         loop = self.train_loop_per_worker
         if self.datasets:
@@ -131,11 +131,13 @@ class DataParallelTrainer(BaseTrainer):
             loop = _wrap_with_datasets(loop, self.scaling_config.num_workers)
         try:
             refs = group.run(loop, config, results_queue, stop_event, resume)
-            return self._collect(refs, results_queue, manager, stop_event)
+            return self._collect(refs, results_queue, manager, stop_event,
+                                 group.flush)
         finally:
             group.shutdown()
 
-    def _collect(self, refs, results_queue, manager, stop_event) -> Result:
+    def _collect(self, refs, results_queue, manager, stop_event,
+                 flush) -> Result:
         n = self.scaling_config.num_workers
         done_ranks: set[int] = set()
         last_metrics: dict = {}
@@ -162,6 +164,18 @@ class DataParallelTrainer(BaseTrainer):
                             error = exc
                             break
                 if error is not None:
+                    # A process gang's reports may still be in its
+                    # channel: take them (a checkpoint among them is the
+                    # one to resume from) before failing the attempt.
+                    flush(results_queue)
+                    while not results_queue.empty():
+                        msg = results_queue.get()
+                        if msg["rank"] == 0 and not msg.get("done"):
+                            last_metrics = msg["metrics"]
+                            history.append(msg["metrics"])
+                            if msg.get("checkpoint") is not None:
+                                manager.register(msg["checkpoint"],
+                                                 msg["metrics"])
                     break
                 if time.monotonic() > deadline:
                     error = TimeoutError(
@@ -227,11 +241,15 @@ class MeshTrainer(DataParallelTrainer):
     - a dict of ``torch.distributed.init_process_group`` keywords, its
       ``rank`` taken from the gang rank unless given;
     - ``"auto"``: this driver picks a ``tcp://localhost`` rendezvous,
-      NCCL for a ``use_gpu`` gang and gloo otherwise. A thread gang of
-      more than one worker cannot form such a world (one process), so
-      that raises ``ValueError``.
+      fresh for each attempt, NCCL for a ``use_gpu`` gang and gloo
+      otherwise. A thread gang of more than one worker cannot form such
+      a world (one process), so that raises ``ValueError``; a process
+      gang (``use_process_workers``) can.
 
-    Only a second initialisation of the default group is tolerated.
+    In a thread gang only a second initialisation of the default group
+    is tolerated. A process gang's worker forms its world through
+    ``_private/dist.py`` (the card it leased for NCCL) and destroys it
+    when its loop ends.
     """
 
     def __init__(self, train_loop_per_worker: Callable,
@@ -239,10 +257,10 @@ class MeshTrainer(DataParallelTrainer):
         scaling = kwargs.get("scaling_config") or ScalingConfig()
         self._auto = dist_config == "auto"
         if self._auto:
-            if scaling.num_workers > 1:
+            if scaling.num_workers > 1 and not scaling.use_process_workers:
                 raise ValueError(
                     "dist_config='auto' with num_workers>1 requires "
-                    "process workers (ROADMAP queue 1, item 6): thread "
+                    "ScalingConfig(use_process_workers=True): thread "
                     "workers share one process and can never form a "
                     "multi-process torch.distributed world")
             dist_config = {"backend": "nccl" if scaling.use_gpu else "gloo",
@@ -271,24 +289,34 @@ class MeshTrainer(DataParallelTrainer):
             import torch
             import torch.distributed as dist
 
-            from ray_tpu_torch._private.dist import ensure_process_group
+            from ray_tpu_torch._private import dist as dist_mod
+            from ray_tpu_torch._private.worker_pool import IN_WORKER_ENV
             from ray_tpu_torch.train.session import get_context
 
+            formed = False
             if dist_config is not None:
                 cfg = dict(dist_config)
                 cfg.setdefault("rank", get_context().get_world_rank())
-                try:
-                    dist.init_process_group(**cfg)
-                except ValueError as e:
-                    # Tolerate only a second initialisation (thread
-                    # workers share the process, and a restart runs in
-                    # it again); anything else must fail loudly, or the
-                    # gang trains with the wrong world.
-                    if "twice" not in str(e):
-                        raise
+                if os.environ.get(IN_WORKER_ENV):
+                    dist_mod.init_world(**cfg)
+                    formed = True
+                else:
+                    try:
+                        dist.init_process_group(**cfg)
+                    except ValueError as e:
+                        # Tolerate only a second initialisation (thread
+                        # workers share the process, and a restart runs
+                        # in it again); anything else must fail loudly,
+                        # or the gang trains with the wrong world.
+                        if "twice" not in str(e):
+                            raise
             elif "WORLD_SIZE" in os.environ:
-                ensure_process_group(torch.device("cuda" if use_gpu
-                                                  else "cpu"))
-            return loop(config)
+                dist_mod.ensure_process_group(
+                    torch.device("cuda" if use_gpu else "cpu"))
+            try:
+                return loop(config)
+            finally:
+                if formed and dist.is_initialized():
+                    dist.destroy_process_group()
 
         return wrapped

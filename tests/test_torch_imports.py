@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``ray_tpu_torch``, not
-``chip_smoke.py`` and not ``rmsnorm_launch_cost.py`` imports JAX or the
-JAX package, and its entry points never fall back to the CPU on their
-own."""
+``chip_smoke.py`` and not ``rmsnorm_launch_cost.py`` imports JAX, the
+JAX package or ``cloudpickle`` (the port pickles code itself), and its
+entry points never fall back to the CPU on their own."""
 
 import ast
 import dataclasses
@@ -33,6 +33,15 @@ TRAIN_COLLECTIVE_MODULES = (
     "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.session",
     "ray_tpu_torch.train.worker_group", "ray_tpu_torch.train.trainer",
     "ray_tpu_torch.train.torch", "ray_tpu_torch.train.huggingface")
+# The process runtime: worker processes, their transport and the client
+# server, imported where importing jax, ray_tpu or cloudpickle raises.
+PROCESS_MODULES = (
+    "ray_tpu_torch._private.serialization", "ray_tpu_torch._private.shm_store",
+    "ray_tpu_torch._private.rpc", "ray_tpu_torch._private.worker_client",
+    "ray_tpu_torch._private.log_monitor",
+    "ray_tpu_torch._private.worker_factory",
+    "ray_tpu_torch._private.worker_pool", "ray_tpu_torch.util.client",
+    "ray_tpu_torch.util.client.server", "ray_tpu_torch._private.worker")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -55,6 +64,43 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_neither_jax_nor_ray_tpu(path):
     bad = [name for name in _imported_modules(path) if _forbidden(name)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_cloudpickle(path):
+    bad = [name for name in _imported_modules(path)
+           if name.split(".")[0] == "cloudpickle"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _import_blocked(modules, blocked) -> str:
+    """Import ``modules`` in a fresh interpreter where importing any of
+    ``blocked`` raises; the blocked packages loaded after, as printed."""
+    import subprocess
+    import sys
+
+    code = "\n".join([
+        "import importlib, sys",
+        "class Block:",
+        "    def find_spec(self, name, path=None, target=None):",
+        f"        if name.split('.')[0] in {blocked!r}:",
+        "            raise ImportError('blocked: ' + name)",
+        "sys.meta_path.insert(0, Block())",
+        f"for name in {modules!r}:",
+        "    importlib.import_module(name)",
+        "print(sorted(m for m in sys.modules",
+        f"             if m.split('.')[0] in {blocked!r}))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+def test_process_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    assert _import_blocked(PROCESS_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
 
 
 def test_the_mesh_modules_are_checked():
@@ -201,25 +247,7 @@ def test_rmsnorm_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_train_and_collective_modules_import_with_jax_blocked():
-    import subprocess
-    import sys
-
-    code = "\n".join([
-        "import importlib, sys",
-        "class Block:",
-        "    def find_spec(self, name, path=None, target=None):",
-        f"        if name.split('.')[0] in {FORBIDDEN!r}:",
-        "            raise ImportError('blocked: ' + name)",
-        "sys.meta_path.insert(0, Block())",
-        f"for name in {TRAIN_COLLECTIVE_MODULES!r}:",
-        "    importlib.import_module(name)",
-        "print(sorted(m for m in sys.modules",
-        f"             if m.split('.')[0] in {FORBIDDEN!r}))",
-    ])
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    assert _import_blocked(TRAIN_COLLECTIVE_MODULES, FORBIDDEN) == "[]"
 
 
 def test_train_and_collective_entry_points_raise_without_a_card(

@@ -667,3 +667,42 @@ def test_dcp_round_trip_of_a_cuda_train_state(cuda_device, tmp_path):
     assert (restored.step, restored.opt_state["count"]) == (1, 1)
     for got, want in zip(leaves(restored), leaves(state)):
         assert got.is_cuda and torch.equal(got, want.detach())
+
+
+@pytest.mark.gpu
+def test_cuda_tensors_cross_into_worker_processes(cuda_device):
+    """A CUDA bf16 tensor sent to a pool worker (which sees no card)
+    arrives there as a CPU tensor, bitwise; sent to a ``num_gpus=1``
+    process actor it arrives on the actor's card, bitwise, and what the
+    actor returns from its card arrives here on ``cuda``."""
+    import os
+
+    import ray_tpu_torch as rt
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    x = _bf16(gen, 64, 128)
+    rt.init(num_cpus=4, process_workers=1)
+    try:
+        @rt.remote
+        def on_pool(t):
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.cuda.device_count(), t.device.type, t)
+
+        visible, cards, device, back = rt.get(on_pool.remote(x), timeout=120)
+        assert (visible, cards, device) == ("", 0, "cpu")
+        assert torch.equal(back, x.cpu())
+
+        @rt.remote(process=True, num_gpus=1)
+        class OnCard:
+            def take(self, t):
+                return t.device.type, os.environ.get("CUDA_VISIBLE_DEVICES"), \
+                    t * 2
+
+        actor = OnCard.remote()
+        device, visible, doubled = rt.get(actor.take.remote(x), timeout=300)
+        assert (device, visible) == ("cuda", "0")
+        assert doubled.device.type == "cuda"
+        assert torch.equal(doubled, x * 2)
+        rt.kill(actor)
+    finally:
+        rt.shutdown()

@@ -7,12 +7,12 @@ once through ``ray_tpu_torch.serve``, each under its own runtime
 then ``shutdown``), and returns a plain record; the two records must be
 equal, and equal to what the mirrored test asserts. Delays, the latency
 report period and the autoscaler's intervals are shortened, and every
-wait is bounded. The process-replica and legacy slot-server cases wait
-for those parts of the port.
+wait is bounded. The legacy slot-server cases wait for that part of the
+port.
 
 The port-only cases at the end each state how the port differs: it
-refuses process replicas at deploy, raises a replica constructor's error
-from ``serve.run``, keeps a replica's control calls apart from its
+refuses unknown actor options at deploy, raises a replica constructor's
+error from ``serve.run``, keeps a replica's control calls apart from its
 requests, lets go of a deployment's arguments at ``shutdown``, and has no
 metrics registry behind its handles.
 """
@@ -411,6 +411,31 @@ def latency_autoscaling_up_then_down(rt, serve):
     return [scaled_up, report.get("p99_s", 0) > 0.02, scaled_down]
 
 
+def process_replicas_overlap_requests(rt, serve):
+    """tests/test_serve.py:360: one process replica overlaps 6 slow
+    requests (about one request of wall time) in another process."""
+    import os as _os
+
+    @serve.deployment(num_replicas=1,
+                      ray_actor_options={"process": True,
+                                         "max_concurrency": 8})
+    class Slow:
+        def __call__(self, seconds):
+            import os
+            import time as _t
+
+            _t.sleep(seconds)
+            return os.getpid()
+
+    handle = serve.run(Slow.bind(), name="slow_proc_app")
+    handle.remote(0.0).result(timeout_s=WAIT_S)  # the process is up
+    start = time.monotonic()
+    responses = [handle.remote(0.5) for _ in range(6)]
+    pids = {r.result(timeout_s=WAIT_S) for r in responses}
+    elapsed = time.monotonic() - start
+    return [elapsed < 2.0, bool(pids) and _os.getpid() not in pids]
+
+
 SERVE_CASES = {
     function_deployment: 42,
     class_deployment_and_methods: [15, 15, 15],
@@ -428,6 +453,7 @@ SERVE_CASES = {
         ["tok0", "tok1", "tok2", "tok3"], True],
     streaming_error_and_unary_fallback: [["one"], "mid-stream failure", [42]],
     streaming_early_abandon_stops_production: [[0, 1, 2], True, True, [0, 1]],
+    process_replicas_overlap_requests: [True, True],
 }
 LATENCY_CONFIG = {"serve_latency_report_s": 0.1}
 
@@ -619,14 +645,16 @@ def _torch(scenario, **init):
 
 
 def test_process_replicas_are_refused_at_deploy():
-    """Process actors are not ported: a deployment asking for one fails
-    at deploy with a ValueError, and no replica is started."""
+    """A replica's actor options are checked at deploy: an unknown one
+    fails ``serve.run`` with a ValueError, a process replica's as a
+    thread replica's, and no replica is started. (A process replica
+    with valid options serves: ``process_replicas_overlap_requests``.)"""
     def scenario(rt, serve):
-        @serve.deployment(ray_actor_options={"process": True})
+        @serve.deployment(ray_actor_options={"process": True, "bogus": 1})
         def f(x):
             return x
 
-        with pytest.raises(ValueError, match="process actors"):
+        with pytest.raises(ValueError, match="Invalid options"):
             serve.run(f.bind(), name="proc_app")
         with pytest.raises(ValueError, match="Invalid options"):
             serve.run(f.options(ray_actor_options={"bogus": 1}).bind(),

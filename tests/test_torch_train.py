@@ -26,9 +26,10 @@ Where the port deliberately differs (port-only cases at the end):
   ``dist_config`` the reference's ``jax_distributed_config`` (keywords
   of ``init_process_group``, or ``"auto"``);
 - ``ScalingConfig`` has ``use_gpu``/``gpus_per_worker`` (a ``GPU``
-  demand) for ``use_tpu``/``chips_per_worker``, and refuses
-  ``use_process_workers=True`` (process gangs are ROADMAP item 6), as
-  ``"auto"`` with more than one thread worker is refused;
+  demand) for ``use_tpu``/``chips_per_worker``; ``"auto"`` with more
+  than one thread worker is refused, and a process gang
+  (``use_process_workers=True``, tests/test_torch_train_spmd.py too)
+  trains, fails and resumes from its checkpoint like a thread gang;
 - checkpoints of tensors go through ``torch.distributed.checkpoint``
   (no pickle fallback: a failed save raises), plain tensors and
   DTensors round trip bitwise;
@@ -43,6 +44,7 @@ tests/test_torch_huggingface.py holds the mirror of the
 """
 
 import dataclasses
+import os
 import threading
 
 import jax
@@ -661,12 +663,61 @@ def test_failed_dcp_save_raises(tmp_path, monkeypatch):
 
 
 def test_process_workers_and_multi_worker_auto_are_refused():
-    with pytest.raises(ValueError, match="item 6"):
-        port_train.ScalingConfig(num_workers=2, use_process_workers=True)
+    """``"auto"`` with more than one thread worker is refused (one
+    process cannot form a multi-process world); with process workers it
+    is not."""
     with pytest.raises(ValueError, match="num_workers>1"):
         port_train.MeshTrainer(
             lambda config: None, dist_config="auto",
             scaling_config=port_train.ScalingConfig(num_workers=2))
+    port_train.MeshTrainer(
+        lambda config: None, dist_config="auto",
+        scaling_config=port_train.ScalingConfig(num_workers=2,
+                                                use_process_workers=True))
+
+
+def test_a_process_gang_fails_and_resumes_from_its_checkpoint(
+        port_runtime, tmp_path):
+    """One process worker (``worker_env`` in its environment) forms a
+    gloo world of one through ``"auto"``, checkpoints, dies after its
+    second report on its first attempt, and the next gang (a new
+    process, a new rendezvous) resumes from that checkpoint."""
+    marker = str(tmp_path / "crashed")
+
+    def loop(config):
+        import os as os_mod
+
+        import torch.distributed as dist_mod
+
+        ckpt = port_train.get_checkpoint()
+        start = ckpt.to_dict()["step"] + 1 if ckpt else 0
+        for step in range(start, 4):
+            port_train.report(
+                {"step": step, "pid": os_mod.getpid(),
+                 "world": dist_mod.get_world_size(),
+                 "env": os_mod.environ.get("GANG_VAR")},
+                checkpoint=port_train.Checkpoint.from_dict({"step": step}))
+            if step == 1 and not os_mod.path.exists(config["marker"]):
+                open(config["marker"], "w").close()
+                os_mod._exit(1)
+
+    result = port_train.MeshTrainer(
+        loop, dist_config="auto", train_loop_config={"marker": marker},
+        scaling_config=port_train.ScalingConfig(
+            num_workers=1, use_process_workers=True,
+            worker_env={"GANG_VAR": "set"}),
+        run_config=port_train.RunConfig(
+            storage_path=str(tmp_path),
+            failure_config=port_train.FailureConfig(max_failures=1))).fit()
+    assert result.error is None, result.error
+    history = result.metrics_history
+    assert [m["step"] for m in history] == [0, 1, 2, 3]
+    assert {m["world"] for m in history} == {1}
+    assert {m["env"] for m in history} == {"set"}
+    pids = [m["pid"] for m in history]
+    assert pids[0] == pids[1] != pids[2] == pids[3] != os.getpid()
+    assert result.checkpoint.to_dict() == {"step": 3}
+    assert port_runtime.available_resources()["CPU"] == 8.0
 
 
 def test_auto_dist_config_forms_a_world_and_survives_a_restart(
