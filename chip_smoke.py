@@ -43,6 +43,15 @@ source, all started together) and drives the port's two paths:
   checkpointed at steps 1, 3 and 5 (two kept), held against mesh_train,
   then a run that fails after step 3 and resumes from its checkpoint,
   bitwise the first run on steps 4-6 (trainer);
+- the data package: bench.py's batches (a seeded int32 token array in a
+  ``ray_tpu_torch.data`` Dataset of 4 blocks, split into tokens and
+  targets by ``map_batches``) fed through ``iter_device_batches``, 7
+  steps bitwise the same batches placed in memory, each fed batch
+  bitwise its rows, with the wait in ``next()``, the peak memory and
+  whether the feed's copies overlap two profiled steps' kernels; then
+  ``MeshTrainer`` with ``datasets=``, its loop fed through the mesh,
+  bitwise the mesh step on the same batches placed by ``shard_batch``
+  (data_feed);
 - serving: holds the RMSNorm kernel against its plain version at the
   serving and training shapes, takes the host cost of its launch path
   piece by piece at the decode shape, checks the paged engine's greedy
@@ -85,7 +94,8 @@ dim). The line before the last lists every kernel with its launches on
 its path (the train phase for the attention kernels, the serve phase for
 RMSNorm), through the mesh path (``mesh_launches``), through the MoE and
 the pipeline (``moe_launches``, ``pipeline_launches``), through
-``MeshTrainer`` (``trainer_launches``), through the runtime
+``MeshTrainer`` (``trainer_launches``), through the data feed
+(``data_launches``), through the runtime
 (``runtime_launches``), through the serve deployments
 (``deployment_launches``) and in worker processes
 (``process_launches``), its error
@@ -1781,6 +1791,321 @@ def phase_trainer(llama, fa, device: dict, power: str,
         _check_train_launches(f"trainer ({name})", run["launches"],
                               bench_config(llama).num_layers, TRAINER_STEPS)
     return runs["straight"]["launches"], result
+
+
+# The data_feed phase: bench.py's batches from a Dataset through the
+# device feed. 56 rows of 2049 tokens are 7 batches of 8 x 2048.
+FEED_ROWS, FEED_BATCH, FEED_SEQ, FEED_SEED = 56, 8, 2048, 5
+FEED_DTYPES = {"tokens": np.int64, "targets": np.int64}
+FEED_TRAINER_STEPS = 3
+
+
+def _feed_dataset(vocab: int):
+    """The token array (from a numpy seed) and its Dataset: 4 blocks,
+    each row split into tokens and next-token targets."""
+    from ray_tpu_torch import data
+
+    arr = np.random.default_rng(FEED_SEED).integers(
+        0, vocab, (FEED_ROWS, FEED_SEQ + 1), dtype=np.int32)
+
+    def split(batch):
+        return {"tokens": batch["tokens"][:, :-1],
+                "targets": batch["tokens"][:, 1:]}
+
+    ds = data.from_numpy({"tokens": arr}).repartition(4).map_batches(split)
+    return arr, ds
+
+
+def _host_rows(arr, i: int) -> dict:
+    rows = arr[FEED_BATCH * i:FEED_BATCH * (i + 1)]
+    return {"tokens": rows[:, :-1], "targets": rows[:, 1:]}
+
+
+def _copy_overlap(run) -> dict:
+    """``run()`` under torch.profiler: each host-to-device copy on a
+    stream that runs no kernel (the feed's side stream) against the
+    kernels, from the Chrome trace (its events carry their stream)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.remove(path)
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X" and "dur" in e]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not copies or not kernels:
+        return {"overlap": "not measured (no copy or kernel traced)"}
+
+    def stream(e):
+        return e.get("args", {}).get("stream")
+
+    kernel_streams = {stream(k) for k in kernels}
+    rows, own = [], []
+    for copy in copies:
+        if stream(copy) in kernel_streams:
+            own.append(copy)  # the step's own copies, on its stream
+            continue
+        begin, end = copy["ts"], copy["ts"] + copy["dur"]
+        spans = sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels)
+        covered, reach = 0.0, begin
+        for k_begin, k_end in spans:
+            lo, hi = max(k_begin, reach), min(k_end, end)
+            if hi > lo:
+                covered += hi - lo
+                reach = hi
+        rows.append({"stream": stream(copy), "us": copy["dur"],
+                     "bytes": copy.get("args", {}).get("bytes"),
+                     "overlapped_us": covered})
+    if not rows:
+        return {"overlap": "not measured (no side-stream copy traced)",
+                "kernel_streams": sorted(kernel_streams, key=str),
+                "htod_copies": len(copies)}
+    return {"side_stream_copies": rows,
+            "kernel_streams": sorted(kernel_streams, key=str),
+            "copy_us": sum(r["us"] for r in rows),
+            "overlapped_us": sum(r["overlapped_us"] for r in rows),
+            "overlaps": any(r["overlapped_us"] > 0 for r in rows),
+            "step_htod_copies": {
+                "count": len(own), "us": sum(c["dur"] for c in own),
+                "bytes": sum(c.get("args", {}).get("bytes") or 0
+                             for c in own)}}
+
+
+def _allocated() -> int:
+    """Bytes allocated on the card, without the cuBLAS workspaces that
+    PyTorch keeps for each thread that ran a product (32 MiB each)."""
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _feed_loop(config):
+    """MeshTrainer's loop: bench.py's model on ``train.get_mesh()``, fed
+    by the worker's shard of the Dataset through ``iter_device_batches
+    (mesh=...)``; reports each step's loss, grad norm and the batch's
+    placements."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step
+
+    mesh = train.get_mesh(device=DEVICE)
+    model, params, optimizer, step = _bench_training(llama, train_step)
+    state = train_step.create_train_state(
+        params, optimizer, mesh, llama.param_logical_axes(model))
+    del params
+    feed = config["datasets"]["train"].iter_device_batches(
+        batch_size=FEED_BATCH, mesh=mesh, dtypes=FEED_DTYPES)
+    for i, batch in zip(range(FEED_TRAINER_STEPS), feed):
+        placements = {k: str(list(t.placements)) if isinstance(t, DTensor)
+                      else None for k, t in batch.items()}
+        state, metrics = step(state, batch)
+        train.report({"step": i, "loss": metrics["loss"].item(),
+                      "grad_norm": metrics["grad_norm"].item(),
+                      "placements": placements})
+
+
+def phase_data_feed(llama, train_step, fa, device: dict, power: str) -> dict:
+    """bench.py's Llama fed from a ``ray_tpu_torch.data`` Dataset: (a)
+    7 steps through ``iter_device_batches`` against the same 7 batches
+    placed in memory by ``place_batch`` (both from seed 0, bitwise), the
+    wait in ``next()``, the peak memory and whether the side stream's
+    copies overlap the kernels of two profiled steps; (b)
+    ``MeshTrainer`` at a world of one on NCCL with ``datasets=``, its
+    loop fed through the mesh, against the mesh step on the same 3
+    batches placed by ``shard_batch``. Returns the kernels' launches
+    through both feeds."""
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+
+    phase_start = time.perf_counter()
+    require(not dist.is_initialized(), "a process group exists already")
+    rt.init(num_cpus=8)
+    try:
+        return _data_feed(llama, train_step, fa, device, power, phase_start)
+    finally:
+        rt.shutdown()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _data_feed(llama, train_step, fa, device: dict, power: str,
+               phase_start: float) -> dict:
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    config = bench_config(llama)
+    arr, ds = _feed_dataset(config.vocab_size)
+    warmup, timed = 2, 5
+    steps = warmup + timed
+
+    def run(batches) -> dict:
+        """``steps`` steps from a fresh state, each batch taken from
+        ``batches`` (timed in ``next()``) inside the step's clock."""
+        _, params, optimizer, step = _bench_training(llama, train_step)
+        state = train_step.create_train_state(params, optimizer)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"loss": [], "grad_norm": [], "step_s": [], "next_ms": [],
+               "batches": []}
+        with _LaunchCount(fa) as count:
+            for _ in range(steps):
+                start = time.perf_counter()
+                batch = next(batches)
+                out["next_ms"].append((time.perf_counter() - start) * 1e3)
+                state, metrics = step(state, batch)
+                out["loss"].append(metrics["loss"].item())
+                out["grad_norm"].append(metrics["grad_norm"].item())
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - start)
+                out["batches"].append(batch)
+        out["launches"] = count.counts
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["state"], out["step"] = state, step
+        return out
+
+    feed = ds.iter_device_batches(batch_size=FEED_BATCH, drop_last=True,
+                                  device=DEVICE, dtypes=FEED_DTYPES)
+    fed = run(feed)
+    require(next(feed, None) is None, "the feed gave more than 7 batches")
+    rows_equal = [all(torch.equal(batch[k].cpu(), torch.from_numpy(
+        want[k].astype(np.int64))) for k in want)
+        for batch, want in zip(fed["batches"],
+                               (_host_rows(arr, i) for i in range(steps)))]
+    # Two more steps through a new feed, profiled from their ``next()``:
+    # each queues the copy of the batch after its own.
+    state, step = fed.pop("state"), fed.pop("step")
+    fed["batches"] = None
+    overlap_feed = ds.iter_device_batches(batch_size=FEED_BATCH,
+                                          device=DEVICE, dtypes=FEED_DTYPES)
+    next(overlap_feed)
+
+    def two_steps():
+        nonlocal state
+        for _ in range(2):
+            state, _ = step(state, next(overlap_feed))
+
+    overlap = _copy_overlap(two_steps)
+    del state, step, overlap_feed
+    torch.cuda.empty_cache()
+    memory = run(iter([train_step.place_batch(_host_rows(arr, i), DEVICE)
+                       for i in range(steps)]))
+    del memory["state"], memory["step"], memory["batches"]
+    torch.cuda.empty_cache()
+    bitwise = fed["loss"] == memory["loss"] \
+        and fed["grad_norm"] == memory["grad_norm"]
+    peak_ratio = fed["peak_memory_bytes"] / memory["peak_memory_bytes"]
+
+    # (b) Train ingestion through the mesh path.
+    allocated_before = _allocated()
+    with _LaunchCount(fa) as trainer_count:
+        result = train.MeshTrainer(
+            _feed_loop,
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            datasets={"train": ds}).fit()
+        torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gpu_back = _until(lambda: rt.available_resources().get("GPU") == 1.0)
+    allocated_after = _allocated()
+    require(result.error is None, f"feed trainer: {result.error!r}")
+    history = result.metrics_history
+    require(not dist.is_initialized(), "a process group exists already")
+    mesh = build_mesh(MeshConfig(dp=1))
+    try:
+        _, params, optimizer, step = _bench_training(llama, train_step)
+        state = train_step.create_train_state(
+            params, optimizer, mesh, llama.param_logical_axes(config))
+        del params
+        want, placements = [], None
+        for i in range(FEED_TRAINER_STEPS):
+            batch = train_step.shard_batch(_host_rows(arr, i), mesh)
+            placements = {k: str(list(t.placements))
+                          for k, t in batch.items()}
+            state, metrics = step(state, batch)
+            want.append((metrics["loss"].item(),
+                         metrics["grad_norm"].item()))
+        del state, batch
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    got = [(m["loss"], m["grad_norm"]) for m in history]
+
+    def median(xs):
+        return statistics.median(xs[warmup:])
+
+    result = {
+        "config": "bench.py:50-54", "params": config.num_params,
+        "batch": [FEED_BATCH, FEED_SEQ], "rows": FEED_ROWS, "blocks": 4,
+        "data": f"int32 [{FEED_ROWS}, {FEED_SEQ + 1}] in "
+                f"[0, {config.vocab_size}) from numpy seed {FEED_SEED}",
+        "feed": {k: fed[k] for k in ("loss", "grad_norm", "step_s",
+                                     "next_ms", "launches",
+                                     "peak_memory_bytes")},
+        "in_memory": {k: memory[k] for k in ("loss", "grad_norm", "step_s",
+                                             "peak_memory_bytes")},
+        "step_s_median_feed": median(fed["step_s"]),
+        "step_s_median_in_memory": median(memory["step_s"]),
+        "next_ms_median": statistics.median(fed["next_ms"]),
+        "next_ms_max": max(fed["next_ms"]),
+        "next_ms_timed_median": median(fed["next_ms"]),
+        "bitwise_against_in_memory": bitwise,
+        "fed_rows_bitwise": rows_equal,
+        "peak_memory_ratio": peak_ratio,
+        "copy_overlap": overlap,
+        "trainer": {
+            "steps": [m["step"] for m in history], "loss_grad_norm": got,
+            "mesh_step": want, "bitwise": got == want,
+            "placements": [m["placements"] for m in history],
+            "shard_batch_placements": placements,
+            "launches": trainer_count.counts, "gpu_back": gpu_back,
+            "memory_allocated_before": allocated_before,
+            "memory_allocated_after": allocated_after},
+        "wall_s": time.perf_counter() - phase_start,
+        "card": device["kind"], "nvidia_smi": power,
+    }
+    emit("data_feed", **result)
+    require(all(rows_equal), f"fed batches not bitwise their rows: "
+                             f"{rows_equal}")
+    require(bitwise, "the feed's losses/grad norms are not bitwise the "
+                     "in-memory run's")
+    require(abs(peak_ratio - 1) <= 0.01,
+            f"peak memory through the feed {peak_ratio:.4f}x in-memory")
+    _check_train_launches("data_feed", fed["launches"], config.num_layers,
+                          steps)
+    require(got == want, f"feed trainer {got} is not bitwise the mesh "
+                         f"step's {want}")
+    require(all(m == placements for m in result["trainer"]["placements"]),
+            "fed batches are not DTensors placed as shard_batch places")
+    require(gpu_back, "GPU not back after the feed trainer's fit()")
+    require(abs(allocated_after - allocated_before)
+            <= 0.01 * max(allocated_before, 1),
+            f"{allocated_after - allocated_before} bytes more allocated "
+            f"after the feed trainer's fit()")
+    _check_train_launches("data_feed (trainer)", trainer_count.counts,
+                          config.num_layers, FEED_TRAINER_STEPS)
+    return {k: fed["launches"].get(k, 0) + trainer_count.counts.get(k, 0)
+            for k in fed["launches"]}
 
 
 def _kernel_class(name: str) -> str:
@@ -3642,6 +3967,8 @@ def main() -> int:
     trainer_launches, trainer = phase_trainer(llama, fa, device, power, mesh)
     del mesh
     torch.cuda.empty_cache()
+    data_launches = phase_data_feed(llama, train_step, fa, device, power)
+    torch.cuda.empty_cache()
     phase_ce_chunk_check(llama, train_step)
     torch.cuda.empty_cache()
     rows["rmsnorm"] = phase_rmsnorm(fused)
@@ -3679,6 +4006,9 @@ def main() -> int:
         # bench.py's mesh path as MeshTrainer's train loop (trainer); as
         # in every training path, RMSNorm has none.
         row["trainer_launches"] = trainer_launches.get(kind, 0)
+        # bench.py's batches from a Dataset through the device feed
+        # (data_feed: the plain step and MeshTrainer's datasets= path).
+        row["data_launches"] = data_launches.get(kind, 0)
         # The same kernels driven through the runtime: the flash kernels
         # by runtime_check's train task, RMSNorm by both phases' actors.
         row["runtime_launches"] = check[kind] + runtime[kind]
@@ -3691,6 +4021,10 @@ def main() -> int:
         row["process_launches"] = process_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
+                         f"{missing}")
+    missing = [k for k in (*HOPPER_KERNELS, "flash_bwd")
+               if not rows[k]["data_launches"]]
+    require(not missing, f"kernels not launched through the data feed: "
                          f"{missing}")
     missing = [k for k, row in rows.items() if not row["runtime_launches"]]
     require(not missing, f"kernels not launched through the runtime: "

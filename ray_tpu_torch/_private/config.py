@@ -22,6 +22,9 @@ _DEFAULTS: dict[str, Any] = {
     "object_store_memory_mb": 2048,
     "object_spilling_dir": os.path.join(tempfile.gettempdir(),
                                         "ray_tpu_torch_spill"),
+    # The data layer stops growing in-flight block tasks while the store
+    # holds more than this share of its budget.
+    "object_spilling_threshold": 0.8,
     # End-to-end deadline every task and actor call inherits when it
     # sets none; 0 disables.
     "task_default_deadline_s": 0.0,

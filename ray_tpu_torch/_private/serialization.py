@@ -19,8 +19,11 @@ by-value pickler (``_Pickler``): a function or class that cannot be
 imported by name on the other side (one defined in ``__main__``, inside
 a function, or a lambda) goes by value: its code object through
 ``marshal`` (both ends run the same interpreter), the globals it names,
-its defaults, its closure cells, and a class's body. Everything
-importable goes by reference, modules included.
+its defaults, its closure cells, and a class's body (an Enum's members
+made with the class by its metaclass, a generic class from its
+subscripted bases, a dataclass's field sentinels by name). A TypeVar
+that cannot be imported goes by value too. Everything importable goes
+by reference, modules included.
 
 Tensors are reduced here, never by torch's own reduction (it restores a
 CUDA tensor onto ``cuda`` through ``torch.load``, which fails in a
@@ -36,6 +39,8 @@ device in the reference.
 from __future__ import annotations
 
 import builtins
+import dataclasses
+import enum
 import importlib
 import io
 import marshal
@@ -44,6 +49,7 @@ import struct
 import sys
 import threading
 import types
+import typing
 import uuid
 import weakref
 from typing import Any
@@ -206,11 +212,12 @@ def _lookup(module_name: str, qualname: str):
     return obj
 
 
-def _by_reference(obj) -> bool:
-    """Whether ``obj`` (a function or class) is importable by name in a
-    process that imports its module."""
+def _by_reference(obj, qualname: "str | None" = None) -> bool:
+    """Whether ``obj`` (a function, class or TypeVar) is importable by
+    name in a process that imports its module."""
     module = getattr(obj, "__module__", None)
-    qualname = getattr(obj, "__qualname__", "")
+    if qualname is None:
+        qualname = getattr(obj, "__qualname__", "")
     if module in (None, "__main__") or "<" in qualname:
         return False
     return _lookup(module, qualname) is obj
@@ -248,15 +255,15 @@ def _cell_setstate(cell, state: tuple) -> None:
         cell.cell_contents = state[0]
 
 
-# Classes sent by value keep their identity in the receiver: the same
-# class pickled twice (an actor class, then an instance it returns)
-# comes back as one class object.
-_class_ids: "weakref.WeakKeyDictionary[type, str]" = weakref.WeakKeyDictionary()
-_classes_by_id: dict[str, type] = {}
+# Classes and TypeVars sent by value keep their identity in the receiver:
+# the same class pickled twice (an actor class, then an instance it
+# returns) comes back as one class object.
+_class_ids: "weakref.WeakKeyDictionary[Any, str]" = weakref.WeakKeyDictionary()
+_classes_by_id: dict[str, Any] = {}
 _class_lock = threading.Lock()
 
 
-def _class_id(cls: type) -> str:
+def _class_id(cls) -> str:
     with _class_lock:
         cid = _class_ids.get(cls)
         if cid is None:
@@ -266,13 +273,22 @@ def _class_id(cls: type) -> str:
 
 
 def _make_class(metaclass, name: str, bases: tuple, namespace: dict,
-                cid: str):
+                cid: str, members: "dict | None" = None):
+    """The class of ``cid``: the one this process already has, else a new
+    one. An Enum's members (``members``, name to value, aliases
+    included) are made with the class, as the metaclass makes them."""
     with _class_lock:
         known = _classes_by_id.get(cid)
         if known is not None:
             return known
-        cls = types.new_class(name, bases, {"metaclass": metaclass},
-                              lambda ns: ns.update(namespace))
+        if members is None:
+            cls = types.new_class(name, bases, {"metaclass": metaclass},
+                                  lambda ns: ns.update(namespace))
+        else:
+            classdict = metaclass.__prepare__(name, bases)
+            for key, value in (*namespace.items(), *members.items()):
+                classdict[key] = value
+            cls = metaclass(name, bases, classdict)
         _classes_by_id[cid] = cls
         _class_ids[cls] = cid
         return cls
@@ -286,7 +302,28 @@ def _class_setstate(cls, state: dict) -> None:
             set_name(value, cls, key)
 
 
+def _make_mappingproxy(mapping: dict) -> types.MappingProxyType:
+    return types.MappingProxyType(mapping)
+
+
+def _make_typevar(name: str, bound, constraints: tuple, covariant: bool,
+                  contravariant: bool, infer_variance: bool, cid: str):
+    with _class_lock:
+        known = _classes_by_id.get(cid)
+        if known is None:
+            known = typing.TypeVar(name, *constraints, bound=bound,
+                                   covariant=covariant,
+                                   contravariant=contravariant,
+                                   infer_variance=infer_variance)
+            _classes_by_id[cid] = known
+            _class_ids[known] = cid
+        return known
+
+
 _SKIP_CLASS_ATTRS = {"__dict__", "__weakref__", "_abc_impl"}
+# What the Enum metaclass makes with the members; never set again.
+_ENUM_MADE_ATTRS = {"_generate_next_value_", "_member_names_", "_member_map_",
+                    "_member_type_", "_value2member_map_"}
 
 
 def _rebuild_tensor(buf, dtype: torch.dtype, shape: tuple, stride: tuple,
@@ -365,6 +402,18 @@ class _Pickler(pickle.Pickler):
         if issubclass(t, type):
             return NotImplemented if _by_reference(obj) \
                 or obj.__module__ == "builtins" else self._reduce_class(obj)
+        if t is typing.TypeVar:
+            return NotImplemented if _by_reference(obj, obj.__name__) \
+                else (_make_typevar,
+                      (obj.__name__, obj.__bound__, obj.__constraints__,
+                       obj.__covariant__, obj.__contravariant__,
+                       obj.__infer_variance__, _class_id(obj)))
+        if t is types.MappingProxyType:
+            return _make_mappingproxy, (dict(obj),)
+        if t is dataclasses._FIELD_BASE or t is dataclasses._MISSING_TYPE:
+            # Sentinels that dataclasses compare by identity.
+            name = "MISSING" if obj is dataclasses.MISSING else obj.name
+            return getattr, (dataclasses, name)
         if t is types.ModuleType:
             if obj.__name__ == "__main__":
                 raise pickle.PicklingError("cannot pickle module __main__")
@@ -409,11 +458,18 @@ class _Pickler(pickle.Pickler):
         if slots is not None:
             namespace["__slots__"] = slots
             skip.update([slots] if isinstance(slots, str) else slots)
+        members = None
+        if isinstance(cls, enum.EnumMeta):
+            members = {k: m.value for k, m in cls.__members__.items()}
+            skip.update(_ENUM_MADE_ATTRS, members)
         state = {k: v for k, v in cls.__dict__.items()
                  if k not in skip and k not in namespace}
+        # A generic class is made from its subscripted bases (Generic[T]),
+        # which set its type parameters.
+        bases = cls.__dict__.get("__orig_bases__", cls.__bases__)
         return (_make_class,
-                (type(cls), cls.__name__, cls.__bases__, namespace,
-                 _class_id(cls)),
+                (type(cls), cls.__name__, bases, namespace, _class_id(cls),
+                 members),
                 state, None, None, _class_setstate)
 
 

@@ -31,6 +31,8 @@ Where the port deliberately differs (port-only cases at the end):
 """
 
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -279,6 +281,46 @@ def test_allreduce_mixed_dtype_promotes_deterministically():
     record = _both(scenario)
     want = float(np.float64(0.1) + np.float32(0.2))
     assert record == [("float64", [want] * 3)] * 2
+
+
+def _process_group_allreduce(rt, col, values):
+    """Two ``process=True`` actors in one store group, each contributing
+    ``values[rank]``: the group's actor lives in the driver's runtime and
+    the ranks reach it across the process boundary."""
+    rt.shutdown()
+    rt.init(num_cpus=8, process_workers=2)
+    try:
+        @rt.remote(process=True)
+        class Rank:
+            def __init__(self, rank):
+                col.init_collective_group(2, rank, group_name="p")
+
+            def allreduce(self, value):
+                return col.allreduce(value, group_name="p"), os.getpid()
+
+        ranks = [Rank.remote(r) for r in range(2)]
+        out = rt.get([r.allreduce.remote(v) for r, v in zip(ranks, values)],
+                     timeout=JOIN_TIMEOUT_S)
+        pids = {pid for _, pid in out}
+        assert os.getpid() not in pids and len(pids) == 2
+        return [reduced for reduced, _ in out]
+    finally:
+        rt.shutdown()
+
+
+def test_store_group_of_process_actors():
+    """f32 numpy arrays through both packages; in the port, bf16 tensors
+    too, which come back as bf16 tensors."""
+    arrays = [np.full((4,), r + 1.0, np.float32) for r in range(2)]
+    records = {name: _plain(_process_group_allreduce(rt, col, arrays))
+               for name, (rt, col) in RUNTIMES.items()}
+    assert records["ray_tpu_torch"] == records["ray_tpu"] \
+        == [("float32", [3.0] * 4)] * 2
+    tensors = [torch.full((4,), r + 1.0, dtype=torch.bfloat16)
+               for r in range(2)]
+    for got in _process_group_allreduce(ray_tpu_torch, port_col, tensors):
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16
+        assert got.tolist() == [3.0] * 4
 
 
 # ------------------------------------- port only: tensors in the store

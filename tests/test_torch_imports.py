@@ -42,6 +42,16 @@ PROCESS_MODULES = (
     "ray_tpu_torch._private.worker_factory",
     "ray_tpu_torch._private.worker_pool", "ray_tpu_torch.util.client",
     "ray_tpu_torch.util.client.server", "ray_tpu_torch._private.worker")
+# The data package: every module, imported where importing jax, ray_tpu
+# or cloudpickle raises.
+DATA_MODULES = tuple(
+    "ray_tpu_torch.data" + ("" if p.stem == "__init__" else "." + p.stem)
+    for p in sorted((ROOT / "ray_tpu_torch" / "data").glob("*.py")))
+# What a user of the runtime, Train and Serve imports: none of it may
+# need pyarrow or pandas (the data package alone does).
+NO_ARROW_MODULES = ("ray_tpu_torch", "ray_tpu_torch.train",
+                    "ray_tpu_torch.serve", "ray_tpu_torch.parallel",
+                    "ray_tpu_torch.util")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -74,9 +84,10 @@ def test_port_imports_no_cloudpickle(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def _import_blocked(modules, blocked) -> str:
+def _import_blocked(modules, blocked, watched=None) -> str:
     """Import ``modules`` in a fresh interpreter where importing any of
-    ``blocked`` raises; the blocked packages loaded after, as printed."""
+    ``blocked`` raises; the packages of ``watched`` (``blocked`` by
+    default) loaded after, as printed."""
     import subprocess
     import sys
 
@@ -90,7 +101,7 @@ def _import_blocked(modules, blocked) -> str:
         f"for name in {modules!r}:",
         "    importlib.import_module(name)",
         "print(sorted(m for m in sys.modules",
-        f"             if m.split('.')[0] in {blocked!r}))",
+        f"             if m.split('.')[0] in {watched or blocked!r}))",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -101,6 +112,41 @@ def _import_blocked(modules, blocked) -> str:
 def test_process_modules_import_without_jax_ray_tpu_or_cloudpickle():
     assert _import_blocked(PROCESS_MODULES,
                            FORBIDDEN + ("cloudpickle",)) == "[]"
+
+
+def test_data_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    assert len(DATA_MODULES) == 12  # the 11 ported modules, _device_feed
+    assert _import_blocked(DATA_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+
+
+def test_runtime_train_and_serve_leave_pyarrow_and_pandas_unimported():
+    assert _import_blocked(NO_ARROW_MODULES, (),
+                           ("pyarrow", "pandas")) == "[]"
+
+
+def test_the_device_feed_imports_with_pyarrow_blocked():
+    assert _import_blocked(("ray_tpu_torch.data._device_feed",),
+                           ("pyarrow", "pandas")) == "[]"
+
+
+def test_the_device_feed_raises_without_a_card(monkeypatch):
+    """No card: ``iter_device_batches`` raises at the call unless it asks
+    for the CPU, and never falls back to the CPU on its own."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        ds = data.range(8)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ds.iter_device_batches(batch_size=4)
+        batches = list(ds.iter_device_batches(batch_size=4, device="cpu"))
+        assert [b["id"].device.type for b in batches] == ["cpu", "cpu"]
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_the_mesh_modules_are_checked():

@@ -706,3 +706,69 @@ def test_cuda_tensors_cross_into_worker_processes(cuda_device):
         rt.kill(actor)
     finally:
         rt.shutdown()
+
+
+def _busy(device, n=24):
+    """Queue a chain of matrix products on the current stream: it keeps
+    that stream busy for milliseconds after the host moves on."""
+    a = torch.randn(2048, 2048, device=device)
+    for _ in range(n):
+        a = torch.tanh(a @ a)
+    return a
+
+
+def _feed_batches(n, rows=2048, cols=2048):
+    """Host batches whose every element is an integer (sums in f64 are
+    exact) and differs from batch to batch."""
+    import numpy as np
+
+    base = np.arange(rows * cols, dtype=np.float32).reshape(rows, cols) % 97
+    return [{"x": base + np.float32(1000 * i)} for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_device_feed_lands_each_copy_before_the_consumer_reads(
+        cuda_device):
+    """The first double-buffer hazard, a batch read before its copy has
+    landed. A 64 MB batch is followed by a 16 KB one, so the feed hands
+    out the large batch well inside its copy's milliseconds (staging the
+    small one takes microseconds), and a kernel on the consumer's stream
+    reads it at once; every fourth batch is taken while that stream is
+    kept busy by a chain of products queued before ``next()``. Every
+    batch must be bitwise its host rows."""
+    from ray_tpu_torch.data._device_feed import stage_batches
+
+    host = [b for big, small in zip(_feed_batches(8, rows=4096, cols=4096),
+                                    _feed_batches(8, rows=1, cols=4096))
+            for b in (big, small)]
+    feed = stage_batches(iter(host), cuda_device)
+    reads = []
+    for i in range(len(host)):
+        if i % 4 == 3:
+            _busy(cuda_device)
+        batch = next(feed)
+        assert batch["x"].device.type == "cuda"
+        reads.append(batch["x"].clone())
+    assert next(feed, None) is None
+    torch.cuda.synchronize()
+    for got, want in zip(reads, host):
+        assert torch.equal(got.cpu(), torch.from_numpy(want["x"]))
+
+
+@pytest.mark.gpu
+def test_device_feed_reuses_no_buffer_under_a_copy_in_flight(cuda_device):
+    """The second hazard, a buffer freed or reused under a copy (or a
+    read) still in flight: 64 batches through a feed whose consumer
+    queues a reduction behind a busy stream and drops the batch at once.
+    The sums are those of the host batches."""
+    from ray_tpu_torch.data._device_feed import stage_batches
+
+    host = _feed_batches(64, rows=1024)
+    sums = []
+    for batch in stage_batches(iter(host), cuda_device):
+        _busy(cuda_device, n=4)
+        sums.append(torch.sum(batch["x"], dtype=torch.float64))
+        del batch
+    torch.cuda.synchronize()
+    want = [float(b["x"].astype("float64").sum()) for b in host]
+    assert [s.item() for s in sums] == want
