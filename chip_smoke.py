@@ -86,7 +86,17 @@ source, all started together) and drives the port's two paths:
   process (NCCL world of one, the crash an exit of the process),
   held to the trainer phase (process_trainer); the runtime phase's
   serving actor as a process actor making Llama-3-8B on its own card,
-  greedy outputs token for token the serve phase's (process_serve).
+  greedy outputs token for token the serve phase's (process_serve);
+- the managed spill tier, lineage recovery and the memory monitor:
+  bench.py's TrainState (4.18 GB in f32) copied to host memory and
+  ``put`` into a store of 2 GiB, spilled to checksummed files and
+  restored, its next 3 steps bitwise those of the state that never left
+  the card, which the store charges as device bytes and never spills; a
+  ``fwd`` result and the RMSNorm over it, made on a virtual node's card,
+  rebuilt bitwise from lineage on the head's card after the node is
+  killed; a torn spill file rebuilt by re-running its task; an OOM kill
+  retried on its budget and the memory watermark's shed and store
+  pressure (store_recovery).
 
 Each phase prints one JSON line. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
@@ -97,8 +107,9 @@ the pipeline (``moe_launches``, ``pipeline_launches``), through
 ``MeshTrainer`` (``trainer_launches``), through the data feed
 (``data_launches``), through the runtime
 (``runtime_launches``), through the serve deployments
-(``deployment_launches``) and in worker processes
-(``process_launches``), its error
+(``deployment_launches``), in worker processes
+(``process_launches``) and through the store_recovery phase
+(``store_launches``), its error
 against the plain version, its times, and for the attention kernels the
 achieved TFLOP/s and share of the bound, then the whole backward
 (pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
@@ -111,6 +122,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3932,6 +3944,554 @@ def phase_process_serve(llama, served: dict, served_tokens: list,
     return {"rmsnorm": launches}
 
 
+# The store_recovery phase: the managed spill tier, lineage recovery and
+# the memory monitor.
+STORE_BUDGET_BYTES = 2 << 30
+STORE_STEPS = 3
+# tests/test_recovery.py:15-16's fast health checks.
+STORE_HEALTH = {"health_check_period_ms": 50,
+                "health_check_failure_threshold": 3}
+LOST_SHAPE = (8, 2048, 16, 8, 64)  # B, L, H, KV heads, D
+LOST_SEED = 12
+TORN_BUDGET_BYTES = 48 << 20  # under the fwd output as f32 (67 MB)
+KICK_BUDGET_BYTES = 256 << 20
+KICK_OBJECT_FLOATS = 50 << 20  # 200 MiB: under the high watermark
+STORE_WAIT_S = 120.0
+
+
+def _lost_inputs(seed: int):
+    """q, k, v at LOST_SHAPE (bf16) and an RMSNorm scale [H * D] (f32),
+    made on the card from a CUDA generator seed."""
+    b, l, h, kvh, d = LOST_SHAPE
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+
+    q, k, v = randn(b, l, h, d), randn(b, l, kvh, d), randn(b, l, kvh, d)
+    scale = 1.0 + 0.1 * torch.randn(h * d, generator=gen, device=DEVICE)
+    return q, k, v, scale
+
+
+def _lost_attention(seed: int):
+    """A task: the ``fwd`` kernel's output and LSE on inputs it makes on
+    its card from ``seed``."""
+    import importlib
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    q, k, v, _ = _lost_inputs(seed)
+    return fa.flash_fwd_kernel(q, k, v, causal=True)
+
+
+def _lost_norm(o, seed: int):
+    """A task: the RMSNorm kernel over the ``fwd`` output viewed as
+    [B * L, H * D]."""
+    import importlib
+
+    fused = importlib.import_module("ray_tpu_torch.ops.fused")
+    scale = _lost_inputs(seed)[3]
+    b, l, h, _, d = LOST_SHAPE
+    return fused.rms_norm_kernel(o.view(b * l, h * d), scale, RMS_EPS)
+
+
+def _host_attention(seed: int):
+    """A task: the ``fwd`` output as f32 in host memory (67 MB)."""
+    return _lost_attention(seed)[0].float().cpu()
+
+
+def _oom_target(path: str):
+    """A pool task: its first attempt sleeps to be killed, the retry
+    returns."""
+    import os
+
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            f.write("1")
+        time.sleep(60)
+        return "slow-path"
+    return "retried-ok"
+
+
+def _tree_bytes(tree) -> int:
+    from ray_tpu_torch._private.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _settle_spiller(runtime, mgr, quiet_s: float = 1.0) -> None:
+    """Wait until the store's host bytes are under the high watermark and
+    no spill has landed for ``quiet_s``."""
+    last, since = None, time.monotonic()
+    deadline = since + STORE_WAIT_S
+    while time.monotonic() < deadline:
+        now = (runtime.spill_stats()["spills"], runtime.store._host_used())
+        if now != last:
+            last, since = now, time.monotonic()
+        elif now[1] <= mgr.high_bytes() \
+                and time.monotonic() - since >= quiet_s:
+            return
+        time.sleep(0.05)
+    raise RuntimeError(f"the spiller did not settle: {last}")
+
+
+def _gbps(rows) -> list[float]:
+    return [size / seconds / 1e9 for size, seconds in rows if seconds > 0]
+
+
+def _store_spill(llama, train_step, fa, device: dict, power: str) -> dict:
+    """(a) bench.py's TrainState (params and AdamW's moments, f32, from
+    seed 0) copied to host memory, its three trees ``put`` into a store
+    of 2 GiB; the spiller takes them past the high watermark, ``get``
+    restores each after checking its file, and 3 steps from the state
+    put back on the card are held bitwise to 3 steps from the state that
+    never left it, on the same batch. The state on the card, ``put``
+    into the same store, is charged as device bytes and never spilled.
+    Returns the record and the restored run's launches."""
+    import resource
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.tree import tree_map
+    from ray_tpu_torch.parallel.train_step import TrainState
+
+    config, params, optimizer, step = _bench_training(llama, train_step)
+    state = train_step.create_train_state(params, optimizer)
+    del params
+    batch = train_step.place_batch(_bench_batch(config, 8, 2048))
+    trees = {"params": state.params, "mu": state.opt_state["mu"],
+             "nu": state.opt_state["nu"]}
+    count, step_no = state.opt_state["count"], state.step
+    tree_bytes = {name: _tree_bytes(tree) for name, tree in trees.items()}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    host = {name: tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+            for name, tree in trees.items()}
+    d2h_s = time.perf_counter() - start
+    del trees
+    torch.cuda.reset_peak_memory_stats()
+    straight = [], []
+    for _ in range(STORE_STEPS):
+        state, metrics = step(state, batch)
+        straight[0].append(metrics["loss"].item())
+        straight[1].append(metrics["grad_norm"].item())
+    del state
+    torch.cuda.empty_cache()
+
+    rt.init(num_cpus=8, object_store_memory=STORE_BUDGET_BYTES)
+    try:
+        runtime = rt._private.worker.global_runtime()
+        mgr = runtime.store._spill
+        require(mgr is not None, "the managed spill tier is not armed")
+        refs = {}
+        start = time.perf_counter()
+        for name in ("params", "mu", "nu"):
+            refs[name] = rt.put(host.pop(name))
+        put_s = time.perf_counter() - start
+        # The spiller runs off the put: wait until it has settled under
+        # the high watermark (no spill for a second).
+        _settle_spiller(runtime, mgr)
+        spilled_after_put = runtime.spill_stats()
+        files = [p for p in os.listdir(mgr.spill_dir)
+                 if p.endswith(".spill")]
+        headers = []
+        for name in files:
+            with open(os.path.join(mgr.spill_dir, name), "rb") as f:
+                headers.append(f.read(4))
+        on_disk = sorted(name for name, ref in refs.items()
+                         if runtime.store._entries[ref.id()].spilled_path)
+        restored, get_s = {}, {}
+        for name in ("params", "mu", "nu"):
+            ref = refs.pop(name)
+            start = time.perf_counter()
+            value = rt.get(ref)
+            get_s[name] = time.perf_counter() - start
+            restored[name] = tree_map(lambda t: t.to(DEVICE), value)
+            # Freed at once, so the next restore does not push it out.
+            runtime.free([ref])
+            del value, ref
+        torch.cuda.synchronize()
+        state = TrainState(
+            params=tree_map(lambda t: t.requires_grad_(),
+                            restored.pop("params")),
+            opt_state={"count": count, "mu": restored.pop("mu"),
+                       "nu": restored.pop("nu")}, step=step_no)
+        again = [], []
+        with _LaunchCount(fa) as launched:
+            for _ in range(STORE_STEPS):
+                state, metrics = step(state, batch)
+                again[0].append(metrics["loss"].item())
+                again[1].append(metrics["grad_norm"].item())
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        # The state on the card through the same store: device bytes,
+        # never a victim, even of a forced pass.
+        device_before = runtime.store.stats()["device_bytes"]
+        spills_before = runtime.spill_stats()["spills"]
+        on_card = rt.put(state)
+        mgr.spill_pass(force=True)
+        entry = runtime.store._entries[on_card.id()]
+        a_victim = on_card.id() in runtime.store._spill_victims(1 << 62)
+        device_charged = runtime.store.stats()["device_bytes"] \
+            - device_before
+        state_bytes = _tree_bytes(state.params) \
+            + _tree_bytes(state.opt_state["mu"]) \
+            + _tree_bytes(state.opt_state["nu"])
+        device_row = {
+            "charged": device_charged, "state_bytes": state_bytes,
+            "on_device": entry.on_device,
+            "spilled": entry.spilled_path is not None,
+            "spills_during": runtime.spill_stats()["spills"] - spills_before,
+            "a_victim": a_victim,
+            "same_object": rt.get(on_card) is state}
+        del on_card, entry
+        stats = runtime.spill_stats()
+        timings = mgr.timings()
+    finally:
+        rt.shutdown()
+    result = {
+        "tree_bytes": tree_bytes, "store_budget_bytes": STORE_BUDGET_BYTES,
+        "high_watermark_bytes": int(STORE_BUDGET_BYTES * 0.85),
+        "d2h_s": d2h_s, "put_s": put_s,
+        "spilled_after_put": spilled_after_put["spills"],
+        "on_disk_after_put": on_disk, "spill_headers": sorted(
+            h.decode("ascii", "replace") for h in headers),
+        "spills": stats["spills"], "restores": stats["restores"],
+        "spilled_bytes": stats["spilled_bytes"],
+        "restored_bytes": stats["restored_bytes"],
+        "disk_full": stats["disk_full"],
+        "torn_restores": stats["torn_restores"],
+        "restore_p50_ms": stats["restore_p50_ms"],
+        "spill_gb_per_s": _gbps(timings["spill"]),
+        "restore_read_gb_per_s": _gbps(timings["restore"]),
+        "get_s": get_s,
+        "get_gb_per_s": {name: tree_bytes[name] / s / 1e9
+                         for name, s in get_s.items()},
+        "loss": again[0], "grad_norm": again[1],
+        "loss_straight": straight[0], "grad_norm_straight": straight[1],
+        "bitwise": again == straight, "device_state": device_row,
+        "peak_memory_bytes": peak,
+        "process_peak_rss_bytes":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "launches": launched.counts, "card": device["kind"],
+        "nvidia_smi": power}
+    require(stats["disk_full"] == 0,
+            f"the spill disk was full {stats['disk_full']} times (backoff)")
+    require(spilled_after_put["spills"] >= 2 and len(on_disk) >= 2,
+            f"{spilled_after_put['spills']} spills after the puts, "
+            f"{on_disk} on disk: expected at least 2 of 3")
+    require(headers and all(h == b"RTS1" for h in headers),
+            f"spill files without the RTS1 header: {headers}")
+    require(stats["restores"] >= len(on_disk) and stats["torn_restores"] == 0,
+            f"restores {stats['restores']}, torn {stats['torn_restores']}")
+    require(result["bitwise"], f"steps from the restored state differ: "
+                               f"{again} against {straight}")
+    require(device_row["charged"] == state_bytes + 128
+            and device_row["on_device"] and not device_row["spilled"]
+            and device_row["spills_during"] == 0
+            and not device_row["a_victim"] and device_row["same_object"],
+            f"the state on the card was not kept as device bytes: "
+            f"{device_row}")
+    _check_train_launches("store_recovery (a)", launched.counts,
+                          config.num_layers, STORE_STEPS)
+    return result
+
+
+def _task_event(runtime, name: str):
+    events = [e for e in runtime.gcs.list_task_events() if e.name == name]
+    require(len(events) == 1, f"{len(events)} events for task {name}")
+    return events[0]
+
+
+def _store_lineage(fa, fused) -> dict:
+    """(b) The ``fwd`` kernel's output and LSE, and RMSNorm over the
+    output, made by two ``num_gpus=1`` tasks pinned softly to a node with
+    a card; the node is killed, its death detected, and both results are
+    rebuilt from lineage on the head's card, bitwise. A ``put`` object
+    recorded on the node has no lineage: ObjectLostError."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.exceptions import ObjectLostError
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    torch.cuda.synchronize()
+    alloc_before = _allocated()
+    rt.init(num_cpus=8, system_config=dict(STORE_HEALTH))
+    try:
+        runtime = rt._private.worker.global_runtime()
+        gpu_head = rt.cluster_resources().get("GPU")
+        node_b = runtime.add_node({"CPU": 2.0, "GPU": 1.0})
+        gpu_two = rt.available_resources().get("GPU")
+        affinity = NodeAffinitySchedulingStrategy(node_b.hex(), soft=True)
+        attention = rt.remote(num_gpus=1, num_returns=2,
+                              scheduling_strategy=affinity)(_lost_attention)
+        norm = rt.remote(num_gpus=1,
+                         scheduling_strategy=affinity)(_lost_norm)
+        with _LaunchCount(fa, fused) as first:
+            o_ref, lse_ref = attention.remote(LOST_SEED)
+            n_ref = norm.remote(o_ref, LOST_SEED)
+            o, lse, n = rt.get([o_ref, lse_ref, n_ref], timeout=STORE_WAIT_S)
+            torch.cuda.synchronize()
+        placed = [_task_event(runtime, "_lost_attention").node_id,
+                  _task_event(runtime, "_lost_norm").node_id]
+        clones = [t.clone() for t in (o, lse, n)]
+        devices = [t.device.type for t in (o, lse, n)]
+        del o, lse, n
+        orphan = rt.put(torch.zeros(4))
+        runtime._record_location(orphan.id(), node_b)
+        with _LaunchCount(fa, fused) as rebuild:
+            wall_kill = time.time()
+            runtime.kill_node(node_b)
+            # Read every millisecond: the rebuild takes about as long.
+            deadline = time.monotonic() + STORE_WAIT_S
+            while [n for n in runtime.gcs.list_nodes()
+                   if n.node_id == node_b][0].alive:
+                require(time.monotonic() < deadline,
+                        "the node's death was not detected")
+                time.sleep(0.001)
+            wall_dead = time.time()
+            o2, lse2 = rt.get([o_ref, lse_ref], timeout=STORE_WAIT_S)
+            n2 = rt.get(n_ref, timeout=STORE_WAIT_S)
+            torch.cuda.synchronize()
+        events = [_task_event(runtime, "_lost_attention"),
+                  _task_event(runtime, "_lost_norm")]
+        bitwise = [torch.equal(a, b) for a, b in zip((o2, lse2, n2), clones)]
+        lost = None
+        try:
+            rt.get(orphan, timeout=STORE_WAIT_S)
+        except ObjectLostError as exc:
+            lost = type(exc).__name__
+        rebuilds = runtime.stats()["lineage_rebuilds"]
+        del o2, lse2, n2, o_ref, lse_ref, n_ref, orphan, clones
+        gpu_back = _until(lambda: rt.available_resources().get("GPU")
+                          == rt.cluster_resources().get("GPU") == gpu_head)
+        head_cards = dict(runtime.cluster.get_node(
+            runtime.head_node_id).cards.free)
+    finally:
+        rt.shutdown()
+    alloc_after = _allocated()
+    head = runtime.head_node_id.hex()
+    result = {
+        "shape": list(LOST_SHAPE), "placed_first": placed,
+        "node_b": node_b.hex(), "head": head, "devices": devices,
+        "gpu_before_after_node": [gpu_head, gpu_two],
+        # Each result's time from its rebuilt task's FINISHED event.
+        "kill_to_detect_s": wall_dead - wall_kill,
+        "detect_to_fwd_result_s": events[0].end_time - wall_dead,
+        "detect_to_norm_result_s": events[1].end_time - wall_dead,
+        "rebuilt_on": [e.node_id for e in events],
+        "rebuild_order_ok": events[0].end_time <= events[1].start_time
+        and events[0].start_time >= wall_kill,
+        "bitwise": bitwise, "lineage_rebuilds": rebuilds,
+        "put_without_lineage": lost,
+        "launches_first": first.counts, "launches_rebuild": rebuild.counts,
+        "gpu_back": gpu_back, "head_cards_free": head_cards,
+        "allocated_before_after": [alloc_before, alloc_after]}
+    require(placed == [node_b.hex()] * 2
+            and devices == [torch.device(DEVICE).type] * 3,
+            f"the tasks did not run on the node's card: {placed}, "
+            f"{devices}")
+    require(result["rebuilt_on"] == [head, head]
+            and result["rebuild_order_ok"],
+            f"the rebuild did not run on the head, fwd before RMSNorm: "
+            f"{events}")
+    require(all(bitwise), f"rebuilt results differ: {bitwise}")
+    require(rebuilds == 2, f"lineage_rebuilds {rebuilds}, expected 2")
+    require(first.counts["fwd"] == 1 and first.counts["rmsnorm"] == 1
+            and rebuild.counts["fwd"] == 1
+            and rebuild.counts["rmsnorm"] == 1,
+            f"launches {first.counts} then {rebuild.counts}: expected one "
+            f"fwd and one RMSNorm each")
+    require(lost == "ObjectLostError",
+            f"a put object on the dead node gave {lost}")
+    require(gpu_back and head_cards == {0: 1.0},
+            f"GPU not back on the head: {head_cards}")
+    require(abs(alloc_after - alloc_before) <= 0.01 * alloc_before,
+            f"allocation {alloc_before} -> {alloc_after}")
+    return result
+
+
+def _store_torn(fa) -> dict:
+    """(c) A ``num_gpus=1`` task's result (the ``fwd`` output as f32 on
+    the host, 67 MB) in a store of 48 MiB is spilled; its file is torn
+    (truncated) and the ``get`` rebuilds it by re-running the task on the
+    card, bitwise the driver's own launch on the same inputs."""
+    import ray_tpu_torch as rt
+
+    q, k, v, _ = _lost_inputs(LOST_SEED)
+    want = fa.flash_fwd_kernel(q, k, v, causal=True)[0].float().cpu()
+    del q, k, v
+    rt.init(num_cpus=8, object_store_memory=TORN_BUDGET_BYTES)
+    try:
+        runtime = rt._private.worker.global_runtime()
+        task = rt.remote(num_gpus=1)(_host_attention)
+        with _LaunchCount(fa) as launched:
+            ref = task.remote(LOST_SEED)
+            require(_until(lambda: runtime.store._entries[ref.id()]
+                           .spilled_path is not None, STORE_WAIT_S),
+                    "the host result was not spilled")
+            path = runtime.store._entries[ref.id()].spilled_path
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                f.truncate(size // 2)
+            start = time.perf_counter()
+            got = rt.get(ref, timeout=STORE_WAIT_S)
+            rebuild_s = time.perf_counter() - start
+        stats = runtime.spill_stats()
+        result = {
+            "result_bytes": want.numel() * 4,
+            "store_budget_bytes": TORN_BUDGET_BYTES, "file_bytes": size,
+            "bitwise": torch.equal(got, want),
+            "num_torn_recoveries": runtime.recovery.num_torn_recoveries,
+            "torn_restores": stats["torn_restores"],
+            "torn_file_gone": not os.path.exists(path),
+            "torn_get_to_result_s": rebuild_s,
+            "launches": launched.counts}
+        del got, ref
+    finally:
+        rt.shutdown()
+    require(result["bitwise"], "the rebuilt result differs")
+    require(result["num_torn_recoveries"] == 1
+            and result["torn_restores"] == 1,
+            f"torn recoveries {result['num_torn_recoveries']}, torn "
+            f"restores {result['torn_restores']}: expected 1")
+    require(result["torn_file_gone"], f"the torn file {path} is left")
+    require(launched.counts["fwd"] == 2,
+            f"fwd launches {launched.counts['fwd']}: expected the task's "
+            f"and its rebuild's")
+    return result
+
+
+def _store_memory(fa) -> dict:
+    """(d) A memory monitor at threshold 0 kills the largest of 2 pool
+    workers under a task with ``max_retries=0``, which is retried on the
+    OOM budget and returns. Under ``admission_memory_watermark=0.9``: a
+    usage of 0.95 sheds a deadline-armed ``num_gpus=1`` task with
+    SystemOverloadedError; the store's share of it admits the task and
+    kicks the spiller (a 200 MiB object in a 256 MiB store goes to disk);
+    without either the task runs the ``fwd`` kernel, bitwise the
+    driver's launch. The card's free bytes end where they began."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import memory_monitor
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.exceptions import SystemOverloadedError
+
+    q, k, v, _ = _lost_inputs(LOST_SEED)
+    want = fa.flash_fwd_kernel(q, k, v, causal=True)[0]
+    del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = _free_bytes()
+    marker = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_oom_"),
+                          "attempted")
+    rt.init(num_cpus=8, process_workers=2,
+            object_store_memory=KICK_BUDGET_BYTES,
+            system_config={"memory_monitor_refresh_ms": 0})
+    try:
+        runtime = rt._private.worker.global_runtime()
+        workers = [w.proc.pid for w in runtime.worker_pool.live_workers()]
+        killer = memory_monitor.MemoryMonitor(runtime, threshold=0.0)
+        runtime.memory_monitor = killer
+        ref = rt.remote(max_retries=0)(_oom_target).remote(marker)
+
+        def shoot():
+            _until(lambda: os.path.exists(marker), STORE_WAIT_S)
+            time.sleep(0.5)  # the first attempt is in its sleep
+            killer.check_once()
+
+        shooter = threading.Thread(target=shoot)
+        shooter.start()
+        retried = rt.get(ref, timeout=STORE_WAIT_S)
+        shooter.join(timeout=STORE_WAIT_S)
+        killed = [pid in workers for pid in killer.killed_pids]
+
+        fwd = rt.remote(num_gpus=1)(_lost_attention)
+        GLOBAL_CONFIG.update({"admission_memory_watermark": 0.9})
+        shed_before = runtime.stats()["admission_shed"]
+        memory_monitor._set_usage_override(0.95)
+        try:
+            try:
+                fwd.options(_deadline_s=60).remote(LOST_SEED)
+                shed = None
+            except SystemOverloadedError as exc:
+                shed = type(exc).__name__
+            kick = rt.put(torch.ones(KICK_OBJECT_FLOATS))
+            spills_before = runtime.spill_stats()["spills"]
+            memory_monitor._set_store_fraction_override(0.5)
+            kind = memory_monitor.memory_pressure_kind(0.9)
+            with _LaunchCount(fa) as admitted:
+                o_store = rt.get(fwd.options(_deadline_s=60).remote(
+                    LOST_SEED), timeout=STORE_WAIT_S)[0]
+            kicked = _until(lambda: runtime.spill_stats()["spills"]
+                            > spills_before, STORE_WAIT_S)
+        finally:
+            memory_monitor._set_usage_override(None)
+            memory_monitor._set_store_fraction_override(None)
+        with _LaunchCount(fa) as plain:
+            o_plain = rt.get(fwd.options(_deadline_s=60).remote(
+                LOST_SEED), timeout=STORE_WAIT_S)[0]
+        result = {
+            "workers": len(workers), "kills": killer.num_kills,
+            "killed_a_pool_worker": killed, "oom_retried": retried,
+            "shed": shed, "shed_counted": runtime.stats()["admission_shed"]
+            - shed_before, "store_kind": kind,
+            "store_admitted_bitwise": torch.equal(o_store, want),
+            "spiller_kicked": kicked,
+            "no_override_bitwise": torch.equal(o_plain, want),
+            "launches": {"fwd": admitted.counts["fwd"]
+                         + plain.counts["fwd"]}}
+        del o_store, o_plain, kick, ref
+    finally:
+        rt.shutdown()
+        GLOBAL_CONFIG.reset()
+    del want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_after = _free_back(free_before, PROCESS_FREE_TOL_BYTES)
+    result["free_bytes_before_after"] = [free_before, free_after]
+    require(retried == "retried-ok" and killer.num_kills == 1
+            and killed == [True],
+            f"the OOM-killed task: {retried!r}, kills {killer.num_kills}")
+    require(shed == "SystemOverloadedError" and result["shed_counted"] == 1,
+            f"usage 0.95 over the watermark did not shed: {shed}")
+    require(kind == "store" and result["store_admitted_bitwise"] and kicked,
+            f"store pressure: kind {kind}, kicked {kicked}")
+    require(result["no_override_bitwise"], "the admitted fwd task differs")
+    require(free_after >= free_before - PROCESS_FREE_TOL_BYTES,
+            f"free card bytes {free_before} -> {free_after}")
+    return result
+
+
+def phase_store_recovery(llama, train_step, fa, fused, device: dict,
+                         power: str) -> dict:
+    """The managed spill tier, lineage recovery and the memory monitor on
+    the card: (a) bench.py's TrainState spilled through the store and
+    restored bitwise, (b) a lost ``fwd`` result and the RMSNorm over it
+    rebuilt from lineage after their node's death, (c) a torn spill file
+    rebuilt by re-running its task, (d) an OOM kill retried and the
+    memory watermark's shed and store pressure. Returns the kernels'
+    launches over the four parts."""
+    phase_start = time.perf_counter()
+    spill = _store_spill(llama, train_step, fa, device, power)
+    torch.cuda.empty_cache()
+    lineage = _store_lineage(fa, fused)
+    torn = _store_torn(fa)
+    memory = _store_memory(fa)
+    launches = dict(spill["launches"])
+    launches["fwd"] += lineage["launches_first"]["fwd"] \
+        + lineage["launches_rebuild"]["fwd"] + torn["launches"]["fwd"] \
+        + memory["launches"]["fwd"]
+    launches["rmsnorm"] = lineage["launches_first"]["rmsnorm"] \
+        + lineage["launches_rebuild"]["rmsnorm"]
+    emit("store_recovery", spill=spill, lineage=lineage, torn=torn,
+         memory=memory, launches=launches,
+         phase_s=time.perf_counter() - phase_start, card=device["kind"],
+         nvidia_smi=power)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3994,6 +4554,9 @@ def main() -> int:
         llama, fa, device, power, {**trainer, "launches": trainer_launches})
     process_launches.update(phase_process_serve(
         llama, served_result, served_tokens, runtime_result, device, power))
+    torch.cuda.empty_cache()
+    store_launches = phase_store_recovery(llama, train_step, fa, fused,
+                                          device, power)
     for kind, row in rows.items():
         row["launches"] = launches[kind]
         # bench.py's mesh path (mesh_train); training's norms are
@@ -4019,6 +4582,10 @@ def main() -> int:
         # And in worker processes: the flash kernels in process_trainer's
         # gang process, RMSNorm in process_serve's actor process.
         row["process_launches"] = process_launches.get(kind, 0)
+        # And through the store_recovery phase: the flash kernels in the
+        # steps from the restored TrainState and in the tasks lineage
+        # rebuilds, RMSNorm in the rebuilt chain task.
+        row["store_launches"] = store_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
                          f"{missing}")
@@ -4034,6 +4601,9 @@ def main() -> int:
     missing = [k for k, row in rows.items() if not row["process_launches"]]
     require(not missing, f"kernels not launched in a worker process: "
                          f"{missing}")
+    missing = [k for k, row in rows.items() if not row["store_launches"]]
+    require(not missing, f"kernels not launched in the store_recovery "
+                         f"phase: {missing}")
     order = (*KERNELS, "flash_bwd")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -33,6 +33,39 @@ _DEFAULTS: dict[str, Any] = {
     # SystemOverloadedError instead of queueing; deadline-free submits
     # queue. 0 = unlimited.
     "admission_max_queue_depth": 0,
+    # Host-memory fraction above which a deadline-armed submit is shed
+    # (read from /proc/meminfo, memoized for 0.2 s); with the spill tier
+    # armed, pressure the spill can relieve is spilled instead. 0
+    # disables.
+    "admission_memory_watermark": 0.0,
+    # Node health: each virtual node heartbeats every half period; one
+    # silent for this many periods is declared dead.
+    "health_check_period_ms": 1000,
+    "health_check_failure_threshold": 5,
+    # Lineage: the producing task of at most this many objects is kept
+    # (the oldest lose their rebuild).
+    "lineage_table_max_entries": 10_000,
+    # The managed spill tier (spill_manager.py): past spill_high_watermark
+    # x the store's budget, a spiller thread moves unpinned host objects,
+    # largest first, to checksummed files under
+    # <session dir>/spill/<pid>/ until usage is under the low watermark,
+    # and a read restores them after checking length and CRC. Off, the
+    # store spills inline past its budget, as before.
+    "spill_enabled": True,
+    "spill_high_watermark": 0.85,
+    "spill_low_watermark": 0.60,
+    "spill_fsync": False,           # fsync each file before its rename
+    "spill_min_object_kb": 16,      # smallest object spilled
+    # After a failed spill write, admission treats store pressure as
+    # pressure it cannot relieve (a typed shed) for this long.
+    "spill_disk_full_backoff_s": 5.0,
+    # The memory monitor: above this host-memory fraction it kills the
+    # pool worker with the largest RSS, every refresh period (0: off).
+    "memory_usage_threshold": 0.95,
+    "memory_monitor_refresh_ms": 1000,
+    # Retries of a task whose worker the memory monitor killed, beyond
+    # its own max_retries.
+    "task_oom_retries": 3,
     # Worker processes (``init(process_workers=N)`` overrides the pool
     # size; 0: tasks run on threads of this process).
     "worker_pool_size": 0,

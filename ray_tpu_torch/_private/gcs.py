@@ -70,6 +70,9 @@ class NodeRecord:
     resources: dict[str, float]
     labels: dict[str, str] = field(default_factory=dict)
     alive: bool = True
+    # When the node last heartbeat (time.monotonic()); the health
+    # monitor declares it dead once this is stale.
+    last_heartbeat: float = field(default_factory=time.monotonic)
 
 
 @dataclass
@@ -158,6 +161,22 @@ class GlobalControlService:
     def list_nodes(self) -> list[NodeRecord]:
         with self._lock:
             return list(self._nodes.values())
+
+    def mark_node_dead(self, node_id: NodeID) -> None:
+        with self._lock:
+            record = self._nodes.get(node_id)
+            if record is not None:
+                record.alive = False
+
+    def heartbeat(self, node_id: NodeID) -> bool:
+        """Refresh a node's liveness; False for an unknown or dead node
+        (a dead node is never revived in place)."""
+        with self._lock:
+            record = self._nodes.get(node_id)
+            if record is None or not record.alive:
+                return False
+            record.last_heartbeat = time.monotonic()
+            return True
 
     # ------------------------------------------------------ placement groups
 

@@ -4,13 +4,17 @@ The port of ``ray_tpu/_private/object_store.py``, its in-process tier.
 Objects are held as live Python objects, by reference: a ``put`` of
 tensors, on the CPU or on a card, copies nothing, and every reader in the
 process gets the same tensors (the same ``data_ptr()``). Each object is
-charged its size. Past the budget, the oldest sealed objects in host
-memory that no reader holds pinned are pickled to the spill directory and
-restored on the next read. An object that holds a tensor on a card is
-charged but never spilled: the putter still holds the tensor, so a pickle
-would free no memory, and a restore would make a second copy on the card.
-Such objects do not count against the budget, so they push no host object
-out either.
+charged its size. With the managed spill tier armed
+(``enable_managed_spill``, spill_manager.py), a spiller thread moves the
+largest sealed host objects that no reader holds pinned to checksummed
+files once their bytes cross the high watermark, and a read restores
+them after checking the file; a torn file marks the object lost and
+hands it to the runtime's lineage rebuild. Without it, past the budget
+the oldest such objects are pickled inline to the spill directory. An
+object that holds a tensor on a card is charged but never spilled: the
+putter still holds the tensor, so a pickle would free no memory, and a
+restore would make a second copy on the card. Such objects do not count
+against the budget, so they push no host object out either.
 
 Reference counting follows the ownership model: live ObjectRef handles
 count, and an object whose count reaches zero is evicted.
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import io
 import os
 import pickle
 import threading
@@ -32,7 +37,11 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.ids import ObjectID
-from ray_tpu_torch.exceptions import GetTimeoutError, ObjectFreedError
+from ray_tpu_torch.exceptions import (
+    GetTimeoutError,
+    ObjectFreedError,
+    ObjectLostError,
+)
 
 
 # Leaves whatever they hold: their attributes are code or raw data.
@@ -129,9 +138,22 @@ class ObjectEntry:
     on_device: bool = False
     spilled_path: str | None = None
     freed: bool = False
+    # Lost: was sealed, then its node died or its spill file tore.
+    # Getters wait until the lineage rebuild reseals it (or an
+    # ObjectLostError is sealed in).
+    lost: bool = False
     created_at: float = field(default_factory=time.monotonic)
     # Pinned while a get() is materializing it; pinned entries never spill.
     pin_count: int = 0
+    # Spilled by the managed tier: its file has the length and CRC header.
+    managed_spill: bool = False
+    # The managed tier's least-recently-used tiebreak (stamped on get).
+    last_used: float = field(default_factory=time.monotonic)
+
+
+class _TornRestore(Exception):
+    """A managed spill file failed its check: the entry is marked lost and
+    the getter waits for the rebuild."""
 
 
 class ObjectStore:
@@ -154,6 +176,115 @@ class ObjectStore:
         self._seal_listeners: list[Callable[[ObjectID], None]] = []
         # Called once an object's value is dropped (freed or evicted).
         self._free_listeners: list[Callable[[ObjectID], None]] = []
+        # The managed spill tier, armed by enable_managed_spill; None
+        # keeps the inline spill.
+        self._spill = None
+        self._spill_min_bytes = 4096
+        self._leased_fn = None
+        self._on_backing_free = None
+        self._on_torn = None
+        # Objects that failed to pickle once: never chosen again.
+        self._unspillable: set[ObjectID] = set()
+
+    # ------------------------------------------------------- managed spill
+
+    def enable_managed_spill(self, spill_dir: str | None = None,
+                             leased_fn=None, on_backing_free=None,
+                             on_torn=None):
+        """Arm the managed spill tier and return its SpillManager.
+        ``leased_fn()`` gives the id bytes never to spill now;
+        ``on_backing_free(object_id)`` drops an object's shared-memory
+        twin once its copy is on disk; ``on_torn(object_id)`` rebuilds an
+        object whose file failed its check (without it, the getter gets
+        ObjectLostError)."""
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+        from ray_tpu_torch._private.spill_manager import SpillManager
+
+        self._leased_fn = leased_fn
+        self._on_backing_free = on_backing_free
+        self._on_torn = on_torn
+        self._spill_min_bytes = max(
+            4096, int(GLOBAL_CONFIG.spill_min_object_kb) * 1024)
+        self._spill = SpillManager(
+            "driver-store", self._memory_limit,
+            usage_fn=self._host_used,
+            victims_fn=self._spill_victims,
+            extract_fn=self._spill_extract,
+            commit_fn=self._spill_commit,
+            spill_dir=spill_dir)
+        return self._spill
+
+    def _host_used(self) -> int:
+        """The bytes the budget counts: those in host memory."""
+        return self._memory_used - self._device_used
+
+    def _spill_victims(self, need_bytes: int) -> list:
+        leased: set = set()
+        if self._leased_fn is not None:
+            try:
+                leased = {bytes(b) for b in self._leased_fn()}
+            except Exception:  # noqa: BLE001 — nothing protected then
+                leased = set()
+        with self._lock:
+            cands = [
+                (e.object_id, e.size_bytes, e.last_used)
+                for e in self._entries.values()
+                if self._spillable(e)
+                and e.size_bytes >= self._spill_min_bytes
+                and e.object_id not in self._unspillable
+                and e.object_id.binary() not in leased]
+        # Largest first (the fewest files free the most bytes), least
+        # recently used as the tiebreak.
+        cands.sort(key=lambda c: (-c[1], c[2]))
+        out, covered = [], 0
+        for oid, size, _used in cands:
+            out.append(oid)
+            covered += size
+            if covered >= need_bytes:
+                break
+        return out
+
+    @staticmethod
+    def _spillable(entry: "ObjectEntry | None") -> bool:
+        """Sealed, live, in host memory, not on disk, no reader pinning
+        it."""
+        return entry is not None and entry.sealed and not entry.freed \
+            and entry.error is None and not entry.on_device \
+            and entry.pin_count == 0 and entry.spilled_path is None
+
+    def _spill_extract(self, object_id: ObjectID):
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if not self._spillable(entry):
+                return None
+            value = entry.value
+        # Pickled outside the lock: it walks user containers.
+        buf = io.BytesIO()
+        try:
+            _HostPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(value)
+        except _DeviceTensorFound:
+            self._keep_on_device(entry)
+            return None
+        except Exception:  # noqa: BLE001 — unpicklable stays in memory
+            with self._lock:
+                self._unspillable.add(object_id)
+            return None
+        return buf.getbuffer()
+
+    def _spill_commit(self, object_id: ObjectID, path: str,
+                      size: int) -> bool:
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if not self._spillable(entry):
+                return False
+            entry.spilled_path = path
+            entry.managed_spill = True
+            entry.value = None
+            self._memory_used -= entry.size_bytes
+            self._spilled_bytes_total += entry.size_bytes
+        if self._on_backing_free is not None:
+            self._on_backing_free(object_id)
+        return True
 
     # ------------------------------------------------------------------ put
 
@@ -188,11 +319,13 @@ class ObjectStore:
             entry.error = error
             entry.sealed = True
             entry.freed = False
+            entry.lost = False
             entry.size_bytes = size_bytes
             entry.on_device = on_device
             self._memory_used += size_bytes
             if on_device:
                 self._device_used += size_bytes
+            self._unspillable.discard(object_id)
             self._lock.notify_all()
             listeners = list(self._seal_listeners)
         for cb in listeners:
@@ -217,57 +350,144 @@ class ObjectStore:
     # ------------------------------------------------------------------ get
 
     def get(self, object_id: ObjectID, timeout: float | None = None) -> Any:
-        """Block until the object is sealed; raise a sealed error."""
+        """Block until the object is sealed; raise a sealed error.
+
+        A managed restore that finds its file torn marks the object lost,
+        hands it to ``on_torn`` (the lineage rebuild) and waits again: the
+        getter gets the rebuilt value or a sealed ObjectLostError, never
+        the torn bytes."""
         deadline = None if timeout is None else time.monotonic() + timeout
-        with self._lock:
-            while True:
-                entry = self._entries.get(object_id)
-                if entry is not None and entry.freed:
-                    raise ObjectFreedError(
-                        object_id, f"object {object_id.hex()} was freed")
-                if entry is not None and entry.sealed:
-                    break
-                # Unknown or pending: wait (an unknown id may be in flight).
-                remaining = None if deadline is None \
-                    else deadline - time.monotonic()
-                if remaining is not None and remaining <= 0:
-                    raise GetTimeoutError(
-                        f"get() timed out waiting for object "
-                        f"{object_id.hex()}")
-                self._lock.wait(timeout=1.0 if remaining is None
-                                else min(remaining, 1.0))
-            entry.pin_count += 1
-        try:
-            value, error = self._materialize(entry)
-        finally:
+        while True:
             with self._lock:
-                entry.pin_count -= 1
-        if error is not None:
-            raise error
-        return value
+                while True:
+                    entry = self._entries.get(object_id)
+                    if entry is not None and entry.freed:
+                        raise ObjectFreedError(
+                            object_id, f"object {object_id.hex()} was freed")
+                    if entry is not None and entry.sealed:
+                        break
+                    # Unknown, pending or lost: wait (an unknown id may be
+                    # in flight, a lost one is being rebuilt).
+                    remaining = None if deadline is None \
+                        else deadline - time.monotonic()
+                    if remaining is not None and remaining <= 0:
+                        raise GetTimeoutError(
+                            f"get() timed out waiting for object "
+                            f"{object_id.hex()}")
+                    self._lock.wait(timeout=1.0 if remaining is None
+                                    else min(remaining, 1.0))
+                entry.pin_count += 1
+                entry.last_used = time.monotonic()
+            torn = False
+            try:
+                value, error = self._materialize(entry)
+            except _TornRestore:
+                torn = True
+            finally:
+                with self._lock:
+                    entry.pin_count -= 1
+            if not torn:
+                if error is not None:
+                    raise error
+                return value
+            if self._on_torn is not None:
+                try:
+                    self._on_torn(object_id)
+                except Exception:  # noqa: BLE001 — the getter waits on
+                    pass
+            else:
+                # No rebuild wired: fail the waiters instead of waiting
+                # for a reseal that never comes.
+                from ray_tpu_torch._private.object_ref import ObjectRef
+
+                self.put_error(object_id, ObjectLostError(
+                    ObjectRef(object_id, _register=False),
+                    f"object {object_id.hex()} spill file was torn and no "
+                    f"lineage rebuild is wired"))
 
     def _materialize(self, entry: ObjectEntry):
         """The value of a sealed entry, restored from disk if spilled.
         Concurrent restores race benignly: only the reader whose snapshot
-        of the path still matches unlinks the file."""
+        of the path still matches unlinks the file. A managed file that
+        fails its check (or whose pickle fails to load) marks the entry
+        lost and raises _TornRestore."""
+        from ray_tpu_torch._private.spill_manager import TornSpillError
+
         while True:
             with self._lock:
                 path = entry.spilled_path
+                managed = entry.managed_spill
             if path is None:
                 return entry.value, entry.error
-            try:
-                with open(path, "rb") as f:
-                    value = pickle.load(f)
-            except FileNotFoundError:
-                continue  # another reader restored it; re-check
+            if managed:
+                try:
+                    payload = self._spill.restore(entry.object_id, path)
+                    value = pickle.loads(payload)
+                except TornSpillError:
+                    if not self._mark_torn(entry, path):
+                        continue  # raced a reseal; look again
+                    raise _TornRestore() from None
+                except OSError:
+                    continue  # another reader restored it; look again
+                except Exception as exc:  # noqa: BLE001 — a poisoned pickle
+                    if not self._mark_torn(entry, path):
+                        continue
+                    _unlink(path)
+                    raise _TornRestore() from exc
+            else:
+                try:
+                    with open(path, "rb") as f:
+                        value = pickle.load(f)
+                except FileNotFoundError:
+                    continue  # another reader restored it; look again
             with self._lock:
                 if entry.spilled_path == path:
-                    self._unlink_spill(entry)
+                    self._unlink_spill(entry, count=False)
                     entry.value = value
                     self._memory_used += entry.size_bytes
                     self._restored_bytes_total += entry.size_bytes
             self._maybe_spill()
+            # Our loaded copy, not entry.value: another reader may have
+            # restored it and the spiller spilled it again meanwhile.
             return value, entry.error
+
+    def _mark_torn(self, entry: ObjectEntry, path: str) -> bool:
+        """The entry's file ``path`` failed its check: the entry is lost
+        (False if a reseal replaced the file meanwhile)."""
+        with self._lock:
+            if entry.spilled_path != path:
+                return False
+            entry.spilled_path = None
+            entry.managed_spill = False
+            entry.value = None
+            entry.sealed = False
+            entry.lost = True
+            return True
+
+    def mark_lost(self, object_id: ObjectID) -> bool:
+        """A sealed object goes back to pending because its node died;
+        True if it was sealed. An object a get() is reading now survives
+        (the driver holds that copy)."""
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None or not entry.sealed or entry.freed \
+                    or entry.pin_count > 0:
+                return False
+            if entry.spilled_path is not None:
+                self._unlink_spill(entry)
+            else:
+                self._uncharge(entry)
+            entry.value = None
+            entry.error = None
+            entry.on_device = False
+            entry.sealed = False
+            entry.lost = True
+            return True
+
+    def is_lost(self, object_id: ObjectID) -> bool:
+        with self._lock:
+            entry = self._entries.get(object_id)
+            return entry is not None and entry.lost and not entry.sealed
 
     def contains(self, object_id: ObjectID) -> bool:
         with self._lock:
@@ -314,6 +534,7 @@ class ObjectStore:
                 entry.error = None
                 entry.freed = True
                 entry.sealed = True
+                self._unspillable.discard(oid)
             self._lock.notify_all()
         self._notify_freed(object_ids)
 
@@ -321,6 +542,7 @@ class ObjectStore:
         """Drop an object entirely (its reference count reached zero)."""
         with self._lock:
             entry = self._entries.pop(object_id, None)
+            self._unspillable.discard(object_id)
             if entry is None:
                 return
             if entry.sealed and not entry.freed \
@@ -337,16 +559,27 @@ class ObjectStore:
 
     # ----------------------------------------------------------------- spill
 
-    def _unlink_spill(self, entry: ObjectEntry) -> None:
-        # Caller holds the lock.
+    def _unlink_spill(self, entry: ObjectEntry, count: bool = True) -> None:
+        """Drop the entry's spill file; a managed one's removal is counted
+        by the manager (``count``: a free, an eviction or a loss, not a
+        restore). Caller holds the lock."""
         path, entry.spilled_path = entry.spilled_path, None
-        if path is not None:
+        managed, entry.managed_spill = entry.managed_spill, False
+        if path is None:
+            return
+        if managed and count and self._spill is not None:
+            self._spill.delete_file(path)
+        else:
             _unlink(path)
 
     def _maybe_spill(self) -> None:
-        """Past the budget, pickle the oldest sealed unpinned objects in
-        host memory (over 4 KiB) to disk until their usage is back under
-        70% of it."""
+        """With the managed tier, wake its spiller past the high
+        watermark. Without it, past the budget, pickle the oldest sealed
+        unpinned objects in host memory (over 4 KiB) to disk until their
+        usage is back under 70% of it."""
+        if self._spill is not None:
+            self._spill.notify()
+            return
         to_spill: list[ObjectEntry] = []
         with self._lock:
             host_used = self._memory_used - self._device_used
@@ -456,6 +689,9 @@ class ReferenceCounter:
         self._lock = threading.Lock()
         self._counts: dict[ObjectID, int] = {}
         self._store = store
+        # Called after an eviction (the runtime drops the object's
+        # location and lineage there).
+        self.on_evict: Callable[[ObjectID], None] | None = None
         self._deferred: "collections.deque[ObjectID]" = collections.deque()
         self._stop = threading.Event()
         self._reaper = threading.Thread(
@@ -498,3 +734,5 @@ class ReferenceCounter:
                 return
             del self._counts[object_id]
         self._store.evict(object_id)
+        if self.on_evict is not None:
+            self.on_evict(object_id)

@@ -118,12 +118,21 @@ class RpcServer:
             self._concurrent.add(name)
 
     def start(self) -> "RpcServer":
-        threading.Thread(target=self._accept_loop, daemon=True,
-                         name="ray_tpu_torch-rpc-accept").start()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True,
+            name="ray_tpu_torch-rpc-accept")
+        self._accept_thread.start()
         return self
 
     def stop(self) -> None:
+        """Close the listener and every connection; the accept thread has
+        ended when this returns (a close alone does not wake a blocked
+        accept() on Linux: the shutdown does)."""
         self._shutdown.set()
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass  # not listening any more
         try:
             self._sock.close()
         except OSError:
@@ -136,6 +145,9 @@ class RpcServer:
                 conn.close()
             except OSError:
                 pass
+        accept = getattr(self, "_accept_thread", None)
+        if accept is not None and accept is not threading.current_thread():
+            accept.join(timeout=5.0)
 
     def _accept_loop(self) -> None:
         while not self._shutdown.is_set():

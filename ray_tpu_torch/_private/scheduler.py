@@ -97,6 +97,15 @@ class ClusterState:
             self._nodes[node.node_id] = node
             self._lock.notify_all()
 
+    def remove_node(self, node_id: NodeID) -> None:
+        """Take a dead node out of scheduling: its resources, and its
+        cards, leave the cluster's totals."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is not None:
+                node.alive = False
+            self._lock.notify_all()
+
     def _sum(self, attr: str) -> dict[str, float]:
         with self._lock:
             out: dict[str, float] = {}
@@ -505,6 +514,24 @@ class Dispatcher:
                 return None
             self._cancel_locked(task)
             return task.spec
+
+    def fail_hard_affinity(self, node_id_hex: str) -> "list[TaskSpec]":
+        """Cancel every queued task hard-pinned to a node that just died
+        (it can never run elsewhere, and would hang its waiters) and
+        return their specs; the caller seals their returns."""
+        def pinned(task: _QueuedTask) -> bool:
+            strategy = task.spec.scheduling_strategy
+            return (strategy.kind == "NODE_AFFINITY" and not strategy.soft
+                    and strategy.node_id == node_id_hex
+                    and not task.claimed and not task.cancelled)
+
+        with self._lock:
+            victims = [t for t in self._waiting if pinned(t)]
+            for dq in self._ready_groups.values():
+                victims += [t for t in dq if pinned(t)]
+            for task in victims:
+                self._cancel_locked(task)
+            return [task.spec for task in victims]
 
     def shutdown(self) -> None:
         with self._lock:

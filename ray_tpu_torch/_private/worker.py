@@ -23,6 +23,15 @@ work any other thread enqueues there after it: a CUDA tensor a task
 returns is sealed without a synchronize, and a consumer on the default
 stream reads it safely. A process actor sees its cards, and only them,
 in ``CUDA_VISIBLE_DEVICES``.
+
+The store spills through the managed tier (spill_manager.py) unless
+``spill_enabled`` is off. Every task's spec is kept as the lineage of its
+returns (recovery.py), and the node that ran it as their location: when a
+virtual node dies (``kill_node`` stops its heartbeat; the health monitor
+notices), its objects are marked lost and rebuilt by re-running their
+tasks, arguments first, as is an object whose spill file tore. With
+worker processes, a memory monitor kills the largest worker under host
+memory pressure, and its task is retried on its own budget.
 """
 
 from __future__ import annotations
@@ -53,6 +62,11 @@ from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, ObjectID, TaskID
 from ray_tpu_torch._private.object_ref import ObjectRef, ref_args, resolve_args
 from ray_tpu_torch._private.object_store import ObjectStore, ReferenceCounter
 from ray_tpu_torch._private.placement_groups import PlacementGroupManager
+from ray_tpu_torch._private.recovery import (
+    LineageTable,
+    NodeHealthMonitor,
+    ObjectRecoveryManager,
+)
 from ray_tpu_torch._private.scheduler import (
     BlockedResourceContext,
     ClusterState,
@@ -63,6 +77,7 @@ from ray_tpu_torch._private.scheduler import (
 from ray_tpu_torch._private.task import SchedulingStrategy, TaskSpec
 from ray_tpu_torch.exceptions import (
     ActorDiedError,
+    ObjectLostError,
     PlacementGroupError,
     SystemOverloadedError,
     TaskCancelledError,
@@ -167,9 +182,22 @@ class Runtime:
             {k: v for k, v in head.items() if v > 0},
             labels={"node_type": "head"})
         self.gcs.register_job(JobRecord(self.job_id))
+        # Lineage and the object directory: the task that made each
+        # object and the node that holds it (the objects that die with
+        # it). Reentrant: an eviction can run from ObjectRef.__del__.
+        self.lineage = LineageTable(cfg.lineage_table_max_entries)
+        self.recovery = ObjectRecoveryManager(self)
+        self._object_locations: dict[ObjectID, NodeID] = {}
+        self._locations_lock = threading.RLock()
+        self.reference_counter.on_evict = self._forget_object
         self._start_process_plane(
             cfg.worker_pool_size if process_workers is None
             else process_workers)
+        self._arm_spill_tier()
+        self.health_monitor = NodeHealthMonitor(
+            self.gcs, period_s=cfg.health_check_period_ms / 1000.0,
+            failure_threshold=cfg.health_check_failure_threshold,
+            on_node_dead=self._on_node_dead)
 
     # ------------------------------------------------- worker processes
 
@@ -194,6 +222,11 @@ class Runtime:
         self._func_blobs: "weakref.WeakKeyDictionary" = \
             weakref.WeakKeyDictionary()
         self._promote_lock = threading.Lock()
+        # Object id -> when it was last promoted to a segment for a pool
+        # task: the spiller leaves it alone for a grace window, as the
+        # task's frame may not have attached the segment yet.
+        self._recent_promotes: dict[ObjectID, float] = {}
+        self.memory_monitor = None
         if not pool_size or pool_size <= 0:
             return
         from ray_tpu_torch._private import worker_pool as pool_mod
@@ -219,6 +252,13 @@ class Runtime:
             max(1, (os.cpu_count() or 1) // int(pool_size)))
         self.worker_pool = pool_mod.WorkerPool(
             int(pool_size), self.shm_directory, self.shm_client)
+        refresh_ms = int(GLOBAL_CONFIG.memory_monitor_refresh_ms or 0)
+        if refresh_ms > 0:
+            from ray_tpu_torch._private.memory_monitor import MemoryMonitor
+
+            self.memory_monitor = MemoryMonitor(
+                self, threshold=float(GLOBAL_CONFIG.memory_usage_threshold),
+                period_s=refresh_ms / 1000.0).start()
 
     def ensure_client_server(self) -> None:
         """Start the client server on first need; processes spawned after
@@ -269,6 +309,7 @@ class Runtime:
         from ray_tpu_torch._private.shm_store import ShmObjectWriter
 
         with self._promote_lock:
+            self._recent_promotes[ref.id()] = time.monotonic()
             desc = self.shm_directory.lookup(ref.id())
             if desc is None:
                 desc, seg = ShmObjectWriter.put(self.store.get(ref.id()))
@@ -312,8 +353,70 @@ class Runtime:
             self.store.put(rid, value)
         return True
 
+    # ------------------------------------------------------------ spill tier
+
+    _SHM_PROMOTE_GRACE_S = 30.0
+
+    def _arm_spill_tier(self) -> None:
+        """The managed spill tier on the store, unless ``spill_enabled``
+        is off (the store then spills inline past its budget)."""
+        from ray_tpu_torch._private import spill_manager
+        from ray_tpu_torch._private.memory_monitor import (
+            set_store_bytes_provider,
+        )
+
+        spill_manager.init_from_config()
+        if not spill_manager.SPILL_ON:
+            return
+        # A value moved to disk frees its shared-memory twin as a freed
+        # object does (a worker that mapped it keeps its mapping).
+        self.store.enable_managed_spill(
+            leased_fn=self._spill_protected_ids,
+            on_backing_free=self._on_object_freed,
+            on_torn=self._recover_torn_object)
+        # Admission's store axis counts host bytes only: an object on a
+        # card is not host memory and is never spilled.
+        set_store_bytes_provider(self.store._host_used)
+
+    def _spill_protected_ids(self) -> set:
+        """Id bytes the spiller must skip: values promoted to a segment
+        for a pool task within the grace window."""
+        now = time.monotonic()
+        with self._promote_lock:
+            for oid in [o for o, at in self._recent_promotes.items()
+                        if now - at > self._SHM_PROMOTE_GRACE_S]:
+                del self._recent_promotes[oid]
+            return {oid.binary() for oid in self._recent_promotes}
+
+    def _recover_torn_object(self, object_id: ObjectID) -> None:
+        """A spill file failed its check on restore and the store marked
+        the object lost: rebuild it from lineage (the getter waits for
+        the reseal), or seal ObjectLostError."""
+        recovered = False
+        try:
+            recovered = self.recovery.recover(object_id,
+                                              reason="spill_torn")
+        except Exception:  # noqa: BLE001 — the error below is sealed
+            logger.exception("rebuilding torn object %s failed",
+                             object_id.hex())
+        if not recovered:
+            self.store.put_error(object_id, ObjectLostError(
+                ObjectRef(object_id, _register=False),
+                f"object {object_id.hex()} spill file was torn and no "
+                f"lineage can rebuild it"))
+
+    def spill_stats(self) -> dict:
+        """The spill tier's counters (zeros when it is off)."""
+        from ray_tpu_torch._private.spill_manager import merged_stats
+
+        return merged_stats(self.store._spill)
+
+    # ---------------------------------------------------------------- nodes
+
     def add_node(self, resources: dict[str, float],
                  labels: dict[str, str] | None = None) -> NodeID:
+        """Add a virtual node. Its ``GPU`` count names cards of this
+        process from 0 (the nodes share them)."""
         node_id = NodeID()
         self.cluster.add_node(NodeState(
             node_id=node_id, total=dict(resources),
@@ -322,6 +425,67 @@ class Runtime:
             node_id=node_id, address=f"local://{node_id.hex()[:8]}",
             resources=dict(resources), labels=dict(labels or {})))
         return node_id
+
+    def remove_node(self, node_id: NodeID) -> None:
+        self.cluster.remove_node(node_id)
+        self.gcs.mark_node_dead(node_id)
+
+    def kill_node(self, node_id: NodeID) -> None:
+        """Crash a virtual node: its heartbeat stops, and the health
+        monitor's detection drives the death (detection, not fiat)."""
+        self.health_monitor.suppress(node_id)
+
+    def _on_node_dead(self, node_id: NodeID) -> None:
+        """A node died: it leaves scheduling, tasks hard-pinned to it
+        fail, and its objects are lost and rebuilt where lineage
+        allows."""
+        logger.warning("Node %s died; rebuilding its objects",
+                       node_id.hex()[:8])
+        self.remove_node(node_id)
+        for spec in self.dispatcher.fail_hard_affinity(node_id.hex()):
+            err = TaskError(
+                RuntimeError(f"node {node_id.hex()[:8]} died and task "
+                             f"{spec.name} is hard-pinned to it"),
+                "", spec.name)
+            for rid in spec.return_ids:
+                self.store.put_error(rid, err)
+        with self._locations_lock:
+            lost = [oid for oid, nid in self._object_locations.items()
+                    if nid == node_id]
+            for oid in lost:
+                del self._object_locations[oid]
+        # Everything is marked lost before anything is rebuilt: a rebuild
+        # checks is_lost() on its arguments.
+        marked = [oid for oid in lost if self.store.mark_lost(oid)]
+        for oid in marked:
+            try:
+                if not self.recovery.recover(oid):
+                    # Unregistered: the error lives in the entry it
+                    # describes, and a registered ref would pin it.
+                    self.store.put_error(oid, ObjectLostError(
+                        ObjectRef(oid, _register=False),
+                        f"object {oid.hex()} was on dead node "
+                        f"{node_id.hex()[:8]} and has no lineage"))
+            except Exception:  # noqa: BLE001 — one object must not strand
+                logger.exception("failed to handle the loss of object %s",
+                                 oid.hex())
+
+    def _record_location(self, object_id: ObjectID,
+                         node_id: NodeID) -> None:
+        """The node that holds the object: it dies with that node."""
+        node = self.cluster.get_node(node_id)
+        if node is None or not node.alive:
+            # A task that finished after its node died: its result is
+            # the driver's, and a dead node's entry would never go.
+            return
+        with self._locations_lock:
+            self._object_locations[object_id] = node_id
+
+    def _forget_object(self, object_id: ObjectID) -> None:
+        """An evicted object's location and lineage go with it."""
+        with self._locations_lock:
+            self._object_locations.pop(object_id, None)
+        self.lineage.forget([object_id])
 
     # ------------------------------------------------------------ deadlines
 
@@ -358,19 +522,48 @@ class Runtime:
 
     def _admission_overload_reason(self) -> str | None:
         """Why admission sheds right now, or None: the dispatcher's
-        backlog over ``admission_max_queue_depth`` (0: no cap)."""
+        backlog over ``admission_max_queue_depth`` (0: no cap), or host
+        memory over ``admission_memory_watermark`` (0: off). With the
+        spill tier armed, memory the store's spill can relieve kicks the
+        spiller and admits, unless its disk is full."""
         cap = int(GLOBAL_CONFIG.admission_max_queue_depth or 0)
         if cap > 0 and self.dispatcher.pending_count() > cap:
             return f"dispatcher backlog over admission_max_queue_depth={cap}"
+        watermark = float(GLOBAL_CONFIG.admission_memory_watermark or 0)
+        if watermark <= 0:
+            return None
+        from ray_tpu_torch._private.memory_monitor import (
+            memory_pressure_kind,
+            memory_watermark_exceeded,
+        )
+
+        mgr = self.store._spill
+        if mgr is None:
+            if memory_watermark_exceeded(watermark):
+                return (f"host memory over admission_memory_watermark"
+                        f"={watermark}")
+            return None
+        kind = memory_pressure_kind(watermark)
+        if kind == "store":
+            if mgr.backing_off():
+                return (f"store memory over admission_memory_watermark"
+                        f"={watermark} and the spill disk is full "
+                        f"(backing off)")
+            mgr.request_spill()
+            return None
+        if kind == "host":
+            return f"host memory over admission_memory_watermark={watermark}"
         return None
 
     def stats(self) -> dict:
         """Driver-side counters: tasks sealed at their deadline, submits
-        shed at admission, and the dispatcher's depth."""
+        shed at admission, the dispatcher's depth and the objects rebuilt
+        from lineage."""
         with self._counter_lock:
             return {"task_timeouts": self._task_timeouts,
                     "admission_shed": self._admission_shed,
-                    "queue_depth": self.dispatcher.pending_count()}
+                    "queue_depth": self.dispatcher.pending_count(),
+                    "lineage_rebuilds": self.recovery.num_recoveries}
 
     # ---------------------------------------------------------------- tasks
 
@@ -409,6 +602,7 @@ class Runtime:
         for rid in return_ids:
             self.store.create_pending(rid)
         refs = [ObjectRef(rid) for rid in return_ids]
+        self.lineage.record(spec)
         self.gcs.record_task_event(TaskEvent(spec.task_id, name, "PENDING"))
         self.dispatcher.submit(spec, self._execute_task,
                                ref_args(args, kwargs))
@@ -443,6 +637,8 @@ class Runtime:
                         {} if bundled else spec.resources):
                     result = spec.func(*args, **kwargs)
                 self._store_task_result(spec, result)
+            for rid in spec.return_ids:
+                self._record_location(rid, node.node_id)
             self.gcs.record_task_event(TaskEvent(
                 spec.task_id, spec.name, "FINISHED", start_time=start,
                 end_time=time.time(), node_id=node.node_id.hex()))
@@ -457,9 +653,11 @@ class Runtime:
         if self._maybe_retry(spec, exc):
             return
         # A task error that is already typed (a failed dependency, a
-        # cancellation, its worker's death) passes through unwrapped.
+        # cancellation, an argument lost for good, its worker's death)
+        # passes through unwrapped.
         error = exc if isinstance(
-            exc, (TaskError, TaskCancelledError, WorkerCrashedError)) \
+            exc, (TaskError, TaskCancelledError, ObjectLostError,
+                  WorkerCrashedError)) \
             else TaskError(exc, getattr(exc, "__ray_tpu_remote_tb__", None)
                            or format_traceback(exc), spec.name)
         for rid in spec.return_ids:
@@ -471,8 +669,20 @@ class Runtime:
     def _maybe_retry(self, spec: TaskSpec, exc: BaseException) -> bool:
         """Resubmit while retries remain: a system failure (an actor's or
         a worker's death) always, an application error as
-        ``retry_exceptions`` allows."""
-        if spec.attempt >= spec.max_retries:
+        ``retry_exceptions`` allows. A worker the memory monitor killed
+        retries on the ``task_oom_retries`` budget (the task did nothing
+        wrong)."""
+        monitor = self.memory_monitor
+        oom_kill = (isinstance(exc, WorkerCrashedError)
+                    and monitor is not None
+                    and exc.worker_pid in monitor.killed_pids)
+        oom_budget = int(GLOBAL_CONFIG.task_oom_retries)
+        if oom_kill and spec.attempt + 1 >= oom_budget:
+            # The last OOM attempt: a recycled pid must not pass for one.
+            monitor.consume_attribution(exc.worker_pid)
+        budget = max(spec.max_retries, oom_budget) if oom_kill \
+            else spec.max_retries
+        if spec.attempt >= budget:
             return False
         if isinstance(exc, (ActorDiedError, WorkerCrashedError)) \
                 or spec.retry_exceptions is True:
@@ -871,6 +1081,8 @@ class Runtime:
 
     def free(self, refs: Sequence[ObjectRef]) -> None:
         self.store.free([r.id() for r in refs])
+        for r in refs:
+            self._forget_object(r.id())
 
     def attach_future(self, ref: ObjectRef,
                       fut: concurrent.futures.Future) -> None:
@@ -904,17 +1116,38 @@ class Runtime:
         for submit_queue in list(self._actor_queues.values()):
             submit_queue.put(None)
         self.placement_groups.shutdown()
+        self.health_monitor.shutdown()
         self.dispatcher.shutdown()
         self._stop_process_plane()
         self.reference_counter.stop()
+        self._stop_spill_tier()
         # The runtime's parts refer to each other; dropping the objects
-        # here frees what they hold (tensors on the card) at once.
+        # (and the lineage's task specs) here frees what they hold
+        # (tensors on the card) at once.
         self.store.close()
+        self.lineage.clear()
         self.gcs.finish_job(self.job_id)
+
+    def _stop_spill_tier(self) -> None:
+        """Stop the spiller; the last manager of the process removes the
+        per-pid spill directory."""
+        import shutil
+
+        from ray_tpu_torch._private import memory_monitor, spill_manager
+
+        if self.store._spill is None:
+            return
+        self.store._spill.stop()
+        memory_monitor.set_store_bytes_provider(None)
+        if spill_manager.live_manager_count() == 0:
+            shutil.rmtree(spill_manager.process_spill_dir(),
+                          ignore_errors=True)
 
     def _stop_process_plane(self) -> None:
         from ray_tpu_torch._private import worker_pool as pool_mod
 
+        if self.memory_monitor is not None:
+            self.memory_monitor.stop()
         if self.worker_pool is not None:
             self.worker_pool.shutdown()
         pool_mod.stop_factory()

@@ -628,6 +628,9 @@ class WorkerPool:
         self._lock = threading.Condition(threading.Lock())
         self._index_lock = threading.Lock()
         self._idle: list[PoolWorker] = []
+        # Every worker started, idle or leased (the memory monitor's
+        # view); dead ones are dropped as new ones start.
+        self._all_workers: set[PoolWorker] = set()
         self._next_index = 0
         self._num_leased = 0
         self._shutdown = False
@@ -641,7 +644,16 @@ class WorkerPool:
         with self._index_lock:
             index = self._next_index
             self._next_index += 1
-        return PoolWorker(index, extra_env=extra_env)
+        worker = PoolWorker(index, extra_env=extra_env)
+        with self._index_lock:
+            self._all_workers = {w for w in self._all_workers if w.alive()}
+            self._all_workers.add(worker)
+        return worker
+
+    def live_workers(self) -> list[PoolWorker]:
+        """Every live worker, idle or busy."""
+        with self._index_lock:
+            return [w for w in self._all_workers if w.alive()]
 
     def _acquire(self) -> PoolWorker:
         grow = False

@@ -126,7 +126,10 @@ class PendingCallsLimitExceeded(RayTpuError):
 
 class WorkerCrashedError(RayTpuError):
     """A worker died while executing a task (a system failure, retried
-    while retries remain)."""
+    while retries remain). ``worker_pid`` is the dead worker's pid, which
+    tells a memory monitor's kill from other crashes."""
+
+    worker_pid: int | None = None
 
 
 class OutOfMemoryError(RayTpuError):

@@ -491,8 +491,10 @@ def _inputs() -> dict:
 
     rng = np.random.default_rng(1)
     x = rng.integers(-8, 8, (16, 8)).astype(np.float32)
+    # Untiled all_to_all's weights too: its gradient is held by the
+    # ranks against the tiled form's and finite differences.
     shapes = {name: _spmd(_jax_ops()[name])(jnp.asarray(x)).shape
-              for name in DIFFERENTIABLE}
+              for name in (*DIFFERENTIABLE, "all_to_all")}
     return {"helpers": _helper_inputs(), "x": x,
             "w": {name: rng.integers(-4, 4, shape).astype(np.float32)
                   for name, shape in shapes.items()}}
@@ -548,6 +550,26 @@ def test_nccl_primitive_gradients_match_jax(world, name):
     ranks = _rank_results(world, "case_primitives")
     got = np.concatenate([r[f"grad_{name}"] for r in ranks])
     np.testing.assert_array_equal(got, world[1][f"grad_{name}"])
+
+
+@pytest.mark.parametrize("against", ["grad_all_to_all_via_tiled",
+                                     "grad_all_to_all_fd"])
+def test_nccl_untiled_all_to_all_gradient(world, against):
+    """The gradient of the untiled all_to_all (the inverse all_to_all of
+    the cotangent) on 8 gloo ranks equals the gradient of the tiled form
+    and the finite differences of the global sum, exactly (integer
+    values at f32), and is nonzero everywhere an input reaches the
+    output."""
+    ranks = _rank_results(world, "case_primitives")
+    assert all(r["all_to_all_is_tiled_reshaped"] for r in ranks)
+    got = np.concatenate([r["grad_all_to_all"] for r in ranks])
+    want = np.concatenate([r[against] for r in ranks])
+    assert got.shape == want.shape == (16, 8)
+    np.testing.assert_array_equal(got, want)
+    # The weights reach every input: the gradient is the weights moved
+    # back, a permutation of them.
+    weights = _inputs()["w"]["all_to_all"]
+    assert sorted(got.ravel()) == sorted(weights.ravel())
 
 
 def test_nccl_errors(world):

@@ -42,6 +42,11 @@ PROCESS_MODULES = (
     "ray_tpu_torch._private.worker_factory",
     "ray_tpu_torch._private.worker_pool", "ray_tpu_torch.util.client",
     "ray_tpu_torch.util.client.server", "ray_tpu_torch._private.worker")
+# The managed spill tier, lineage recovery and the memory monitor.
+STORE_RECOVERY_MODULES = (
+    "ray_tpu_torch._private.spill_manager",
+    "ray_tpu_torch._private.recovery",
+    "ray_tpu_torch._private.memory_monitor")
 # The data package: every module, imported where importing jax, ray_tpu
 # or cloudpickle raises.
 DATA_MODULES = tuple(
@@ -111,6 +116,15 @@ def _import_blocked(modules, blocked, watched=None) -> str:
 
 def test_process_modules_import_without_jax_ray_tpu_or_cloudpickle():
     assert _import_blocked(PROCESS_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+
+
+def test_store_recovery_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    checked = {str(p.relative_to(ROOT / "ray_tpu_torch"))
+               for p in PORT_FILES if "ray_tpu_torch" in p.parts}
+    assert {"_private/spill_manager.py", "_private/recovery.py",
+            "_private/memory_monitor.py"} <= checked
+    assert _import_blocked(STORE_RECOVERY_MODULES,
                            FORBIDDEN + ("cloudpickle",)) == "[]"
 
 

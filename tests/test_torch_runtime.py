@@ -18,6 +18,7 @@ the head node's ``GPU`` count is detected, ``_sizeof`` counts tensors, a
 import logging
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -679,7 +680,9 @@ def test_object_ref_future_and_await():
 def test_free_and_spill_restore():
     """A freed object raises ``ObjectFreedError``; past the store's
     budget the oldest object is pickled to disk and restored on ``get``
-    (a tensor comes back equal)."""
+    (a tensor comes back equal). Pinned to the inline spill
+    (``spill_enabled=False``), which spills within the ``put``; the
+    managed tier's twin follows."""
     def scenario(rt):
         runtime = ray_tpu_torch._private.worker.global_runtime()
         first = rt.put(torch.arange(4096.0))
@@ -693,9 +696,41 @@ def test_free_and_spill_restore():
                 rt.get(second).sum().item(),
                 _error(lambda: rt.get(freed))]
 
-    assert _run(scenario, ray_tpu_torch,
-                object_store_memory=30_000) == \
-        [16384, True, 16384, 4096.0, ("ObjectFreedError", None)]
+    try:
+        assert _run(scenario, ray_tpu_torch, object_store_memory=30_000,
+                    system_config={"spill_enabled": False}) == \
+            [16384, True, 16384, 4096.0, ("ObjectFreedError", None)]
+    finally:
+        ray_tpu_torch._private.config.GLOBAL_CONFIG.reset()
+
+
+def test_free_and_managed_spill_restore():
+    """The twin through the managed tier: over its high watermark
+    (25,500 of 30,000 bytes) the spiller moves the least recently used of
+    the two equal tensors to a checksummed file, off the ``put``; a
+    ``get`` checks and restores it."""
+    def scenario(rt):
+        runtime = ray_tpu_torch._private.worker.global_runtime()
+        first = rt.put(torch.arange(4096.0))
+        second = rt.put(torch.ones(4096))
+        runtime.store._spill.spill_pass()
+        deadline = time.monotonic() + WAIT_S
+        while runtime.spill_stats()["spills"] == 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        spilled = runtime.store.stats()["spilled_bytes_total"]
+        on_disk = runtime.store._entries[first.id()].spilled_path
+        value = rt.get(first)
+        restored = runtime.store.stats()["restored_bytes_total"]
+        freed = rt.put(1)
+        runtime.free([freed])
+        return [spilled, on_disk is not None and on_disk.endswith(".spill"),
+                bool(torch.equal(value, torch.arange(4096.0))), restored,
+                runtime.spill_stats()["restores"],
+                rt.get(second).sum().item(), _error(lambda: rt.get(freed))]
+
+    assert _run(scenario, ray_tpu_torch, object_store_memory=30_000) == \
+        [16384, True, True, 16384, 1, 4096.0, ("ObjectFreedError", None)]
 
 
 def test_dispatcher_wait_idle():

@@ -58,9 +58,52 @@ def _ops():
 
 # The gradients compared with JAX's. Untiled all_to_all's is not: JAX's
 # own VJP of it fails at these shapes (jax 0.9.0: a cotangent of the
-# output's shape where the input's is expected).
+# output's shape where the input's is expected). It is held instead
+# against the gradient of the tiled form (the untiled output is the
+# tiled one reshaped) and against finite differences.
 DIFFERENTIABLE = ("psum", "pmean", "all_gather", "all_gather_tiled_1",
                   "ppermute_ring", "ppermute_partial", "all_to_all_tiled")
+
+
+def _untiled_all_to_all_grads(x, w) -> dict:
+    """The gradient of sum(all_to_all(x) * w) summed over the ranks, for
+    the untiled all_to_all(x, "x", 1, 0): by autograd, through the tiled
+    form with w reshaped to its output, and by finite differences of the
+    global sum, one element of one rank at a time (the map is linear and
+    the values small integers, so each difference is exact at f32).
+    Needs the ambient mesh."""
+    import torch.distributed as dist
+
+    ops = _ops()
+    rank = dist.get_rank()
+    leaf = x.clone().requires_grad_(True)
+    (ops["all_to_all"](leaf) * w).sum().backward()
+    tiled_leaf = x.clone().requires_grad_(True)
+    tiled = ops["all_to_all_tiled"](tiled_leaf)
+    (tiled * w.reshape(tiled.shape)).sum().backward()
+
+    def global_sum(v):
+        total = (ops["all_to_all"](v) * w).sum()
+        dist.all_reduce(total)
+        return total
+
+    with torch.no_grad():
+        base = global_sum(x)
+        fd = torch.zeros_like(x)
+        for owner in range(dist.get_world_size()):
+            for i in range(x.numel()):
+                bumped = x.clone()
+                if owner == rank:
+                    bumped.view(-1)[i] += 1.0
+                diff = global_sum(bumped) - base
+                if owner == rank:
+                    fd.view(-1)[i] = diff
+        same_forward = torch.equal(ops["all_to_all"](x).reshape(tiled.shape),
+                                   tiled.detach())
+    return {"grad_all_to_all": _np(leaf.grad),
+            "grad_all_to_all_via_tiled": _np(tiled_leaf.grad),
+            "grad_all_to_all_fd": _np(fd),
+            "all_to_all_is_tiled_reshaped": bool(same_forward)}
 
 
 def case_primitives(inputs) -> dict:
@@ -84,6 +127,8 @@ def case_primitives(inputs) -> dict:
             w = _t(inputs["w"][name]).chunk(8)[rank]
             (y * w).sum().backward()
             out[f"grad_{name}"] = _np(leaf.grad)
+        out.update(_untiled_all_to_all_grads(
+            x, _t(inputs["w"]["all_to_all"]).chunk(8)[rank]))
     return out
 
 
