@@ -3823,12 +3823,89 @@ class ProcessServeActor(EngineActor):
                 "pid": os.getpid()}
 
 
+def _stream_requests(rt, actor, prompts, temperatures) -> dict:
+    """The 16 requests streamed from ``actor`` at once (after a warm-up
+    request and ``time_steps``, counters reset): their records, submit
+    times, errors and the wall seconds, the engine's stats over them, the
+    actor's counters and its step times."""
+    rt.get(actor.time_steps.remote(), timeout=60)
+    stats_before = rt.get(actor.stats.remote(), timeout=60)
+    rt.get(actor.reset_counters.remote(), timeout=60)
+    refs, submitted = [], []
+    wall_start = time.perf_counter()
+    for prompt, temperature in zip(prompts, temperatures):
+        submitted.append(time.perf_counter())
+        refs.append(actor.stream.remote(
+            {"tokens": prompt, "max_new_tokens": SERVE_NEW_TOKENS,
+             "temperature": temperature}))
+    records, errors = [], []
+    for r in refs:
+        try:
+            records.append(rt.get(r, timeout=600))
+        except Exception as exc:  # noqa: BLE001 — reported and required
+            records.append({"tokens": [], "arrivals": []})
+            errors.append(repr(exc))
+    wall = time.perf_counter() - wall_start
+    counters = rt.get(actor.counters.remote(), timeout=60)
+    stats_after = rt.get(actor.stats.remote(), timeout=60)
+    return {"records": records, "submitted": submitted, "errors": errors,
+            "wall": wall, "counters": counters,
+            "stats": {k: stats_after[k] - stats_before[k]
+                      for k in stats_after},
+            "steps": rt.get(actor.step_times.remote(), timeout=60)}
+
+
+def _serving_summary(streamed: dict, temperatures: list,
+                     served_tokens: list) -> dict:
+    """The serve metrics of ``_stream_requests``' run: TTFT (both
+    processes read the host's monotonic clock), the decode step, output
+    tokens/s, peak memory, RMSNorm launches, and token identity with the
+    serve phase."""
+    records, stats = streamed["records"], streamed["stats"]
+    ttft = [r["arrivals"][0] - t if r["arrivals"] else None
+            for r, t in zip(records, streamed["submitted"])]
+    measured = [t for t in ttft if t is not None] or [math.nan]
+    outputs = [r["tokens"] for r in records]
+    greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
+    steps = streamed["steps"]
+    forwards = stats["decode_steps"] + stats["prefill_chunks"]
+    launches = streamed["counters"]["rmsnorm"]
+    return {
+        "greedy_token_identical": all(outputs[i] == served_tokens[i]
+                                      for i in greedy),
+        "sampled_token_identical": [outputs[i] == served_tokens[i]
+                                    for i in range(len(outputs))
+                                    if i not in greedy],
+        "short_outputs": [len(t) for t in outputs
+                          if len(t) != SERVE_NEW_TOKENS],
+        "ttft_s": ttft, "ttft_s_median": statistics.median(measured),
+        "ttft_s_max": max(measured),
+        "decode_step_ms_median": 1e3 * statistics.median(steps["decode_s"])
+        if steps["decode_s"] else None,
+        "prefill_chunk_ms_median": 1e3 * statistics.median(
+            steps["prefill_s"]) if steps["prefill_s"] else None,
+        "wall_s": streamed["wall"],
+        "output_tokens_per_s": sum(len(t) for t in outputs)
+        / streamed["wall"],
+        "engine_stats": stats, "forwards": forwards,
+        "rmsnorm_launches": launches,
+        "rmsnorm_launches_per_forward": launches / forwards
+        if forwards else None,
+        "peak_memory_bytes": streamed["counters"]["peak_memory_bytes"]}
+
+
+SERVE_SUMMARY_KEYS = ("ttft_s_median", "ttft_s_max", "decode_step_ms_median",
+                      "output_tokens_per_s", "peak_memory_bytes",
+                      "rmsnorm_launches", "wall_s")
+
+
 def phase_process_serve(llama, served: dict, served_tokens: list,
                         runtime: dict, device: dict, power: str) -> dict:
     """The runtime phase's serving actor as a ``num_gpus=1`` process actor
     (its class from ``__main__``, sent by value), Llama-3-8B in bf16 made
     in the actor's process from the serve phase's seed, serving the serve
-    phase's 16 requests. Returns the RMSNorm launches counted there."""
+    phase's 16 requests. Returns the RMSNorm launches counted there and
+    the serve metrics the node_cluster phase reports beside its own."""
     import os
 
     import ray_tpu_torch as rt
@@ -3847,45 +3924,16 @@ def phase_process_serve(llama, served: dict, served_tokens: list,
             {"tokens": prompts[0][:32], "max_new_tokens": 2}), timeout=900)
         boot_s = time.perf_counter() - boot
         require(len(warm["tokens"]) == 2, "warm-up request failed")
-        rt.get(actor.time_steps.remote(), timeout=60)
-        stats_before = rt.get(actor.stats.remote(), timeout=60)
-        rt.get(actor.reset_counters.remote(), timeout=60)
-        refs, submitted = [], []
-        wall_start = time.perf_counter()
-        for prompt, temperature in zip(prompts, temperatures):
-            submitted.append(time.perf_counter())
-            refs.append(actor.stream.remote(
-                {"tokens": prompt, "max_new_tokens": SERVE_NEW_TOKENS,
-                 "temperature": temperature}))
-        records, errors = [], []
-        for r in refs:
-            try:
-                records.append(rt.get(r, timeout=600))
-            except Exception as exc:  # noqa: BLE001 — reported and required
-                records.append({"tokens": [], "arrivals": []})
-                errors.append(repr(exc))
-        wall = time.perf_counter() - wall_start
-        counters = rt.get(actor.counters.remote(), timeout=60)
-        stats_after = rt.get(actor.stats.remote(), timeout=60)
-        steps = rt.get(actor.step_times.remote(), timeout=60)
+        streamed = _stream_requests(rt, actor, prompts, temperatures)
         rt.get(actor.shutdown.remote(), timeout=60)
         rt.kill(actor)
         gpu_after = rt.available_resources().get("GPU")
     finally:
         rt.shutdown()
     free_after = _free_back(free_before, PROCESS_FREE_TOL_BYTES)
-    stats = {k: stats_after[k] - stats_before[k] for k in stats_after}
-    forwards = stats["decode_steps"] + stats["prefill_chunks"]
-    # The clocks of both processes are the host's monotonic clock.
-    ttft = [r["arrivals"][0] - t if r["arrivals"] else None
-            for r, t in zip(records, submitted)]
-    measured = [t for t in ttft if t is not None] or [math.nan]
-    outputs = [r["tokens"] for r in records]
-    greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
-    launches = counters["rmsnorm"]
-    keys = ("ttft_s_median", "ttft_s_max", "decode_step_ms_median",
-            "output_tokens_per_s", "peak_memory_bytes", "rmsnorm_launches",
-            "wall_s")
+    counters = streamed["counters"]
+    summary = _serving_summary(streamed, temperatures, served_tokens)
+    forwards, launches = summary["forwards"], summary["rmsnorm_launches"]
     result = {
         "config": "LlamaConfig.llama3_8b() (ray_tpu/models/llama.py:79-83)",
         "dtype": "bfloat16", "actor": "process=True, num_gpus=1, "
@@ -3894,37 +3942,21 @@ def phase_process_serve(llama, served: dict, served_tokens: list,
         "prompt_lengths": lengths, "max_new_tokens": SERVE_NEW_TOKENS,
         "temperatures": temperatures,
         "actor_pid_not_driver": counters["pid"] != os.getpid(),
-        "actor_start_and_warm_up_s": boot_s,
-        "greedy_token_identical": all(outputs[i] == served_tokens[i]
-                                      for i in greedy),
-        "sampled_token_identical": [outputs[i] == served_tokens[i]
-                                    for i in range(len(outputs))
-                                    if i not in greedy],
-        "ttft_s": ttft, "ttft_s_median": statistics.median(measured),
-        "ttft_s_max": max(measured),
-        "decode_step_ms_median": 1e3 * statistics.median(steps["decode_s"])
-        if steps["decode_s"] else None,
-        "prefill_chunk_ms_median": 1e3 * statistics.median(
-            steps["prefill_s"]) if steps["prefill_s"] else None,
-        "wall_s": wall,
-        "output_tokens_per_s": sum(len(t) for t in outputs) / wall,
-        "engine_stats": stats, "rmsnorm_launches": launches,
-        "rmsnorm_launches_per_forward": launches / forwards
-        if forwards else None,
-        "peak_memory_bytes": counters["peak_memory_bytes"],
+        "actor_start_and_warm_up_s": boot_s, **summary,
         "peak_over_serve_phase": counters["peak_memory_bytes"]
         / served["peak_memory_bytes"] - 1,
         "gpu_available_after_kill": gpu_after,
         "free_bytes_before_after": [free_before, free_after],
-        "serve_phase": {k: served[k] for k in keys},
-        "runtime_phase": {k: runtime[k] for k in keys},
+        "serve_phase": {k: served[k] for k in SERVE_SUMMARY_KEYS},
+        "runtime_phase": {k: runtime[k] for k in SERVE_SUMMARY_KEYS},
         "card": device["kind"], "nvidia_smi": power,
         "elapsed_s": time.perf_counter() - start,
     }
     emit("process_serve", **result)
     require(result["actor_pid_not_driver"], "the actor ran in the driver")
-    require(not errors, f"requests failed: {errors}")
-    short = [len(t) for t in outputs if len(t) != SERVE_NEW_TOKENS]
+    require(not streamed["errors"],
+            f"requests failed: {streamed['errors']}")
+    short = summary["short_outputs"]
     require(not short, f"requests sealed with {short} tokens, not "
                        f"{SERVE_NEW_TOKENS}")
     require(result["greedy_token_identical"],
@@ -3941,7 +3973,9 @@ def phase_process_serve(llama, served: dict, served_tokens: list,
     require(abs(free_after - free_before) <= PROCESS_FREE_TOL_BYTES,
             f"free memory {free_after} after the kill, {free_before} "
             f"before the actor started")
-    return {"rmsnorm": launches}
+    return {"rmsnorm": launches,
+            "summary": {**{k: result[k] for k in SERVE_SUMMARY_KEYS},
+                        "actor_start_and_warm_up_s": boot_s}}
 
 
 # The store_recovery phase: the managed spill tier, lineage recovery and
@@ -4492,6 +4526,300 @@ def phase_store_recovery(llama, train_step, fa, fused, device: dict,
     return launches
 
 
+# The node_cluster phase: worker-node daemons, the head and remote actors.
+NODE_SEED = 31
+NODE_HEARTBEAT_TIMEOUT_S = 5.0  # tests/test_remote_actors.py's fixture
+NODE_WAIT_S = 300.0
+NODE_FREE_TOL_BYTES = 64 << 20
+
+
+def _node_attention(seed: int):
+    """A node task: the flash forward and backward at LOST_SHAPE (the
+    training shape, bf16) on inputs made on its card from ``seed``: o,
+    dq, dk, dv, and the launches it made."""
+    import importlib
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    q, k, v, _ = _lost_inputs(seed)
+    do = torch.randn(q.shape, generator=torch.Generator(DEVICE).manual_seed(
+        seed + 1), device=DEVICE).to(torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    with _LaunchCount(fa) as launched:
+        o = fa.flash_attention(q, k, v, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+    return o.detach(), q.grad, k.grad, v.grad, launched.counts
+
+
+def _node_norm(o, seed: int):
+    """A node task: RMSNorm over the flash output as [B * L, H * D] in
+    f32, and the launches it made."""
+    import importlib
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    fused = importlib.import_module("ray_tpu_torch.ops.fused")
+    b, l, h, _, d = LOST_SHAPE
+    scale = _lost_inputs(seed)[3]
+    with _LaunchCount(fa, fused) as launched, torch.no_grad():
+        out = fused.rms_norm(o.float().reshape(b * l, h * d), scale, RMS_EPS)
+        torch.cuda.synchronize()
+    return out, launched.counts
+
+
+def _pid_gone(pid: int) -> bool:
+    """No such process, or only its zombie (its parent died first)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def _parent(pid: int) -> int:
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[1])
+
+
+def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
+    """(a) The flash forward and backward in a ``num_gpus=1`` task pinned
+    to node A, RMSNorm over its output in one pinned to B: the output
+    moves A to B by the chunked pull, never through the driver, and
+    everything is bitwise the driver's own launches on the same seeds."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    def pinned(node: str):
+        return NodeAffinitySchedulingStrategy(ids[node].hex(), soft=False)
+
+    want_o, want_dq, want_dk, want_dv, _ = _node_attention(NODE_SEED)
+    want_n, _ = _node_norm(want_o, NODE_SEED)
+    exports_before = runtime._export_store.stats()["num_blobs"]
+    start = time.perf_counter()
+    o_ref, dq_ref, dk_ref, dv_ref, counts_a_ref = rt.remote(
+        num_gpus=1, num_returns=5, scheduling_strategy=pinned("A"))(
+        _node_attention).remote(NODE_SEED)
+    n_ref, counts_b_ref = rt.remote(
+        num_gpus=1, num_returns=2, scheduling_strategy=pinned("B"))(
+        _node_norm).remote(o_ref, NODE_SEED)
+    counts_a, counts_b = rt.get([counts_a_ref, counts_b_ref],
+                                timeout=NODE_WAIT_S)
+    tasks_s = time.perf_counter() - start
+    refs = {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref,
+            "n": n_ref}
+    # Before any read here: the driver holds placeholders only.
+    held = {name: type(runtime.store._entries[r.id()].value).__name__
+            for name, r in refs.items()}
+    driver_bytes = runtime.store.stats()["memory_used_bytes"]
+    stats_a = handles["A"].pool.call("executor_stats")
+    stats_b = handles["B"].pool.call("executor_stats")
+    start = time.perf_counter()
+    got = dict(zip(refs, rt.get(list(refs.values()), timeout=NODE_WAIT_S)))
+    driver_pull_s = time.perf_counter() - start
+    want = {"o": want_o, "dq": want_dq, "dk": want_dk, "dv": want_dv,
+            "n": want_n}
+    result = {
+        "shape": list(LOST_SHAPE), "norm_rows_cols": [
+            LOST_SHAPE[0] * LOST_SHAPE[1], LOST_SHAPE[2] * LOST_SHAPE[4]],
+        "bitwise": {k: torch.equal(got[k], want[k]) for k in want},
+        "devices": {k: got[k].device.type for k in got},
+        "output_bytes": want_o.numel() * want_o.element_size(),
+        "driver_held_before_get": held,
+        "driver_store_bytes_before_get": driver_bytes,
+        "driver_exports": runtime._export_store.stats()["num_blobs"]
+        - exports_before,
+        "b_pulled_bytes": stats_b["pulled_bytes"],
+        "b_pull_s": stats_b["pull_seconds"],
+        "pull_gb_per_s": stats_b["pulled_bytes"]
+        / max(stats_b["pull_seconds"], 1e-9) / 1e9,
+        "a_chunks_served": stats_a["store"]["fetches_served"],
+        "tasks_s": tasks_s, "driver_get_s": driver_pull_s,
+        "launches_a": counts_a, "launches_b": counts_b}
+    del got, want, want_o, want_dq, want_dk, want_dv, want_n, refs
+    del o_ref, dq_ref, dk_ref, dv_ref, n_ref
+    require(all(result["bitwise"].values()),
+            f"node results differ from the driver's: {result['bitwise']}")
+    require(set(result["devices"].values()) == {torch.device(DEVICE).type},
+            f"results not back on the card: {result['devices']}")
+    require(set(held.values()) == {"RemoteBlob"}
+            and result["driver_exports"] == 0,
+            f"the driver held a result before reading it: {held}, "
+            f"{result['driver_exports']} exports")
+    require(driver_bytes < result["output_bytes"],
+            f"the driver's store holds {driver_bytes} bytes")
+    require(stats_b["pulled_bytes"] >= result["output_bytes"]
+            and stats_a["store"]["fetches_served"] > 0,
+            f"B pulled {stats_b['pulled_bytes']} bytes, A served "
+            f"{stats_a['store']['fetches_served']} chunks")
+    require(all(counts_a[k] == 1 for k in (*HOPPER_KERNELS, "flash_bwd"))
+            and counts_b["rmsnorm"] == 1,
+            f"node launches {counts_a}, {counts_b}: one of each expected")
+    return result
+
+
+def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
+                       process_served: dict, runtime_phase: dict,
+                       device: dict, power: str) -> dict:
+    """Worker-node daemons on the card: a ``Cluster`` with its head in
+    this process and two daemons, A and B, each ``{"CPU": 2, "GPU": 1}``
+    on card 0, and a driver connected with no CPU and no GPU of its own.
+    (a) the flash kernels on A and RMSNorm on B, bitwise, the output
+    pulled A to B; (b) Llama-3-8B served from a remote actor on A, the
+    16 requests, greedy outputs token-identical to the serve phase's;
+    (c) A killed, the actor restarted on B from the same seed and
+    token-identical again; (d) after shutdown no daemon or actor process
+    is left, the card's free bytes are back and so is every ``GPU``.
+    Returns the kernels' launches on the nodes."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.exceptions import ActorDiedError
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    phase_start = time.perf_counter()
+    config = serve_config(llama)
+    _, prompts, temperatures = serve_requests(config)
+    greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = _free_bytes()
+    cluster = Cluster(heartbeat_timeout_s=NODE_HEARTBEAT_TIMEOUT_S)
+    pids = []
+    try:
+        start = time.perf_counter()
+        nodes = {"A": cluster.add_node(num_cpus=2, resources={"GPU": 1}),
+                 "B": cluster.add_node(num_cpus=2, resources={"GPU": 1})}
+        require(cluster.wait_for_nodes(2, timeout=NODE_WAIT_S),
+                "the daemons did not register")
+        daemons_s = time.perf_counter() - start
+        pids += [node.pid for node in nodes.values()]
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        require(_until(lambda: rt.cluster_resources().get("GPU") == 2.0,
+                       NODE_WAIT_S), "the nodes did not join the driver")
+        joined_s = time.perf_counter() - start
+        with runtime._remote_nodes_lock:
+            by_pid = {h.pool.call("exec_ping"): (nid, h)
+                      for nid, h in runtime._remote_nodes.items()}
+        ids = {k: by_pid[n.pid][0] for k, n in nodes.items()}
+        handles = {k: by_pid[n.pid][1] for k, n in nodes.items()}
+        kernels = _node_kernels(rt, runtime, handles, ids)
+        task_us = _round_trips_us(rt, rt.remote(_noop).remote)
+        torch.cuda.empty_cache()
+
+        # (b) Serving from a remote actor on A.
+        boot = time.perf_counter()
+        actor = rt.remote(
+            num_gpus=1, max_restarts=1, max_concurrency=16,
+            scheduling_strategy=NodeAffinitySchedulingStrategy(
+                ids["A"].hex(), soft=False))(ProcessServeActor).remote(
+            **SERVE_ENGINE, device=DEVICE)
+        warm = rt.get(actor.generate.remote(
+            {"tokens": prompts[0][:32], "max_new_tokens": 2}), timeout=900)
+        boot_s = time.perf_counter() - boot
+        require(len(warm["tokens"]) == 2, "warm-up request failed")
+        streamed = _stream_requests(rt, actor, prompts, temperatures)
+        served_here = _serving_summary(streamed, temperatures, served_tokens)
+        actor_a = streamed["counters"]["pid"]
+        pids.append(actor_a)
+        actor_on_a = _parent(actor_a) == nodes["A"].pid
+
+        # (c) A dies: the actor restarts on B.
+        wall_kill = time.perf_counter()
+        cluster.remove_node(nodes["A"], allow_graceful=False)
+        deadline = time.monotonic() + NODE_WAIT_S
+        while True:
+            with runtime._remote_nodes_lock:
+                if ids["A"] not in runtime._remote_nodes:
+                    break
+            require(time.monotonic() < deadline,
+                    "the driver never dropped node A")
+            time.sleep(0.001)
+        wall_detect = time.perf_counter()
+        i = greedy[0]
+        died_calls = 0
+        while True:
+            try:
+                again = rt.get(actor.stream.remote(
+                    {"tokens": prompts[i], "max_new_tokens": SERVE_NEW_TOKENS,
+                     "temperature": 0.0}), timeout=900)
+                break
+            except ActorDiedError as exc:
+                died_calls += 1
+                require(time.monotonic() < deadline,
+                        f"the actor never came back: {exc}")
+                time.sleep(0.05)
+        counters_b = rt.get(actor.counters.remote(), timeout=60)
+        actor_b = counters_b["pid"]
+        pids.append(actor_b)
+        actor_on_b = _parent(actor_b) == nodes["B"].pid
+        rt.get(actor.shutdown.remote(), timeout=60)
+        rt.kill(actor)
+        gpu_driver = [rt.available_resources().get("GPU"),
+                      rt.cluster_resources().get("GPU")]
+        stats_b = handles["B"].pool.call("executor_stats")
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+    # (d) Teardown.
+    left = [pid for pid in pids if not _until(lambda: _pid_gone(pid), 30)]
+    free_after = _free_back(free_before, NODE_FREE_TOL_BYTES)
+    launches = {k: kernels["launches_a"][k]
+                for k in (*HOPPER_KERNELS, "flash_bwd")}
+    launches["rmsnorm"] = kernels["launches_b"]["rmsnorm"] \
+        + served_here["rmsnorm_launches"] + counters_b["rmsnorm"]
+    result = {
+        "daemons": {"resources": {"CPU": 2, "GPU": 1}, "card": 0,
+                    "heartbeat_timeout_s": NODE_HEARTBEAT_TIMEOUT_S},
+        "daemons_registered_s": daemons_s, "nodes_joined_s": joined_s,
+        "kernels": kernels,
+        "remote_task_round_trip_us": task_us,
+        "thread_task_round_trip_us": runtime_phase["task_round_trip_us"],
+        "actor": "num_gpus=1, max_restarts=1, max_concurrency=16, "
+                 "NODE_AFFINITY to A",
+        "actor_on_a": actor_on_a, "actor_start_and_warm_up_s": boot_s,
+        **served_here,
+        "serve_phase": {k: served[k] for k in SERVE_SUMMARY_KEYS},
+        "process_serve_phase": process_served,
+        "kill_to_detect_s": wall_detect - wall_kill,
+        "detect_to_first_token_s": again["arrivals"][0] - wall_detect
+        if again["arrivals"] else None,
+        "calls_failed_while_dead": died_calls,
+        "actor_on_b": actor_on_b,
+        "restart_token_identical": again["tokens"] == served_tokens[i],
+        "gpu_driver_available_total": gpu_driver,
+        "gpu_b_available": stats_b["available"].get("GPU"),
+        "b_actors_after_kill": stats_b["num_actors"],
+        "pids_left": left, "free_bytes_before_after": [free_before,
+                                                       free_after],
+        "launches": launches, "card": device["kind"], "nvidia_smi": power,
+        "phase_s": time.perf_counter() - phase_start}
+    emit("node_cluster", **result)
+    require(actor_on_a and actor_on_b, "the actor did not run in A's tree, "
+                                       "then B's")
+    require(not streamed["errors"], f"requests failed: {streamed['errors']}")
+    require(not served_here["short_outputs"],
+            f"requests sealed with {served_here['short_outputs']} tokens")
+    require(served_here["greedy_token_identical"],
+            "the remote actor's greedy outputs differ from the serve "
+            "phase's")
+    require(result["restart_token_identical"],
+            "the restarted actor's greedy output differs")
+    require(gpu_driver == [1.0, 1.0] and result["gpu_b_available"] == 1.0
+            and result["b_actors_after_kill"] == 0,
+            f"GPU not back: driver {gpu_driver}, node B "
+            f"{result['gpu_b_available']}")
+    require(not left, f"processes left: {left}")
+    require(abs(free_after - free_before) <= NODE_FREE_TOL_BYTES,
+            f"free card bytes {free_before} -> {free_after}")
+    per_forward = 2 * config.num_layers + 1
+    require(served_here["rmsnorm_launches"]
+            == per_forward * served_here["forwards"] > 0,
+            f"rmsnorm launched {served_here['rmsnorm_launches']} times in "
+            f"the remote actor over {served_here['forwards']} forwards")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4552,11 +4880,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     process_launches = phase_process_trainer(
         llama, fa, device, power, {**trainer, "launches": trainer_launches})
-    process_launches.update(phase_process_serve(
-        llama, served_result, served_tokens, runtime_result, device, power))
+    process_served = phase_process_serve(
+        llama, served_result, served_tokens, runtime_result, device, power)
+    process_launches["rmsnorm"] = process_served["rmsnorm"]
     torch.cuda.empty_cache()
     store_launches = phase_store_recovery(llama, train_step, fa, fused,
                                           device, power)
+    torch.cuda.empty_cache()
+    node_launches = phase_node_cluster(
+        llama, fa, fused, served_result, served_tokens,
+        process_served["summary"], runtime_result, device, power)
     for kind, row in rows.items():
         row["launches"] = launches[kind]
         # bench.py's mesh path (mesh_train); training's norms are
@@ -4586,6 +4919,10 @@ def main() -> int:
         # steps from the restored TrainState and in the tasks lineage
         # rebuilds, RMSNorm in the rebuilt chain task.
         row["store_launches"] = store_launches.get(kind, 0)
+        # And on the node daemons (node_cluster): the flash kernels in the
+        # task on node A, RMSNorm in the task on B and in the remote
+        # serving actor, before and after its restart.
+        row["node_launches"] = node_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
                          f"{missing}")
@@ -4604,6 +4941,9 @@ def main() -> int:
     missing = [k for k, row in rows.items() if not row["store_launches"]]
     require(not missing, f"kernels not launched in the store_recovery "
                          f"phase: {missing}")
+    missing = [k for k, row in rows.items() if not row["node_launches"]]
+    require(not missing, f"kernels not launched on the node daemons: "
+                         f"{missing}")
     order = (*KERNELS, "flash_bwd")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -81,6 +81,21 @@ _DEFAULTS: dict[str, Any] = {
     # Worker processes' output goes to per-session files, tailed back to
     # this process's stdout.
     "log_to_driver": True,
+    # The node layer (node.py, node_executor.py, gcs_server.py), with the
+    # reference's defaults. DEFAULT placement packs onto the nodes under
+    # this utilization before it spreads.
+    "scheduler_spread_threshold": 0.5,
+    # A node daemon's results up to this size ship in the execute reply;
+    # larger ones stay in its store and are pulled in fetch_chunk_kb
+    # chunks, up to rpc_pipeline_depth in flight per pull.
+    "executor_inline_reply_kb": 256,
+    "fetch_chunk_kb": 4096,
+    "rpc_pipeline_depth": 8,
+    # The head declares a node dead after this long without a heartbeat.
+    "gcs_heartbeat_timeout_s": 10.0,
+    # A daemon that answers pings but stays absent from the head's node
+    # table for more than this many watcher passes is dropped.
+    "node_amnesia_max_passes": 5,
     # Serve routers push their latency window (p50/p99) to the
     # controller at most this often: the latency autoscaler's feed.
     # 0 disables the push.

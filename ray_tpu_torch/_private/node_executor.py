@@ -1,0 +1,1654 @@
+"""The node executor: the cluster's distributed execution plane.
+
+The port of ``ray_tpu/_private/node_executor.py``:
+
+- ``NodeExecutorService`` runs in every worker-node daemon and serves
+  ``execute_task`` over RPC: admission reserves the task's resources on
+  the node's own ledger (a node several drivers share refuses work past
+  its capacity, and the driver spills it to another node), then a CPU
+  task runs in the node's worker pool and a ``GPU`` task runs in the
+  daemon's own process, on its dispatch thread, on the card the node's
+  ``CardLedger`` leased it (the reference runs TPU tasks there too: the
+  daemon owns the accelerator). Actors live in worker processes of their
+  own; a ``GPU`` actor boots a fresh interpreter that sees only its
+  leased cards.
+- ``NodeObjectStore`` holds the results too large to ship in the reply
+  and the copies pulled from peers. Peers and drivers read them with
+  chunked ``fetch_object`` calls; a large object is pulled from its
+  owner and from the peers that hold it, several chunks in flight
+  (``fetch_plan``, ``ChunkDirectory``, ``_PartialBlob``), with a peer
+  that dies mid-pull blacklisted and a dead owner replaced by a holder
+  of the whole object.
+- ``RemoteNodeHandle`` is the driver's side: it ships a function once
+  per node by digest and passes an argument that lives on a node as a
+  ``FetchRef``, so the consuming node pulls it from the holder and the
+  driver never relays the bytes.
+
+A CUDA tensor crosses a node boundary as it crosses a process boundary:
+one host copy, and back on ``cuda`` where the receiver sees a card.
+There is no CUDA IPC.
+
+Not ported: the node store's spill tier (ROADMAP item 10a); the
+same-host shared-memory plane with its map leases and ``unpin_object``
+(10b); the pipelined ``execute_task_batch`` with its fused and columnar
+routes, speculation, chaos sites, perf traces and the flight ring (10c):
+every task goes through ``execute_task``.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import os
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private.accelerators import CardLedger
+from ray_tpu_torch._private.ids import ObjectID
+from ray_tpu_torch._private.rpc import (
+    MuxRpcClient,
+    RpcClient,
+    RpcError,
+    RpcMethodError,
+    RpcServer,
+)
+
+logger = logging.getLogger("ray_tpu_torch")
+
+# The environment variable a daemon sets to its node's tag; its workers
+# and actors inherit it, so a task can tell where it ran.
+NODE_TAG_ENV = "RAY_TPU_TORCH_NODE_TAG"
+
+
+def _inline_reply_bytes() -> int:
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    return int(GLOBAL_CONFIG.executor_inline_reply_kb) * 1024
+
+
+def _fetch_chunk_bytes() -> int:
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    return int(GLOBAL_CONFIG.fetch_chunk_kb) * 1024
+
+
+def _pipeline_depth() -> int:
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    return max(1, int(GLOBAL_CONFIG.rpc_pipeline_depth))
+
+
+# An object of fewer chunks is pulled from its owner alone; a larger one
+# also from up to _CHUNK_FANOUT peers that pulled it.
+_MIN_P2P_CHUNKS = 4
+_CHUNK_FANOUT = 4
+# Pulled copies a node keeps.
+_PULL_CACHE_BYTES = 512 << 20
+# A node sweeps the results and actors of a driver whose endpoint stayed
+# unreachable for _OWNER_DEAD_GRACE_S, probing every _OWNER_SWEEP_S.
+_OWNER_SWEEP_S = 5.0
+_OWNER_DEAD_GRACE_S = 15.0
+
+
+@dataclass
+class FetchRef:
+    """An argument that lives in a node's store (or a driver's export
+    store): looked up locally or pulled in chunks from ``addr``."""
+
+    id_bytes: bytes
+    addr: str
+
+
+@dataclass
+class RemoteBlob:
+    """A driver store's placeholder for a result held on a node."""
+
+    node_hex: str
+    addr: str
+    size: int
+
+
+class NodeBusyError(Exception):
+    """The node refused the lease at admission (it is full); the driver
+    spills the task to another node."""
+
+
+class NodeOverloadedError(Exception):
+    """The node shed the lease (its admission cap or memory watermark):
+    a deadline-armed task fails fast instead of spilling."""
+
+
+class TaskDeadlineExpired(Exception):
+    """The node found the task's deadline already past and ran
+    nothing."""
+
+
+def _exc_blob(exc: BaseException) -> bytes:
+    import traceback
+
+    tb = "".join(traceback.format_exception(type(exc), exc,
+                                            exc.__traceback__))
+    try:
+        return serialization.serialize_framed((exc, tb))
+    except Exception:  # noqa: BLE001 — an exception that cannot be pickled
+        return serialization.serialize_framed(
+            (RuntimeError(f"{type(exc).__name__}: {exc}"), tb))
+
+
+# --------------------------------------------------------------------------
+# The node's objects
+# --------------------------------------------------------------------------
+
+
+class NodeObjectStore:
+    """A daemon's store of framed blobs: task and actor results (primary
+    copies, tagged with their owner, kept until the owner frees them or
+    dies) and copies pulled from peers (a cache, evicted oldest first).
+    """
+
+    def __init__(self, cache_limit_bytes: int = _PULL_CACHE_BYTES):
+        self._lock = threading.Lock()
+        self._blobs: dict[bytes, bytes] = {}
+        self._cached: dict[bytes, None] = {}  # pulled copies, FIFO
+        self._cache_limit = cache_limit_bytes
+        self._cache_bytes = 0
+        self._primary_bytes = 0
+        self._owner_of: dict[bytes, str] = {}
+        self._owned_ids: dict[str, set[bytes]] = {}
+        self.fetches_served = 0
+
+    def put(self, id_bytes: bytes, blob: bytes, cached: bool = False,
+            owner: str | None = None) -> None:
+        with self._lock:
+            self._forget_locked(id_bytes)
+            self._blobs[id_bytes] = blob
+            if cached:
+                self._cached[id_bytes] = None
+                self._cache_bytes += len(blob)
+                while self._cache_bytes > self._cache_limit \
+                        and len(self._cached) > 1:
+                    self._forget_locked(next(iter(self._cached)))
+                return
+            self._primary_bytes += len(blob)
+            if owner is not None:
+                self._owner_of[id_bytes] = owner
+                self._owned_ids.setdefault(owner, set()).add(id_bytes)
+
+    def get(self, id_bytes: bytes) -> bytes | None:
+        with self._lock:
+            return self._blobs.get(id_bytes)
+
+    def _forget_locked(self, id_bytes: bytes) -> bool:
+        blob = self._blobs.pop(id_bytes, None)
+        if blob is None:
+            return False
+        if id_bytes in self._cached:
+            del self._cached[id_bytes]
+            self._cache_bytes -= len(blob)
+        else:
+            self._primary_bytes -= len(blob)
+        owner = self._owner_of.pop(id_bytes, None)
+        if owner is not None:
+            ids = self._owned_ids.get(owner)
+            if ids is not None:
+                ids.discard(id_bytes)
+                if not ids:
+                    del self._owned_ids[owner]
+        return True
+
+    def free(self, ids: list[bytes]) -> int:
+        with self._lock:
+            return sum(1 for i in ids if self._forget_locked(i))
+
+    def free_owner(self, owner: str) -> int:
+        """Drop every primary copy a dead owner left here."""
+        with self._lock:
+            ids = list(self._owned_ids.get(owner, ()))
+            return sum(1 for i in ids if self._forget_locked(i))
+
+    def owners(self) -> list[str]:
+        with self._lock:
+            return list(self._owned_ids)
+
+    def size(self, id_bytes: bytes) -> int | None:
+        with self._lock:
+            blob = self._blobs.get(id_bytes)
+            return None if blob is None else len(blob)
+
+    def read_chunk(self, id_bytes: bytes, offset: int,
+                   length: int) -> tuple[int, bytes] | None:
+        with self._lock:
+            blob = self._blobs.get(id_bytes)
+            if blob is None:
+                return None
+            self.fetches_served += 1
+        return len(blob), blob[offset:offset + length]
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"num_blobs": len(self._blobs),
+                    "primary_bytes": self._primary_bytes,
+                    "cached_bytes": self._cache_bytes,
+                    "fetches_served": self.fetches_served,
+                    "owners": len(self._owned_ids)}
+
+
+class _PeerClients:
+    """One multiplexed client per peer: a node's concurrent chunk
+    fetches share one socket per pair."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._clients: dict[str, MuxRpcClient] = {}
+
+    def get(self, addr: str) -> MuxRpcClient:
+        with self._lock:
+            client = self._clients.get(addr)
+            if client is None:
+                client = self._clients[addr] = MuxRpcClient(
+                    addr, timeout_s=600.0)
+            return client
+
+    def close(self) -> None:
+        with self._lock:
+            clients, self._clients = list(self._clients.values()), {}
+        for client in clients:
+            client.close()
+
+
+def fetch_blob(client, id_bytes: bytes) -> bytes:
+    """Pull one object in ``fetch_chunk_kb`` chunks; on a multiplexed
+    client up to ``rpc_pipeline_depth`` chunk requests are in flight, so
+    the rate is not one round trip per chunk."""
+    chunk_bytes = _fetch_chunk_bytes()
+    first = client.call("fetch_object", id_bytes, 0, chunk_bytes)
+    if first is None:
+        raise KeyError(f"object {id_bytes.hex()} not present on "
+                       f"{client.address}")
+    total, chunk = first
+    if len(chunk) >= total:
+        return bytes(chunk)
+    buf = bytearray(total)
+    buf[:len(chunk)] = chunk
+    call_async = getattr(client, "call_async", None)
+    pending: collections.deque = collections.deque()
+    depth = _pipeline_depth() if call_async is not None else 1
+    next_off = len(chunk)
+    while next_off < total or pending:
+        while next_off < total and len(pending) < depth:
+            if call_async is not None:
+                pending.append((next_off, call_async(
+                    "fetch_object", id_bytes, next_off, chunk_bytes)))
+            else:
+                pending.append((next_off, client.call(
+                    "fetch_object", id_bytes, next_off, chunk_bytes)))
+            next_off += chunk_bytes
+        off, slot = pending.popleft()
+        reply = slot.result() if call_async is not None else slot
+        if reply is None:
+            raise KeyError(f"object {id_bytes.hex()} vanished from "
+                           f"{client.address}")
+        buf[off:off + len(reply[1])] = reply[1]
+    return bytes(buf)
+
+
+class ChunkDirectory:
+    """The holders of the objects a node (or a driver's export store)
+    owns: a puller registers when it starts and is handed the holders
+    before it, so later pullers spread their chunk requests over peers
+    instead of queueing on the owner."""
+
+    TTL_S = 180.0
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # id -> {holder address -> when it registered}
+        self._holders: dict[bytes, dict[str, float]] = {}
+
+    def register(self, id_bytes: bytes, addr: str | None) -> list[str]:
+        """Record ``addr`` as a (partial) holder; the other holders,
+        oldest first."""
+        now = time.monotonic()
+        with self._lock:
+            table = self._holders.setdefault(id_bytes, {})
+            for holder, seen in list(table.items()):
+                if now - seen > self.TTL_S:
+                    del table[holder]
+            others = [a for a in table if a != addr]
+            if addr:
+                table.setdefault(addr, now)
+            return others
+
+    def drop(self, ids: list[bytes]) -> None:
+        with self._lock:
+            for id_bytes in ids:
+                self._holders.pop(id_bytes, None)
+
+    def prune(self) -> None:
+        now = time.monotonic()
+        with self._lock:
+            for id_bytes in list(self._holders):
+                table = self._holders[id_bytes]
+                for holder, seen in list(table.items()):
+                    if now - seen > self.TTL_S:
+                        del table[holder]
+                if not table:
+                    del self._holders[id_bytes]
+
+
+def plan_holders(directory: ChunkDirectory, id_bytes: bytes,
+                 puller_addr: str | None, total: int) -> list[str]:
+    """The holder half of a fetch plan: only objects large enough for
+    pullers to take the peer path register them."""
+    chunk = _fetch_chunk_bytes()
+    n_chunks = -(-total // chunk) if total else 0
+    if n_chunks < _MIN_P2P_CHUNKS:
+        return []
+    return directory.register(id_bytes, puller_addr)
+
+
+class _PartialBlob:
+    """A pull in progress (or just finished) whose chunks are already
+    served to peers: a receiver relays what it has, so a broadcast scales
+    with its receivers and not with the owner's socket."""
+
+    __slots__ = ("total", "chunk", "buf", "have", "lock", "done", "error",
+                 "completed_at")
+
+    def __init__(self, total: int, chunk: int):
+        self.total = total
+        self.chunk = chunk
+        self.buf = bytearray(total)
+        self.have: set[int] = set()
+        self.lock = threading.Lock()
+        self.done = threading.Event()
+        self.error: BaseException | None = None
+        self.completed_at: float | None = None
+
+    def n_chunks(self) -> int:
+        return -(-self.total // self.chunk) if self.total else 0
+
+    def write(self, index: int, data) -> None:
+        off = index * self.chunk
+        with self.lock:
+            self.buf[off:off + len(data)] = data
+            self.have.add(index)
+
+    def read_chunk(self, offset: int, length: int):
+        """A range iff every chunk it covers is here, else None."""
+        if offset >= self.total:
+            return (self.total, b"")
+        end = min(offset + length, self.total)
+        first, last = offset // self.chunk, (end - 1) // self.chunk
+        with self.lock:
+            if any(i not in self.have for i in range(first, last + 1)):
+                return None
+            return (self.total, bytes(self.buf[offset:end]))
+
+    def finish(self) -> bytes:
+        with self.lock:
+            blob = bytes(self.buf)
+        self.completed_at = time.monotonic()
+        self.done.set()
+        return blob
+
+    def fail(self, exc: BaseException) -> None:
+        self.error = exc
+        self.done.set()
+
+
+# --------------------------------------------------------------------------
+# Actors on the node
+# --------------------------------------------------------------------------
+
+
+class _ActorNewError(Exception):
+    """The actor's constructor raised; carries the (exception,
+    traceback) blob from its process."""
+
+    def __init__(self, blob: bytes):
+        super().__init__("actor constructor failed")
+        self.blob = blob
+
+
+class _MuxPipe:
+    """Calls multiplexed over an actor process's pipe (``max_concurrency
+    > 1``): each carries an id, a reader thread matches the replies, and
+    up to ``max_concurrency`` run in the actor at once."""
+
+    def __init__(self, conn):
+        import queue
+
+        self._queue_mod = queue
+        self._conn = conn
+        self._send_lock = threading.Lock()
+        self._lock = threading.Lock()
+        self._pending: dict[int, Any] = {}
+        self._next_id = 0
+        self._closed = False
+        threading.Thread(target=self._reader, daemon=True,
+                         name="ray_tpu_torch-daemon-actor-mux").start()
+
+    def call(self, method: str, args_blob: bytes, n_returns: int) -> tuple:
+        from ray_tpu_torch.exceptions import WorkerCrashedError
+
+        slot = self._queue_mod.SimpleQueue()
+        with self._lock:
+            if self._closed:
+                raise WorkerCrashedError("actor process died")
+            self._next_id += 1
+            call_id = self._next_id
+            self._pending[call_id] = slot
+        try:
+            with self._send_lock:
+                self._conn.send(("actor_call", call_id, method, args_blob,
+                                 n_returns))
+        except (OSError, ValueError) as exc:
+            with self._lock:
+                self._pending.pop(call_id, None)
+            raise WorkerCrashedError(
+                f"actor pipe broken: {exc!r}") from exc
+        result = slot.get()
+        if result is None:
+            raise WorkerCrashedError(
+                "actor process died with the call in flight")
+        return result
+
+    def _reader(self) -> None:
+        while True:
+            try:
+                msg = self._conn.recv()
+            except (EOFError, OSError):
+                break
+            if msg[0] != "reply":
+                continue
+            _, call_id, status, payload = msg
+            with self._lock:
+                slot = self._pending.pop(call_id, None)
+            if slot is not None:
+                slot.put((status, payload))
+        with self._lock:
+            self._closed = True
+            stranded = list(self._pending.values())
+            self._pending.clear()
+        for slot in stranded:
+            slot.put(None)
+
+
+class _DaemonActor:
+    """An actor on this node: a worker process of its own, driven over
+    its pipe. ``gpu_ids``: the cards of its lease; such an actor boots a
+    fresh interpreter that sees only them (never a fork)."""
+
+    def __init__(self, cls_blob: bytes, args_blob: bytes,
+                 runtime_env: dict | None, max_concurrency: int,
+                 extra_env: dict | None, gpu_ids: list[int] | None,
+                 worker=None):
+        from ray_tpu_torch._private.worker_pool import PoolWorker
+
+        self.max_concurrency = max(1, int(max_concurrency or 1))
+        self.owner: str | None = None  # the creating driver's endpoint
+        self._worker = worker if worker is not None else PoolWorker(
+            -1, extra_env=extra_env, gpu_ids=gpu_ids)
+        self._mux = None
+        reply = self._worker.request(
+            ("actor_new", cls_blob, args_blob, runtime_env,
+             self.max_concurrency, {}))
+        if reply[0] == "err":
+            self._worker.stop()
+            raise _ActorNewError(reply[1])
+        if self.max_concurrency > 1:
+            self._mux = _MuxPipe(self._worker.conn)
+
+    @property
+    def pid(self) -> int:
+        return self._worker.proc.pid
+
+    def alive(self) -> bool:
+        return self._worker.alive()
+
+    def call(self, method: str, args_blob: bytes, n_returns: int) -> tuple:
+        """("ok", packed results) | ("err", blob); raises
+        WorkerCrashedError when the process dies."""
+        if self._mux is not None:
+            return self._mux.call(method, args_blob, n_returns)
+        return self._worker.request(
+            ("actor_call", method, args_blob, n_returns))
+
+    def kill(self) -> None:
+        self._worker.stop()
+
+
+# --------------------------------------------------------------------------
+# The service
+# --------------------------------------------------------------------------
+
+
+class NodeExecutorService:
+    """A daemon's execution plane: admission, the worker pool, the
+    actors, the object store and the RPC surface."""
+
+    # Pulled arguments kept in shared memory for pool tasks (FIFO).
+    _SHM_ARGS_MAX_BYTES = 2 << 30
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 pool_size: int | None = None,
+                 resources: dict[str, float] | None = None):
+        from ray_tpu_torch._private.shm_store import ShmClient, ShmDirectory
+        from ray_tpu_torch._private.worker_pool import WorkerPool
+
+        self._server = RpcServer(host, port)
+        self.store = NodeObjectStore()
+        self._peers = _PeerClients()
+        self._partials: dict[bytes, _PartialBlob] = {}
+        self._partials_lock = threading.Lock()
+        self.chunk_directory = ChunkDirectory()
+        self.advertised_address = self._server.address
+        self.chunked_pulls = 0
+        # Bytes pulled from peers and the seconds the pulls took.
+        self.pulled_bytes = 0
+        self.pull_seconds = 0.0
+        self.peer_blacklists = 0
+        self.relay_chunks_served = 0
+        self.task_timeouts = 0
+        self.admission_shed = 0
+        self._resources = {k: float(v) for k, v in
+                           (resources or {}).items()}
+        self.cards = CardLedger.for_count(self._resources.get("GPU", 0.0))
+        self._running_lock = threading.Lock()
+        # token -> (demand, card shares)
+        self._running: dict[str, tuple[dict, dict]] = {}
+        # token -> the CPU a task blocked in a nested get() gave back.
+        self._blocked_cpu: dict[str, float] = {}
+        self._func_cache: dict[str, Callable] = {}
+        self._func_lock = threading.Lock()
+        # need_func retries find their arguments here, by nonce.
+        self._stashed_args: dict[str, bytes] = {}
+        self._driver_sys_path: list[str] = []
+        self.tasks_executed = 0
+        self._cancel_lock = threading.Lock()
+        self._cancelled_tokens: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._load_listener: Callable[[], None] | None = None
+        self._actors: dict[bytes, _DaemonActor] = {}
+        self._actors_lock = threading.Lock()
+        # Keys whose constructor is running: a call declaring
+        # awaiting_create waits here instead of bouncing "gone".
+        self._actors_creating: set[bytes] = set()
+        self._actors_creating_cond = threading.Condition(self._actors_lock)
+        # Prestarted CPU actor processes, keyed by their spawn env.
+        self._standby: dict[tuple, list] = {}
+        self._standby_lock = threading.Lock()
+        self._standby_refilling: set[tuple] = set()
+        self._standby_target = 2
+        self._stop_event = threading.Event()
+        self._sweep_thread: threading.Thread | None = None
+        self._shm_args_lock = threading.Lock()
+        self._shm_args_order: collections.OrderedDict = \
+            collections.OrderedDict()
+        if pool_size is None:
+            pool_size = max(1, min(int(self._resources.get(
+                "CPU", os.cpu_count() or 1)), 16))
+        self._shm_directory = ShmDirectory()
+        self._shm_client = ShmClient()
+        self.pool = WorkerPool(pool_size, self._shm_directory,
+                               self._shm_client)
+
+        s = self._server
+        s.register("ping", lambda: "pong")
+        s.register("exec_ping", os.getpid)
+        # One multiplexed connection carries all of a driver's work in
+        # flight: the long-running methods run off its thread.
+        s.register("execute_task", self.execute_task, concurrent=True)
+        s.register("fetch_object", self.fetch_object, concurrent=True)
+        s.register("fetch_plan", self.fetch_plan, concurrent=True)
+        s.register("free_objects", self.free_objects)
+        s.register("executor_stats", self.executor_stats)
+        s.register("cancel_task", self.cancel_task)
+        s.register("task_block", self.task_block)
+        s.register("task_unblock", self.task_unblock)
+        s.register("adopt_sys_path", self.adopt_sys_path)
+        s.register("create_actor", self.create_actor, concurrent=True)
+        s.register("actor_call", self.actor_call, concurrent=True)
+        s.register("actor_kill", self.actor_kill)
+
+    @property
+    def port(self) -> int:
+        return self._server.port
+
+    def address_for(self, host: str) -> str:
+        return f"{host}:{self._server.port}"
+
+    def start(self) -> "NodeExecutorService":
+        self._server.start()
+        self._sweep_thread = threading.Thread(
+            target=self._owner_sweep_loop,
+            args=(_OWNER_SWEEP_S, _OWNER_DEAD_GRACE_S), daemon=True,
+            name="ray_tpu_torch-owner-sweep")
+        self._sweep_thread.start()
+        return self
+
+    def _owner_sweep_loop(self, period_s: float, grace_s: float) -> None:
+        """Owner-death collection: a driver whose endpoint stays
+        unreachable past the grace period has crashed, so its results
+        and its actors here go (they would pin the node forever).
+        Unreachable means every probe failed for the whole grace."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        fail_since: dict[str, float] = {}
+        while not self._stop_event.wait(period_s):
+            self._sweep_transfer_plane()
+            with self._actors_lock:
+                actor_owners = {a.owner for a in self._actors.values()
+                                if a.owner}
+            owners = set(self.store.owners()) | actor_owners
+            if not owners:
+                fail_since.clear()
+                continue
+
+            def probe(owner: str) -> bool:
+                client = RpcClient(owner, timeout_s=3.0,
+                                   connect_timeout_s=2.0)
+                try:
+                    return client.call("ping") == "pong"
+                except Exception:  # noqa: BLE001 — unreachable
+                    return False
+                finally:
+                    client.close()
+
+            with ThreadPoolExecutor(max_workers=min(8, len(owners))) as tpe:
+                results = dict(zip(owners, tpe.map(probe, owners)))
+            now = time.monotonic()
+            for owner, alive in results.items():
+                if alive:
+                    fail_since.pop(owner, None)
+                    continue
+                if now - fail_since.setdefault(owner, now) <= grace_s:
+                    continue
+                freed = self.store.free_owner(owner)
+                with self._actors_lock:
+                    dead_keys = [k for k, a in self._actors.items()
+                                 if a.owner == owner]
+                for key in dead_keys:
+                    self._reap_actor(key)
+                fail_since.pop(owner, None)
+                logger.warning("owner %s unreachable for %.0fs: swept %d "
+                               "objects and %d actors", owner, grace_s,
+                               freed, len(dead_keys))
+            for owner in [o for o in fail_since if o not in owners]:
+                del fail_since[owner]
+
+    def _sweep_transfer_plane(self) -> None:
+        """Drop finished relay copies past their TTL and stale holder
+        registrations."""
+        now = time.monotonic()
+        with self._partials_lock:
+            for key in [k for k, p in self._partials.items()
+                        if p.done.is_set() and (
+                            p.error is not None or p.completed_at is None
+                            or now - p.completed_at > ChunkDirectory.TTL_S)]:
+                del self._partials[key]
+        self.chunk_directory.prune()
+
+    def stop(self) -> None:
+        self._stop_event.set()
+        self._server.stop()
+        with self._actors_lock:
+            actors = list(self._actors.values())
+            self._actors.clear()
+        for actor in actors:
+            actor.kill()
+        with self._standby_lock:
+            standby = [w for pool in self._standby.values() for w in pool]
+            self._standby.clear()
+        for worker in standby:
+            worker.stop()
+        self.pool.shutdown()
+        self._peers.close()
+        self._shm_client.close_all()
+        self._shm_directory.shutdown()
+
+    # ------------------------------------------------------------ admission
+
+    def set_load_listener(self, listener: Callable[[], None]) -> None:
+        """``listener()`` runs whenever admission changes what is free
+        (the node agent pushes a heartbeat then)."""
+        self._load_listener = listener
+
+    def _notify_load(self) -> None:
+        listener = self._load_listener
+        if listener is not None:
+            try:
+                listener()
+            except Exception:  # noqa: BLE001 — the push is best-effort
+                pass
+
+    def _overload_reason(self) -> "str | None":
+        """Why admission sheds now: the reservation depth over
+        ``admission_max_queue_depth`` or host memory over
+        ``admission_memory_watermark`` (both 0: off)."""
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        cap = int(GLOBAL_CONFIG.admission_max_queue_depth or 0)
+        if cap > 0:
+            with self._running_lock:
+                depth = len(self._running)
+            if depth >= cap:
+                return f"admitted reservations at admission_max_queue_" \
+                       f"depth={cap}"
+        watermark = float(GLOBAL_CONFIG.admission_memory_watermark or 0)
+        if watermark > 0:
+            from ray_tpu_torch._private.memory_monitor import (
+                memory_watermark_exceeded,
+            )
+
+            if memory_watermark_exceeded(watermark):
+                return f"host memory over admission_memory_watermark=" \
+                       f"{watermark}"
+        return None
+
+    def _try_reserve(self, token: str, demand: dict) -> "dict | None":
+        """Reserve ``demand`` under ``token`` in the same lock pass as the
+        capacity check: the card shares of its ``GPU``, or None when it
+        does not fit."""
+        with self._running_lock:
+            for key, cap in self._resources.items():
+                used = sum(float(d.get(key, 0.0))
+                           for d, _ in self._running.values())
+                if used + float(demand.get(key, 0.0)) > cap + 1e-9:
+                    return None
+            if any(float(v) > 0 and k not in self._resources
+                   for k, v in demand.items()):
+                return None
+            shares = self.cards.pick(float(demand.get("GPU", 0.0)))
+            if shares is None:
+                return None
+            self.cards.take(shares)
+            self._running[token] = (dict(demand), shares)
+        self._notify_load()
+        return shares
+
+    def _release(self, token: str) -> None:
+        with self._running_lock:
+            entry = self._running.pop(token, None)
+            self._blocked_cpu.pop(token, None)
+            if entry is not None:
+                self.cards.give(entry[1])
+        self._notify_load()
+
+    def available_resources(self) -> dict[str, float]:
+        """Total minus what is reserved: the heartbeat's availability."""
+        avail = dict(self._resources)
+        with self._running_lock:
+            for demand, _ in self._running.values():
+                for key, value in demand.items():
+                    avail[key] = avail.get(key, 0.0) - value
+        return avail
+
+    def cancel_task(self, token: str) -> bool:
+        """Flag ``token``: an execution that has not reached its function
+        yet refuses with ("cancelled",)."""
+        with self._cancel_lock:
+            self._cancelled_tokens[token] = True
+            while len(self._cancelled_tokens) > 4096:
+                self._cancelled_tokens.popitem(last=False)
+        return True
+
+    def _token_cancelled(self, token: str | None) -> bool:
+        if token is None:
+            return False
+        with self._cancel_lock:
+            return self._cancelled_tokens.pop(token, None) is not None
+
+    def task_block(self, token: str) -> bool:
+        """A task here blocked in a nested get(): give its CPU back to
+        admission, so the work it waits for can land on this node."""
+        with self._running_lock:
+            entry = self._running.get(token)
+            if entry is None or token in self._blocked_cpu:
+                return False
+            demand, shares = entry
+            cpu = float(demand.get("CPU", 0.0))
+            if cpu <= 0:
+                return False
+            self._blocked_cpu[token] = cpu
+            self._running[token] = ({**demand, "CPU": 0.0}, shares)
+        self._notify_load()
+        return True
+
+    def task_unblock(self, token: str) -> bool:
+        """The blocked task resumed: take its CPU again (this may
+        overcommit for a moment; new work is still checked)."""
+        with self._running_lock:
+            cpu = self._blocked_cpu.pop(token, None)
+            entry = self._running.get(token)
+            if cpu is None or entry is None:
+                return False
+            demand, shares = entry
+            self._running[token] = (
+                {**demand, "CPU": demand.get("CPU", 0.0) + cpu}, shares)
+        self._notify_load()
+        return True
+
+    # ---------------------------------------------------------------- tasks
+
+    def execute_task(self, digest: str, func_blob: bytes | None,
+                     args_blob: bytes | None, n_returns: int,
+                     return_keys: list[bytes],
+                     runtime_env: dict | None = None,
+                     resources: dict | None = None,
+                     task_token: str | None = None,
+                     client_addr: str | None = None,
+                     args_ref: str | None = None,
+                     deadline: float | None = None) -> tuple:
+        """Run one task. Replies ("ok", [("inline", blob) | ("stored",
+        size) | ("err", blob) per return]), ("err", blob), ("busy",)
+        when it does not fit, ("overloaded", why) when admission sheds,
+        ("timeout", stage) when its deadline is past, ("cancelled",), or
+        ("need_func", nonce) when this node does not know the digest yet
+        (the arguments wait under the nonce, so the retry ships the
+        function alone)."""
+        demand = {k: float(v) for k, v in (resources or {}).items()}
+        demand.setdefault("CPU", 1.0)
+        token = task_token or f"exec-{digest[:8]}-{os.urandom(4).hex()}"
+        if args_blob is None and args_ref is not None:
+            with self._func_lock:
+                args_blob = self._stashed_args.pop(args_ref, None)
+            if args_blob is None:
+                return ("stale_args",)
+        if deadline is not None and time.time() > deadline:
+            self.task_timeouts += 1
+            return ("timeout", "admitted")
+        shed = self._overload_reason()
+        if shed is not None:
+            self.admission_shed += 1
+            return ("overloaded", shed)
+        shares = self._try_reserve(token, demand)
+        if shares is None:
+            return ("busy",)
+        try:
+            if self._token_cancelled(task_token):
+                return ("cancelled",)
+            with self._func_lock:
+                func = self._func_cache.get(digest)
+            if func is None:
+                if func_blob is None:
+                    return self._stash_args(args_blob)
+                try:
+                    func = serialization.loads_function(func_blob)
+                except BaseException as exc:  # noqa: BLE001 — to the driver
+                    return ("err", _exc_blob(exc))
+                with self._func_lock:
+                    self._func_cache[digest] = func
+            args, kwargs = serialization.deserialize_from_buffer(
+                memoryview(args_blob))
+            on_card = demand.get("GPU", 0.0) > 0
+            args, kwargs = self._resolve_fetch_args(args, kwargs,
+                                                    to_shm=not on_card)
+            from ray_tpu_torch._private.runtime_env_packaging import (
+                resolve_runtime_env,
+            )
+
+            values = self._run(func, digest, func_blob, args, kwargs,
+                               n_returns, resolve_runtime_env(runtime_env),
+                               on_card, shares, token, client_addr)
+        except BaseException as exc:  # noqa: BLE001 — shipped to the driver
+            return ("err", _exc_blob(exc))
+        finally:
+            self._release(token)
+        self.tasks_executed += 1
+        return ("ok", [self._reply_entry(key, value, client_addr)
+                       for key, value in zip(return_keys, values)])
+
+    def _stash_args(self, args_blob: bytes) -> tuple:
+        """Keep the arguments of a task whose function must be resent;
+        bounded by entries and bytes."""
+        nonce = os.urandom(8).hex()
+        with self._func_lock:
+            self._stashed_args[nonce] = args_blob
+            total = sum(len(b) for b in self._stashed_args.values())
+            while self._stashed_args and (len(self._stashed_args) > 256
+                                          or total > 256 * 1024 * 1024):
+                victim = next(iter(self._stashed_args))
+                total -= len(self._stashed_args.pop(victim))
+        return ("need_func", nonce)
+
+    def _reply_entry(self, id_bytes: bytes, value: Any,
+                     owner: str | None) -> tuple:
+        """One result in the reply: inline when small, else kept here and
+        pulled by whoever reads it."""
+        try:
+            blob = serialization.serialize_framed(value)
+        except BaseException as exc:  # noqa: BLE001 — this return failed
+            return ("err", _exc_blob(exc))
+        return self._blob_entry(id_bytes, blob, owner)
+
+    def _blob_entry(self, id_bytes: bytes, blob: bytes,
+                    owner: str | None) -> tuple:
+        if len(blob) <= _inline_reply_bytes():
+            return ("inline", blob)
+        self.store.put(id_bytes, blob, owner=owner)
+        return ("stored", len(blob))
+
+    def _run(self, func, digest: str, func_blob: bytes | None, args: tuple,
+             kwargs: dict, n_returns: int, runtime_env: dict | None,
+             on_card: bool, shares: dict, token: str,
+             client_addr: str | None) -> list:
+        if on_card:
+            # A GPU task runs in this process, on its dispatch thread, on
+            # the card its lease names; admission bounds how many.
+            import torch
+
+            if shares and torch.cuda.is_available() \
+                    and min(shares) < torch.cuda.device_count():
+                torch.cuda.set_device(min(shares))
+            if runtime_env:
+                logger.warning("a GPU task runs in the daemon's process: "
+                               "its runtime_env is ignored")
+            result = func(*args, **kwargs)
+            if n_returns == 0:
+                return []
+            if n_returns == 1:
+                return [result]
+            if not isinstance(result, (tuple, list)) \
+                    or len(result) != n_returns:
+                raise ValueError(f"task declared num_returns={n_returns} "
+                                 f"but returned {type(result).__name__}")
+            return list(result)
+        from ray_tpu_torch._private.worker_pool import _RemoteTaskError
+
+        args_blob = serialization.serialize_framed((args, kwargs))
+        if func_blob is None:
+            func_blob = serialization.dumps_function(func)
+        return_ids = [ObjectID() for _ in range(max(1, n_returns))]
+        with self._func_lock:
+            sys_path = list(self._driver_sys_path) or None
+        try:
+            pairs = self.pool.run_task_blobs(
+                digest, func_blob, args_blob, n_returns, return_ids,
+                runtime_env=runtime_env, task_token=token,
+                client_addr=client_addr, sys_path=sys_path)
+        except _RemoteTaskError as rte:
+            rte.cause.__ray_tpu_remote_tb__ = rte.remote_tb
+            raise rte.cause from None
+        finally:
+            # Results in segments were adopted into this node's directory
+            # and are copied out below: unlink them.
+            for rid in return_ids:
+                name = self._shm_directory.free(rid)
+                if name is not None:
+                    self._shm_client.close_segment(name)
+        return [value for _, value in pairs]
+
+    # -------------------------------------------------------------- objects
+
+    def fetch_object(self, id_bytes: bytes, offset: int, length: int):
+        reply = self.store.read_chunk(id_bytes, offset, length)
+        if reply is None:
+            # A pull in progress here may hold the chunks: relay them.
+            with self._partials_lock:
+                part = self._partials.get(id_bytes)
+            if part is None:
+                return None
+            reply = part.read_chunk(offset, length)
+            if reply is None:
+                return None
+            self.relay_chunks_served += 1
+        return reply
+
+    def fetch_plan(self, id_bytes: bytes, puller_addr: str | None = None):
+        """(total size, the other holders) for an object here, and the
+        puller registered as a holder; None when it is unknown here."""
+        total = self.store.size(id_bytes)
+        if total is None:
+            with self._partials_lock:
+                part = self._partials.get(id_bytes)
+            if part is None:
+                return None
+            total = part.total
+        return (total, plan_holders(self.chunk_directory, id_bytes,
+                                    puller_addr, total))
+
+    def free_objects(self, ids: list[bytes]) -> int:
+        self.chunk_directory.drop(ids)
+        with self._partials_lock:
+            for key in ids:
+                self._partials.pop(key, None)
+        for key in ids:
+            self._drop_shm_arg(key)
+        return self.store.free(ids)
+
+    def _resolve_fetch_args(self, args: tuple, kwargs: dict,
+                            to_shm: bool = False):
+        """Replace FetchRef arguments with their values, or (``to_shm``,
+        for a pool task) with shared-memory descriptors the worker maps:
+        the daemon does not deserialize and pickle again what it
+        pulled."""
+        from ray_tpu_torch._private.worker_pool import _ShmRef
+
+        def convert(a):
+            if not isinstance(a, FetchRef):
+                return a
+            if to_shm:
+                return _ShmRef(self._shm_fetch_blob(a))
+            return serialization.deserialize_from_buffer(
+                memoryview(self._blob_of(a)))
+
+        return (tuple(convert(a) for a in args),
+                {k: convert(v) for k, v in kwargs.items()})
+
+    def _blob_of(self, ref: FetchRef) -> bytes:
+        blob = self.store.get(ref.id_bytes)
+        if blob is None:
+            with self._partials_lock:
+                part = self._partials.get(ref.id_bytes)
+            if part is not None and part.done.is_set() \
+                    and part.error is None:
+                with part.lock:
+                    blob = bytes(part.buf)
+        if blob is None:
+            blob = self._fetch_remote(ref)
+        return blob
+
+    def _shm_fetch_blob(self, ref: FetchRef):
+        """The object in a segment of this node (written once, shared by
+        every task that takes it; FIFO-bounded)."""
+        from ray_tpu_torch._private.shm_store import ShmDescriptor
+
+        oid = ObjectID(ref.id_bytes)
+        with self._shm_args_lock:
+            desc = self._shm_directory.lookup(oid)
+            if desc is not None:
+                self._shm_args_order.move_to_end(ref.id_bytes)
+                return desc
+        blob = self._blob_of(ref)
+        from multiprocessing import shared_memory
+
+        seg = shared_memory.SharedMemory(create=True,
+                                         size=max(len(blob), 1))
+        seg.buf[:len(blob)] = blob
+        desc = ShmDescriptor(seg.name, len(blob))
+        evicted = []
+        with self._shm_args_lock:
+            winner = self._shm_directory.lookup(oid)
+            if winner is None:
+                self._shm_directory.register(oid, desc, seg)
+                self._shm_args_order[ref.id_bytes] = len(blob)
+                total = sum(self._shm_args_order.values())
+                while total > self._SHM_ARGS_MAX_BYTES \
+                        and len(self._shm_args_order) > 1:
+                    key, size = self._shm_args_order.popitem(last=False)
+                    total -= size
+                    evicted.append(key)
+        if winner is not None:
+            # A concurrent task wrote the same object first.
+            seg.unlink()
+            seg.close()
+            return winner
+        for key in evicted:
+            self._drop_shm_arg(key, locked_order=True)
+        return desc
+
+    def _drop_shm_arg(self, key: bytes, locked_order: bool = False) -> None:
+        with self._shm_args_lock:
+            if not locked_order:
+                self._shm_args_order.pop(key, None)
+        name = self._shm_directory.free(ObjectID(key))
+        if name is not None:
+            self._shm_client.close_segment(name)
+
+    def _fetch_remote(self, ref: FetchRef) -> bytes:
+        """Pull ``ref`` from the cluster: a small object from its owner
+        alone, a large one in chunks from the owner and every peer that
+        holds it, this node relaying its chunks meanwhile. One pull per
+        object: concurrent tasks that need it wait for the first."""
+        start = time.perf_counter()
+        blob = self._pull(ref)
+        with self._running_lock:
+            self.pulled_bytes += len(blob)
+            self.pull_seconds += time.perf_counter() - start
+        return blob
+
+    def _pull(self, ref: FetchRef) -> bytes:
+        from ray_tpu_torch._private.rpc import call_with_retry
+
+        owner = self._peers.get(ref.addr)
+        plan = call_with_retry(owner.call, "fetch_plan", ref.id_bytes,
+                               self.advertised_address, attempts=2,
+                               timeout_s=30.0)
+        chunk = _fetch_chunk_bytes()
+        n_chunks = -(-plan[0] // chunk) if plan is not None and plan[0] \
+            else 0
+        if plan is None or n_chunks < _MIN_P2P_CHUNKS:
+            self.chunked_pulls += 1
+            blob = fetch_blob(owner, ref.id_bytes)
+            self.store.put(ref.id_bytes, blob, cached=True)
+            return blob
+        total, holders = plan
+        with self._partials_lock:
+            part = self._partials.get(ref.id_bytes)
+            leader = part is None or (part.done.is_set()
+                                      and part.error is not None)
+            if leader:
+                part = self._partials[ref.id_bytes] = _PartialBlob(total,
+                                                                   chunk)
+        if not leader:
+            part.done.wait()
+            if part.error is None:
+                with part.lock:
+                    return bytes(part.buf)
+            blob = fetch_blob(owner, ref.id_bytes)
+            self.store.put(ref.id_bytes, blob, cached=True)
+            return blob
+        self.chunked_pulls += 1
+        try:
+            self._pull_chunks(ref, part, holders)
+        except BaseException as exc:  # noqa: BLE001 — release the waiters
+            with self._partials_lock:
+                if self._partials.get(ref.id_bytes) is part:
+                    del self._partials[ref.id_bytes]
+            part.fail(exc)
+            raise
+        blob = part.finish()
+        self.store.put(ref.id_bytes, blob, cached=True)
+        if self.store.size(ref.id_bytes) is not None:
+            # The cache serves it from here on.
+            with self._partials_lock:
+                if self._partials.get(ref.id_bytes) is part:
+                    del self._partials[ref.id_bytes]
+        return blob
+
+    def _pull_chunks(self, ref: FetchRef, part: _PartialBlob,
+                     holders: list[str]) -> None:
+        """A sliding window of chunk requests over the owner and its
+        peers. Chunk order starts at a point that hashes this node's
+        address, so concurrent receivers begin in different regions and
+        exchange the rest; a chunk goes to the peer that began its region
+        first, and a miss goes back to the owner without stalling the
+        window. A peer whose transport fails is blacklisted for the rest
+        of the pull; a dead owner is replaced by any holder that answers
+        with the whole object."""
+        import zlib
+
+        owner_addr = ref.addr
+        fanout = _CHUNK_FANOUT
+        n_chunks = part.n_chunks()
+        my_addr = self.advertised_address
+        dead: set[str] = set()
+        known_holders = [a for a in holders if a and a != my_addr]
+
+        def peer_starts(addrs: list[str]) -> dict[str, int]:
+            return {a: zlib.crc32(a.encode()) % n_chunks
+                    for a in dict.fromkeys(addrs)
+                    if a and a != my_addr and a not in dead}
+
+        starts = peer_starts(holders[:fanout])
+        start = zlib.crc32(my_addr.encode()) % n_chunks
+        order = list(range(start, n_chunks)) + list(range(start))
+        depth = _pipeline_depth()
+        pending: collections.deque = collections.deque()
+
+        def pick_source(idx: int) -> str:
+            best, bestd = owner_addr, n_chunks // 2
+            for src, s in starts.items():
+                d = (idx - s) % n_chunks
+                if d < bestd:
+                    best, bestd = src, d
+            return best
+
+        def blacklist(src: str) -> None:
+            if src not in dead:
+                dead.add(src)
+                starts.pop(src, None)
+                self.peer_blacklists += 1
+
+        def replan_owner() -> str | None:
+            for addr in dict.fromkeys(list(starts) + known_holders):
+                if addr in dead or addr == my_addr:
+                    continue
+                try:
+                    client = self._peers.get(addr)
+                    plan = client.call("fetch_plan", ref.id_bytes, my_addr,
+                                       timeout_s=5.0)
+                    if plan is not None and plan[0] == part.total \
+                            and client.call("fetch_object", ref.id_bytes,
+                                            0, 1, timeout_s=5.0) is not None:
+                        return addr
+                except (RpcError, RpcMethodError, OSError):
+                    blacklist(addr)
+            return None
+
+        def fail_over(src: str) -> None:
+            nonlocal owner_addr
+            blacklist(src)
+            if src == owner_addr:
+                survivor = replan_owner()
+                if survivor is None:
+                    raise KeyError(
+                        f"object {ref.id_bytes.hex()}: owner {owner_addr} "
+                        f"died and no surviving holder has a whole copy")
+                owner_addr = survivor
+
+        def issue(idx: int, src: str, attempts: int) -> None:
+            length = min(part.chunk, part.total - idx * part.chunk)
+            while True:
+                try:
+                    slot = self._peers.get(src).call_async(
+                        "fetch_object", ref.id_bytes, idx * part.chunk,
+                        length)
+                except (RpcError, OSError):
+                    fail_over(src)
+                    attempts += 1
+                    if attempts > 3:
+                        raise KeyError(f"object {ref.id_bytes.hex()} is "
+                                       f"unreachable on every source")
+                    src = owner_addr
+                    continue
+                pending.append((idx, src, slot, attempts))
+                return
+
+        it = iter(order)
+        exhausted = False
+        completed = 0
+        while pending or not exhausted:
+            while not exhausted and len(pending) < depth:
+                idx = next(it, None)
+                if idx is None:
+                    exhausted = True
+                    break
+                issue(idx, pick_source(idx), 0)
+            if not pending:
+                continue
+            idx, src, slot, attempts = pending.popleft()
+            transport_dead = False
+            try:
+                reply = slot.result()
+            except (RpcError, RpcMethodError):
+                reply, transport_dead = None, True
+            if reply is None:
+                if transport_dead:
+                    fail_over(src)
+                if attempts >= 3:
+                    raise KeyError(f"object {ref.id_bytes.hex()} not "
+                                   f"present on {owner_addr}")
+                issue(idx, owner_addr, attempts + 1)
+                continue
+            part.write(idx, reply[1])
+            completed += 1
+            if completed % 64 == 0:
+                # Pullers that registered after the plan are fresh relay
+                # sources.
+                try:
+                    plan = self._peers.get(owner_addr).call(
+                        "fetch_plan", ref.id_bytes, my_addr)
+                    if plan is not None:
+                        starts = peer_starts(plan[1][:fanout])
+                except (RpcError, RpcMethodError, OSError):
+                    pass
+
+    # ---------------------------------------------------------- bookkeeping
+
+    def adopt_sys_path(self, paths: list) -> int:
+        """Take a driver's import paths (the directories that exist
+        here), so what it pickled by reference imports here and in this
+        node's workers."""
+        import sys
+
+        added = 0
+        for path in paths:
+            if path and path not in sys.path and os.path.isdir(path):
+                sys.path.append(path)
+                added += 1
+        with self._func_lock:
+            merged = list(self._driver_sys_path)
+            merged += [p for p in paths
+                       if p and p not in merged and os.path.isdir(p)]
+            self._driver_sys_path = merged
+        return added
+
+    def executor_stats(self) -> dict:
+        import threading as _threading
+
+        from ray_tpu_torch._private.rpc import breaker_stats, rpc_retry_count
+
+        with self._running_lock:
+            running = len(self._running)
+        with self._actors_lock:
+            num_actors = len(self._actors)
+        return {"tasks_executed": self.tasks_executed, "running": running,
+                "store": self.store.stats(), "num_actors": num_actors,
+                "pid": os.getpid(), "chunked_pulls": self.chunked_pulls,
+                "pulled_bytes": self.pulled_bytes,
+                "pull_seconds": self.pull_seconds,
+                "available": self.available_resources(),
+                "relay_chunks_served": self.relay_chunks_served,
+                "faults": {"rpc_retries": rpc_retry_count(),
+                           "peer_blacklists": self.peer_blacklists,
+                           "task_timeouts": self.task_timeouts,
+                           "admission_shed": self.admission_shed,
+                           "breaker_open": breaker_stats()["opens"]},
+                "threads": _threading.active_count()}
+
+    def stats_for_sync(self) -> dict:
+        """The heartbeat's stats: cheap counters only."""
+        with self._running_lock:
+            running = len(self._running)
+            depth = max(0, running - len(self._blocked_cpu))
+        return {"tasks_executed": self.tasks_executed, "running": running,
+                "depth": depth, "stats_ts": time.time(),
+                "chunked_pulls": self.chunked_pulls}
+
+    # --------------------------------------------------------------- actors
+
+    def create_actor(self, actor_key: bytes, cls_blob: bytes,
+                     args_blob: bytes, runtime_env: dict | None = None,
+                     max_concurrency: int = 1,
+                     resources: dict | None = None,
+                     client_addr: str | None = None,
+                     sys_path: list | None = None) -> tuple:
+        """Host an actor: reserve its resources for its life, start its
+        process and run its constructor there. Replies ("ok", pid),
+        ("busy",) or ("err", blob)."""
+        if sys_path:
+            self.adopt_sys_path(sys_path)
+        with self._actors_creating_cond:
+            self._actors_creating.add(actor_key)
+        try:
+            return self._create_actor_gated(
+                actor_key, cls_blob, args_blob, runtime_env,
+                max_concurrency, resources, client_addr)
+        finally:
+            with self._actors_creating_cond:
+                self._actors_creating.discard(actor_key)
+                self._actors_creating_cond.notify_all()
+
+    def _create_actor_gated(self, actor_key: bytes, cls_blob: bytes,
+                            args_blob: bytes, runtime_env: dict | None,
+                            max_concurrency: int, resources: dict | None,
+                            client_addr: str | None) -> tuple:
+        from ray_tpu_torch._private import worker_client
+        from ray_tpu_torch._private.runtime_env_packaging import (
+            resolve_runtime_env,
+        )
+
+        with self._actors_lock:
+            existing = self._actors.get(actor_key)
+        if existing is not None:
+            if existing.alive():
+                return ("ok", existing.pid)  # a retried request
+            self._reap_actor(actor_key)
+        demand = {k: float(v) for k, v in (resources or {}).items()}
+        token = "actor-" + actor_key.hex()
+        shares = self._try_reserve(token, demand)
+        if shares is None:
+            return ("busy",)
+        try:
+            args, kwargs = serialization.deserialize_from_buffer(
+                memoryview(args_blob))
+            args, kwargs = self._resolve_fetch_args(args, kwargs,
+                                                    to_shm=True)
+            init_blob = serialization.serialize_framed((args, kwargs))
+            extra_env = {}
+            if client_addr:
+                extra_env[worker_client.ADDRESS_ENV] = client_addr
+            gpu_ids = sorted(shares)
+            worker = None if gpu_ids else self._take_standby(extra_env)
+            actor = _DaemonActor(cls_blob, init_blob,
+                                 resolve_runtime_env(runtime_env),
+                                 max_concurrency, extra_env, gpu_ids,
+                                 worker=worker)
+        except _ActorNewError as exc:
+            self._release(token)
+            return ("err", exc.blob)
+        except BaseException as exc:  # noqa: BLE001 — shipped to the driver
+            self._release(token)
+            return ("err", _exc_blob(exc))
+        actor.owner = client_addr
+        with self._actors_lock:
+            self._actors[actor_key] = actor
+        return ("ok", actor.pid)
+
+    def actor_call(self, actor_key: bytes, method: str, args_blob: bytes,
+                   n_returns: int, return_keys: list[bytes],
+                   awaiting_create: bool = False) -> tuple:
+        """Call a method of an actor here. Replies ("ok", results) in the
+        execute_task shape, ("err", blob) when the method raised,
+        ("dead", blob) when the actor's process died, or ("gone",) when
+        this node does not host it. ``awaiting_create``: the call was
+        sent right behind its create_actor, so it waits for the
+        constructor instead of bouncing."""
+        from ray_tpu_torch._private.worker_pool import (
+            _WorkerUnavailable,
+            unpack_result,
+        )
+        from ray_tpu_torch.exceptions import WorkerCrashedError
+
+        with self._actors_lock:
+            actor = self._actors.get(actor_key)
+        if actor is None and awaiting_create:
+            actor = self._await_actor(actor_key)
+        if actor is None:
+            return ("gone",)
+        try:
+            args, kwargs = serialization.deserialize_from_buffer(
+                memoryview(args_blob))
+            args, kwargs = self._resolve_fetch_args(args, kwargs,
+                                                    to_shm=True)
+            status, payload = actor.call(
+                method, serialization.serialize_framed((args, kwargs)),
+                max(1, n_returns))
+        except (WorkerCrashedError, _WorkerUnavailable) as exc:
+            self._reap_actor(actor_key)
+            return ("dead", _exc_blob(exc))
+        except BaseException as exc:  # noqa: BLE001 — shipped to the driver
+            return ("err", _exc_blob(exc))
+        if status == "err":
+            return ("err", payload)
+        out = []
+        for id_bytes, packed in zip(return_keys, payload):
+            if packed[0] == "inline":
+                out.append(self._blob_entry(id_bytes, packed[1],
+                                            actor.owner))
+            elif packed[0] == "shm":
+                rid = ObjectID(id_bytes)
+                try:
+                    value = unpack_result(packed, rid, self._shm_directory,
+                                          self._shm_client)
+                    out.append(self._reply_entry(id_bytes, value,
+                                                 actor.owner))
+                finally:
+                    name = self._shm_directory.free(rid)
+                    if name is not None:
+                        self._shm_client.close_segment(name)
+            else:
+                out.append(packed)  # ("err", blob): this return failed
+        return ("ok", out)
+
+    def _await_actor(self, actor_key: bytes, grace_s: float = 10.0,
+                     create_timeout_s: float = 600.0):
+        """Wait for the key's creation in flight (a short grace covers a
+        call that overtook its create frame)."""
+        grace_deadline = time.monotonic() + grace_s
+        deadline = time.monotonic() + create_timeout_s
+        seen_creating = False
+        with self._actors_creating_cond:
+            while True:
+                actor = self._actors.get(actor_key)
+                if actor is not None:
+                    return actor
+                now = time.monotonic()
+                if actor_key in self._actors_creating:
+                    seen_creating = True
+                    if now > deadline:
+                        return None
+                    self._actors_creating_cond.wait(min(1.0,
+                                                        deadline - now))
+                elif seen_creating or now > grace_deadline:
+                    return None
+                else:
+                    self._actors_creating_cond.wait(0.05)
+
+    def _take_standby(self, extra_env: dict):
+        """A prestarted live CPU actor process for this env (None on a
+        miss); a refill starts either way."""
+        key = tuple(sorted(extra_env.items()))
+        worker = None
+        with self._standby_lock:
+            pool = self._standby.get(key, [])
+            while pool:
+                candidate = pool.pop()
+                if candidate.alive():
+                    worker = candidate
+                    break
+                candidate.stop()
+        self._refill_standby(key)
+        return worker
+
+    def _refill_standby(self, key: tuple) -> None:
+        with self._standby_lock:
+            if key in self._standby_refilling:
+                return
+            self._standby_refilling.add(key)
+
+        def refill():
+            from ray_tpu_torch._private.worker_pool import PoolWorker
+
+            try:
+                while not self._stop_event.is_set():
+                    with self._standby_lock:
+                        if len(self._standby.get(key, [])) \
+                                >= self._standby_target:
+                            return
+                    try:
+                        worker = PoolWorker(-1, extra_env=dict(key))
+                    except Exception:  # noqa: BLE001 — the next take spawns
+                        return
+                    with self._standby_lock:
+                        if self._stop_event.is_set():
+                            stale = worker
+                        else:
+                            self._standby.setdefault(key, []).append(worker)
+                            stale = None
+                    if stale is not None:
+                        stale.stop()
+                        return
+            finally:
+                with self._standby_lock:
+                    self._standby_refilling.discard(key)
+
+        threading.Thread(target=refill, daemon=True,
+                         name="ray_tpu_torch-actor-standby").start()
+
+    def actor_kill(self, actor_key: bytes) -> bool:
+        return self._reap_actor(actor_key)
+
+    def _reap_actor(self, actor_key: bytes) -> bool:
+        with self._actors_lock:
+            actor = self._actors.pop(actor_key, None)
+        if actor is not None:
+            actor.kill()
+        self._release("actor-" + actor_key.hex())
+        return actor is not None
+
+
+# --------------------------------------------------------------------------
+# The driver's side
+# --------------------------------------------------------------------------
+
+
+class RemoteNodeHandle:
+    """A driver's handle to one node's executor. All task and actor
+    traffic shares one multiplexed connection (``pool``); control calls
+    go on a short-timeout client, so a ping to a dead node fails
+    fast."""
+
+    def __init__(self, node_id, address: str):
+        self.node_id = node_id
+        self.address = address
+        self.pool = MuxRpcClient(address, timeout_s=24 * 3600.0)
+        self._control = RpcClient(address, timeout_s=5.0,
+                                  connect_timeout_s=2.0)
+        self._digest_lock = threading.Lock()
+        self.known_digests: set[str] = set()
+        self._sys_path_sent = False
+
+    def ping(self) -> bool:
+        try:
+            return self._control.call("ping") == "pong"
+        except (RpcError, RpcMethodError, OSError):
+            return False
+
+    def ensure_sys_path(self) -> None:
+        """Hand the node this driver's import paths once."""
+        if self._sys_path_sent:
+            return
+        import sys
+
+        try:
+            self._control.call("adopt_sys_path", [p for p in sys.path if p])
+            self._sys_path_sent = True
+        except (RpcError, RpcMethodError, OSError):
+            pass  # retried at the next execute
+
+    def execute(self, digest: str, func_blob: bytes, args_blob: bytes,
+                n_returns: int, return_keys: list[bytes],
+                runtime_env: dict | None, resources: dict[str, float],
+                task_token: str | None = None,
+                client_addr: str | None = None,
+                deadline: float | None = None) -> list:
+        """Lease, push and wait for the reply; the function crosses only
+        the first time this node meets its digest. Returns the result
+        entries. Raises NodeBusyError, NodeOverloadedError or
+        TaskDeadlineExpired when the node refused the lease, and the
+        task's own exception when it raised."""
+        self.ensure_sys_path()
+        with self._digest_lock:
+            known = digest in self.known_digests
+        extra = {} if deadline is None else {"deadline": deadline}
+        reply = self.pool.call(
+            "execute_task", digest, None if known else func_blob,
+            args_blob, n_returns, return_keys, runtime_env, resources,
+            task_token, client_addr, **extra)
+        if reply[0] == "need_func":
+            # The node lost the function (it restarted): send it alone,
+            # the node kept the arguments under the nonce.
+            reply = self.pool.call(
+                "execute_task", digest, func_blob, None, n_returns,
+                return_keys, runtime_env, resources, task_token,
+                client_addr, reply[1], **extra)
+            if reply[0] == "stale_args":
+                reply = self.pool.call(
+                    "execute_task", digest, func_blob, args_blob,
+                    n_returns, return_keys, runtime_env, resources,
+                    task_token, client_addr, **extra)
+        if reply[0] == "busy":
+            raise NodeBusyError(self.address)
+        if reply[0] == "overloaded":
+            raise NodeOverloadedError(reply[1])
+        if reply[0] == "timeout":
+            raise TaskDeadlineExpired(reply[1])
+        if reply[0] == "cancelled":
+            from ray_tpu_torch.exceptions import TaskCancelledError
+
+            raise TaskCancelledError()
+        with self._digest_lock:
+            self.known_digests.add(digest)
+        if reply[0] == "err":
+            exc, tb = serialization.deserialize_from_buffer(
+                memoryview(reply[1]))
+            exc.__ray_tpu_remote_tb__ = tb
+            raise exc
+        return reply[1]
+
+    def fetch(self, id_bytes: bytes) -> bytes:
+        return fetch_blob(self.pool, id_bytes)
+
+    def free(self, ids: list[bytes]) -> None:
+        self._control.call("free_objects", ids)
+
+    def close(self) -> None:
+        self._control.close()
+        self.pool.close()

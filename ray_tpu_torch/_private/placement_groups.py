@@ -259,3 +259,14 @@ class PlacementGroupManager:
 
     def list(self) -> list[PlacementGroupRecord]:
         return self._gcs.list_placement_groups()
+
+    def snapshot(self) -> list[dict]:
+        """Every group as plain data (the head's mirror of them)."""
+        return [{"pg_id": rec.pg_id.hex(), "state": rec.state,
+                 "strategy": rec.strategy,
+                 "bundles": [{"bundle_index": b.bundle_index,
+                              "resources": dict(b.resources),
+                              "node_id": b.node_id.hex() if b.node_id
+                              else None}
+                             for b in rec.bundles]}
+                for rec in self.list()]

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import logging
 import threading
-import time
 from collections import OrderedDict
 from typing import Callable
 
@@ -153,8 +152,11 @@ class NodeHealthMonitor:
 
     The beater heartbeats every live node every half period, except the
     suppressed ones (``kill_node``); the checker calls ``on_node_dead``
-    once for a node silent for more than ``failure_threshold`` periods,
-    the detect-then-broadcast flow of the reference's health checks."""
+    once for a node whose heartbeat did not move in ``failure_threshold``
+    checks in a row, the detect-then-broadcast flow of the reference's
+    health checks. Misses are counted in checks, not in seconds: a stall
+    of this process (a long hold of the GIL, a loaded host) delays the
+    checks as much as the beats, and is not taken for a death."""
 
     def __init__(self, gcs, period_s: float, failure_threshold: int,
                  on_node_dead: Callable[[NodeID], None]):
@@ -189,13 +191,18 @@ class NodeHealthMonitor:
                     self._gcs.heartbeat(record.node_id)
 
     def _check_loop(self) -> None:
+        # node -> (its heartbeat at the last check, checks it has not
+        # moved in)
+        seen: dict[NodeID, tuple[float, int]] = {}
         while not self._stop.wait(self._period):
-            now = time.monotonic()
             for record in self._gcs.list_nodes():
                 if not record.alive:
+                    seen.pop(record.node_id, None)
                     continue
-                if now - record.last_heartbeat \
-                        <= self._period * self._threshold:
+                beat, misses = seen.get(record.node_id, (None, 0))
+                misses = misses + 1 if record.last_heartbeat == beat else 0
+                seen[record.node_id] = (record.last_heartbeat, misses)
+                if misses < self._threshold:
                     continue
                 with self._lock:
                     if record.node_id in self._reported:

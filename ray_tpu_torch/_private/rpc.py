@@ -1,13 +1,15 @@
 """A small request/response RPC layer over TCP.
 
-The port of the part of ``ray_tpu/_private/rpc.py`` that the client
-server and the worker-side runtime use: the frame helpers, ``RpcServer``
-(registered callables, long-running ones dispatched off the connection's
-thread with out-of-order replies) and ``MuxRpcClient`` (one connection
-carrying many calls in flight). Not ported: ``RpcClient`` (one call at a
-time), which neither uses, and the retry and circuit-breaker helpers of
-the reference's cross-machine clients: here both ends share one host,
-and a failed call fails.
+The port of ``ray_tpu/_private/rpc.py``: the frame helpers,
+``RpcServer`` (registered callables, long-running ones dispatched off
+the connection's thread with out-of-order replies), ``MuxRpcClient``
+(one connection carrying many calls in flight), ``RpcClient`` (one call
+at a time, with one transparent reconnect before the request is sent),
+and the retry policy the node layer's idempotent control calls share:
+``classify_rpc_failure``, ``call_with_retry`` and its per-destination
+circuit breaker. Not ported: the coalesced batch frames, the streaming
+replies and the tail payloads of the reference's fast paths (ROADMAP
+item 10c).
 
 A frame is a little-endian uint64 length and a pickle of
 ``(seq, method, args, kwargs)`` (request) or ``(seq, status, value)``
@@ -19,9 +21,11 @@ from __future__ import annotations
 import concurrent.futures
 import itertools
 import pickle
+import select
 import socket
 import struct
 import threading
+import time
 import traceback
 from typing import Any, Callable
 
@@ -30,7 +34,16 @@ MAX_FRAME = 1 << 34
 
 
 class RpcError(Exception):
-    """The call could not be completed (connection lost, timeout)."""
+    """The call could not be completed (connection lost, timeout).
+    ``maybe_executed``: the request was sent, so the method may have
+    run."""
+
+    def __init__(self, message: str = "", maybe_executed: bool = False):
+        super().__init__(message)
+        self.maybe_executed = maybe_executed
+
+    def __reduce__(self):
+        return (RpcError, (str(self), self.maybe_executed))
 
 
 class RpcMethodError(Exception):
@@ -258,7 +271,15 @@ class MuxRpcClient:
         for fut in pending.values():
             fut.set_exception(error)
 
-    def call(self, method: str, *args, **kwargs) -> Any:
+    def call(self, method: str, *args, timeout_s: float | None = None,
+             **kwargs) -> Any:
+        """One call; ``timeout_s`` (not sent) overrides the client's."""
+        return self.call_async(method, *args, **kwargs).result(
+            self.timeout_s if timeout_s is None else timeout_s)
+
+    def call_async(self, method: str, *args, **kwargs) -> "_Slot":
+        """Send one call and return its slot at once: ``result()`` waits
+        for the reply (a chunked pull keeps several in flight)."""
         payload_seq = next(self._seq)
         payload = pickle.dumps((payload_seq, method, args, kwargs),
                                protocol=5)
@@ -272,14 +293,18 @@ class MuxRpcClient:
                 self._pending.pop(payload_seq, None)
                 raise RpcError(f"send to {self.address} failed: "
                                f"{exc!r}") from exc
+        return _Slot(self, payload_seq, method, fut)
+
+    def num_connections(self) -> int:
+        """Sockets open: one at most, whatever the calls in flight."""
+        with self._lock:
+            return int(self._sock is not None)
+
+    def ping(self) -> bool:
         try:
-            status, value = fut.result(timeout=self.timeout_s)
-        except concurrent.futures.TimeoutError:
-            with self._lock:
-                self._pending.pop(payload_seq, None)
-            raise RpcError(f"rpc {method} timed out after "
-                           f"{self.timeout_s}s") from None
-        return _unpack_reply(status, value)
+            return self.call("ping", timeout_s=5.0) == "pong"
+        except (RpcError, RpcMethodError, OSError):
+            return False
 
     def close(self) -> None:
         with self._lock:
@@ -291,3 +316,281 @@ class MuxRpcClient:
                 sock.close()
             except OSError:
                 pass
+
+
+class _Slot:
+    """The pending reply of one ``MuxRpcClient.call_async``."""
+
+    __slots__ = ("_client", "_seq", "_method", "_fut")
+
+    def __init__(self, client: MuxRpcClient, seq: int, method: str,
+                 fut: concurrent.futures.Future):
+        self._client = client
+        self._seq = seq
+        self._method = method
+        self._fut = fut
+
+    def result(self, timeout_s: float | None = None) -> Any:
+        timeout_s = self._client.timeout_s if timeout_s is None \
+            else timeout_s
+        try:
+            status, value = self._fut.result(timeout=timeout_s)
+        except concurrent.futures.TimeoutError:
+            with self._client._lock:
+                self._client._pending.pop(self._seq, None)
+            raise RpcError(f"rpc {self._method} timed out after "
+                           f"{timeout_s}s", maybe_executed=True) from None
+        except RpcError as exc:
+            # The connection dropped with the request sent.
+            raise RpcError(str(exc), maybe_executed=True) from None
+        return _unpack_reply(status, value)
+
+
+class RpcClient:
+    """One connection; calls are serialized (seq-matched replies). A call
+    whose socket turns out dead before the request was sent reconnects
+    once; after the send, a failure raises with ``maybe_executed``."""
+
+    def __init__(self, address: str, timeout_s: float = 30.0,
+                 connect_timeout_s: float | None = None):
+        host, port = _parse_address(address)
+        self._addr = (host or "127.0.0.1", port)
+        self.address = f"{self._addr[0]}:{self._addr[1]}"
+        self._timeout = timeout_s
+        # A long read timeout (a blocking task) must not make connecting
+        # to a dead host block as long.
+        self._connect_timeout = (connect_timeout_s
+                                 if connect_timeout_s is not None
+                                 else min(timeout_s, 10.0))
+        self._lock = threading.Lock()
+        self._sock: socket.socket | None = None
+        self._seq = 0
+
+    def _connect(self) -> socket.socket:
+        sock = socket.create_connection(self._addr,
+                                        timeout=self._connect_timeout)
+        sock.settimeout(self._timeout)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        return sock
+
+    @staticmethod
+    def _stale(sock: socket.socket) -> bool:
+        """An idle socket that reads as ready has a pending EOF or reset:
+        no reply is outstanding, so the peer closed it."""
+        try:
+            readable, _, _ = select.select([sock], [], [], 0)
+            return bool(readable)
+        except (OSError, ValueError):
+            return True
+
+    def _drop_sock(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass  # replaced below either way
+            self._sock = None
+
+    def call(self, method: str, *args, **kwargs) -> Any:
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+            request = pickle.dumps((seq, method, args, kwargs), protocol=5)
+            last_exc: Exception | None = None
+            for _ in range(2):  # one transparent reconnect
+                sent = False
+                try:
+                    if self._sock is not None and self._stale(self._sock):
+                        self._drop_sock()
+                    if self._sock is None:
+                        self._sock = self._connect()
+                    _send_frame(self._sock, request)
+                    sent = True
+                    rseq, status, payload = pickle.loads(
+                        _recv_frame(self._sock))
+                    if rseq != seq:
+                        raise RpcError(f"out-of-order reply: {rseq} != "
+                                       f"{seq}")
+                    break
+                except (OSError, RpcError, EOFError) as exc:
+                    last_exc = exc
+                    self._drop_sock()
+                    if sent:
+                        raise RpcError(
+                            f"rpc {method} to {self.address} failed after "
+                            f"send (may have executed): {exc}",
+                            maybe_executed=True) from exc
+            else:
+                raise RpcError(f"rpc to {self.address} failed: "
+                               f"{last_exc}") from last_exc
+        return _unpack_reply(status, payload)
+
+    def ping(self) -> bool:
+        try:
+            return self.call("ping") == "pong"
+        except (RpcError, RpcMethodError):
+            return False
+
+    def close(self) -> None:
+        with self._lock:
+            self._drop_sock()
+
+
+# --------------------------------------------------------------------------
+# The retry policy of idempotent control calls
+# --------------------------------------------------------------------------
+
+
+def classify_rpc_failure(exc: BaseException) -> str:
+    """How a failed call may be retried:
+
+    - ``"retryable"``: the request never reached the server;
+    - ``"maybe_executed"``: it was (or may have been) sent, so only an
+      idempotent caller retries;
+    - ``"poisoned"``: the remote method raised, and retrying re-raises.
+    """
+    if isinstance(exc, RpcMethodError):
+        return "poisoned"
+    if isinstance(exc, RpcError):
+        return "maybe_executed" if exc.maybe_executed else "retryable"
+    # Bare socket errors come from connecting only.
+    return "retryable" if isinstance(exc, OSError) else "poisoned"
+
+
+_FAULTS_LOCK = threading.Lock()
+_RPC_RETRIES = 0
+
+# The retry policy's defaults (the reference's), and the breaker's: it
+# opens after BREAKER_FAILURES failed logical calls in a row and admits
+# a probe every BREAKER_RESET_S.
+RETRY_ATTEMPTS = 3
+RETRY_BASE_S = 0.05
+RETRY_DEADLINE_S = 15.0
+BREAKER_FAILURES = 5
+BREAKER_RESET_S = 5.0
+
+
+class _Breaker:
+    """One destination's circuit breaker: open after ``BREAKER_FAILURES``
+    consecutive failed logical calls, one half-open probe after
+    ``BREAKER_RESET_S``, closed when the probe succeeds."""
+
+    __slots__ = ("failures", "open", "opened_at", "probing")
+
+    def __init__(self):
+        self.failures = 0
+        self.open = False
+        self.opened_at = 0.0
+        self.probing = False
+
+
+_BREAKERS_LOCK = threading.Lock()
+_BREAKERS: dict[str, _Breaker] = {}
+_BREAKER_OPENS = 0
+
+
+def breaker_allow(dest: str) -> bool:
+    """May a logical call to ``dest`` go out now? An open breaker admits
+    one probe per reset interval."""
+    with _BREAKERS_LOCK:
+        breaker = _BREAKERS.get(dest)
+        if breaker is None or not breaker.open:
+            return True
+        if breaker.probing:
+            return False
+        if time.monotonic() - breaker.opened_at >= BREAKER_RESET_S:
+            breaker.probing = True  # this caller is the probe
+            return True
+        return False
+
+
+def breaker_record(dest: str, ok: bool) -> None:
+    """The outcome of one logical call to ``dest`` (however many
+    attempts it took)."""
+    global _BREAKER_OPENS
+    with _BREAKERS_LOCK:
+        breaker = _BREAKERS.get(dest)
+        if ok:
+            if breaker is not None:
+                breaker.failures = 0
+                breaker.open = False
+                breaker.probing = False
+            return
+        if breaker is None:
+            breaker = _BREAKERS[dest] = _Breaker()
+        was_open = breaker.open
+        breaker.failures += 1
+        breaker.probing = False
+        if breaker.failures >= BREAKER_FAILURES or was_open:
+            if not was_open:
+                _BREAKER_OPENS += 1
+            breaker.open = True
+            breaker.opened_at = time.monotonic()
+
+
+def breaker_stats() -> dict:
+    """Opens so far and the destinations open now."""
+    with _BREAKERS_LOCK:
+        return {"opens": _BREAKER_OPENS,
+                "open_now": sorted(d for d, b in _BREAKERS.items()
+                                   if b.open)}
+
+
+def reset_breakers() -> None:
+    global _BREAKER_OPENS
+    with _BREAKERS_LOCK:
+        _BREAKERS.clear()
+        _BREAKER_OPENS = 0
+
+
+def rpc_retry_count() -> int:
+    with _FAULTS_LOCK:
+        return _RPC_RETRIES
+
+
+def call_with_retry(call: Callable, method: str, *args,
+                    attempts: int | None = None,
+                    base_delay_s: float | None = None,
+                    deadline_s: float | None = None, **kwargs) -> Any:
+    """Retry, back off and give up by a deadline: the policy of
+    idempotent control calls (heartbeats, registration, fetch plans,
+    head reads). A failure that may have executed is retried too, so the
+    method must be idempotent; task submits never come through here.
+
+    A destination that fails ``BREAKER_FAILURES`` logical calls in a row
+    opens its breaker, and further calls fail at once with a
+    retryable ``RpcError``. A method that raised counts as a success (the
+    node answered); a transport failure counts once per logical call."""
+    global _RPC_RETRIES
+    attempts = RETRY_ATTEMPTS if attempts is None else max(1, attempts)
+    base_delay_s = RETRY_BASE_S if base_delay_s is None else base_delay_s
+    deadline_s = RETRY_DEADLINE_S if deadline_s is None else deadline_s
+    dest = getattr(getattr(call, "__self__", None), "address", None)
+    counted = False
+    deadline = time.monotonic() + deadline_s
+    for attempt in range(attempts):
+        if dest is not None and not breaker_allow(dest):
+            raise RpcError(f"rpc {method} to {dest} rejected: circuit "
+                           f"breaker open (destination failing "
+                           f"consecutively)")
+        try:
+            result = call(method, *args, **kwargs)
+        except RpcMethodError:
+            if dest is not None:
+                breaker_record(dest, True)
+            raise
+        except (RpcError, OSError) as exc:
+            if dest is not None and not counted \
+                    and classify_rpc_failure(exc) != "poisoned":
+                counted = True
+                breaker_record(dest, False)
+            if attempt + 1 >= attempts or time.monotonic() >= deadline:
+                raise
+            with _FAULTS_LOCK:
+                _RPC_RETRIES += 1
+            time.sleep(min(base_delay_s * (2 ** attempt), 2.0))
+        else:
+            if dest is not None:
+                breaker_record(dest, True)
+            return result
+    raise RpcError(f"rpc {method} retry loop exhausted")  # unreachable

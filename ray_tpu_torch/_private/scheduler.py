@@ -1,10 +1,14 @@
 """Cluster resources and task dispatch.
 
-The port of ``ray_tpu/_private/scheduler.py``, its in-process path:
+The port of ``ray_tpu/_private/scheduler.py``:
 
 - ``ClusterState``: every node's total and available resources, and the
-  node a demand goes to (DEFAULT takes the least-utilized node it fits,
-  SPREAD round-robins, NODE_AFFINITY takes its node);
+  node a demand goes to. DEFAULT packs onto the nodes under
+  ``scheduler_spread_threshold`` utilization, then takes the least
+  utilized; SPREAD round-robins over the nodes it fits; NODE_AFFINITY
+  takes its node (a remote node's too). A remote node's own report of
+  what is free (pushed when its load changes) caps this driver's ledger
+  while it is fresh, so another driver's load on a shared node counts;
 - ``Dispatcher``: tasks wait for their argument objects to seal, are
   admitted when their resources fit (a placement-group task: when they
   fit in its bundle's reservation), and each admitted task runs on a
@@ -14,6 +18,9 @@ The port of ``ray_tpu/_private/scheduler.py``, its in-process path:
 - ``BlockedResourceContext``: a task blocked in ``get()`` gives its CPU
   back until it wakes and keeps its GPU, so nested task graphs deeper
   than the CPU count cannot deadlock.
+
+Not ported: the locality- and load-scored placement and the batched
+acquisitions of the dispatch lanes (ROADMAP item 10c).
 """
 
 from __future__ import annotations
@@ -37,10 +44,24 @@ logger = logging.getLogger("ray_tpu_torch")
 
 _DISPATCH_ORDER = itertools.count(1).__next__
 
+# How long a node's own availability report stays authoritative. Reports
+# go out only on change, so a lost one would otherwise pin a stale low
+# mark; past the TTL admission falls back to this driver's ledger (and a
+# busy node is found by spillback). Longer than the node watcher's 10 s
+# resync, which refreshes the report from the head's table.
+REPORTED_AVAILABILITY_TTL_S = 12.0
+
 
 @dataclass
 class NodeState:
-    """One node's resource ledger."""
+    """One node's resource ledger.
+
+    ``available`` is this driver's ledger of its own leases; ``reported``
+    is the node's own last report, which also holds other drivers' load.
+    Admission takes the smaller of the two, per resource, while the
+    report is fresh; the report is corrected by this driver's leases
+    taken or returned since it was measured (``inflight`` against
+    ``reported_inflight``)."""
 
     node_id: NodeID
     total: dict[str, float]
@@ -49,13 +70,27 @@ class NodeState:
     alive: bool = True
     # The cards behind the GPU count, and each one's free share.
     cards: CardLedger = None
+    reported: dict[str, float] | None = None
+    reported_at: float = 0.0
+    inflight: dict[str, float] = field(default_factory=dict)
+    reported_inflight: dict[str, float] = field(default_factory=dict)
 
     def __post_init__(self):
         if self.cards is None:
             self.cards = CardLedger.for_count(self.total.get("GPU", 0.0))
 
+    def effective_available(self, key: str) -> float:
+        avail = self.available.get(key, 0.0)
+        if self.reported is None or key not in self.reported \
+                or time.monotonic() - self.reported_at \
+                > REPORTED_AVAILABILITY_TTL_S:
+            return avail
+        rep = self.reported[key] + (self.reported_inflight.get(key, 0.0)
+                                    - self.inflight.get(key, 0.0))
+        return min(avail, rep)
+
     def fits(self, demand: dict[str, float]) -> bool:
-        return all(self.available.get(k, 0.0) + 1e-9 >= v
+        return all(self.effective_available(k) + 1e-9 >= v
                    for k, v in demand.items()) \
             and self.cards.pick(demand.get("GPU", 0.0)) is not None
 
@@ -69,6 +104,7 @@ class NodeState:
         self.cards.take(shares)
         for key, value in demand.items():
             self.available[key] = self.available.get(key, 0.0) - value
+            self.inflight[key] = self.inflight.get(key, 0.0) + value
         return shares
 
     def release(self, demand: dict[str, float],
@@ -76,6 +112,7 @@ class NodeState:
         self.cards.give(shares)
         for key, value in demand.items():
             self.available[key] = self.available.get(key, 0.0) + value
+            self.inflight[key] = self.inflight.get(key, 0.0) - value
 
     def utilization(self) -> float:
         return max((1.0 - self.available.get(k, 0.0) / total
@@ -86,9 +123,10 @@ class NodeState:
 class ClusterState:
     """Cluster-wide resource view and node selection."""
 
-    def __init__(self):
+    def __init__(self, spread_threshold: float = 0.5):
         self._lock = threading.Condition()
         self._nodes: dict[NodeID, NodeState] = {}
+        self._spread_threshold = spread_threshold
         self._rr_counter = 0
         self._infeasible_warned: set[str] = set()
 
@@ -105,6 +143,34 @@ class ClusterState:
             if node is not None:
                 node.alive = False
             self._lock.notify_all()
+
+    def revive_node(self, node_id: NodeID) -> bool:
+        """Bring back a node that was dropped for a while, keeping its
+        ledger: its tasks in flight still hold what they took. False for
+        a node never seen (add it instead)."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is None:
+                return False
+            node.alive = True
+            self._lock.notify_all()
+            return True
+
+    def nodes(self) -> list[NodeState]:
+        with self._lock:
+            return [n for n in self._nodes.values() if n.alive]
+
+    def update_reported(self, node_id: NodeID,
+                        available: dict[str, float]) -> None:
+        """A node's own report of what is free arrived; it wakes the
+        dispatcher, as freed capacity is a chance to schedule."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is not None:
+                node.reported = dict(available)
+                node.reported_at = time.monotonic()
+                node.reported_inflight = dict(node.inflight)
+                self._lock.notify_all()
 
     def _sum(self, attr: str) -> dict[str, float]:
         with self._lock:
@@ -128,9 +194,10 @@ class ClusterState:
     def pick_node(self, demand: dict[str, float], strategy,
                   exclude: set[NodeID] | None = None) -> NodeState | None:
         """A node the demand fits on now, by policy; None if none fits.
-        DEFAULT takes the least utilized; SPREAD round-robins over the
-        nodes it fits; NODE_AFFINITY takes its node (a soft one falls
-        back to DEFAULT)."""
+        DEFAULT packs onto the nodes under the spread threshold, the
+        least utilized first, and past it takes the least utilized of
+        all; SPREAD round-robins over the nodes it fits; NODE_AFFINITY
+        takes its node (a soft one falls back to DEFAULT)."""
         with self._lock:
             candidates = [n for n in self._nodes.values() if n.alive
                           and (exclude is None or n.node_id not in exclude)]
@@ -147,7 +214,9 @@ class ClusterState:
             if strategy is not None and strategy.kind == "SPREAD":
                 self._rr_counter += 1
                 return fitting[self._rr_counter % len(fitting)]
-            return min(fitting,
+            under = [n for n in fitting
+                     if n.utilization() < self._spread_threshold]
+            return min(under or fitting,
                        key=lambda n: (n.utilization(), n.node_id.hex()))
 
     def is_feasible(self, demand: dict[str, float]) -> bool:
@@ -250,7 +319,8 @@ class Dispatcher:
         return (tuple(sorted(spec.resources.items())), strategy.kind,
                 strategy.node_id, strategy.soft,
                 pg.id if pg is not None else None,
-                strategy.placement_group_bundle_index)
+                strategy.placement_group_bundle_index,
+                frozenset(getattr(spec, "_avoid_nodes", None) or ()))
 
     def set_deadline_hook(self, on_deadline) -> None:
         """``on_deadline(spec, stage)`` seals a task whose deadline expired
@@ -374,8 +444,9 @@ class Dispatcher:
         spec = task.spec
         if spec.scheduling_strategy.kind == "PLACEMENT_GROUP":
             return self._admit_to_bundle(task)
-        node = self._cluster.pick_node(spec.resources,
-                                       spec.scheduling_strategy)
+        node = self._cluster.pick_node(
+            spec.resources, spec.scheduling_strategy,
+            exclude=getattr(spec, "_avoid_nodes", None) or None)
         if node is None:
             self._cluster.warn_if_infeasible(f"Task {spec.name}",
                                              spec.resources)
@@ -411,18 +482,21 @@ class Dispatcher:
             self._on_unplaceable(spec, PlacementGroupError(reason))
         return None
 
-    def _release(self, task: _QueuedTask, node: NodeState) -> None:
-        """Give back what admission took: to the bundle or the node."""
+    def _release(self, task: _QueuedTask, node: NodeState,
+                 shares: dict | None = None) -> None:
+        """Give back what admission took: to the bundle or the node.
+        ``shares``: the card shares taken at this admission (a task that
+        spilled back may already hold its next admission's)."""
         spec = task.spec
         strategy = spec.scheduling_strategy
+        shares = spec.gpu_shares if shares is None else shares
         if strategy.kind == "PLACEMENT_GROUP":
             self._placement_groups.release_to_bundle(
                 strategy.placement_group.id,
                 strategy.placement_group_bundle_index, spec.resources,
-                spec.gpu_shares)
+                shares)
         else:
-            self._cluster.release(node.node_id, spec.resources,
-                                  spec.gpu_shares)
+            self._cluster.release(node.node_id, spec.resources, shares)
 
     def _claim(self, task: _QueuedTask, node: NodeState) -> bool:
         expired = False
@@ -451,11 +525,13 @@ class Dispatcher:
         return not expired
 
     def _launch(self, task: _QueuedTask, node: NodeState) -> None:
+        shares = dict(task.spec.gpu_shares)
+
         def runner():
             try:
                 task.run(task.spec, node)
             finally:
-                self._release(task, node)
+                self._release(task, node, shares)
                 with self._lock:
                     self._num_running -= 1
                     self._lock.notify_all()
@@ -515,6 +591,18 @@ class Dispatcher:
             self._cancel_locked(task)
             return task.spec
 
+    def reset_unsatisfiable_avoids(self, alive_ids: set) -> None:
+        """A node died: a spillback avoid set made against the old
+        membership may now exclude every live node, so clear those (the
+        next refusal builds it again)."""
+        with self._lock:
+            for dq in self._ready_groups.values():
+                for task in dq:
+                    avoid = getattr(task.spec, "_avoid_nodes", None)
+                    if avoid and avoid >= alive_ids:
+                        task.spec._avoid_nodes = set()
+            self._lock.notify_all()
+
     def fail_hard_affinity(self, node_id_hex: str) -> "list[TaskSpec]":
         """Cancel every queued task hard-pinned to a node that just died
         (it can never run elsewhere, and would hang its waiters) and
@@ -552,12 +640,18 @@ class BlockedResourceContext:
         return getattr(cls._tls, "ctx", None)
 
     def __init__(self, cluster: ClusterState, node_id: NodeID,
-                 resources: dict[str, float]):
+                 resources: dict[str, float],
+                 on_release: Callable[[], None] | None = None,
+                 on_reacquire: Callable[[], None] | None = None):
+        """``on_release``/``on_reacquire``: the task runs on a node
+        daemon, whose own admission ledger gives the CPU back too."""
         self._cluster = cluster
         self._node_id = node_id
         self._cpu_only = {k: v for k, v in resources.items() if k == "CPU"}
         self._depth = 0
         self._depth_lock = threading.Lock()
+        self._on_release = on_release
+        self._on_reacquire = on_reacquire
 
     def __enter__(self):
         self._tls.ctx = self
@@ -573,6 +667,8 @@ class BlockedResourceContext:
             self._depth += 1
         if release:
             self._cluster.release(self._node_id, self._cpu_only)
+            if self._on_release is not None:
+                self._on_release()
 
     def unblock(self, force: bool = False):
         """Take the CPU again once the last nested wait ends (``force``:
@@ -582,10 +678,16 @@ class BlockedResourceContext:
                 return
             self._depth = 0 if force else self._depth - 1
             reacquire = self._depth == 0 and bool(self._cpu_only)
+        if reacquire and self._on_reacquire is not None:
+            self._on_reacquire()
         # Spinning is fine: we only woke because our object sealed, so the
-        # release that makes room is imminent.
+        # release that makes room is imminent. A node that died meanwhile
+        # is left alone.
         while reacquire and self._cluster.try_acquire(
                 self._node_id, self._cpu_only) is None:
+            node = self._cluster.get_node(self._node_id)
+            if node is None or not node.alive:
+                return
             time.sleep(0.001)
 
     def drain(self):

@@ -1,11 +1,22 @@
 """The process's runtime and the core public API.
 
-The port of ``ray_tpu/_private/worker.py``, its single-host path: what
-``ray_tpu.init()`` builds with no ``address``. ``Runtime`` composes the
+The port of ``ray_tpu/_private/worker.py``. ``Runtime`` composes the
 object store, the control-plane tables, the cluster's resources (one
 head node: ``CPU``, the detected ``GPU``s and any custom resources) and
 the dispatcher; the module functions (``init``/``get``/``put``/...)
 drive the process's one runtime.
+
+Connected mode (``init(address=...)``): the driver registers with a head
+(``gcs_server.py``) as a node of role ``driver`` and mirrors the head's
+worker-node daemons into its scheduler. A task the scheduler places on
+such a node runs there (``node_executor.py``), spilling to another node
+when that one refuses it; a large result stays on the node that made it
+(the driver's store holds a ``RemoteBlob`` that is pulled when read), an
+argument that lives on a node is pulled by the consumer from its holder,
+and a large argument of the driver's is exported once from its export
+store. An actor leased on a node lives there (``remote_actor.py``) and
+restarts on a surviving node when its node dies. The driver's actor
+records and object locations are mirrored to the head.
 
 Tasks and actors run on threads of the process that called ``init()``,
 which owns the card, unless ``init(process_workers=N)`` starts a pool of
@@ -137,17 +148,31 @@ class Runtime:
                  resources: dict[str, float] | None = None,
                  object_store_memory: int | None = None,
                  namespace: str = "default",
-                 process_workers: int | None = None):
+                 process_workers: int | None = None,
+                 address: str | None = None):
         cfg = GLOBAL_CONFIG
         self.namespace = namespace
         self.job_id = JobID()
+        self.gcs_client = None
+        self._node_agent = None
+        if address:
+            from ray_tpu_torch._private.rpc import MuxRpcClient, RpcError
+
+            self.gcs_client = MuxRpcClient(address, timeout_s=60.0)
+            try:
+                self.gcs_client.call("ping", timeout_s=10.0)
+            except (RpcError, OSError) as exc:
+                self.gcs_client.close()
+                raise ConnectionError(f"cannot connect to the head at "
+                                      f"{address}: {exc}") from exc
         self.gcs = GlobalControlService()
         self.store = ObjectStore(
             memory_limit_bytes=(object_store_memory
                                 or cfg.object_store_memory_mb * 1024 * 1024),
             spill_dir=cfg.object_spilling_dir)
         self.reference_counter = ReferenceCounter(self.store)
-        self.cluster = ClusterState()
+        self.cluster = ClusterState(
+            spread_threshold=float(cfg.scheduler_spread_threshold))
         self.placement_groups = PlacementGroupManager(
             self.cluster, self.store, self.gcs)
         self.dispatcher = Dispatcher(self.cluster, self.store,
@@ -163,6 +188,7 @@ class Runtime:
         # Signalled whenever an actor lands in _actors or dies: submit
         # queues wait on it.
         self._actors_changed = threading.Condition()
+        self._shut_down = False
         self._actor_queues: dict[ActorID, queue.Queue] = {}
         # Actor id -> (node, resources, (group id, bundle index) or None,
         # card shares).
@@ -198,6 +224,9 @@ class Runtime:
             self.gcs, period_s=cfg.health_check_period_ms / 1000.0,
             failure_threshold=cfg.health_check_failure_threshold,
             on_node_dead=self._on_node_dead)
+        self._init_connected_mode(
+            address, float(num_cpus if num_cpus is not None
+                           else cfg.num_cpus))
 
     # ------------------------------------------------- worker processes
 
@@ -449,6 +478,11 @@ class Runtime:
                 "", spec.name)
             for rid in spec.return_ids:
                 self.store.put_error(rid, err)
+        # The node's actors restart on a survivor (or die), even those
+        # with no call in flight.
+        for actor in list(self._actors.values()):
+            if getattr(actor, "node_id", None) == node_id:
+                actor.notify_node_death(node_id)
         with self._locations_lock:
             lost = [oid for oid, nid in self._object_locations.items()
                     if nid == node_id]
@@ -480,12 +514,652 @@ class Runtime:
             return
         with self._locations_lock:
             self._object_locations[object_id] = node_id
+            if self.gcs_client is not None:
+                self._loc_dirty_adds[object_id.hex()] = node_id.hex()
+                self._loc_dirty_removes.discard(object_id.hex())
 
     def _forget_object(self, object_id: ObjectID) -> None:
-        """An evicted object's location and lineage go with it."""
+        """An evicted object's location and lineage go with it; a copy on
+        a node or in the export store is freed there."""
         with self._locations_lock:
-            self._object_locations.pop(object_id, None)
+            node_id = self._object_locations.pop(object_id, None)
+            if node_id is not None and self.gcs_client is not None:
+                self._loc_dirty_removes.add(object_id.hex())
+                self._loc_dirty_adds.pop(object_id.hex(), None)
+        if self._export_store is not None:
+            self._export_store.free([object_id.binary()])
+            self._export_directory.drop([object_id.binary()])
+        if node_id is not None and node_id in self._remote_ever:
+            # The holder drops it at the watcher's next flush (kept
+            # queued while the node is away).
+            with self._remote_free_lock:
+                self._remote_free_queue.append((node_id,
+                                                object_id.binary()))
         self.lineage.forget([object_id])
+
+    # ------------------------------------------------------- connected mode
+
+    def _init_connected_mode(self, address: str | None,
+                             num_cpus: float) -> None:
+        """With a head: the export store and its server, the node
+        watcher, the actor mirror and this driver's node agent."""
+        self._remote_nodes: dict[NodeID, Any] = {}
+        self._remote_nodes_lock = threading.Lock()
+        self._remote_ever: set[NodeID] = set()
+        self._amnesia_misses: dict[NodeID, int] = {}
+        self._remote_free_queue: list[tuple[NodeID, bytes]] = []
+        self._remote_free_lock = threading.Lock()
+        self._loc_dirty_adds: dict[str, str] = {}
+        self._loc_dirty_removes: set[str] = set()
+        self._loc_keepalive = 0.0
+        self._actor_dirty: set[ActorID] = set()
+        self._mirror_lock = threading.Lock()
+        self._pg_published: list = []
+        self._pkg_hashes: dict[str, str] = {}
+        self._watcher_stop = threading.Event()
+        self._node_watcher = None
+        self._export_store = None
+        self._export_directory = None
+        self._obj_server = None
+        self._export_addr = ""
+        if not address:
+            return
+        from ray_tpu_torch._private.node import NodeAgent
+        from ray_tpu_torch._private.node_executor import (
+            ChunkDirectory,
+            NodeObjectStore,
+        )
+        from ray_tpu_torch._private.rpc import RpcServer
+
+        # Daemon tasks and actors call the driver back through it.
+        self.ensure_client_server()
+        self._export_store = NodeObjectStore()
+        self._export_directory = ChunkDirectory()
+        self._obj_server = RpcServer()
+        self._obj_server.register("ping", lambda: "pong")
+        self._obj_server.register("fetch_object", self._export_fetch_object,
+                                  concurrent=True)
+        self._obj_server.register("fetch_plan", self._export_fetch_plan,
+                                  concurrent=True)
+        self._obj_server.start()
+        self._export_addr = self._obj_server.address
+        self.gcs.pubsub.subscribe("actors", self._queue_actor_mirror)
+        self._node_agent = NodeAgent(
+            address, {"CPU": num_cpus}, labels={"node_role": "driver"},
+            usage_fn=self.available_resources)
+        # The nodes registered by now are schedulable when init returns.
+        self._sync_remote_nodes(self.gcs_client.call("list_nodes"))
+        self._node_watcher = threading.Thread(
+            target=self._watch_remote_nodes, daemon=True,
+            name="ray_tpu_torch-node-watcher")
+        self._node_watcher.start()
+
+    def _export_fetch_object(self, id_bytes: bytes, offset: int,
+                             length: int):
+        return self._export_store.read_chunk(id_bytes, offset, length)
+
+    def _export_fetch_plan(self, id_bytes: bytes,
+                           puller_addr: str | None = None):
+        """(size, the other holders) of an exported object; the puller is
+        registered, so the next one takes chunks from it too."""
+        from ray_tpu_torch._private.node_executor import plan_holders
+
+        total = self._export_store.size(id_bytes)
+        if total is None:
+            return None
+        return (total, plan_holders(self._export_directory, id_bytes,
+                                    puller_addr, total))
+
+    def _client_server_addr(self) -> str:
+        server = self.worker_client_server
+        return "" if server is None else server.address
+
+    def _watch_remote_nodes(self) -> None:
+        """Mirror the head's node table into the scheduler. Membership
+        and availability arrive by push on the head's channels (a long
+        poll). The whole table is read again on a membership event, on
+        every new subscription (what was published before it is
+        missed) and every 10 s; availability comes from the pushes only,
+        and a report older than its TTL gives way to this driver's
+        ledger. Each wake also flushes queued frees, location deltas and
+        actor records."""
+        from ray_tpu_torch._private.gcs_pubsub import GcsSubscriber
+        from ray_tpu_torch._private.rpc import (
+            RpcError,
+            RpcMethodError,
+            call_with_retry,
+        )
+
+        subscriber = None
+        last_sync = 0.0
+        try:
+            while not self._watcher_stop.is_set():
+                with self._remote_free_lock:
+                    busy = bool(self._remote_free_queue)
+                with self._locations_lock:
+                    busy = busy or bool(self._loc_dirty_adds
+                                        or self._loc_dirty_removes)
+                membership = False
+                events = []
+                if subscriber is None:
+                    try:
+                        subscriber = GcsSubscriber(
+                            self.gcs_client.address,
+                            ["nodes", "node_resources", "object_loss"])
+                        membership = True
+                    except Exception:  # noqa: BLE001 — the head is gone: the next pass subscribes again
+                        self._watcher_stop.wait(0.5)
+                if subscriber is not None:
+                    try:
+                        events = subscriber.poll(
+                            timeout_s=0.5 if busy else 5.0)
+                    except Exception:  # noqa: BLE001 — the head is gone: the next pass subscribes again
+                        subscriber.close()
+                        subscriber = None
+                        self._watcher_stop.wait(0.5)
+                if self._watcher_stop.is_set():
+                    return
+                for channel, message in events:
+                    if channel == "node_resources":
+                        hex_id, available = message
+                        self.cluster.update_reported(
+                            NodeID(bytes.fromhex(hex_id)), available)
+                    elif channel == "object_loss":
+                        self._handle_object_loss(message)
+                    else:  # "nodes", or "resubscribed"
+                        membership = True
+                try:
+                    self._flush_remote_frees()
+                    self._flush_object_locations()
+                    self._flush_control_mirror()
+                    now = time.monotonic()
+                    if membership or now - last_sync >= 10.0:
+                        self._sync_remote_nodes(call_with_retry(
+                            self.gcs_client.call, "list_nodes",
+                            attempts=2, timeout_s=10.0))
+                        last_sync = now
+                except (RpcError, RpcMethodError, OSError):
+                    continue  # the head is down: the next pass retries
+                except Exception:  # noqa: BLE001 — the watcher must live
+                    logger.exception("remote node sync failed")
+        finally:
+            if subscriber is not None:
+                subscriber.close()
+
+    def _sync_remote_nodes(self, nodes: list[dict]) -> None:
+        """Reconcile with the head's table: a node the head declared dead
+        (or whose executor moved, or that registered again under a new
+        id) is dropped; a node merely absent is pinged first and dropped
+        after ``node_amnesia_max_passes`` absent passes; a new live node
+        joins (one seen before keeps its ledger)."""
+        from ray_tpu_torch._private.node_executor import RemoteNodeHandle
+
+        listed = {NodeID(bytes.fromhex(info["node_id"])): info
+                  for info in nodes if info.get("executor_address")}
+        with self._remote_nodes_lock:
+            known = dict(self._remote_nodes)
+        alive_addrs = {info["executor_address"]
+                       for info in listed.values() if info["alive"]}
+        absent = []
+        for node_id, handle in known.items():
+            info = listed.get(node_id)
+            if info is None and handle.address in alive_addrs \
+                    or info is not None and (
+                        not info["alive"]
+                        or info["executor_address"] != handle.address):
+                self._drop_remote_node(node_id)
+            elif info is None:
+                absent.append((node_id, handle))
+            else:
+                self._amnesia_misses.pop(node_id, None)
+        max_passes = max(1, int(GLOBAL_CONFIG.node_amnesia_max_passes))
+        for node_id, handle in absent:
+            misses = self._amnesia_misses.get(node_id, 0) + 1
+            if not handle.ping() or misses > max_passes:
+                self._amnesia_misses.pop(node_id, None)
+                self._drop_remote_node(node_id)
+            else:
+                self._amnesia_misses[node_id] = misses
+        for node_id, info in listed.items():
+            if not info["alive"]:
+                continue
+            with self._remote_nodes_lock:
+                already = node_id in self._remote_nodes
+            if already:
+                continue
+            handle = RemoteNodeHandle(node_id, info["executor_address"])
+            if not handle.ping():
+                handle.close()
+                continue
+            with self._remote_nodes_lock:
+                self._remote_nodes[node_id] = handle
+                self._remote_ever.add(node_id)
+            if not self.cluster.revive_node(node_id):
+                self.cluster.add_node(NodeState(
+                    node_id=node_id, total=dict(info["resources"]),
+                    available=dict(info["resources"]),
+                    labels={**info.get("labels", {}), "remote": "1"}))
+            logger.info("remote node %s (%s) joined with %s",
+                        info["node_id"][:8], info["executor_address"],
+                        info["resources"])
+
+    def _drop_remote_node(self, node_id: NodeID) -> None:
+        """A node is gone: its handle closes and it dies here (its tasks
+        retry elsewhere, its objects are rebuilt, its actors restart)."""
+        with self._remote_nodes_lock:
+            handle = self._remote_nodes.pop(node_id, None)
+            alive = set(self._remote_nodes)
+        if handle is None:
+            return
+        handle.close()
+        # Spillback avoid sets made against the old membership may now
+        # exclude every surviving node.
+        self.dispatcher.reset_unsatisfiable_avoids(alive)
+        self._on_node_dead(node_id)
+
+    def _handle_object_loss(self, obj_hexes) -> None:
+        """The head reports objects whose last holder died: rebuild ours
+        now, not at the next get()."""
+        for obj_hex in obj_hexes:
+            oid = ObjectID(bytes.fromhex(obj_hex))
+            with self._locations_lock:
+                if oid not in self._object_locations:
+                    continue
+                del self._object_locations[oid]
+            if self.store.mark_lost(oid) and not self.recovery.recover(oid):
+                self.store.put_error(oid, ObjectLostError(
+                    ObjectRef(oid, _register=False),
+                    f"object {obj_hex} lost its last holder and has no "
+                    f"lineage"))
+
+    def _flush_remote_frees(self) -> None:
+        """Tell the holders of freed results to drop them (batched); a
+        node away for a while keeps its frees queued."""
+        with self._remote_free_lock:
+            queued, self._remote_free_queue = self._remote_free_queue, []
+        if not queued:
+            return
+        by_node: dict[NodeID, list[bytes]] = {}
+        for node_id, id_bytes in queued:
+            by_node.setdefault(node_id, []).append(id_bytes)
+        retained = []
+        for node_id, ids in by_node.items():
+            with self._remote_nodes_lock:
+                handle = self._remote_nodes.get(node_id)
+            try:
+                if handle is None:
+                    raise LookupError(node_id)
+                handle.free(ids)
+            except Exception:  # noqa: BLE001 — retried at the next flush
+                retained.extend((node_id, i) for i in ids)
+        if retained:
+            with self._remote_free_lock:
+                self._remote_free_queue.extend(retained)
+                if len(self._remote_free_queue) > 100_000:
+                    del self._remote_free_queue[:-50_000]
+
+    def _flush_object_locations(self) -> None:
+        """Location deltas to the head's directory; every 10 s an empty
+        update keeps this owner's entries leased (and republishes all of
+        them)."""
+        if self.gcs_client is None:
+            return
+        with self._locations_lock:
+            adds = list(self._loc_dirty_adds.items())
+            removes = list(self._loc_dirty_removes)
+            self._loc_dirty_adds.clear()
+            self._loc_dirty_removes.clear()
+            have_entries = bool(self._object_locations)
+        now = time.monotonic()
+        if not adds and not removes:
+            if not have_entries or now - self._loc_keepalive < 10.0:
+                return
+            with self._locations_lock:
+                adds = [(oid.hex(), nid.hex()) for oid, nid
+                        in self._object_locations.items()]
+        try:
+            self.gcs_client.call("object_locations_update",
+                                 self._export_addr, adds, removes,
+                                 timeout_s=10.0)
+            self._loc_keepalive = now
+        except Exception:  # noqa: BLE001 — requeued for the next flush
+            with self._locations_lock:
+                for obj_hex, node_hex in adds:
+                    self._loc_dirty_adds.setdefault(obj_hex, node_hex)
+                self._loc_dirty_removes.update(removes)
+
+    def _queue_actor_mirror(self, event) -> None:
+        """An actor transition: its record goes to the head at the
+        watcher's next pass."""
+        with self._mirror_lock:
+            self._actor_dirty.add(event[1])
+
+    def _flush_control_mirror(self) -> None:
+        """The actor records that changed, and the placement groups when
+        they did, to the head's mirrors."""
+        with self._mirror_lock:
+            dirty, self._actor_dirty = self._actor_dirty, set()
+        records = [self.gcs.actor_plain(r) for r in
+                   (self.gcs.get_actor(a) for a in dirty) if r is not None]
+        try:
+            if records:
+                self.gcs_client.call("actor_update", records,
+                                     timeout_s=10.0)
+        except Exception:  # noqa: BLE001 — retried at the next pass
+            with self._mirror_lock:
+                self._actor_dirty.update(dirty)
+        groups = self.placement_groups.snapshot()
+        if groups != self._pg_published:
+            try:
+                self.gcs_client.call("pg_update", self.job_id.hex(), groups,
+                                     timeout_s=10.0)
+                self._pg_published = groups
+            except Exception:  # noqa: BLE001 — retried at the next pass
+                pass
+
+    def _convert_remote_args(self, args: tuple, kwargs: dict) -> bytes:
+        """The framed arguments of work sent to a node. An ObjectRef
+        argument becomes a FetchRef to its holder (a node's result) or
+        to this driver's export store (a large value of the driver's,
+        exported once); a small value goes inline."""
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.node_executor import (
+            FetchRef,
+            RemoteBlob,
+            _inline_reply_bytes,
+        )
+        from ray_tpu_torch._private.object_store import _sizeof
+
+        def convert(a):
+            if not isinstance(a, ObjectRef):
+                return a
+            id_bytes = a.binary()
+            if self._export_store.get(id_bytes) is not None:
+                return FetchRef(id_bytes, self._export_addr)
+            value = self.store.get(a.id())  # sealed before dispatch
+            if isinstance(value, RemoteBlob):
+                return FetchRef(id_bytes, value.addr)
+            if _sizeof(value) > _inline_reply_bytes():
+                self._export_store.put(
+                    id_bytes, serialization.serialize_framed(value))
+                return FetchRef(id_bytes, self._export_addr)
+            return value
+
+        return serialization.serialize_framed(
+            (tuple(convert(a) for a in args),
+             {k: convert(v) for k, v in kwargs.items()}))
+
+    def _package_runtime_env(self, renv: dict | None) -> dict | None:
+        """A runtime env's local directories become content-hashed
+        packages in the export store, which nodes pull and cache
+        (runtime_env_packaging.py)."""
+        if not renv or self._export_store is None:
+            return renv
+        from ray_tpu_torch._private.runtime_env_packaging import (
+            hash_directory,
+            package_directory,
+        )
+
+        def pack(path, keep_name: bool):
+            if not (isinstance(path, str) and os.path.isdir(path)):
+                return path
+            key = os.path.abspath(path)
+            # Hashed at every submit: an edited directory ships anew.
+            hash_hex = hash_directory(key)
+            if self._pkg_hashes.get(key) != hash_hex \
+                    or self._export_store.size(
+                        bytes.fromhex(hash_hex)) is None:
+                hash_hex, blob = package_directory(key)
+                self._export_store.put(bytes.fromhex(hash_hex), blob)
+                self._pkg_hashes[key] = hash_hex
+            member = os.path.basename(key.rstrip("/")) if keep_name \
+                else None
+            return {"__pkg__": [hash_hex, self._export_addr, member]}
+
+        out = dict(renv)
+        if "working_dir" in out:
+            out["working_dir"] = pack(out["working_dir"], keep_name=False)
+        if out.get("py_modules"):
+            out["py_modules"] = [pack(m, keep_name=True)
+                                 for m in out["py_modules"]]
+        return out
+
+    def _seal_remote_results(self, return_ids, results, node_id,
+                             address) -> None:
+        """Seal a node's reply: small values here, a large one as a
+        RemoteBlob whose location is recorded."""
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.node_executor import RemoteBlob
+
+        for rid, packed in zip(return_ids, results):
+            if packed[0] == "inline":
+                self.store.put(rid, serialization.deserialize_from_buffer(
+                    memoryview(packed[1])))
+            elif packed[0] == "stored":
+                self.store.put(rid, RemoteBlob(node_id.hex(), address,
+                                               packed[1]))
+                self._record_location(rid, node_id)
+            else:  # ("err", blob): this return failed to pickle
+                exc, tb = serialization.deserialize_from_buffer(
+                    memoryview(packed[1]))
+                exc.__ray_tpu_remote_tb__ = tb
+                raise exc
+
+    def _materialize_value(self, object_id: ObjectID, value: Any) -> Any:
+        """A RemoteBlob's value, pulled from its holder and sealed here;
+        a holder that is gone means a rebuild from lineage, or
+        ObjectLostError."""
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.node_executor import RemoteBlob, fetch_blob
+        from ray_tpu_torch._private.rpc import RpcClient
+
+        if not isinstance(value, RemoteBlob):
+            return value
+        node_id = NodeID(bytes.fromhex(value.node_hex))
+        with self._remote_nodes_lock:
+            handle = self._remote_nodes.get(node_id)
+        try:
+            if handle is not None:
+                blob = handle.fetch(object_id.binary())
+            else:
+                client = RpcClient(value.addr)
+                try:
+                    blob = fetch_blob(client, object_id.binary())
+                finally:
+                    client.close()
+            real = serialization.deserialize_from_buffer(memoryview(blob))
+        except Exception as exc:  # noqa: BLE001 — the holder is gone
+            if not self.store.mark_lost(object_id):
+                raise
+            if self.recovery.recover(object_id):
+                return self._materialize_value(
+                    object_id, self.store.get(object_id))
+            err = ObjectLostError(
+                ObjectRef(object_id, _register=False),
+                f"object {object_id.hex()} was on unreachable node "
+                f"{value.node_hex[:8]} and has no lineage: {exc}")
+            self.store.put_error(object_id, err)
+            raise err from exc
+        self.store.put(object_id, real)
+        return real
+
+    def _execute_remote(self, spec: TaskSpec, node: NodeState,
+                        handle) -> None:
+        """Run the task on the node daemon that holds its lease. A
+        function or argument that cannot be serialized fails the task:
+        the lease (and a card share) is that node's, never this
+        process's."""
+        from ray_tpu_torch._private.rpc import RpcError
+
+        try:
+            digest, func_blob = self._function_blob(spec.func)
+            args_blob = self._convert_remote_args(spec.args, spec.kwargs)
+        except Exception as exc:  # noqa: BLE001 — sealed onto the task's refs by the caller
+            raise TypeError(
+                f"task {spec.name} is leased to node "
+                f"{node.node_id.hex()[:8]}, but its function or arguments "
+                f"cannot be serialized: {type(exc).__name__}: {exc}") \
+                from exc
+        # The task's token keys the node's reservation and this driver's
+        # block context: a nested get() from the task gives its CPU back
+        # on both ledgers while it waits.
+        token = spec.task_id.hex()
+        bundled = spec.scheduling_strategy.kind == "PLACEMENT_GROUP"
+
+        def control(method):
+            def call():
+                try:
+                    handle._control.call(method, token)
+                except Exception:  # noqa: BLE001 — the node is gone
+                    pass
+            return call
+
+        with self._inflight_blocks_lock:
+            self._inflight_blocks[token] = BlockedResourceContext(
+                self.cluster, node.node_id,
+                {} if bundled else spec.resources,
+                on_release=control("task_block"),
+                on_reacquire=control("task_unblock"))
+        try:
+            results = handle.execute(
+                digest, func_blob, args_blob, spec.num_returns,
+                [rid.binary() for rid in spec.return_ids],
+                self._package_runtime_env(spec.runtime_env),
+                spec.resources, task_token=token,
+                client_addr=self._client_server_addr() or None,
+                deadline=spec.deadline)
+        except (RpcError, OSError) as exc:
+            # A dead node, not one reset socket, loses its objects.
+            if not handle.ping():
+                self._drop_remote_node(node.node_id)
+            raise WorkerCrashedError(
+                f"node {node.node_id.hex()[:8]} unreachable during task "
+                f"{spec.name}: {exc}") from exc
+        finally:
+            with self._inflight_blocks_lock:
+                ctx = self._inflight_blocks.pop(token)
+            ctx.drain()
+        self._seal_remote_results(spec.return_ids, results, node.node_id,
+                                  handle.address)
+
+    def _spillback_requeue(self, spec: TaskSpec, node: NodeState) -> None:
+        """The node refused the lease: queue the task again, avoiding it.
+        Once every node refused, the avoid set starts over after a
+        growing delay, so a full cluster is polled, not hammered."""
+        avoid = getattr(spec, "_avoid_nodes", None) or set()
+        avoid.add(node.node_id)
+        delay = 0.0
+        with self._remote_nodes_lock:
+            if avoid >= set(self._remote_nodes):
+                avoid = set()
+                spec._spill_rounds = getattr(spec, "_spill_rounds", 0) + 1
+                delay = min(0.05 * (2 ** min(spec._spill_rounds, 6)), 2.0)
+        spec._avoid_nodes = avoid
+
+        def requeue():
+            self.dispatcher.submit(spec, self._execute_task,
+                                   ref_args(spec.args, spec.kwargs))
+
+        if delay > 0:
+            timer = threading.Timer(delay, requeue)
+            timer.daemon = True
+            timer.start()
+        else:
+            requeue()
+
+    def _relocate_actor_lease(self, actor_id: ActorID,
+                              resources: dict[str, float],
+                              exclude: set | None = None,
+                              timeout: float = 300.0):
+        """Move a remote actor's lease to a worker node: give back the
+        one it has, take one elsewhere. (node id, handle), "pg_dead"
+        when its placement-group bundle's node is gone, or None when no
+        node can host it within ``timeout``."""
+        lease = self._actor_leases.pop(actor_id, None)
+        if lease is not None:
+            self._release_lease(*lease)
+            bundle = lease[2]
+            if bundle is not None:
+                # A group's actor is recreated in its bundle or nowhere.
+                try:
+                    node_id, shares = \
+                        self.placement_groups.acquire_from_bundle(
+                            *bundle, resources)
+                except PlacementGroupError:
+                    return "pg_dead"
+                with self._remote_nodes_lock:
+                    handle = self._remote_nodes.get(node_id)
+                if handle is None or (exclude and node_id in exclude):
+                    self.placement_groups.release_to_bundle(
+                        *bundle, resources, shares)
+                    return "pg_dead"
+                self._actor_leases[actor_id] = (node_id, resources, bundle,
+                                                shares)
+                return node_id, handle
+        deadline = time.monotonic() + timeout
+        exclude = set(exclude or ())
+        while True:
+            with self._remote_nodes_lock:
+                remote_ids = set(self._remote_nodes)
+            local_ids = {n.node_id for n in self.cluster.nodes()
+                         if n.node_id not in remote_ids}
+            node = self.cluster.pick_node(resources, SchedulingStrategy(),
+                                          exclude=local_ids | exclude)
+            shares = None if node is None else self.cluster.try_acquire(
+                node.node_id, resources)
+            if shares is not None:
+                with self._remote_nodes_lock:
+                    handle = self._remote_nodes.get(node.node_id)
+                if handle is None:  # dropped between pick and acquire
+                    self.cluster.release(node.node_id, resources, shares)
+                else:
+                    self._actor_leases[actor_id] = (node.node_id, resources,
+                                                    None, shares)
+                    return node.node_id, handle
+            if time.monotonic() > deadline:
+                return None
+            self.cluster.wait_for_change(0.1)
+
+    def _record_actor_placement(self, actor) -> None:
+        """The actor table's placement columns: its node and process."""
+        record = self.gcs.get_actor(actor.actor_id)
+        if record is None:
+            return
+        node_id = getattr(actor, "node_id", None)
+        if node_id is None:
+            lease = self._actor_leases.get(actor.actor_id)
+            node_id = lease[0] if lease is not None else self.head_node_id
+        record.node_id_hex = node_id.hex() if node_id is not None else ""
+        if isinstance(actor, LocalActor):
+            record.pid = os.getpid()
+        else:
+            worker = getattr(actor, "_worker", None)
+            record.pid = getattr(actor, "pid", None) or (
+                worker.proc.pid if worker is not None else None)
+        record.num_restarts = getattr(actor, "num_restarts", 0)
+        with self._mirror_lock:
+            self._actor_dirty.add(actor.actor_id)
+
+    def _stop_connected_mode(self) -> None:
+        if self.gcs_client is None:
+            return
+        self._watcher_stop.set()
+        if self._node_watcher is not None:
+            self._node_watcher.join(timeout=10.0)
+        try:
+            self._flush_remote_frees()
+        except Exception:  # noqa: BLE001 — best-effort at shutdown
+            pass
+        with self._remote_nodes_lock:
+            handles = list(self._remote_nodes.values())
+            self._remote_nodes.clear()
+        for handle in handles:
+            handle.close()
+        if self._node_agent is not None:
+            self._node_agent.stop(drain=True)
+        if self._obj_server is not None:
+            self._obj_server.stop()
+        self.gcs_client.close()
 
     # ------------------------------------------------------------ deadlines
 
@@ -624,7 +1298,38 @@ class Runtime:
         # A bundled task's CPU is its bundle's: it is not lent to the node
         # while the task blocks.
         bundled = spec.scheduling_strategy.kind == "PLACEMENT_GROUP"
+        with self._remote_nodes_lock:
+            remote_handle = self._remote_nodes.get(node.node_id)
         try:
+            if remote_handle is not None:
+                from ray_tpu_torch._private.node_executor import (
+                    NodeBusyError,
+                    NodeOverloadedError,
+                    TaskDeadlineExpired,
+                )
+
+                try:
+                    self._execute_remote(spec, node, remote_handle)
+                except NodeBusyError:
+                    self._spillback_requeue(spec, node)
+                    return
+                except TaskDeadlineExpired:
+                    self._seal_deadline(spec, "admitted")
+                    return
+                except NodeOverloadedError as exc:
+                    if spec.deadline is not None:
+                        raise SystemOverloadedError(
+                            f"node {node.node_id.hex()[:8]} shed the "
+                            f"task: {exc}") from None
+                    with self._counter_lock:
+                        self._admission_shed += 1
+                    self._spillback_requeue(spec, node)
+                    return
+                self.gcs.record_task_event(TaskEvent(
+                    spec.task_id, spec.name, "FINISHED",
+                    start_time=start, end_time=time.time(),
+                    node_id=node.node_id.hex()))
+                return
             # A task that asks for GPU stays on a thread of this process,
             # as the reference's TPU tasks do.
             if self.worker_pool is None or "GPU" in spec.resources \
@@ -753,7 +1458,8 @@ class Runtime:
         record = ActorRecord(
             actor_id=actor_id, name=name, namespace=ns,
             class_name=cls.__name__, method_meta=method_meta,
-            default_deadline_s=float(deadline_s or 0.0))
+            default_deadline_s=float(deadline_s or 0.0),
+            max_restarts=max_restarts)
         try:
             self.gcs.register_actor(record)
         except ValueError:
@@ -766,11 +1472,20 @@ class Runtime:
                     return existing.actor_id, creation_ref
             raise
         strategy = scheduling_strategy or SchedulingStrategy()
+        # An actor can live on a node daemon only if its class and its
+        # arguments cross a process boundary; a zero-resource DEFAULT
+        # actor stays here (it may close over this process's state).
+        with self._remote_nodes_lock:
+            remote_ids = set(self._remote_nodes)
+        keep_local = bool(remote_ids) and (
+            (strategy.kind == "DEFAULT" and not any(resources.values()))
+            or not self._remotable(cls, args, kwargs))
 
         def start_actor():
             try:
                 lease = self._lease_actor_resources(
-                    cls.__name__, resources, strategy, record)
+                    cls.__name__, resources, strategy, record,
+                    exclude=remote_ids if keep_local else None)
             except (TimeoutError, PlacementGroupError) as exc:
                 self.store.put_error(creation_rid, exc)
                 self._mark_actor_dead(actor_id, repr(exc))
@@ -790,8 +1505,9 @@ class Runtime:
                 # The process finds the client server in its environment.
                 self.ensure_client_server()
             with self._actors_changed:
-                if record.state == "DEAD":
-                    # Killed before it was built.
+                if record.state == "DEAD" or self._shut_down:
+                    # Killed (or the runtime shut down) before it was
+                    # built.
                     if lease is not None:
                         self._release_lease(*lease)
                     self.store.put_error(creation_rid, ActorDiedError(
@@ -802,7 +1518,30 @@ class Runtime:
                 # that fails marks it DEAD, and that must be the last
                 # word.
                 self.gcs.update_actor_state(actor_id, "ALIVE")
-                if process:
+                with self._remote_nodes_lock:
+                    remote_handle = None if node_id is None \
+                        else self._remote_nodes.get(node_id)
+                if remote_handle is not None:
+                    from ray_tpu_torch._private.remote_actor import (
+                        RemoteActor,
+                    )
+
+                    def on_restart(aid):
+                        self._record_actor_placement(self._actors[aid])
+                        self.gcs.update_actor_state(aid, "ALIVE")
+
+                    actor = RemoteActor(
+                        actor_id, cls, args, kwargs, self,
+                        node_id=node_id, handle=remote_handle,
+                        resources=resources, max_restarts=max_restarts,
+                        max_pending_calls=max_pending_calls,
+                        max_concurrency=max_concurrency,
+                        creation_return_id=creation_rid,
+                        on_death=self._mark_actor_dead,
+                        on_release=self._release_actor_lease,
+                        on_restart=on_restart,
+                        runtime_env=self._package_runtime_env(runtime_env))
+                elif process:
                     actor = ProcessActor(
                         actor_id, cls, args, kwargs, self,
                         max_restarts=max_restarts,
@@ -830,6 +1569,7 @@ class Runtime:
                         set_context=set_context)
                 self._actors[actor_id] = actor
                 self._actors_changed.notify_all()
+            self._record_actor_placement(actor)
 
         threading.Thread(target=start_actor, daemon=True,
                          name=f"ray_tpu_torch-actor-create-"
@@ -837,7 +1577,8 @@ class Runtime:
         return actor_id, creation_ref
 
     def _lease_actor_resources(self, name: str, resources: dict, strategy,
-                               record: ActorRecord) -> tuple | None:
+                               record: ActorRecord,
+                               exclude: set | None = None) -> tuple | None:
         """Take the actor's resources for its lifetime, from the node or
         from its placement group's bundle, waiting up to
         _ACTOR_LEASE_TIMEOUT_S for them to free up: the lease (node,
@@ -862,7 +1603,8 @@ class Runtime:
                 except PlacementGroupError:
                     pass  # pending, or the bundle is full for now
             else:
-                node = self.cluster.pick_node(resources, strategy)
+                node = self.cluster.pick_node(resources, strategy,
+                                              exclude=exclude)
                 shares = None if node is None else self.cluster.try_acquire(
                     node.node_id, resources)
                 if shares is not None:
@@ -876,6 +1618,22 @@ class Runtime:
                     f"{name} within {timeout}s")
             self.cluster.wait_for_change(0.05)
         return None
+
+    def _remotable(self, cls: type, args: tuple, kwargs: dict) -> bool:
+        """Whether the class and its arguments can leave this process."""
+        from ray_tpu_torch._private import serialization
+
+        try:
+            self._function_blob(cls)
+            if args or kwargs:
+                serialization.serialize_framed((
+                    tuple(None if isinstance(a, ObjectRef) else a
+                          for a in args),
+                    {k: None if isinstance(v, ObjectRef) else v
+                     for k, v in kwargs.items()}))
+            return True
+        except Exception:  # noqa: BLE001 — not picklable
+            return False
 
     def _release_actor_lease(self, actor_id: ActorID) -> None:
         """Give back a dead actor's resources, once its executor threads
@@ -976,8 +1734,14 @@ class Runtime:
                 self.store.put_error(rid, err)
             return
         try:
-            call.args, call.kwargs, _ = resolve_args(
-                call.args, call.kwargs, lambda ref: self.get([ref])[0])
+            if getattr(actor, "resolves_refs", False):
+                # The refs stay (they travel as location hints); a failed
+                # argument still fails the call.
+                for ref in ref_args(call.args, call.kwargs):
+                    self.store.get(ref.id())
+            else:
+                call.args, call.kwargs, _ = resolve_args(
+                    call.args, call.kwargs, lambda ref: self.get([ref])[0])
         except Exception as exc:  # noqa: BLE001 — a failed argument fails the call
             for rid in call.return_ids:
                 self.store.put_error(rid, exc)
@@ -1036,17 +1800,19 @@ class Runtime:
                 raise TypeError(f"get() expects ObjectRef (or list of "
                                 f"them), got {type(ref)}")
             if self.store.contains(ref.id()):
-                results.append(self.store.get(ref.id()))
+                results.append(self._materialize_value(
+                    ref.id(), self.store.get(ref.id())))
                 continue
             remaining = None if deadline is None \
                 else max(0.0, deadline - time.monotonic())
             if block_ctx is not None:
                 block_ctx.block()
             try:
-                results.append(self.store.get(ref.id(), timeout=remaining))
+                value = self.store.get(ref.id(), timeout=remaining)
             finally:
                 if block_ctx is not None:
                     block_ctx.unblock()
+            results.append(self._materialize_value(ref.id(), value))
         return results
 
     def wait(self, refs: Sequence[ObjectRef], num_returns: int = 1,
@@ -1100,7 +1866,8 @@ class Runtime:
 
     def _resolve_one_future(self, object_id: ObjectID, fut) -> None:
         try:
-            fut.set_result(self.store.get(object_id, timeout=0))
+            fut.set_result(self._materialize_value(
+                object_id, self.store.get(object_id, timeout=0)))
         except Exception as exc:  # noqa: BLE001 — the future carries it
             fut.set_exception(exc)
 
@@ -1111,13 +1878,18 @@ class Runtime:
         return self.cluster.available_resources()
 
     def shutdown(self) -> None:
-        for actor in list(self._actors.values()):
+        with self._actors_changed:
+            # An actor still being built sees this and is not started.
+            self._shut_down = True
+            actors = list(self._actors.values())
+        for actor in actors:
             actor.kill("runtime shutdown", no_restart=True)
         for submit_queue in list(self._actor_queues.values()):
             submit_queue.put(None)
         self.placement_groups.shutdown()
         self.health_monitor.shutdown()
         self.dispatcher.shutdown()
+        self._stop_connected_mode()
         self._stop_process_plane()
         self.reference_counter.stop()
         self._stop_spill_tier()
@@ -1191,12 +1963,15 @@ def init(*, num_cpus: float | None = None, num_gpus: float | None = None,
          object_store_memory: int | None = None,
          namespace: str = "default", ignore_reinit_error: bool = False,
          system_config: dict | None = None,
-         process_workers: int | None = None) -> Runtime:
+         process_workers: int | None = None,
+         address: str | None = None) -> Runtime:
     """Start the process's runtime. ``num_gpus`` sets the head node's
     ``GPU`` count (by default ``torch.cuda.device_count()``);
     ``process_workers`` starts that many worker processes (by default
-    ``worker_pool_size``, 0). In a worker process the public API goes to
-    the driver's runtime, and this returns its proxy."""
+    ``worker_pool_size``, 0); ``address`` connects to a cluster's head
+    (``cluster_utils.Cluster.address``), whose worker-node daemons then
+    run tasks and actors. In a worker process the public API goes to the
+    driver's runtime, and this returns its proxy."""
     global _runtime, _atexit_registered
     if _in_worker_process():
         return worker_client.get_worker_runtime()
@@ -1212,7 +1987,8 @@ def init(*, num_cpus: float | None = None, num_gpus: float | None = None,
                            resources=resources,
                            object_store_memory=object_store_memory,
                            namespace=namespace,
-                           process_workers=process_workers)
+                           process_workers=process_workers,
+                           address=address)
         if not _atexit_registered:
             atexit.register(shutdown)
             _atexit_registered = True
@@ -1285,10 +2061,24 @@ def available_resources() -> dict[str, float]:
 
 
 def nodes() -> list[dict]:
-    return [{"NodeID": r.node_id.hex(), "Alive": r.alive,
-             "Resources": dict(r.resources), "Labels": dict(r.labels),
-             "NodeManagerAddress": r.address}
-            for r in auto_init().gcs.list_nodes()]
+    """This runtime's nodes and, when connected, the head's."""
+    runtime = auto_init()
+    out = [{"NodeID": r.node_id.hex(), "Alive": r.alive,
+            "Resources": dict(r.resources), "Labels": dict(r.labels),
+            "NodeManagerAddress": r.address}
+           for r in runtime.gcs.list_nodes()]
+    if getattr(runtime, "gcs_client", None) is not None:
+        from ray_tpu_torch._private.rpc import RpcError
+
+        try:
+            for n in runtime.gcs_client.call("list_nodes"):
+                out.append({"NodeID": n["node_id"], "Alive": n["alive"],
+                            "Resources": n["resources"],
+                            "Labels": n["labels"],
+                            "NodeManagerAddress": n["address"]})
+        except (RpcError, OSError):
+            pass  # the head is unreachable: this runtime's view only
+    return out
 
 
 def timeline() -> list[dict]:

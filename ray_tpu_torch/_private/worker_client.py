@@ -50,6 +50,19 @@ def active_worker_runtime() -> "WorkerModeRuntime | None":
     return _active
 
 
+def use_address(address: str) -> None:
+    """Point this process's public API at ``address``: a node daemon's
+    pool worker serves tasks of whichever driver submitted them."""
+    global _active
+    with _active_lock:
+        if os.environ.get(ADDRESS_ENV) == address:
+            return
+        os.environ[ADDRESS_ENV] = address
+        stale, _active = _active, None
+    if stale is not None:
+        stale.shutdown()
+
+
 def get_worker_runtime() -> "WorkerModeRuntime":
     """The process's proxy runtime, made at its first use."""
     global _active

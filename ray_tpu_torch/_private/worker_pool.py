@@ -247,6 +247,14 @@ def _exec_task_body(fields: tuple, func_cache: dict,
     from ray_tpu_torch._private import worker_client
 
     digest, func_blob, args_blob, n_returns, renv, token = fields[:6]
+    # A node daemon's task also names its driver (whose client server
+    # the nested API calls) and the driver's import paths.
+    client_addr = fields[6] if len(fields) > 6 else None
+    sys_path = fields[7] if len(fields) > 7 else None
+    if client_addr:
+        worker_client.use_address(client_addr)
+    if sys_path:
+        sys.path.extend(p for p in sys_path if p not in sys.path)
     if func_blob is not None:
         func_cache[digest] = serialization.loads_function(func_blob)
     func = func_cache[digest]
@@ -725,15 +733,21 @@ class WorkerPool:
     def run_task_blobs(self, digest: str, func_blob: bytes, args_blob: bytes,
                        n_returns: int, return_ids: list[ObjectID],
                        runtime_env: dict | None = None,
-                       task_token: str | None = None
+                       task_token: str | None = None,
+                       client_addr: str | None = None,
+                       sys_path: list[str] | None = None
                        ) -> list[tuple[ObjectID, Any]]:
         """Run a task on a worker; [(return id, value)]. The function
-        crosses the pipe the first time a worker meets its digest.
-        Raises WorkerCrashedError (a system failure) or _RemoteTaskError
-        (the task's own)."""
+        crosses the pipe the first time a worker meets its digest. On a
+        node daemon, ``client_addr`` is the submitting driver's client
+        server and ``sys_path`` its import paths. Raises
+        WorkerCrashedError (a system failure) or _RemoteTaskError (the
+        task's own)."""
         from ray_tpu_torch._private.worker_factory import (
             import_sensitive_subset,
         )
+
+        extra = (client_addr, sys_path) if client_addr or sys_path else ()
 
         env_vars = {str(k): str(v) for k, v in
                     ((runtime_env or {}).get("env_vars") or {}).items()}
@@ -753,7 +767,7 @@ class WorkerPool:
                 worker = self._new_worker(extra_env=env_vars)
                 return self._unpack_reply(worker.request(
                     ("task", digest, func_blob, args_blob, n_returns,
-                     runtime_env, task_token)), return_ids)
+                     runtime_env, task_token, *extra)), return_ids)
             finally:
                 if worker is not None:
                     worker.stop()
@@ -765,7 +779,8 @@ class WorkerPool:
             send_blob = None if digest in worker.known_digests else func_blob
             try:
                 reply = worker.request(("task", digest, send_blob, args_blob,
-                                        n_returns, runtime_env, task_token))
+                                        n_returns, runtime_env, task_token,
+                                        *extra))
             except _WorkerUnavailable:
                 continue  # nothing started; _release replaces the worker
             finally:

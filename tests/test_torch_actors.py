@@ -439,3 +439,22 @@ def test_dead_actor_lets_go_of_its_instance_and_arguments():
             gc.enable()
 
     assert _run(scenario, ray_tpu_torch) == [1000, True]
+
+
+def test_an_actor_built_during_shutdown_is_not_started():
+    """An actor whose creation is still under way when the runtime shuts
+    down is never started: no actor thread outlives ``shutdown()``."""
+    import threading
+
+    for _ in range(5):
+        ray_tpu_torch.shutdown()
+        ray_tpu_torch.init(num_cpus=2)
+        _counter(ray_tpu_torch, name="late")
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + WAIT_S
+    while time.monotonic() < deadline and any(
+            t.name.startswith("ray_tpu_torch-actor-")
+            for t in threading.enumerate()):
+        time.sleep(0.05)
+    assert [t.name for t in threading.enumerate()
+            if t.name.startswith("ray_tpu_torch-actor-")] == []

@@ -47,6 +47,14 @@ STORE_RECOVERY_MODULES = (
     "ray_tpu_torch._private.spill_manager",
     "ray_tpu_torch._private.recovery",
     "ray_tpu_torch._private.memory_monitor")
+# The node layer: the head, node daemons, remote actors and the cluster.
+NODE_MODULES = (
+    "ray_tpu_torch._private.gcs", "ray_tpu_torch._private.gcs_pubsub",
+    "ray_tpu_torch._private.gcs_server", "ray_tpu_torch._private.node",
+    "ray_tpu_torch._private.node_executor",
+    "ray_tpu_torch._private.remote_actor",
+    "ray_tpu_torch._private.runtime_env_packaging",
+    "ray_tpu_torch._private.scheduler", "ray_tpu_torch.cluster_utils")
 # The data package: every module, imported where importing jax, ray_tpu
 # or cloudpickle raises.
 DATA_MODULES = tuple(
@@ -126,6 +134,48 @@ def test_store_recovery_modules_import_without_jax_ray_tpu_or_cloudpickle():
             "_private/memory_monitor.py"} <= checked
     assert _import_blocked(STORE_RECOVERY_MODULES,
                            FORBIDDEN + ("cloudpickle",)) == "[]"
+
+
+def test_node_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"ray_tpu_torch/{m.split('.', 1)[1].replace('.', '/')}.py"
+            for m in NODE_MODULES} <= checked
+    assert _import_blocked(NODE_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+
+
+def test_a_node_daemon_starts_without_jax_ray_tpu_or_cloudpickle():
+    """A daemon process (what ``Cluster.add_node`` starts) imports its
+    whole stack where importing jax, ray_tpu or cloudpickle raises, and
+    serves until it is stopped."""
+    import subprocess
+    import sys
+
+    code = "\n".join([
+        "import signal, sys, threading, time",
+        "class Block:",
+        "    def find_spec(self, name, path=None, target=None):",
+        "        if name.split('.')[0] in ('jax', 'ray_tpu', 'cloudpickle'):",
+        "            raise ImportError('blocked: ' + name)",
+        "sys.meta_path.insert(0, Block())",
+        "from ray_tpu_torch._private.gcs_server import GcsServer",
+        "from ray_tpu_torch._private import node",
+        "server = GcsServer().start()",
+        "def stop_once_registered():",
+        "    while not any(n['alive'] for n in server._list_nodes()):",
+        "        time.sleep(0.05)",
+        "    signal.raise_signal(signal.SIGTERM)",
+        "threading.Thread(target=stop_once_registered, daemon=True).start()",
+        "node.run_worker(server.address, {'CPU': 1.0}, pool_size=1)",
+        "nodes = server._list_nodes()",
+        "server.stop()",
+        "print(len(nodes), nodes[0]['alive'], sorted(m for m in sys.modules",
+        "      if m.split('.')[0] in ('jax', 'ray_tpu', 'cloudpickle')))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1 False []"
 
 
 def test_data_modules_import_without_jax_ray_tpu_or_cloudpickle():

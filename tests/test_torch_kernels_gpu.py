@@ -772,3 +772,49 @@ def test_device_feed_reuses_no_buffer_under_a_copy_in_flight(cuda_device):
     torch.cuda.synchronize()
     want = [float(b["x"].astype("float64").sum()) for b in host]
     assert [s.item() for s in sums] == want
+
+
+@pytest.mark.gpu
+def test_gpu_task_on_a_node_daemon_returns_the_drivers_bits(cuda_device):
+    """A ``num_gpus=1`` task on a one-daemon cluster runs the RMSNorm and
+    flash-attention kernels in the daemon's process (its pid is not the
+    driver's) on inputs it makes from a seed; what comes back to the
+    driver is a CUDA tensor bitwise equal to the driver's own launches on
+    the same seed."""
+    import os
+    import time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    def compute(seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        x = torch.randn(64, 1024, generator=gen, device="cuda")
+        scale = torch.randn(1024, generator=gen, device="cuda") + 1
+        q, k, v = (torch.randn(1, 256, h, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for h in (8, 2, 2))
+        with torch.no_grad():
+            return (os.getpid(), fused.rms_norm(x, scale),
+                    fa.flash_attention(q, k, v, causal=True))
+
+    rt.shutdown()
+    cluster = Cluster()
+    cluster.add_node(num_cpus=2, resources={"GPU": 1})
+    try:
+        assert cluster.wait_for_nodes(1, timeout=120)
+        rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        deadline = time.monotonic() + 60
+        while rt.cluster_resources().get("GPU", 0) < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        pid, normed, attn = rt.get(
+            rt.remote(num_gpus=1)(compute).remote(3), timeout=300)
+        daemon_pids = {node.pid for node in cluster.worker_nodes}
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+    assert pid != os.getpid() and pid in daemon_pids
+    _, want_normed, want_attn = compute(3)
+    assert normed.device.type == "cuda" and attn.device.type == "cuda"
+    assert torch.equal(normed, want_normed)
+    assert torch.equal(attn, want_attn)

@@ -269,3 +269,31 @@ def test_a_gpu_task_on_a_dead_node_is_rebuilt_on_the_heads_gpu():
 
     assert _run(scenario, "ray_tpu_torch", num_gpus=1) == \
         [True, 2.0, True, True, 1.0, 1.0, {0: 1.0}, {0: 1.0}, 1]
+
+
+def _hold_the_gil(seconds: float) -> None:
+    """Stall every thread of this process: one C call that never lets
+    the GIL go, sized from a timed shorter one."""
+    n = 1_000_000
+    start = time.perf_counter()
+    sum(range(n))
+    per_item = (time.perf_counter() - start) / n
+    sum(range(int(seconds / per_item)))
+
+
+def test_a_stalled_process_does_not_kill_its_nodes():
+    """The health checks count missed checks, not seconds: a stall of
+    the whole process (the GIL held for eight periods, five times) delays
+    the beats and the checks alike, so no node is declared dead and work
+    still runs on the head."""
+    def scenario(runtime, strategy):
+        for _ in range(5):
+            _hold_the_gil(8 * FAST_HEALTH["health_check_period_ms"]
+                          / 1000.0)
+            time.sleep(0.2)
+        alive = [n.alive for n in runtime.gcs.list_nodes()]
+        done = runtime.submit_task(lambda: "ran", (), {}, name="after",
+                                   resources={"CPU": 1.0})
+        return [alive, runtime.get(done, timeout=WAIT_S)[0]]
+
+    assert _run(scenario, "ray_tpu_torch") == [[True], "ran"]
