@@ -96,7 +96,19 @@ source, all started together) and drives the port's two paths:
   rebuilt bitwise from lineage on the head's card after the node is
   killed; a torn spill file rebuilt by re-running its task; an OOM kill
   retried on its budget and the memory watermark's shed and store
-  pressure (store_recovery).
+  pressure (store_recovery);
+- node daemons: a head in this process and two daemons on card 0, the
+  flash kernels on one and RMSNorm on the other, Llama-3-8B served from
+  a remote actor that restarts on the survivor when its node is killed
+  (node_cluster);
+- the durable head and the node store's spill tier: a head process and
+  a daemon with a 48 MiB store, the flash results spilled to its disk
+  and marked in the head's directory, Llama-3-8B served from a named,
+  detached actor there while the head is SIGKILLed and started again on
+  its port and session dir; the in-flight request, the name, the KV, the
+  job, the daemon's NodeID and the spilled results all come back, and
+  the results and RMSNorm over them are bitwise the driver's launches
+  (head_restart).
 
 Each phase prints one JSON line. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
@@ -108,8 +120,9 @@ the pipeline (``moe_launches``, ``pipeline_launches``), through
 (``data_launches``), through the runtime
 (``runtime_launches``), through the serve deployments
 (``deployment_launches``), in worker processes
-(``process_launches``) and through the store_recovery phase
-(``store_launches``), its error
+(``process_launches``), through the store_recovery phase
+(``store_launches``), on the node daemons (``node_launches``) and
+across the head restart (``restart_launches``), its error
 against the plain version, its times, and for the attention kernels the
 achieved TFLOP/s and share of the bound, then the whole backward
 (pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
@@ -3824,7 +3837,7 @@ class ProcessServeActor(EngineActor):
 
 
 def _stream_requests(rt, actor, prompts, temperatures) -> dict:
-    """The 16 requests streamed from ``actor`` at once (after a warm-up
+    """The requests streamed from ``actor`` at once (after a warm-up
     request and ``time_steps``, counters reset): their records, submit
     times, errors and the wall seconds, the engine's stats over them, the
     actor's counters and its step times."""
@@ -4531,6 +4544,9 @@ NODE_SEED = 31
 NODE_HEARTBEAT_TIMEOUT_S = 5.0  # tests/test_remote_actors.py's fixture
 NODE_WAIT_S = 300.0
 NODE_FREE_TOL_BYTES = 64 << 20
+# The serve phase's first 8 requests (all greedy): one batch of the
+# engine, cut from 16 to keep the script near half its time limit.
+NODE_REQUESTS = 8
 
 
 def _node_attention(seed: int):
@@ -4665,7 +4681,8 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     on card 0, and a driver connected with no CPU and no GPU of its own.
     (a) the flash kernels on A and RMSNorm on B, bitwise, the output
     pulled A to B; (b) Llama-3-8B served from a remote actor on A, the
-    16 requests, greedy outputs token-identical to the serve phase's;
+    serve phase's first 8 requests, greedy outputs token-identical to
+    the serve phase's;
     (c) A killed, the actor restarted on B from the same seed and
     token-identical again; (d) after shutdown no daemon or actor process
     is left, the card's free bytes are back and so is every ``GPU``.
@@ -4718,8 +4735,10 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
             {"tokens": prompts[0][:32], "max_new_tokens": 2}), timeout=900)
         boot_s = time.perf_counter() - boot
         require(len(warm["tokens"]) == 2, "warm-up request failed")
-        streamed = _stream_requests(rt, actor, prompts, temperatures)
-        served_here = _serving_summary(streamed, temperatures, served_tokens)
+        streamed = _stream_requests(rt, actor, prompts[:NODE_REQUESTS],
+                                    temperatures[:NODE_REQUESTS])
+        served_here = _serving_summary(
+            streamed, temperatures[:NODE_REQUESTS], served_tokens)
         actor_a = streamed["counters"]["pid"]
         pids.append(actor_a)
         actor_on_a = _parent(actor_a) == nodes["A"].pid
@@ -4820,6 +4839,417 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     return launches
 
 
+HEAD_SEED = 37
+HEAD_STORE_LIMIT_MB = 48  # under the four flash results' 100.7 MB
+HEAD_WAIT_S = 300.0
+HEAD_GREEDY = 4  # the serve phase's first greedy prompts sent before
+
+
+def _spawn_node(role: str, kwargs: dict, session: str, extra_env: dict,
+                log_name: str) -> subprocess.Popen:
+    """``python -m ray_tpu_torch._private.node <role>`` in a process
+    group of its own, its output to ``<session>/<log_name>``."""
+    from ray_tpu_torch._private.node import SESSION_DIR_ENV, daemon_child_env
+
+    env = daemon_child_env({SESSION_DIR_ENV: session, **extra_env})
+    with open(os.path.join(session, log_name), "ab") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch._private.node", role,
+             json.dumps(kwargs)], env=env, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _head_call(addr: str, method: str, *args, timeout_s: float = 5.0):
+    """One call to the head on a fresh connection; None while it is
+    down."""
+    from ray_tpu_torch._private.rpc import RpcClient, RpcError
+
+    client = RpcClient(addr, timeout_s=timeout_s, connect_timeout_s=1.0)
+    try:
+        return client.call(method, *args)
+    except (RpcError, OSError):
+        return None
+    finally:
+        client.close()
+
+
+def _start_head(session: str, port: int) -> tuple:
+    """The head process on ``port`` (0: any) with the session dir, and
+    its address once it answers. It runs no GPU work (``CPU`` 1)."""
+    proc = _spawn_node("head", {"port": port, "resources": {"CPU": 1.0}},
+                       session, {"CUDA_VISIBLE_DEVICES": ""}, "head.log")
+    addr_file = os.path.join(session, "head_address")
+    deadline = time.monotonic() + HEAD_WAIT_S
+    while True:
+        require(proc.poll() is None, "the head died while starting")
+        require(time.monotonic() < deadline, "the head never answered")
+        try:
+            with open(addr_file) as f:
+                addr = f.read().strip()
+        except OSError:
+            addr = ""
+        if addr and (port == 0 or addr.endswith(f":{port}")) \
+                and _head_call(addr, "ping") == "pong":
+            return proc, addr
+        time.sleep(0.02)
+
+
+def _kill_group(proc: subprocess.Popen, sig=None) -> None:
+    import signal
+
+    try:
+        os.killpg(proc.pid, sig if sig is not None else signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass  # the group has ended
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        pass  # reported as a pid left
+
+
+def _rts1_files(session: str, pid: int) -> list[str]:
+    """The managed spill files in daemon ``pid``'s directory."""
+    root = os.path.join(session, "spill", str(pid))
+    out = []
+    for name in sorted(os.listdir(root)) if os.path.isdir(root) else ():
+        if name.endswith(".spill"):
+            with open(os.path.join(root, name), "rb") as f:
+                if f.read(4) == b"RTS1":
+                    out.append(name)
+    return out
+
+
+def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
+                       power: str) -> dict:
+    """The durable head and the node store's spill tier: a head process
+    (``python -m ray_tpu_torch._private.node head``, its own session
+    dir) and one daemon A ``{"CPU": 2, "GPU": 1, "worker": 4}`` on card 0
+    with a 48 MiB node store, a driver connected by address. (a) the
+    flash forward and backward in a task on A: its four results (100.7
+    MB) spill to A's disk as RTS1 files, and the head's directory marks
+    them; (b) a KV key, a job, and Llama-3-8B served from a named,
+    detached ``num_gpus=1`` actor on A, the serve phase's first 4 greedy
+    prompts (sent together) token-identical, a last KV write, a 5th
+    prompt in flight when the head is SIGKILLed;
+    (c) the head started again on the port and session dir: the epoch
+    one higher, the WAL replayed, A back under its NodeID, the request
+    completed token-identical, the actor not restarted, its name
+    resolving, the KV and the job back; (d) the four results read back
+    from A's disk bitwise the driver's launches, RMSNorm over o on A
+    bitwise once the actor is shut down (it holds A's GPU); (e) no pid
+    left, the card's free bytes and the GPU back.
+    Returns the kernels' launches in the phase."""
+    import signal
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.experimental import internal_kv
+
+    phase_start = time.perf_counter()
+    config = serve_config(llama)
+    _, prompts, temperatures = serve_requests(config)
+    greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = _free_bytes()
+    want_o, want_dq, want_dk, want_dv, _ = _node_attention(HEAD_SEED)
+    want_n, _ = _node_norm(want_o, HEAD_SEED)
+    want = {"o": want_o, "dq": want_dq, "dk": want_dk, "dv": want_dv}
+    sizes = {k: t.numel() * t.element_size() for k, t in want.items()}
+    session = tempfile.mkdtemp(prefix="chip_smoke_head_")
+    pids, procs = [], []
+    head = daemon = None
+    try:
+        # Setup.
+        start = time.perf_counter()
+        head, addr = _start_head(session, 0)
+        port = int(addr.rsplit(":", 1)[1])
+        head_up_s = time.perf_counter() - start
+        pids.append(head.pid)
+        daemon = _spawn_node(
+            "worker", {"gcs_address": addr,
+                       "resources": {"CPU": 2.0, "GPU": 1.0, "worker": 4.0},
+                       "pool_size": 2, "heartbeat_period_s": 0.5,
+                       "parent_pid": os.getpid()}, session,
+            {"CUDA_VISIBLE_DEVICES": "0",
+             "RAY_TPU_TORCH_NODE_STORE_PRIMARY_LIMIT_MB":
+                 str(HEAD_STORE_LIMIT_MB)}, "daemon_a.log")
+        procs += [head, daemon]
+        pids.append(daemon.pid)
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=addr)
+        require(_until(lambda: rt.cluster_resources().get("GPU") == 1.0,
+                       HEAD_WAIT_S), "daemon A did not join")
+        with runtime._remote_nodes_lock:
+            by_pid = {h.pool.call("exec_ping"): (nid, h)
+                      for nid, h in runtime._remote_nodes.items()}
+        node_a, handle_a = by_pid[daemon.pid]
+        joined_s = time.perf_counter() - start
+
+        # (a) Spill on the daemon.
+        with_a = {"num_gpus": 1, "resources": {"worker": 1}}
+        t0 = time.perf_counter()
+        o_ref, dq_ref, dk_ref, dv_ref, counts_a_ref = rt.remote(
+            num_returns=5, **with_a)(_node_attention).remote(HEAD_SEED)
+        counts_a = rt.get(counts_a_ref, timeout=HEAD_WAIT_S)
+        task_s = time.perf_counter() - t0
+        refs = {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref}
+        hexes = {k: r.hex() for k, r in refs.items()}
+
+        def spilled_on_a() -> dict:
+            return handle_a.pool.call("executor_stats")
+
+        require(_until(lambda: spilled_on_a()["store"]["spilled_blobs"]
+                       >= 3, 60), "fewer than 3 results spilled on A")
+        stats_a = spilled_on_a()
+        files = _rts1_files(session, daemon.pid)
+
+        def marks() -> dict:
+            reply = _head_call(addr, "list_object_locations", None, True)
+            return {} if reply is None else reply[1]
+
+        require(_until(lambda: sum(marks().get(h) == node_a.hex()
+                                   for h in hexes.values()) >= 3, 60),
+                f"the head's directory marks {marks()}")
+        marked = sorted(k for k, h in hexes.items()
+                        if marks().get(h) == node_a.hex())
+
+        # (b) State that must survive.
+        internal_kv.internal_kv_put(b"head-restart", b"durable")
+        sub_id = _head_call(addr, "submit_job",
+                            f"{sys.executable} -c 'print(42)'")
+        require(_until(lambda: (_head_call(addr, "job_status", sub_id)
+                                or {}).get("status") == "SUCCEEDED", 60),
+                "the job did not succeed")
+        boot = time.perf_counter()
+        actor = rt.remote(max_concurrency=16, **with_a)(
+            ProcessServeActor).options(
+            name="llama3-8b", lifetime="detached").remote(
+            **SERVE_ENGINE, device=DEVICE)
+        warm = rt.get(actor.generate.remote(
+            {"tokens": prompts[0][:32], "max_new_tokens": 2}), timeout=900)
+        boot_s = time.perf_counter() - boot
+        require(len(warm["tokens"]) == 2, "warm-up request failed")
+        serving_s = time.perf_counter() - start
+        rt.get(actor.reset_counters.remote(), timeout=60)
+
+        def request(i: int):
+            return actor.stream.remote(
+                {"tokens": prompts[i], "max_new_tokens": SERVE_NEW_TOKENS,
+                 "temperature": 0.0})
+
+        # Sent together; a request's wall is its submit to its last
+        # token's arrival (both processes read the host's monotonic
+        # clock).
+        t0 = time.perf_counter()
+        streams = rt.get([request(i) for i in greedy[:HEAD_GREEDY]],
+                         timeout=600)
+        first = [r["tokens"] for r in streams]
+        walls = [r["arrivals"][-1] - t0 for r in streams]
+        pid_before = rt.get(actor.counters.remote(), timeout=60)["pid"]
+        pids.append(pid_before)
+        steps_before = rt.get(actor.stats.remote(), timeout=60)[
+            "decode_steps"]
+        epoch_before = _head_call(addr, "gcs_epoch")
+        inflight_i = greedy[HEAD_GREEDY]
+        t_inflight = time.perf_counter()
+        inflight = request(inflight_i)
+        require(_until(lambda: rt.get(actor.stats.remote(), timeout=60)[
+            "decode_steps"] > steps_before, 120),
+            "the 5th request never decoded")
+        # The last write the head acknowledges before it dies: it is in
+        # the WAL only (unless a snapshot lands in between).
+        internal_kv.internal_kv_put(b"last-write", b"acked")
+        snapshot_before = os.path.exists(
+            os.path.join(session, "gcs_snapshot.pkl"))
+        wall_kill = time.perf_counter()
+        _kill_group(head, signal.SIGKILL)
+        in_flight_at_kill = not rt.wait([inflight], timeout=0)[0]
+
+        # (c) Restart on the same port and session dir.
+        head, _ = _start_head(session, port)
+        procs.append(head)
+        pids.append(head.pid)
+        answered_s = time.perf_counter() - wall_kill
+        epoch_after = _head_call(addr, "gcs_epoch")
+        persist = _head_call(addr, "gcs_persist_stats")
+
+        def a_back() -> bool:
+            nodes = _head_call(addr, "list_nodes") or []
+            stats = _head_call(addr, "node_stats") or {}
+            return any(n["node_id"] == node_a.hex() and n["alive"]
+                       for n in nodes) and node_a.hex() in stats
+
+        def name_back() -> bool:
+            actors = _head_call(addr, "list_cluster_actors") or []
+            return any(a["name"] == "llama3-8b" and a["state"] == "ALIVE"
+                       for a in actors)
+
+        # Each from the kill to the first poll that finds it.
+        since_kill: dict = {}
+
+        def both_back() -> bool:
+            for key, check in (("a", a_back), ("name", name_back)):
+                if key not in since_kill and check():
+                    since_kill[key] = time.perf_counter() - wall_kill
+            return len(since_kill) == 2
+
+        require(_until(both_back, HEAD_WAIT_S),
+                f"back after the restart: {sorted(since_kill)} of A's "
+                f"registration under its NodeID and the actor's name")
+        reregistered_s, name_s = since_kill["a"], since_kill["name"]
+        resolved = rt.get_actor("llama3-8b")
+        done = rt.get(inflight, timeout=600)
+        inflight_wall = done["arrivals"][-1] - t_inflight
+        counters = rt.get(resolved.counters.remote(), timeout=60)
+        record = runtime.gcs.get_actor(actor._actor_id)
+        head_record = next(a for a in _head_call(addr, "list_cluster_actors")
+                           if a["name"] == "llama3-8b")
+        after = rt.get(resolved.stream.remote(
+            {"tokens": prompts[greedy[HEAD_GREEDY + 1]],
+             "max_new_tokens": SERVE_NEW_TOKENS, "temperature": 0.0}),
+            timeout=600)["tokens"]
+        kv_back = [internal_kv.internal_kv_get(b"head-restart"),
+                   internal_kv.internal_kv_get(b"last-write")]
+        job_back = (_head_call(addr, "job_status", sub_id) or {}).get(
+            "status")
+        # The actor holds A's one GPU: it goes before the RMSNorm task.
+        rt.get(resolved.shutdown.remote(), timeout=60)
+        rt.kill(resolved)
+        require(_until(lambda: rt.available_resources().get("GPU") == 1.0,
+                       60), "GPU not back after the actor")
+
+        # (d) After the restart: the results from A's disk, through the
+        # restored directory.
+        locations, restored_marks = _head_call(
+            addr, "list_object_locations", None, True)
+        listed = sorted(k for k, h in hexes.items()
+                        if node_a.hex() in locations.get(h, ()))
+        before = handle_a.pool.call("executor_stats")["spill"]
+        restores_before = before["restores"]
+        restore_bytes_before = before["restore_timed_bytes"]
+        restore_s_before = before["restore_seconds"]
+        t0 = time.perf_counter()
+        got = dict(zip(refs, rt.get(list(refs.values()),
+                                    timeout=HEAD_WAIT_S)))
+        get_s = time.perf_counter() - t0
+        spill_stats = handle_a.pool.call("executor_stats")["spill"]
+        n_ref, counts_n_ref = rt.remote(num_returns=2, **with_a)(
+            _node_norm).remote(o_ref, HEAD_SEED)
+        got_n, counts_n = rt.get([n_ref, counts_n_ref], timeout=HEAD_WAIT_S)
+        bitwise = {k: torch.equal(got[k], want[k]) for k in want}
+        bitwise["rmsnorm"] = torch.equal(got_n, want_n)
+        devices = {k: t.device.type for k, t in got.items()}
+        del got, got_n, n_ref, refs, o_ref, dq_ref, dk_ref, dv_ref
+
+        # (e) Teardown.
+        require(_until(lambda: rt.available_resources().get("GPU") == 1.0,
+                       60), "GPU not back after the RMSNorm task")
+        gpu_back = [rt.available_resources().get("GPU"),
+                    handle_a.pool.call("executor_stats")["available"].get(
+                        "GPU")]
+    finally:
+        rt.shutdown()
+        for proc in procs:
+            if proc is not None and proc.poll() is None:
+                _kill_group(proc, signal.SIGTERM)
+            if proc is not None:
+                _kill_group(proc)
+        import shutil
+
+        shutil.rmtree(session, ignore_errors=True)
+    left = [pid for pid in pids if not _until(lambda: _pid_gone(pid), 30)]
+    del want, want_o, want_dq, want_dk, want_dv, want_n
+    torch.cuda.empty_cache()
+    free_after = _free_back(free_before, NODE_FREE_TOL_BYTES)
+    launches = {k: counts_a[k] for k in (*HOPPER_KERNELS, "flash_bwd")}
+    launches["rmsnorm"] = counts_n["rmsnorm"] + counters["rmsnorm"]
+    spill_timings = stats_a["spill"]
+    result = {
+        "daemon": {"resources": {"CPU": 2, "GPU": 1, "worker": 4},
+                   "card": 0, "node_store_primary_limit_mb":
+                       HEAD_STORE_LIMIT_MB},
+        "head_up_s": head_up_s, "daemon_joined_s": joined_s,
+        "head_start_to_serving_s": serving_s,
+        "actor_start_and_warm_up_s": boot_s,
+        "result_bytes": sizes, "task_s": task_s,
+        "spilled_blobs": stats_a["store"]["spilled_blobs"],
+        "rts1_files": len(files), "marked_spilled": marked,
+        "spill_gb_per_s": spill_timings["spill_timed_bytes"] / 1e9
+        / max(spill_timings["spill_seconds"], 1e-9),
+        "restore_gb_per_s": (spill_stats["restore_timed_bytes"]
+                             - restore_bytes_before) / 1e9
+        / max(spill_stats["restore_seconds"] - restore_s_before, 1e-9),
+        "epoch_before_after": [epoch_before, epoch_after],
+        "persist_stats": persist, "snapshot_before_kill": snapshot_before,
+        "in_flight_at_kill": in_flight_at_kill,
+        "kill_to_head_answering_s": answered_s,
+        "kill_to_reregistered_s": reregistered_s,
+        "kill_to_name_resolving_s": name_s,
+        "snapshot_restore_ms": (persist or {}).get("snapshot_restore_ms"),
+        "first_token_identical": [t == served_tokens[i] for t, i
+                                  in zip(first, greedy[:HEAD_GREEDY])],
+        "request_wall_s_median": statistics.median(walls),
+        "inflight_wall_s": inflight_wall,
+        "inflight_token_identical": done["tokens"]
+        == served_tokens[inflight_i],
+        "after_token_identical": after
+        == served_tokens[greedy[HEAD_GREEDY + 1]],
+        "actor_pid_same": counters["pid"] == pid_before,
+        "actor_num_restarts": [record.num_restarts if record else None,
+                               head_record["num_restarts"]],
+        "kv_back": kv_back == [b"durable", b"acked"],
+        "job_back": job_back,
+        "directory_lists": listed,
+        "directory_marks_restored": sorted(
+            k for k, h in hexes.items()
+            if restored_marks.get(h) == node_a.hex()),
+        "driver_get_s": get_s,
+        "restores": spill_stats["restores"] - restores_before,
+        "driver_get_gb_per_s": sum(sizes.values()) / 1e9
+        / max(get_s, 1e-9),
+        "spill_counters": spill_stats, "bitwise": bitwise,
+        "devices": devices, "gpu_driver_node": gpu_back,
+        "pids_left": left, "free_bytes_before_after": [free_before,
+                                                       free_after],
+        "launches": launches, "card": device["kind"], "nvidia_smi": power,
+        "phase_s": time.perf_counter() - phase_start}
+    emit("head_restart", **result)
+    require(len(files) >= 3 and result["spilled_blobs"] >= 3,
+            f"{len(files)} RTS1 files on A")
+    require(epoch_after == epoch_before + 1,
+            f"epoch {epoch_before} -> {epoch_after}")
+    require(persist is not None and persist["torn_wal_tails"] == 0
+            and persist["torn_snapshots"] == 0
+            and (persist["wal_records_replayed"] > 0 or snapshot_before),
+            f"the restart restored nothing: {persist}")
+    require(in_flight_at_kill, "the 5th request ended before the kill")
+    require(all(result["first_token_identical"])
+            and result["inflight_token_identical"]
+            and result["after_token_identical"],
+            "greedy outputs differ from the serve phase's")
+    require(result["actor_pid_same"]
+            and result["actor_num_restarts"] == [0, 0],
+            f"the actor restarted: {result['actor_num_restarts']}")
+    require(result["kv_back"] and job_back == "SUCCEEDED",
+            f"KV {kv_back!r}, job {job_back}")
+    require(len(listed) == 4 and len(result["directory_marks_restored"])
+            >= 3 and result["restores"] >= 3,
+            f"the directory lists {listed}, "
+            f"{result['directory_marks_restored']} marked; "
+            f"{result['restores']} restores")
+    require(all(bitwise.values())
+            and set(devices.values()) == {torch.device(DEVICE).type},
+            f"results differ from the driver's: {bitwise} {devices}")
+    require(gpu_back == [1.0, 1.0], f"GPU not back: {gpu_back}")
+    require(not left, f"processes left: {left}")
+    require(abs(free_after - free_before) <= NODE_FREE_TOL_BYTES,
+            f"free card bytes {free_before} -> {free_after}")
+    require(all(counts_a[k] == 1 for k in (*HOPPER_KERNELS, "flash_bwd"))
+            and counts_n["rmsnorm"] == 1 and counters["rmsnorm"] > 0,
+            f"launches {counts_a}, {counts_n}, {counters['rmsnorm']}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4890,6 +5320,9 @@ def main() -> int:
     node_launches = phase_node_cluster(
         llama, fa, fused, served_result, served_tokens,
         process_served["summary"], runtime_result, device, power)
+    torch.cuda.empty_cache()
+    restart_launches = phase_head_restart(llama, fa, fused, served_tokens,
+                                          device, power)
     for kind, row in rows.items():
         row["launches"] = launches[kind]
         # bench.py's mesh path (mesh_train); training's norms are
@@ -4923,6 +5356,10 @@ def main() -> int:
         # task on node A, RMSNorm in the task on B and in the remote
         # serving actor, before and after its restart.
         row["node_launches"] = node_launches.get(kind, 0)
+        # And across a head restart (head_restart): the flash kernels in
+        # the task on A whose results spilled, RMSNorm in the named
+        # serving actor and in the task over the restored output.
+        row["restart_launches"] = restart_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
                          f"{missing}")
@@ -4943,6 +5380,9 @@ def main() -> int:
                          f"phase: {missing}")
     missing = [k for k, row in rows.items() if not row["node_launches"]]
     require(not missing, f"kernels not launched on the node daemons: "
+                         f"{missing}")
+    missing = [k for k, row in rows.items() if not row["restart_launches"]]
+    require(not missing, f"kernels not launched across the head restart: "
                          f"{missing}")
     order = (*KERNELS, "flash_bwd")
     print(json.dumps({"kernels": [rows[k] for k in order]}), flush=True)

@@ -91,8 +91,27 @@ _DEFAULTS: dict[str, Any] = {
     "executor_inline_reply_kb": 256,
     "fetch_chunk_kb": 4096,
     "rpc_pipeline_depth": 8,
+    # A daemon's store of primary copies: past this cap the managed tier
+    # spills them to checksummed files (spill_enabled), else the oldest
+    # go inline to node_store_spill_dir.
+    "node_store_primary_limit_mb": 4096,
+    "node_store_spill_dir": os.path.join(tempfile.gettempdir(),
+                                         "ray_tpu_torch_node_spill"),
     # The head declares a node dead after this long without a heartbeat.
     "gcs_heartbeat_timeout_s": 10.0,
+    # The durable head (gcs_persistence.py): its whole hot set as a
+    # checksummed snapshot every gcs_snapshot_interval_s (or when the WAL
+    # passes gcs_wal_max_mb) and a framed WAL record per mutation
+    # between them. Off, the head writes the legacy {kv, jobs} pickle.
+    "gcs_persistence": True,
+    "gcs_snapshot_interval_s": 30.0,
+    "gcs_wal_max_mb": 64,
+    # fsync each WAL append and snapshot (a SIGKILL loses nothing
+    # without it; a power cut may lose the tail).
+    "gcs_wal_fsync": False,
+    # Each head start mints a persisted epoch; writes stamped with an
+    # older one are refused (StaleEpochError) until the writer re-syncs.
+    "gcs_epoch_fencing": True,
     # A daemon that answers pings but stays absent from the head's node
     # table for more than this many watcher passes is dropped.
     "node_amnesia_max_passes": 5,

@@ -5,10 +5,12 @@ the job, node and actor tables with named actors per namespace, the
 placement groups, the task events ``timeline()`` reads, an in-process
 pub/sub hub (node and actor transitions), the per-node stats table the
 heartbeats fill and the cluster's object directory, which the head
-(``gcs_server.py``) serves. Each is thread-safe. Not ported: the write-
-ahead log hooks, snapshots and shards of the reference's durable head
-(ROADMAP item 10b), and the directory's spill marks (item 10a's node
-spill tier).
+(``gcs_server.py``) serves, with the spilled marks its daemons report.
+Each is thread-safe. The tables the head persists count their mutations
+(``version``, ``table_versions``) and hand each to ``wal_emit`` while
+their lock is held, so the WAL's order is the order of application;
+``control_snapshot``/``restore_control``/``apply_op`` are the snapshot
+and replay sides. Not ported: the sharded tables (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,12 +24,42 @@ from typing import Any, Callable
 from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, TaskID
 
 
+class StaleEpochError(Exception):
+    """A control-plane write carried the epoch of an earlier head
+    incarnation (a daemon or driver cut off across a head restart). It
+    was refused; the caller re-syncs (registers or publishes again under
+    ``current_epoch``) and retries."""
+
+    def __init__(self, current_epoch: int, stale_epoch: int | None = None):
+        super().__init__(
+            f"stale epoch {stale_epoch} (head is at epoch "
+            f"{current_epoch}); re-sync and retry")
+        self.current_epoch = current_epoch
+        self.stale_epoch = stale_epoch
+
+    def __reduce__(self):
+        # Crosses RPC as its own type, with its epochs.
+        return (StaleEpochError, (self.current_epoch, self.stale_epoch))
+
+
 class KVStore:
     """Namespaced key-value store."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._data: dict[str, dict[bytes, bytes]] = defaultdict(dict)
+        # Counts mutations: the head snapshots only when it moved.
+        self.version = 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {ns: dict(kv) for ns, kv in self._data.items()}
+
+    def restore(self, data: dict) -> None:
+        with self._lock:
+            for ns, kv in data.items():
+                self._data[ns].update(kv)
+            self.version += 1
 
     def put(self, key: bytes, value: bytes, namespace: str = "default",
             overwrite: bool = True) -> bool:
@@ -36,6 +68,7 @@ class KVStore:
             if not overwrite and key in ns:
                 return False
             ns[key] = value
+            self.version += 1
             return True
 
     def get(self, key: bytes, namespace: str = "default") -> bytes | None:
@@ -44,7 +77,10 @@ class KVStore:
 
     def delete(self, key: bytes, namespace: str = "default") -> bool:
         with self._lock:
-            return self._data[namespace].pop(key, None) is not None
+            existed = self._data[namespace].pop(key, None) is not None
+            if existed:
+                self.version += 1
+            return existed
 
     def exists(self, key: bytes, namespace: str = "default") -> bool:
         with self._lock:
@@ -60,19 +96,59 @@ class ObjectDirectory:
     """The cluster's object-location table: owners publish which nodes
     hold copies of their objects, in batches. Entries are leased per
     owner: an owner that stops refreshing (its driver exited) is pruned
-    whole."""
+    whole. A holder whose copy went to its disk tier keeps its place in
+    the holder set and is marked spilled; the mark dies with the node."""
 
     def __init__(self):
         self._lock = threading.Lock()
         # owner address -> {object hex -> {node hex, ...}}
         self._locations: dict[str, dict[str, set[str]]] = {}
+        # owner address -> {object hex -> node hex}: copies on disk.
+        self._spilled: dict[str, dict[str, str]] = {}
         self._seen: dict[str, float] = {}
+        # Mutations the head persists (TTL pruning is not one: it
+        # derives again from the lease clocks a restore resets).
+        self.version = 0
+        self.wal_emit = None
+
+    def _mutated(self, op) -> None:
+        # Caller holds self._lock.
+        self.version += 1
+        if self.wal_emit is not None:
+            self.wal_emit(op)
+
+    def snapshot_state(self) -> dict:
+        """Plain data for the head's snapshot (holder sets as sorted
+        lists)."""
+        with self._lock:
+            return {
+                "locations": {
+                    owner: {obj: sorted(nodes)
+                            for obj, nodes in table.items()}
+                    for owner, table in self._locations.items()},
+                "spilled": {owner: dict(table)
+                            for owner, table in self._spilled.items()},
+            }
+
+    def restore_state(self, state: dict) -> None:
+        """Rehydrate from a snapshot; every owner's lease restarts now
+        (a live owner publishes again, a dead one ages out)."""
+        now = time.monotonic()
+        with self._lock:
+            for owner, table in (state.get("locations") or {}).items():
+                dst = self._locations.setdefault(owner, {})
+                for obj_hex, nodes in table.items():
+                    dst.setdefault(obj_hex, set()).update(nodes)
+                self._seen[owner] = now
+            for owner, table in (state.get("spilled") or {}).items():
+                self._spilled.setdefault(owner, {}).update(table)
 
     def update(self, owner: str, adds: list, removes: list) -> int:
         """One owner's deltas; an empty update is a keepalive of its
         lease. ``adds`` holds (object hex, node hex or [node hex, ...])."""
         with self._lock:
             table = self._locations.setdefault(owner, {})
+            spilled = self._spilled.get(owner)
             for obj_hex, nodes in adds:
                 holders = table.setdefault(obj_hex, set())
                 if isinstance(nodes, str):
@@ -81,10 +157,54 @@ class ObjectDirectory:
                     holders.update(nodes)
             for obj_hex in removes:
                 table.pop(obj_hex, None)
+                if spilled is not None:
+                    spilled.pop(obj_hex, None)
             self._seen[owner] = time.monotonic()
             if not table:
                 self._locations.pop(owner, None)
+            if spilled is not None and not spilled:
+                self._spilled.pop(owner, None)
+            if adds or removes:
+                self._mutated(("dir_update", owner, list(adds),
+                               list(removes)))
             return len(table)
+
+    def mark_spilled(self, owner: str, obj_hex: str,
+                     node_hex: str) -> None:
+        """A holder moved its copy to its disk tier (a heartbeat's spill
+        event). The daemon names the owner by its client endpoint, the
+        driver publishes under its export address: the mark joins the
+        bucket that holds the object, else the daemon's owner key."""
+        with self._lock:
+            bucket = owner
+            for loc_owner, table in self._locations.items():
+                if obj_hex in table:
+                    bucket = loc_owner
+                    break
+            self._spilled.setdefault(bucket, {})[obj_hex] = node_hex
+            self._mutated(("dir_spill", bucket, obj_hex, node_hex))
+
+    def clear_spilled(self, owner: str, obj_hex: str) -> None:
+        """The holder restored its copy into memory."""
+        with self._lock:
+            for bucket in [b for b, spilled in self._spilled.items()
+                           if obj_hex in spilled]:
+                spilled = self._spilled[bucket]
+                spilled.pop(obj_hex, None)
+                if not spilled:
+                    self._spilled.pop(bucket, None)
+                self._mutated(("dir_unspill", bucket, obj_hex))
+
+    def spilled(self, owner: str | None = None) -> dict:
+        """{object hex -> the node holding it on disk}, one owner or
+        all."""
+        with self._lock:
+            if owner is not None:
+                return dict(self._spilled.get(owner, {}))
+            out: dict[str, str] = {}
+            for table in self._spilled.values():
+                out.update(table)
+            return out
 
     def locations(self, owner: str | None = None) -> dict:
         """{object hex -> sorted holders}, for one owner or all."""
@@ -105,10 +225,21 @@ class ObjectDirectory:
                           if now - seen > ttl_s]:
                 self._seen.pop(owner, None)
                 self._locations.pop(owner, None)
+                self._spilled.pop(owner, None)
+            # Marks under a daemon's owner key with no lease behind them
+            # go once their objects are in no bucket.
+            for owner in [o for o in self._spilled if o not in self._seen]:
+                table = self._spilled[owner]
+                for obj_hex in [h for h in table if not any(
+                        h in t for t in self._locations.values())]:
+                    del table[obj_hex]
+                if not table:
+                    self._spilled.pop(owner, None)
 
     def prune_node(self, node_hex: str) -> list[str]:
-        """A node died: drop it from every holder set. Returns the
-        objects whose last holder it was."""
+        """A node died: drop it from every holder set, and its spilled
+        marks (its disk died with it). Returns the objects whose last
+        holder it was."""
         orphaned: list[str] = []
         with self._lock:
             for owner in list(self._locations):
@@ -123,6 +254,14 @@ class ObjectDirectory:
                         orphaned.append(obj_hex)
                 if not table:
                     self._locations.pop(owner, None)
+            for owner in list(self._spilled):
+                spilled = self._spilled[owner]
+                for obj_hex in [o for o, n in spilled.items()
+                                if n == node_hex]:
+                    del spilled[obj_hex]
+                if not spilled:
+                    self._spilled.pop(owner, None)
+            self._mutated(("dir_prune_node", node_hex))
         return orphaned
 
 
@@ -245,6 +384,112 @@ class GlobalControlService:
         # node hex -> (the executor stats its heartbeat carried, when).
         self._node_stats: dict[str, tuple[dict, float]] = {}
         self._node_stats_lock = threading.Lock()
+        # Mutations of the persisted tables (a liveness refresh is not
+        # one), and the head's WAL hook, called under self._lock.
+        self.table_versions = {"actors": 0, "nodes": 0, "jobs": 0}
+        self.wal_emit = None
+
+    # ----------------------------------------------------------- persistence
+
+    def _mutated(self, table: str, op) -> None:
+        # Caller holds self._lock.
+        self.table_versions[table] += 1
+        if self.wal_emit is not None:
+            self.wal_emit(op)
+
+    @staticmethod
+    def _actor_from_plain(plain: dict) -> "ActorRecord":
+        return ActorRecord(
+            actor_id=ActorID(plain["actor_id"]), name=plain.get("name"),
+            namespace=plain.get("namespace", "default"),
+            class_name=plain.get("class_name", ""),
+            state=plain.get("state", "PENDING"),
+            death_cause=plain.get("death_cause"),
+            max_restarts=int(plain.get("max_restarts", 0)),
+            num_restarts=int(plain.get("num_restarts", 0)),
+            node_id_hex=plain.get("node_id_hex", ""), pid=plain.get("pid"),
+            method_meta=dict(plain.get("method_meta") or {}),
+            default_deadline_s=float(plain.get("default_deadline_s", 0.0)))
+
+    @staticmethod
+    def _node_plain(record: "NodeRecord") -> dict:
+        return {"node_id": record.node_id.binary(), "address": record.address,
+                "resources": dict(record.resources),
+                "labels": dict(record.labels),
+                "executor_address": record.executor_address,
+                "alive": record.alive, "available": dict(record.available)}
+
+    @staticmethod
+    def _job_plain(record: "JobRecord") -> dict:
+        return {"job_id": record.job_id.binary(),
+                "start_time": record.start_time,
+                "end_time": record.end_time, "status": record.status,
+                "entrypoint": record.entrypoint, "message": record.message,
+                "submission_id": record.submission_id}
+
+    def control_snapshot(self) -> dict:
+        """The persisted tables as plain data (the KV has its own
+        ``snapshot()``; task events and node stats are not persisted)."""
+        with self._lock:
+            return {"actors": [self.actor_plain(r)
+                               for r in self._actors.values()],
+                    "nodes": [self._node_plain(r)
+                              for r in self._nodes.values()],
+                    "jobs": [self._job_plain(r)
+                             for r in self._jobs.values()]}
+
+    def restore_control(self, state: dict) -> None:
+        """Rehydrate actors, nodes and jobs from a snapshot (nothing is
+        published: subscribers connect after the server starts)."""
+        for plain in state.get("actors", []):
+            self.apply_op(("actor", plain))
+        for plain in state.get("nodes", []):
+            self.apply_op(("node", plain))
+        for plain in state.get("jobs", []):
+            self.apply_op(("job", plain))
+
+    def apply_op(self, op: tuple) -> None:
+        """Apply one WAL record: a whole-record upsert, so applying one a
+        snapshot already covers changes nothing."""
+        kind, plain = op[0], op[1]
+        if kind == "actor":
+            record = self._actor_from_plain(plain)
+            with self._lock:
+                self._actors[record.actor_id] = record
+                self._index_name_locked(record)
+        elif kind == "node":
+            # last_heartbeat restarts now: a node restored alive has a
+            # whole timeout to heartbeat again.
+            record = NodeRecord(
+                node_id=NodeID(plain["node_id"]),
+                address=plain.get("address", ""),
+                resources=dict(plain.get("resources") or {}),
+                labels=dict(plain.get("labels") or {}),
+                executor_address=plain.get("executor_address", ""),
+                alive=bool(plain.get("alive", True)),
+                available=dict(plain.get("available") or {}))
+            with self._lock:
+                self._nodes[record.node_id] = record
+        elif kind == "job":
+            with self._lock:
+                self._jobs[JobID(plain["job_id"])] = JobRecord(
+                    job_id=JobID(plain["job_id"]),
+                    start_time=plain.get("start_time", 0.0),
+                    end_time=plain.get("end_time"),
+                    status=plain.get("status", "RUNNING"),
+                    entrypoint=plain.get("entrypoint", ""),
+                    message=plain.get("message", ""),
+                    submission_id=plain.get("submission_id", ""))
+
+    def _index_name_locked(self, record: "ActorRecord") -> None:
+        if record.name is None:
+            return
+        key = (record.namespace, record.name)
+        if record.state == "DEAD":
+            if self._named_actors.get(key) == record.actor_id:
+                self._named_actors.pop(key, None)
+        else:
+            self._named_actors[key] = record.actor_id
 
     # ---------------------------------------------------------------- actors
 
@@ -260,6 +505,7 @@ class GlobalControlService:
                         f"in namespace {record.namespace!r}")
                 self._named_actors[key] = record.actor_id
             self._actors[record.actor_id] = record
+            self._mutated("actors", ("actor", self.actor_plain(record)))
 
     def update_actor_state(self, actor_id: ActorID, state: str,
                            death_cause: str | None = None) -> None:
@@ -270,6 +516,7 @@ class GlobalControlService:
             record.state = state
             if death_cause is not None:
                 record.death_cause = death_cause
+            self._mutated("actors", ("actor", self.actor_plain(record)))
         self.pubsub.publish("actors", (state, actor_id))
 
     def list_actors(self) -> list[ActorRecord]:
@@ -294,30 +541,15 @@ class GlobalControlService:
     def upsert_actor_mirror(self, plain: dict) -> bool:
         """The head's copy of a driver's actor record. A record the head
         saw DEAD is never brought back to life; False when refused."""
-        record = ActorRecord(
-            actor_id=ActorID(plain["actor_id"]), name=plain.get("name"),
-            namespace=plain.get("namespace", "default"),
-            class_name=plain.get("class_name", ""),
-            state=plain.get("state", "PENDING"),
-            death_cause=plain.get("death_cause"),
-            max_restarts=int(plain.get("max_restarts", 0)),
-            num_restarts=int(plain.get("num_restarts", 0)),
-            node_id_hex=plain.get("node_id_hex", ""), pid=plain.get("pid"),
-            method_meta=dict(plain.get("method_meta") or {}),
-            default_deadline_s=float(plain.get("default_deadline_s", 0.0)))
+        record = self._actor_from_plain(plain)
         with self._lock:
             existing = self._actors.get(record.actor_id)
             if existing is not None and existing.state == "DEAD" \
                     and record.state != "DEAD":
                 return False
             self._actors[record.actor_id] = record
-            if record.name is not None:
-                key = (record.namespace, record.name)
-                if record.state == "DEAD":
-                    if self._named_actors.get(key) == record.actor_id:
-                        self._named_actors.pop(key, None)
-                else:
-                    self._named_actors[key] = record.actor_id
+            self._index_name_locked(record)
+            self._mutated("actors", ("actor", self.actor_plain(record)))
         return True
 
     def get_actor(self, actor_id: ActorID) -> ActorRecord | None:
@@ -338,6 +570,7 @@ class GlobalControlService:
     def register_node(self, record: NodeRecord) -> None:
         with self._lock:
             self._nodes[record.node_id] = record
+            self._mutated("nodes", ("node", self._node_plain(record)))
         self.pubsub.publish("nodes", ("ALIVE", record.node_id))
 
     def get_node(self, node_id: NodeID) -> NodeRecord | None:
@@ -354,6 +587,9 @@ class GlobalControlService:
             if record is None or not record.alive:
                 return
             record.alive = False
+            # The death verdict is durable: a restarted head still
+            # refuses the id.
+            self._mutated("nodes", ("node", self._node_plain(record)))
         self.pubsub.publish("nodes", ("DEAD", node_id))
 
     def heartbeat(self, node_id: NodeID,
@@ -407,6 +643,7 @@ class GlobalControlService:
     def register_job(self, record: JobRecord) -> None:
         with self._lock:
             self._jobs[record.job_id] = record
+            self._mutated("jobs", ("job", self._job_plain(record)))
 
     def finish_job(self, job_id: JobID, status: str = "SUCCEEDED") -> None:
         with self._lock:
@@ -414,6 +651,7 @@ class GlobalControlService:
             if record is not None:
                 record.status = status
                 record.end_time = time.time()
+                self._mutated("jobs", ("job", self._job_plain(record)))
 
     def list_jobs(self) -> list[JobRecord]:
         with self._lock:

@@ -14,9 +14,16 @@ what ``accelerators.detect_resources()`` finds (``torch.cuda`` unless
 ``GPU`` than it sees refuses to start, and never runs ``GPU`` work on
 the CPU.
 
-Not ported: the restart epochs and their fencing (ROADMAP item 10b), the
-chaos sites and the flight recorder (10c), and the head's dashboard
-(item 12).
+The head persists its tables to ``<session dir>/gcs_snapshot.pkl`` (a
+snapshot and its WAL) and mints an epoch at each start; an agent that
+sees a new epoch on any reply, or whose heartbeat is refused with
+``StaleEpochError``, registers again asking to keep its NodeID, so a
+daemon rides a head restart without losing its id, its actors or the
+results in its store. The heartbeat carries the node store's spill stats
+and the spilled/restored events the head's directory marks.
+
+Not ported: the chaos sites of the agent and the flight recorder (ROADMAP
+10c), the head's dashboard and client server (item 12).
 """
 
 from __future__ import annotations
@@ -74,7 +81,12 @@ class NodeAgent:
     node's load changes, so the head's resource view follows the load
     and not the heartbeat period. A heartbeat the head refuses (it
     declared the node dead, or never knew it) makes the agent register
-    again, asking to keep its id."""
+    again, asking to keep its id.
+
+    ``gcs_epoch`` is the head epoch the agent registered under and stamps
+    on its heartbeats; a reply showing another epoch (the head
+    restarted) or a ``StaleEpochError`` makes it register again first.
+    Against a head without fencing it stays None."""
 
     def __init__(self, gcs_address: str, resources: dict,
                  labels: dict | None = None,
@@ -93,9 +105,13 @@ class NodeAgent:
         self.executor_address = executor_address
         self._address = f"{own_address()}:{os.getpid()}"
         self.node_id: bytes = b""
+        self.gcs_epoch: "int | None" = None
+        self._seen_epoch: "int | None" = None
+        self._epoch_stale = threading.Event()
+        self._poke = threading.Event()
+        self.client.on_reply_meta = self._on_reply_meta
         self.node_id = self._register()
         self._shutdown = threading.Event()
-        self._poke = threading.Event()
         self._thread = threading.Thread(
             target=self._heartbeat_loop, daemon=True,
             name="ray_tpu_torch-node-heartbeat")
@@ -104,10 +120,26 @@ class NodeAgent:
     def _register(self) -> bytes:
         # Idempotent under prior_id (the head grants the same id to a
         # retried request), so it takes the retry policy.
-        return call_with_retry(
+        node_id = call_with_retry(
             self.client.call, "register_node", self._address,
             self.resources, self.labels, self.executor_address,
             prior_id=self.node_id or None)
+        # The reply's meta carried the head's epoch: registering is the
+        # re-sync, and the heartbeats stamp it from now on.
+        self.gcs_epoch = self._seen_epoch
+        self._epoch_stale.clear()
+        return node_id
+
+    def _on_reply_meta(self, meta: dict) -> None:
+        """On the reader thread: an epoch other than the one registered
+        under means the head restarted; wake the loop to register."""
+        epoch = meta.get("epoch") if isinstance(meta, dict) else None
+        if not isinstance(epoch, int):
+            return
+        self._seen_epoch = epoch
+        if self.gcs_epoch is not None and epoch != self.gcs_epoch:
+            self._epoch_stale.set()
+            self._poke.set()
 
     def poke(self) -> None:
         """The node's load changed: heartbeat now (coalesced)."""
@@ -128,14 +160,26 @@ class NodeAgent:
             except Exception:  # noqa: BLE001 — the piggyback is best-effort
                 pass
             try:
+                if self._epoch_stale.is_set():
+                    self.node_id = self._register()
                 accepted = call_with_retry(
                     self.client.call, "heartbeat", self.node_id, available,
-                    stats, attempts=2,
-                    timeout_s=max(3.0, self.heartbeat_period_s * 3))
+                    stats, None, attempts=2,
+                    timeout_s=max(3.0, self.heartbeat_period_s * 3),
+                    epoch=self.gcs_epoch)
                 if not accepted:
                     self.node_id = self._register()
-            except (RpcError, RpcMethodError, OSError):
-                pass  # the head is unreachable; keep trying
+            except RpcMethodError as exc:
+                from ray_tpu_torch._private.gcs import StaleEpochError
+
+                if isinstance(exc.cause, StaleEpochError):
+                    # Cut off across a head restart: re-sync.
+                    try:
+                        self.node_id = self._register()
+                    except (RpcError, RpcMethodError, OSError):
+                        pass  # the head went again; the next beat retries
+            except (RpcError, OSError):
+                pass  # the head is unreachable (it may restart); keep trying
             # Pokes that land during the wait fold into the next push.
             self._shutdown.wait(self.coalesce_s)
 
@@ -237,8 +281,12 @@ def run_worker(gcs_address: str, resources: dict | None = None,
 def run_head(port: int = 0, resources: dict | None = None,
              dashboard_port: int | None = None) -> None:
     """The head daemon: the control plane and an executor node of its
-    own, its address written to ``<session dir>/head_address``. Blocks
-    until SIGTERM."""
+    own, its address written to ``<session dir>/head_address``. It
+    persists to ``<session dir>/gcs_snapshot.pkl``: started again after a
+    crash on the same session dir (and port) it restores its tables and
+    mints the next epoch. A clean stop removes the snapshot and the WAL
+    (they exist for crash recovery) and keeps the epoch file, so epochs
+    only grow. Blocks until SIGTERM."""
     from ray_tpu_torch._private.gcs_server import GcsServer
     from ray_tpu_torch._private.node_executor import NODE_TAG_ENV
 
@@ -248,8 +296,9 @@ def run_head(port: int = 0, resources: dict | None = None,
     stop_event = _stop_on_signal()
     session_dir = _session_dir()
     os.makedirs(session_dir, exist_ok=True)
-    server = GcsServer(host="127.0.0.1", port=port,
-                       log_dir=session_dir).start()
+    snapshot_path = os.path.join(session_dir, "gcs_snapshot.pkl")
+    server = GcsServer(host="127.0.0.1", port=port, log_dir=session_dir,
+                       persist_path=snapshot_path).start()
     resources = {k: float(v) for k, v in
                  (resources or default_resources()).items()}
     _check_cards(resources)
@@ -263,6 +312,11 @@ def run_head(port: int = 0, resources: dict | None = None,
         agent.stop()
         executor.stop()
         server.stop()
+        for suffix in ("", ".prev", ".wal", ".wal.prev"):
+            try:
+                os.unlink(snapshot_path + suffix)
+            except OSError:
+                pass  # that generation was never written
 
     _serve_until(stop_event, cleanup)
 

@@ -28,11 +28,20 @@ A CUDA tensor crosses a node boundary as it crosses a process boundary:
 one host copy, and back on ``cuda`` where the receiver sees a card.
 There is no CUDA IPC.
 
-Not ported: the node store's spill tier (ROADMAP item 10a); the
-same-host shared-memory plane with its map leases and ``unpin_object``
-(10b); the pipelined ``execute_task_batch`` with its fused and columnar
-routes, speculation, chaos sites, perf traces and the flight ring (10c):
-every task goes through ``execute_task``.
+The node store spills: past ``node_store_primary_limit_mb`` its primary
+copies go to checksummed files (the managed tier of
+``spill_manager.py``, armed under ``spill_enabled``), restored by the
+next read, a fetch or a task taking one as an argument; a fetch plan says
+when the copy is on disk, and the heartbeat carries the spilled and
+restored events to the head's directory. A CUDA tensor result is in the
+store as its serialized host copy already, so it spills as that and
+comes back on ``cuda`` where it is read.
+
+Not ported: the same-host shared-memory plane with its map leases and
+``unpin_object``, and the native store (ROADMAP); the pipelined
+``execute_task_batch`` with its fused and columnar routes, speculation,
+chaos sites, perf traces and the flight ring (10c): every task goes
+through ``execute_task``.
 """
 
 from __future__ import annotations
@@ -143,25 +152,244 @@ def _exc_blob(exc: BaseException) -> bytes:
 # --------------------------------------------------------------------------
 
 
+def _purge_stale_spills(spill_dir: str) -> None:
+    """Delete the inline-spill files of daemons that died (the pid leads
+    each file's name; a live pid's files stay)."""
+    from ray_tpu_torch._private.spill_manager import pid_is_dead
+
+    try:
+        names = os.listdir(spill_dir)
+    except OSError:
+        return
+    for name in names:
+        pid_part = name.split("-", 1)[0]
+        if not name.endswith(".blob") or not pid_part.isdigit() \
+                or int(pid_part) == os.getpid():
+            continue
+        if pid_is_dead(int(pid_part)):
+            try:
+                os.unlink(os.path.join(spill_dir, name))
+            except OSError:
+                pass  # another sweeper won the unlink
+
+
 class NodeObjectStore:
     """A daemon's store of framed blobs: task and actor results (primary
     copies, tagged with their owner, kept until the owner frees them or
     dies) and copies pulled from peers (a cache, evicted oldest first).
+
+    Primary copies past ``node_store_primary_limit_mb`` go to disk. With
+    the managed tier armed (``enable_managed_spill``, as the executor
+    does under ``spill_enabled``) a spiller thread moves them, largest
+    first, to checksummed ``RTS1`` files once usage passes the high
+    watermark, and a read restores the file after checking it (a torn
+    file drops the object: a reader sees it gone, never garbage). Off,
+    a put past the cap writes the oldest primaries inline to
+    ``node_store_spill_dir``. Pulled copies and protected ids
+    (``leased_fn``) are never spilled. ``spill=False`` (the driver's
+    export store, whose objects its own store holds too) keeps
+    everything in memory.
     """
 
-    def __init__(self, cache_limit_bytes: int = _PULL_CACHE_BYTES):
+    def __init__(self, cache_limit_bytes: int = _PULL_CACHE_BYTES,
+                 primary_limit_bytes: int | None = None,
+                 spill_dir: str | None = None, spill: bool = True):
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
         self._lock = threading.Lock()
-        self._blobs: dict[bytes, bytes] = {}
+        self._blobs: dict[bytes, bytes] = {}  # insertion-ordered
         self._cached: dict[bytes, None] = {}  # pulled copies, FIFO
         self._cache_limit = cache_limit_bytes
         self._cache_bytes = 0
         self._primary_bytes = 0
+        self._spill = spill
+        self._primary_limit = (
+            primary_limit_bytes if primary_limit_bytes is not None
+            else int(GLOBAL_CONFIG.node_store_primary_limit_mb) << 20)
+        self._spill_dir = spill_dir or GLOBAL_CONFIG.node_store_spill_dir
+        # id -> (path, size): primaries on disk, restored on a read.
+        self._spilled: dict[bytes, tuple[str, int]] = {}
+        # Which of them are managed-tier (RTS1) files.
+        self._managed_spills: set[bytes] = set()
+        self._spill_mgr = None
+        self._spill_min_bytes = 0
+        self._leased_fn = None
+        self._on_spilled = None
+        self._on_restored = None
         self._owner_of: dict[bytes, str] = {}
         self._owned_ids: dict[str, set[bytes]] = {}
         self.fetches_served = 0
+        self.spills = 0
+        self.restores = 0
+        if spill:
+            _purge_stale_spills(self._spill_dir)
+
+    # ------------------------------------------------------ managed tier
+
+    def enable_managed_spill(self, spill_dir: str | None = None,
+                             leased_fn=None, on_spilled=None,
+                             on_restored=None):
+        """Arm the watermark spiller on this store (the inline path is
+        then bypassed). ``leased_fn() -> ids`` never spilled;
+        ``on_spilled(key, owner)`` and ``on_restored(key, owner)`` follow
+        each move. Returns the SpillManager."""
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+        from ray_tpu_torch._private.spill_manager import SpillManager
+
+        self._leased_fn = leased_fn
+        self._on_spilled = on_spilled
+        self._on_restored = on_restored
+        self._spill_min_bytes = int(GLOBAL_CONFIG.spill_min_object_kb) * 1024
+        self._spill_mgr = SpillManager(
+            "node-store", self._primary_limit,
+            usage_fn=lambda: self._primary_bytes,
+            victims_fn=self._spill_victims,
+            extract_fn=self._spill_extract,
+            commit_fn=self._spill_commit, spill_dir=spill_dir)
+        return self._spill_mgr
+
+    def _spill_victims(self, need_bytes: int) -> list:
+        """Primary copies covering ``need_bytes``, largest first (the
+        fewest files free the most), oldest as the tiebreak; never a
+        pulled copy, a protected id or one under ``spill_min_object_kb``."""
+        leased: set = set()
+        if self._leased_fn is not None:
+            try:
+                leased = set(self._leased_fn())
+            except Exception:  # noqa: BLE001 — no filter beats no spill
+                leased = set()
+        with self._lock:
+            cands = [(key, len(blob), age)
+                     for age, (key, blob) in enumerate(self._blobs.items())
+                     if key not in self._cached and key not in leased
+                     and len(blob) >= self._spill_min_bytes]
+        cands.sort(key=lambda c: (-c[1], c[2]))
+        out, covered = [], 0
+        for key, size, _age in cands:
+            out.append(key)
+            covered += size
+            if covered >= need_bytes:
+                break
+        return out
+
+    def _spill_extract(self, key: bytes):
+        with self._lock:
+            if key in self._cached:
+                return None
+            return self._blobs.get(key)
+
+    def _spill_commit(self, key: bytes, path: str, size: int) -> bool:
+        with self._lock:
+            blob = self._blobs.get(key)
+            if blob is None or key in self._cached or len(blob) != size:
+                return False  # freed or sealed again since the extract
+            del self._blobs[key]
+            self._primary_bytes -= size
+            self._spilled[key] = (path, size)
+            self._managed_spills.add(key)
+            self.spills += 1
+            owner = self._owner_of.get(key)
+        if self._on_spilled is not None:
+            self._on_spilled(key, owner)
+        return True
+
+    def _restore_managed(self, key: bytes) -> bytes | None:
+        """Restore a managed spill: check the file, make the blob the
+        in-memory primary again and remove the file. A torn file drops
+        the object (None: the reader sees it gone)."""
+        from ray_tpu_torch._private.spill_manager import TornSpillError
+
+        mgr = self._spill_mgr
+        while True:
+            with self._lock:
+                blob = self._blobs.get(key)
+                if blob is not None:
+                    return blob
+                entry = self._spilled.get(key)
+                if entry is None:
+                    return None  # freed, or dropped as torn, meanwhile
+                path, size = entry
+            try:
+                payload = bytes(mgr.restore(key, path))
+            except TornSpillError:
+                with self._lock:
+                    if self._spilled.get(key) == (path, size):
+                        self._forget_locked(key)
+                return None
+            except OSError:
+                continue  # another reader restored it and removed the file
+            with self._lock:
+                if self._spilled.get(key) != (path, size):
+                    if key in self._blobs:
+                        return self._blobs[key]  # another reader won
+                    continue  # raced a free
+                del self._spilled[key]
+                self._managed_spills.discard(key)
+                self._blobs[key] = payload
+                self._primary_bytes += size
+                self.restores += 1
+                owner = self._owner_of.get(key)
+            try:
+                os.unlink(path)
+            except OSError:
+                pass  # the restored copy is safe; the file is tidy-up
+            if self._on_restored is not None:
+                self._on_restored(key, owner)
+            # Back over the high watermark: another victim goes.
+            mgr.notify()
+            return payload
+
+    # ------------------------------------------------------- inline path
+
+    def _spill_one(self, id_bytes: bytes, blob: bytes) -> None:
+        """Write one victim of the inline path; the blob stays readable
+        in memory until its file has landed."""
+        os.makedirs(self._spill_dir, exist_ok=True)
+        # A file per attempt: two puts may pick the same victim.
+        path = os.path.join(
+            self._spill_dir,
+            f"{os.getpid()}-{id_bytes.hex()}-{os.urandom(4).hex()}.blob")
+        try:
+            with open(path, "wb") as f:
+                f.write(blob)
+        except OSError:
+            return  # disk full or unwritable: the blob stays in memory
+        with self._lock:
+            stale = self._blobs.get(id_bytes) is not blob
+            if not stale:
+                del self._blobs[id_bytes]
+                self._primary_bytes -= len(blob)
+                self._spilled[id_bytes] = (path, len(blob))
+                self.spills += 1
+        if stale:  # freed or sealed again during the write
+            try:
+                os.unlink(path)
+            except OSError:
+                pass  # already swept
+
+    def _drop_spilled(self, id_bytes: bytes) -> None:
+        # Caller holds self._lock.
+        entry = self._spilled.pop(id_bytes, None)
+        managed = id_bytes in self._managed_spills
+        self._managed_spills.discard(id_bytes)
+        if entry is None:
+            return
+        if managed and self._spill_mgr is not None:
+            self._spill_mgr.delete_file(entry[0])
+            return
+        try:
+            os.unlink(entry[0])
+        except OSError:
+            pass  # already gone
+
+    # ------------------------------------------------------------- store
 
     def put(self, id_bytes: bytes, blob: bytes, cached: bool = False,
-            owner: str | None = None) -> None:
+            owner: str | None = None, notify: bool = True) -> None:
+        """Keep ``blob``. ``notify=False`` leaves the spiller asleep: the
+        caller puts several (a task's returns) and then calls
+        ``notify_spill()``, so one pass sees them all."""
+        victims: list[tuple[bytes, bytes]] = []
         with self._lock:
             self._forget_locked(id_bytes)
             self._blobs[id_bytes] = blob
@@ -176,20 +404,59 @@ class NodeObjectStore:
             if owner is not None:
                 self._owner_of[id_bytes] = owner
                 self._owned_ids.setdefault(owner, set()).add(id_bytes)
+            if self._spill and self._spill_mgr is None:
+                # Inline path: past the cap, the oldest primaries (never
+                # the one just put) are picked here and written below.
+                projected = self._primary_bytes
+                for victim, vblob in self._blobs.items():
+                    if projected <= self._primary_limit:
+                        break
+                    if victim in self._cached or victim == id_bytes:
+                        continue
+                    projected -= len(vblob)
+                    victims.append((victim, vblob))
+        for victim, vblob in victims:
+            self._spill_one(victim, vblob)
+        if notify:
+            self.notify_spill()
+
+    def notify_spill(self) -> None:
+        """Wake the managed spiller if usage is over its high mark."""
+        if self._spill_mgr is not None:
+            self._spill_mgr.notify()
 
     def get(self, id_bytes: bytes) -> bytes | None:
+        """The blob, restored from disk when it was spilled."""
         with self._lock:
-            return self._blobs.get(id_bytes)
+            blob = self._blobs.get(id_bytes)
+            spilled = self._spilled.get(id_bytes)
+            managed = id_bytes in self._managed_spills
+        if blob is not None or spilled is None:
+            return blob
+        if managed:
+            return self._restore_managed(id_bytes)
+        try:
+            with open(spilled[0], "rb") as f:
+                data = f.read()
+        except OSError:
+            return None
+        with self._lock:
+            self.restores += 1
+        return data
 
     def _forget_locked(self, id_bytes: bytes) -> bool:
+        existed = False
         blob = self._blobs.pop(id_bytes, None)
-        if blob is None:
-            return False
-        if id_bytes in self._cached:
-            del self._cached[id_bytes]
-            self._cache_bytes -= len(blob)
-        else:
-            self._primary_bytes -= len(blob)
+        if blob is not None:
+            existed = True
+            if id_bytes in self._cached:
+                del self._cached[id_bytes]
+                self._cache_bytes -= len(blob)
+            else:
+                self._primary_bytes -= len(blob)
+        if id_bytes in self._spilled:
+            existed = True
+            self._drop_spilled(id_bytes)
         owner = self._owner_of.pop(id_bytes, None)
         if owner is not None:
             ids = self._owned_ids.get(owner)
@@ -197,7 +464,7 @@ class NodeObjectStore:
                 ids.discard(id_bytes)
                 if not ids:
                     del self._owned_ids[owner]
-        return True
+        return existed
 
     def free(self, ids: list[bytes]) -> int:
         with self._lock:
@@ -216,16 +483,47 @@ class NodeObjectStore:
     def size(self, id_bytes: bytes) -> int | None:
         with self._lock:
             blob = self._blobs.get(id_bytes)
-            return None if blob is None else len(blob)
+            if blob is not None:
+                return len(blob)
+            spilled = self._spilled.get(id_bytes)
+            return None if spilled is None else spilled[1]
+
+    def is_spilled(self, id_bytes: bytes) -> bool:
+        """Whether the only copy here is on disk."""
+        with self._lock:
+            return id_bytes in self._spilled and id_bytes not in self._blobs
 
     def read_chunk(self, id_bytes: bytes, offset: int,
                    length: int) -> tuple[int, bytes] | None:
         with self._lock:
             blob = self._blobs.get(id_bytes)
+            spilled = self._spilled.get(id_bytes)
+            managed = id_bytes in self._managed_spills
+            if blob is not None:
+                self.fetches_served += 1
+                return len(blob), blob[offset:offset + length]
+        if spilled is None:
+            return None
+        if managed:
+            # The whole object is restored once (its CRC needs all of
+            # it) and every chunk served from memory.
+            blob = self._restore_managed(id_bytes)
             if blob is None:
                 return None
+            with self._lock:
+                self.fetches_served += 1
+            return len(blob), blob[offset:offset + length]
+        path, size = spilled
+        try:
+            with open(path, "rb") as f:
+                f.seek(offset)
+                chunk = f.read(length)
+        except OSError:
+            return None
+        with self._lock:
             self.fetches_served += 1
-        return len(blob), blob[offset:offset + length]
+            self.restores += 1
+        return size, chunk
 
     def stats(self) -> dict:
         with self._lock:
@@ -233,6 +531,10 @@ class NodeObjectStore:
                     "primary_bytes": self._primary_bytes,
                     "cached_bytes": self._cache_bytes,
                     "fetches_served": self.fetches_served,
+                    "spilled_blobs": len(self._spilled),
+                    "spilled_bytes": sum(size for _, size
+                                         in self._spilled.values()),
+                    "spills": self.spills, "restores": self.restores,
                     "owners": len(self._owned_ids)}
 
 
@@ -542,6 +844,31 @@ class NodeExecutorService:
 
         self._server = RpcServer(host, port)
         self.store = NodeObjectStore()
+        # The store's spill tier: armed under spill_enabled. Its spilled
+        # and restored events, (owner, object hex, kind), wait here for
+        # the next heartbeat, which carries them to the head's directory.
+        from ray_tpu_torch._private import spill_manager
+
+        self._spill_mgr = None
+        self._spill_events: list = []
+        self._spill_events_lock = threading.Lock()
+        # Pulls whose plan said the holder's copy was on disk.
+        self.spilled_plan_hits = 0
+        # key -> when its segment last went to a pool task: the blob is
+        # not spilled while the task may still be attaching.
+        self._shm_out_stamp: dict[bytes, float] = {}
+        if spill_manager.SPILL_ON:
+            self._spill_mgr = self.store.enable_managed_spill(
+                leased_fn=self._spill_protected,
+                on_spilled=self._on_blob_spilled,
+                on_restored=self._on_blob_restored)
+            # Admission's pressure classifier counts this store's
+            # resident bytes as relievable.
+            from ray_tpu_torch._private.memory_monitor import (
+                set_store_bytes_provider,
+            )
+
+            set_store_bytes_provider(lambda: self.store._primary_bytes)
         self._peers = _PeerClients()
         self._partials: dict[bytes, _PartialBlob] = {}
         self._partials_lock = threading.Lock()
@@ -696,6 +1023,15 @@ class NodeExecutorService:
     def stop(self) -> None:
         self._stop_event.set()
         self._server.stop()
+        if self._spill_mgr is not None:
+            import shutil
+
+            from ray_tpu_torch._private import spill_manager
+
+            self._spill_mgr.stop()
+            if spill_manager.live_manager_count() == 0:
+                shutil.rmtree(self._spill_mgr.spill_dir,
+                              ignore_errors=True)
         with self._actors_lock:
             actors = list(self._actors.values())
             self._actors.clear()
@@ -726,10 +1062,65 @@ class NodeExecutorService:
             except Exception:  # noqa: BLE001 — the push is best-effort
                 pass
 
+    # How long a pool task's argument segment is protected from the
+    # spiller after it went out.
+    _SHM_ARG_GRACE_S = 10.0
+
+    def _spill_protected(self) -> set:
+        """Ids the spiller skips: those whose segment went to a pool task
+        within the grace window."""
+        now = time.monotonic()
+        with self._shm_args_lock:
+            for key in [k for k, at in self._shm_out_stamp.items()
+                        if now - at > self._SHM_ARG_GRACE_S]:
+                del self._shm_out_stamp[key]
+            return set(self._shm_out_stamp)
+
+    def _on_blob_spilled(self, key: bytes, owner: str | None) -> None:
+        """A primary went to disk: its segment copy goes too, unless a
+        pool task took it within the grace window (the victims were
+        chosen before; the task may still be attaching). The event waits
+        for the next heartbeat."""
+        if key not in self._spill_protected():
+            self._drop_shm_arg(key)
+        self._queue_spill_event(owner, key, "spilled")
+
+    def _on_blob_restored(self, key: bytes, owner: str | None) -> None:
+        self._queue_spill_event(owner, key, "restored")
+
+    def _queue_spill_event(self, owner: str | None, key: bytes,
+                           kind: str) -> None:
+        if owner:
+            with self._spill_events_lock:
+                self._spill_events.append((owner, key.hex(), kind))
+                del self._spill_events[:-4096]  # bounded
+
+    def _drain_spill_events(self) -> list:
+        with self._spill_events_lock:
+            out, self._spill_events = self._spill_events, []
+        return out
+
+    def _spill_stats(self) -> dict:
+        from ray_tpu_torch._private.spill_manager import merged_stats
+
+        stats = merged_stats(self._spill_mgr)
+        stats["spilled_plan_hits"] = self.spilled_plan_hits
+        # The seconds of the spills and restores behind those bytes (the
+        # first 512 of each), for their rates.
+        timings = self._spill_mgr.timings() if self._spill_mgr else {}
+        for kind in ("spill", "restore"):
+            rows = timings.get(kind, ())
+            stats[f"{kind}_timed_bytes"] = sum(b for b, _ in rows)
+            stats[f"{kind}_seconds"] = sum(t for _, t in rows)
+        return stats
+
     def _overload_reason(self) -> "str | None":
         """Why admission sheds now: the reservation depth over
-        ``admission_max_queue_depth`` or host memory over
-        ``admission_memory_watermark`` (both 0: off)."""
+        ``admission_max_queue_depth`` or memory over
+        ``admission_memory_watermark`` (both 0: off). With the spill tier
+        armed, pressure from this store's bytes kicks the spiller and
+        admits, unless the disk is full (the tier backs off): then it
+        sheds like host pressure."""
         from ray_tpu_torch._private.config import GLOBAL_CONFIG
 
         cap = int(GLOBAL_CONFIG.admission_max_queue_depth or 0)
@@ -742,10 +1133,22 @@ class NodeExecutorService:
         watermark = float(GLOBAL_CONFIG.admission_memory_watermark or 0)
         if watermark > 0:
             from ray_tpu_torch._private.memory_monitor import (
+                memory_pressure_kind,
                 memory_watermark_exceeded,
             )
 
-            if memory_watermark_exceeded(watermark):
+            if self._spill_mgr is not None:
+                kind = memory_pressure_kind(watermark)
+                if kind == "store":
+                    if self._spill_mgr.backing_off():
+                        return (f"store memory over admission_memory_"
+                                f"watermark={watermark} and the spill "
+                                f"disk is full (backing off)")
+                    self._spill_mgr.request_spill()
+                elif kind == "host":
+                    return f"host memory over admission_memory_" \
+                           f"watermark={watermark}"
+            elif memory_watermark_exceeded(watermark):
                 return f"host memory over admission_memory_watermark=" \
                        f"{watermark}"
         return None
@@ -900,8 +1303,10 @@ class NodeExecutorService:
         finally:
             self._release(token)
         self.tasks_executed += 1
-        return ("ok", [self._reply_entry(key, value, client_addr)
-                       for key, value in zip(return_keys, values)])
+        entries = [self._reply_entry(key, value, client_addr)
+                   for key, value in zip(return_keys, values)]
+        self.store.notify_spill()
+        return ("ok", entries)
 
     def _stash_args(self, args_blob: bytes) -> tuple:
         """Keep the arguments of a task whose function must be resent;
@@ -928,9 +1333,11 @@ class NodeExecutorService:
 
     def _blob_entry(self, id_bytes: bytes, blob: bytes,
                     owner: str | None) -> tuple:
+        """The caller wakes the spiller once all of a call's returns are
+        in (largest first is then taken over all of them)."""
         if len(blob) <= _inline_reply_bytes():
             return ("inline", blob)
-        self.store.put(id_bytes, blob, owner=owner)
+        self.store.put(id_bytes, blob, owner=owner, notify=False)
         return ("stored", len(blob))
 
     def _run(self, func, digest: str, func_blob: bytes | None, args: tuple,
@@ -1000,8 +1407,10 @@ class NodeExecutorService:
         return reply
 
     def fetch_plan(self, id_bytes: bytes, puller_addr: str | None = None):
-        """(total size, the other holders) for an object here, and the
-        puller registered as a holder; None when it is unknown here."""
+        """(total size, the other holders, {"spilled": bool}) for an
+        object here, and the puller registered as a holder; None when it
+        is unknown here. ``spilled``: the copy here is on disk, so the
+        first chunk pays its restore."""
         total = self.store.size(id_bytes)
         if total is None:
             with self._partials_lock:
@@ -1010,7 +1419,8 @@ class NodeExecutorService:
                 return None
             total = part.total
         return (total, plan_holders(self.chunk_directory, id_bytes,
-                                    puller_addr, total))
+                                    puller_addr, total),
+                {"spilled": self.store.is_spilled(id_bytes)})
 
     def free_objects(self, ids: list[bytes]) -> int:
         self.chunk_directory.drop(ids)
@@ -1063,6 +1473,7 @@ class NodeExecutorService:
             desc = self._shm_directory.lookup(oid)
             if desc is not None:
                 self._shm_args_order.move_to_end(ref.id_bytes)
+                self._shm_out_stamp[ref.id_bytes] = time.monotonic()
                 return desc
         blob = self._blob_of(ref)
         from multiprocessing import shared_memory
@@ -1074,6 +1485,7 @@ class NodeExecutorService:
         evicted = []
         with self._shm_args_lock:
             winner = self._shm_directory.lookup(oid)
+            self._shm_out_stamp[ref.id_bytes] = time.monotonic()
             if winner is None:
                 self._shm_directory.register(oid, desc, seg)
                 self._shm_args_order[ref.id_bytes] = len(blob)
@@ -1127,7 +1539,9 @@ class NodeExecutorService:
             blob = fetch_blob(owner, ref.id_bytes)
             self.store.put(ref.id_bytes, blob, cached=True)
             return blob
-        total, holders = plan
+        total, holders = plan[0], plan[1]
+        if len(plan) > 2 and plan[2].get("spilled"):
+            self.spilled_plan_hits += 1
         with self._partials_lock:
             part = self._partials.get(ref.id_bytes)
             leader = part is None or (part.done.is_set()
@@ -1320,6 +1734,7 @@ class NodeExecutorService:
             num_actors = len(self._actors)
         return {"tasks_executed": self.tasks_executed, "running": running,
                 "store": self.store.stats(), "num_actors": num_actors,
+                "spill": self._spill_stats(),
                 "pid": os.getpid(), "chunked_pulls": self.chunked_pulls,
                 "pulled_bytes": self.pulled_bytes,
                 "pull_seconds": self.pull_seconds,
@@ -1333,13 +1748,20 @@ class NodeExecutorService:
                 "threads": _threading.active_count()}
 
     def stats_for_sync(self) -> dict:
-        """The heartbeat's stats: cheap counters only."""
+        """The heartbeat's stats: cheap counters only, with the spill
+        tier's counters and its events since the last beat."""
         with self._running_lock:
             running = len(self._running)
             depth = max(0, running - len(self._blocked_cpu))
-        return {"tasks_executed": self.tasks_executed, "running": running,
-                "depth": depth, "stats_ts": time.time(),
-                "chunked_pulls": self.chunked_pulls}
+        stats = {"tasks_executed": self.tasks_executed, "running": running,
+                 "depth": depth, "stats_ts": time.time(),
+                 "chunked_pulls": self.chunked_pulls}
+        if self._spill_mgr is not None:
+            stats["spill"] = self._spill_stats()
+            events = self._drain_spill_events()
+            if events:
+                stats["spill_events"] = events
+        return stats
 
     # --------------------------------------------------------------- actors
 
@@ -1465,6 +1887,7 @@ class NodeExecutorService:
                         self._shm_client.close_segment(name)
             else:
                 out.append(packed)  # ("err", blob): this return failed
+        self.store.notify_spill()
         return ("ok", out)
 
     def _await_actor(self, actor_key: bytes, grace_s: float = 10.0,

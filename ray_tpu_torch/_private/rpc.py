@@ -13,7 +13,10 @@ item 10c).
 
 A frame is a little-endian uint64 length and a pickle of
 ``(seq, method, args, kwargs)`` (request) or ``(seq, status, value)``
-(reply, status ``"ok"`` or ``"err"``).
+(reply, status ``"ok"`` or ``"err"``). A server with ``reply_meta_fn``
+tags each ``"ok"`` reply ``"okm"`` and sends ``(meta, result)``: the head
+stamps its epoch on every reply that way, and a client hands the meta to
+its ``on_reply_meta`` before the call returns.
 """
 
 from __future__ import annotations
@@ -119,6 +122,8 @@ class RpcServer:
         self._shutdown = threading.Event()
         self._conns: list[socket.socket] = []
         self._conns_lock = threading.Lock()
+        # () -> dict sent with every "ok" reply (tagged "okm").
+        self.reply_meta_fn: Callable[[], dict] | None = None
 
     @property
     def address(self) -> str:
@@ -191,7 +196,12 @@ class RpcServer:
                 if fn is None:
                     raise RpcError(f"unknown rpc method {name!r}")
                 result = fn(*args, **kwargs)
-                payload = pickle.dumps((seq, "ok", result), protocol=5)
+                if self.reply_meta_fn is not None:
+                    payload = pickle.dumps(
+                        (seq, "okm", (self.reply_meta_fn(), result)),
+                        protocol=5)
+                else:
+                    payload = pickle.dumps((seq, "ok", result), protocol=5)
             except BaseException as exc:  # noqa: BLE001 — sent to the caller
                 payload = _error_reply(seq, exc)
             reply(payload)
@@ -218,6 +228,20 @@ class RpcServer:
                 pass
 
 
+def _take_meta(status: str, value: Any, observer) -> tuple[str, Any]:
+    """Strip the meta of an ``"okm"`` reply, handing it to ``observer``
+    (which must not raise; an exception there is dropped)."""
+    if status != "okm":
+        return status, value
+    meta, value = value
+    if observer is not None:
+        try:
+            observer(meta)
+        except Exception:  # noqa: BLE001 — an observer must not fail the call
+            pass
+    return "ok", value
+
+
 def _unpack_reply(status: str, value: Any) -> Any:
     if status == "ok":
         return value
@@ -237,6 +261,9 @@ class MuxRpcClient:
         self._pending: dict[int, concurrent.futures.Future] = {}
         self._seq = itertools.count(1)
         self._closed = False
+        # Called on the reader thread with each reply's meta, before the
+        # call it answers returns.
+        self.on_reply_meta: Callable[[dict], None] | None = None
 
     def _connect(self) -> socket.socket:
         # Caller holds the lock.
@@ -258,6 +285,8 @@ class MuxRpcClient:
         try:
             while True:
                 seq, status, value = pickle.loads(_recv_frame(sock))
+                status, value = _take_meta(status, value,
+                                           self.on_reply_meta)
                 with self._lock:
                     fut = self._pending.pop(seq, None)
                 if fut is not None:
@@ -365,6 +394,7 @@ class RpcClient:
         self._lock = threading.Lock()
         self._sock: socket.socket | None = None
         self._seq = 0
+        self.on_reply_meta: Callable[[dict], None] | None = None
 
     def _connect(self) -> socket.socket:
         sock = socket.create_connection(self._addr,
@@ -423,6 +453,7 @@ class RpcClient:
             else:
                 raise RpcError(f"rpc to {self.address} failed: "
                                f"{last_exc}") from last_exc
+        status, payload = _take_meta(status, payload, self.on_reply_meta)
         return _unpack_reply(status, payload)
 
     def ping(self) -> bool:

@@ -155,10 +155,18 @@ class Runtime:
         self.job_id = JobID()
         self.gcs_client = None
         self._node_agent = None
+        # The head's epoch, learned from reply meta and stamped on this
+        # driver's writes to the head; a new one (the head restarted) or
+        # a refused write makes the next flush publish everything again.
+        self._gcs_epoch: int | None = None
+        self._epoch_republish = False
         if address:
             from ray_tpu_torch._private.rpc import MuxRpcClient, RpcError
 
+            # Reconnects to the same address on the next call after the
+            # head went away, so a restarted head is found again.
             self.gcs_client = MuxRpcClient(address, timeout_s=60.0)
+            self.gcs_client.on_reply_meta = self._on_gcs_reply_meta
             try:
                 self.gcs_client.call("ping", timeout_s=10.0)
             except (RpcError, OSError) as exc:
@@ -554,7 +562,8 @@ class Runtime:
         self._loc_keepalive = 0.0
         self._actor_dirty: set[ActorID] = set()
         self._mirror_lock = threading.Lock()
-        self._pg_published: list = []
+        # None: the first pass publishes (an empty table included).
+        self._pg_published: list | None = None
         self._pkg_hashes: dict[str, str] = {}
         self._watcher_stop = threading.Event()
         self._node_watcher = None
@@ -573,7 +582,8 @@ class Runtime:
 
         # Daemon tasks and actors call the driver back through it.
         self.ensure_client_server()
-        self._export_store = NodeObjectStore()
+        # Its objects are in this driver's store too: never spilled.
+        self._export_store = NodeObjectStore(spill=False)
         self._export_directory = ChunkDirectory()
         self._obj_server = RpcServer()
         self._obj_server.register("ping", lambda: "pong")
@@ -798,10 +808,37 @@ class Runtime:
                 if len(self._remote_free_queue) > 100_000:
                     del self._remote_free_queue[:-50_000]
 
+    def _on_gcs_reply_meta(self, meta: dict) -> None:
+        """On the head client's reader thread: a new epoch (the head
+        restarted) schedules a full republish of this driver's
+        locations, actor records and placement groups."""
+        epoch = meta.get("epoch") if isinstance(meta, dict) else None
+        if not isinstance(epoch, int):
+            return
+        prior, self._gcs_epoch = self._gcs_epoch, epoch
+        if prior is not None and epoch != prior:
+            self._epoch_republish = True
+            self._loc_keepalive = 0.0
+
+    def _handle_stale_epoch(self, exc: BaseException) -> bool:
+        """Whether ``exc`` is the head's typed fence: take the epoch it
+        carries and schedule the full republish."""
+        from ray_tpu_torch._private.gcs import StaleEpochError
+        from ray_tpu_torch._private.rpc import RpcMethodError
+
+        cause = exc.cause if isinstance(exc, RpcMethodError) else exc
+        if not isinstance(cause, StaleEpochError):
+            return False
+        self._gcs_epoch = cause.current_epoch
+        self._epoch_republish = True
+        self._loc_keepalive = 0.0
+        return True
+
     def _flush_object_locations(self) -> None:
-        """Location deltas to the head's directory; every 10 s an empty
-        update keeps this owner's entries leased (and republishes all of
-        them)."""
+        """Location deltas to the head's directory, stamped with the
+        head's epoch. Every 10 s, and at once after the head restarted,
+        the update carries every entry (a keepalive of this owner's
+        lease and a full republish)."""
         if self.gcs_client is None:
             return
         with self._locations_lock:
@@ -811,18 +848,21 @@ class Runtime:
             self._loc_dirty_removes.clear()
             have_entries = bool(self._object_locations)
         now = time.monotonic()
-        if not adds and not removes:
-            if not have_entries or now - self._loc_keepalive < 10.0:
-                return
+        full = have_entries and now - self._loc_keepalive >= 10.0
+        if not adds and not removes and not full:
+            return
+        if full:
             with self._locations_lock:
                 adds = [(oid.hex(), nid.hex()) for oid, nid
                         in self._object_locations.items()]
         try:
             self.gcs_client.call("object_locations_update",
                                  self._export_addr, adds, removes,
-                                 timeout_s=10.0)
-            self._loc_keepalive = now
-        except Exception:  # noqa: BLE001 — requeued for the next flush
+                                 epoch=self._gcs_epoch, timeout_s=10.0)
+            if full:
+                self._loc_keepalive = now
+        except Exception as exc:  # noqa: BLE001 — requeued for the next flush
+            self._handle_stale_epoch(exc)
             with self._locations_lock:
                 for obj_hex, node_hex in adds:
                     self._loc_dirty_adds.setdefault(obj_hex, node_hex)
@@ -836,7 +876,14 @@ class Runtime:
 
     def _flush_control_mirror(self) -> None:
         """The actor records that changed, and the placement groups when
-        they did, to the head's mirrors."""
+        they did, to the head's mirrors, stamped with its epoch; after a
+        head restart, all of them."""
+        if self._epoch_republish:
+            self._epoch_republish = False
+            with self._mirror_lock:
+                self._actor_dirty.update(
+                    r.actor_id for r in self.gcs.list_actors())
+                self._pg_published = None
         with self._mirror_lock:
             dirty, self._actor_dirty = self._actor_dirty, set()
         records = [self.gcs.actor_plain(r) for r in
@@ -844,18 +891,19 @@ class Runtime:
         try:
             if records:
                 self.gcs_client.call("actor_update", records,
-                                     timeout_s=10.0)
-        except Exception:  # noqa: BLE001 — retried at the next pass
+                                     epoch=self._gcs_epoch, timeout_s=10.0)
+        except Exception as exc:  # noqa: BLE001 — retried at the next pass
+            self._handle_stale_epoch(exc)
             with self._mirror_lock:
                 self._actor_dirty.update(dirty)
         groups = self.placement_groups.snapshot()
         if groups != self._pg_published:
             try:
                 self.gcs_client.call("pg_update", self.job_id.hex(), groups,
-                                     timeout_s=10.0)
+                                     epoch=self._gcs_epoch, timeout_s=10.0)
                 self._pg_published = groups
-            except Exception:  # noqa: BLE001 — retried at the next pass
-                pass
+            except Exception as exc:  # noqa: BLE001 — retried at the next pass
+                self._handle_stale_epoch(exc)
 
     def _convert_remote_args(self, args: tuple, kwargs: dict) -> bytes:
         """The framed arguments of work sent to a node. An ObjectRef

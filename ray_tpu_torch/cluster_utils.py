@@ -18,6 +18,15 @@ failure are exercised without a real cluster::
 Each daemon leads a process group of its own, with its worker pool and
 its actors in it: removing a node ends the group, so no process of it
 is left holding a card.
+
+With ``persist_path`` the head is durable (snapshot, WAL and epoch) and
+``restart_head()`` brings it back on the same port from that state;
+``graceful=False`` is the crash shape (no last snapshot), so what comes
+back is what the snapshot and the WAL held. The daemons re-register
+under the new epoch with their NodeIDs.
+
+Not ported: the autoscaler's fake provider and the YAML launcher of the
+reference's cluster tooling (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -52,7 +62,8 @@ class Cluster:
 
     def __init__(self, *, initialize_head: bool = True,
                  log_dir: str | None = None,
-                 heartbeat_timeout_s: float = 10.0):
+                 heartbeat_timeout_s: float = 10.0,
+                 persist_path: str | None = None):
         import tempfile
 
         from ray_tpu_torch._private.gcs_server import GcsServer
@@ -64,17 +75,46 @@ class Cluster:
             tempfile.gettempdir(), f"ray_tpu_torch_cluster_{os.getpid()}")
         os.makedirs(self._log_dir, exist_ok=True)
         self._heartbeat_timeout_s = heartbeat_timeout_s
+        self._persist_path = persist_path
         if initialize_head:
             self.gcs = GcsServer(
                 host="127.0.0.1", port=0, log_dir=self._log_dir,
-                heartbeat_timeout_s=heartbeat_timeout_s).start()
+                heartbeat_timeout_s=heartbeat_timeout_s,
+                persist_path=persist_path).start()
 
     def restart_head(self, graceful: bool = False) -> None:
-        """Restarting the head from its persisted state needs the
-        durable head (ROADMAP item 10b)."""
-        raise NotImplementedError(
-            "restart_head needs a durable head, which is not ported yet "
-            "(ROADMAP item 10b)")
+        """Stop the head and start it again on the same port from its
+        persisted state. ``graceful=False``: the transport and the
+        monitor stop with no last snapshot, as a SIGKILL leaves it."""
+        from ray_tpu_torch._private.gcs_server import GcsServer
+
+        if self.gcs is None:
+            raise RuntimeError("cluster has no head")
+        port = self.gcs._server.port
+        if graceful:
+            self.gcs.stop()
+        else:
+            self.gcs.crash()
+        # The port may linger a moment: wait until it binds, so the new
+        # head mints its epoch once.
+        deadline = time.monotonic() + 10
+        while True:
+            probe = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                probe.bind(("127.0.0.1", port))
+                break
+            except OSError as exc:
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(
+                        f"head failed to rebind port {port}: {exc}") from exc
+                time.sleep(0.2)
+            finally:
+                probe.close()
+        self.gcs = GcsServer(
+            host="127.0.0.1", port=port, log_dir=self._log_dir,
+            heartbeat_timeout_s=self._heartbeat_timeout_s,
+            persist_path=self._persist_path).start()
 
     @property
     def address(self) -> str:

@@ -431,11 +431,25 @@ def test_a_pruned_subscriber_is_told_it_missed_messages(tmp_path):
         server.stop()
 
 
-def test_restart_head_is_refused():
+def test_restart_head_is_refused(tmp_path):
+    """Without a head there is nothing to restart; with a durable head
+    (``persist_path``) the crash-shaped restart comes back on its port
+    with its KV and the next epoch."""
     from ray_tpu_torch.cluster_utils import Cluster
 
     cluster = Cluster(initialize_head=False)
-    with pytest.raises(NotImplementedError, match="10b"):
+    with pytest.raises(RuntimeError, match="no head"):
         cluster.restart_head()
     with pytest.raises(RuntimeError, match="no head"):
         cluster.address
+    cluster = Cluster(log_dir=str(tmp_path / "log"),
+                      persist_path=str(tmp_path / "gcs_snapshot.pkl"))
+    try:
+        address, epoch = cluster.address, cluster.gcs.epoch
+        cluster.gcs._kv_put(b"k", b"v")
+        cluster.restart_head(graceful=False)
+        assert cluster.address == address
+        assert cluster.gcs.epoch == epoch + 1
+        assert cluster.gcs.gcs.kv.get(b"k") == b"v"
+    finally:
+        cluster.shutdown()

@@ -55,6 +55,11 @@ NODE_MODULES = (
     "ray_tpu_torch._private.remote_actor",
     "ray_tpu_torch._private.runtime_env_packaging",
     "ray_tpu_torch._private.scheduler", "ray_tpu_torch.cluster_utils")
+# The durable head's persistence, the chaos sites it wires and the
+# internal KV.
+DURABLE_HEAD_MODULES = (
+    "ray_tpu_torch._private.gcs_persistence", "ray_tpu_torch._private.chaos",
+    "ray_tpu_torch.experimental", "ray_tpu_torch.experimental.internal_kv")
 # The data package: every module, imported where importing jax, ray_tpu
 # or cloudpickle raises.
 DATA_MODULES = tuple(
@@ -141,6 +146,16 @@ def test_node_modules_import_without_jax_ray_tpu_or_cloudpickle():
     assert {f"ray_tpu_torch/{m.split('.', 1)[1].replace('.', '/')}.py"
             for m in NODE_MODULES} <= checked
     assert _import_blocked(NODE_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+
+
+def test_durable_head_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"ray_tpu_torch/_private/gcs_persistence.py",
+            "ray_tpu_torch/_private/chaos.py",
+            "ray_tpu_torch/experimental/__init__.py",
+            "ray_tpu_torch/experimental/internal_kv.py"} <= checked
+    assert _import_blocked(DURABLE_HEAD_MODULES,
                            FORBIDDEN + ("cloudpickle",)) == "[]"
 
 

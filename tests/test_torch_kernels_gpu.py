@@ -818,3 +818,60 @@ def test_gpu_task_on_a_node_daemon_returns_the_drivers_bits(cuda_device):
     assert normed.device.type == "cuda" and attn.device.type == "cuda"
     assert torch.equal(normed, want_normed)
     assert torch.equal(attn, want_attn)
+
+
+@pytest.mark.gpu
+def test_spilled_kernel_result_survives_a_head_restart(cuda_device,
+                                                       tmp_path):
+    """A ``fwd`` result (67 MB) made on a daemon whose node store is
+    capped at 48 MiB spills to the daemon's disk and is marked spilled in
+    the durable head's directory; the head restarts in the crash shape
+    (no last snapshot), the mark comes back from its WAL, and the driver
+    reads the result back from the daemon's disk bitwise its own launch."""
+    import time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    def attend(seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        q, k, v = (torch.randn(16, 2048, h, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for h in (16, 8, 8))
+        with torch.no_grad():
+            return fa.flash_attention(q, k, v, causal=True)
+
+    def wait(predicate, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not predicate():
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+
+    rt.shutdown()
+    cluster = Cluster(log_dir=str(tmp_path / "log"),
+                      persist_path=str(tmp_path / "gcs_snapshot.pkl"))
+    cluster.add_node(num_cpus=2, resources={"GPU": 1}, heartbeat_period_s=0.5,
+                     env={"RAY_TPU_TORCH_NODE_STORE_PRIMARY_LIMIT_MB": "48"})
+    try:
+        assert cluster.wait_for_nodes(1, timeout=120)
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        wait(lambda: rt.cluster_resources().get("GPU", 0) >= 1)
+        ref = rt.remote(num_gpus=1)(attend).remote(5)
+        rt.wait([ref], timeout=300)
+        with runtime._remote_nodes_lock:
+            handle = next(iter(runtime._remote_nodes.values()))
+        wait(lambda: handle.pool.call("executor_stats")["store"][
+            "spilled_blobs"] == 1)
+        wait(lambda: ref.hex() in cluster.gcs._list_object_locations(
+            None, True)[1])
+        epoch = cluster.gcs.epoch
+        cluster.restart_head(graceful=False)
+        assert cluster.gcs.epoch == epoch + 1
+        assert ref.hex() in cluster.gcs._list_object_locations(None, True)[1]
+        assert cluster.wait_for_nodes(1, timeout=120)
+        got = rt.get(ref, timeout=300)
+        restores = handle.pool.call("executor_stats")["spill"]["restores"]
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+    assert restores >= 1
+    assert got.device.type == "cuda" and torch.equal(got, attend(5))

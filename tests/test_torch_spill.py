@@ -519,3 +519,316 @@ def test_disarmed_tier_keeps_the_inline_spill(tmp_path):
         assert [ray_tpu_torch.get(r)[0].item() for r in refs] == [0.0, 1.0]
     finally:
         ray_tpu_torch.shutdown()
+
+
+# -------------------------------------- mirrored: the node store's tier
+
+
+def _node_executor(p):
+    import importlib
+
+    return importlib.import_module(f"{p['pkg']}._private.node_executor")
+
+
+def _managed_blob_store(p, tmp_path, limit_bytes, **kwargs):
+    p["config"].update({"spill_min_object_kb": 1})
+    store = _node_executor(p).NodeObjectStore(
+        primary_limit_bytes=limit_bytes, spill_dir=str(tmp_path / "legacy"))
+    mgr = store.enable_managed_spill(spill_dir=str(tmp_path / "managed"),
+                                     **kwargs)
+    return store, mgr
+
+
+def _key(i: int) -> bytes:
+    return np.random.default_rng(1000 + i).bytes(16)
+
+
+def leased_objects_never_spilled(p, tmp_path):
+    leased_key = _key(0)
+    store, mgr = _managed_blob_store(p, tmp_path, 512 * 1024,
+                                     leased_fn=lambda: {leased_key})
+    try:
+        store.put(leased_key, _blob(30, 400 * 1024), owner="o")
+        for i in range(3):
+            store.put(_key(1 + i), _blob(31 + i, 200 * 1024), owner="o")
+        while store._primary_bytes > mgr.low_bytes() and mgr.spill_pass():
+            pass
+        with store._lock:
+            return [leased_key in store._blobs,
+                    leased_key in store._spilled, len(store._spilled) > 0]
+    finally:
+        mgr.stop()
+
+
+def test_node_store_leased_objects_never_spilled(tmp_path):
+    records = _both(leased_objects_never_spilled, tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == \
+        [True, False, True]
+
+
+def pulled_cache_copies_never_spilled(p, tmp_path):
+    store, mgr = _managed_blob_store(p, tmp_path, 256 * 1024)
+    try:
+        cached_key = _key(10)
+        store.put(cached_key, _blob(40, 300 * 1024), cached=True)
+        for i in range(2):
+            store.put(_key(11 + i), _blob(41 + i, 200 * 1024), owner="o")
+        while store._primary_bytes > mgr.low_bytes() and mgr.spill_pass():
+            pass
+        with store._lock:
+            return [cached_key in store._spilled,
+                    cached_key in store._blobs, len(store._spilled) > 0]
+    finally:
+        mgr.stop()
+
+
+def test_node_store_pulled_cache_copies_never_spilled(tmp_path):
+    records = _both(pulled_cache_copies_never_spilled, tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == \
+        [False, True, True]
+
+
+def directory_spilled_location_pruned_on_node_death(p, tmp_path):
+    import importlib
+
+    directory = importlib.import_module(
+        f"{p['pkg']}._private.gcs").ObjectDirectory()
+    directory.update("owner-a", [("obj1", "nodeX"), ("obj2", "nodeX"),
+                                 ("obj2", "nodeY")], [])
+    directory.mark_spilled("owner-a", "obj1", "nodeX")
+    directory.mark_spilled("owner-a", "obj2", "nodeX")
+    record = [directory.spilled("owner-a")]
+    # A restore clears the mark (the holder never left the set).
+    directory.clear_spilled("owner-a", "obj2")
+    record.append(directory.spilled("owner-a"))
+    directory.mark_spilled("owner-a", "obj2", "nodeX")
+    record += [directory.prune_node("nodeX"), directory.spilled("owner-a"),
+               directory.locations("owner-a")]
+    # The owner's free drops the mark with the holders.
+    directory.mark_spilled("owner-a", "obj2", "nodeY")
+    directory.update("owner-a", [], ["obj2"])
+    return record + [directory.spilled("owner-a")]
+
+
+def test_directory_spilled_location_pruned_on_node_death(tmp_path):
+    records = _both(directory_spilled_location_pruned_on_node_death,
+                    tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == [
+        {"obj1": "nodeX", "obj2": "nodeX"}, {"obj1": "nodeX"}, ["obj1"],
+        {}, {"obj2": ["nodeY"]}, {}]
+
+
+def _executor(p):
+    """A node executor with the tier armed; the reference's same-host
+    plane off, so both take the chunked pull."""
+    config = {"spill_min_object_kb": 1}
+    if p["pkg"] == "ray_tpu":
+        config["same_host_plane"] = False
+    p["config"].update(config)
+    svc = _node_executor(p).NodeExecutorService(
+        host="127.0.0.1", pool_size=1, resources={"CPU": 1})
+    svc.advertised_address = f"127.0.0.1:{svc.port}"
+    return svc
+
+
+def fetch_plan_reply_is_spill_aware(p, tmp_path):
+    from ray_tpu_torch._private import serialization
+
+    svc = _executor(p)
+    svc.start()
+    try:
+        armed = svc._spill_mgr is not None
+        blob = serialization.serialize_framed(_blob(50, 200 * 1024))
+        oid = _key(20)
+        svc.store.put(oid, blob, owner="test-owner")
+        svc._spill_mgr.capacity = 1
+        svc._spill_mgr.spill_pass()
+        spilled = svc.store.is_spilled(oid)
+        plan = svc.fetch_plan(oid, None)
+        record = [armed, spilled, plan[0] == len(blob),
+                  plan[-1]["spilled"]]
+        # A read restores the in-memory copy transparently.
+        record.append(svc.store.get(oid) == blob)
+        record.append(svc.fetch_plan(oid, None)[-1]["spilled"])
+        events = svc._drain_spill_events()
+        record.append(sorted({(owner, kind) for owner, _hex, kind
+                              in events}))
+        return record
+    finally:
+        svc.stop()
+
+
+def test_fetch_plan_reply_is_spill_aware(tmp_path):
+    records = _both(fetch_plan_reply_is_spill_aware, tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == [
+        True, True, True, True, True, False,
+        [("test-owner", "restored"), ("test-owner", "spilled")]]
+
+
+def disk_full_backoff_degrades_to_host_pressure(p, tmp_path):
+    monitor = _monitor(p)
+    p["config"].update({"admission_memory_watermark": 0.8})
+    svc = _node_executor(p).NodeExecutorService(
+        host="127.0.0.1", pool_size=1, resources={"CPU": 1})
+    try:
+        monitor._set_usage_override(0.9)
+        monitor._set_store_fraction_override(0.5)
+        record = [svc._overload_reason()]
+        with svc._spill_mgr._lock:
+            svc._spill_mgr._backoff_until = time.monotonic() + 30
+        reason = svc._overload_reason()
+        record.append(reason is not None and "disk is full" in reason)
+        with svc._spill_mgr._lock:
+            svc._spill_mgr._backoff_until = 0.0
+        monitor._set_store_fraction_override(0.02)
+        record.append("host memory" in svc._overload_reason())
+        return record
+    finally:
+        svc.stop()
+
+
+def test_disk_full_backoff_degrades_to_host_pressure(tmp_path):
+    records = _both(disk_full_backoff_degrades_to_host_pressure, tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == \
+        [None, True, True]
+
+
+def spilled_arg_restored_for_a_task(p, tmp_path):
+    import importlib
+
+    from ray_tpu_torch._private import serialization
+
+    node_executor = _node_executor(p)
+    shm_store = importlib.import_module(f"{p['pkg']}._private.shm_store")
+    svc = _executor(p)
+    svc.start()
+    try:
+        payload = _blob(60, 300 * 1024)
+        blob = serialization.serialize_framed(payload)
+        oid = _key(30)
+        svc.store.put(oid, blob, owner="test-owner")
+        svc._spill_mgr.capacity = 1
+        svc._spill_mgr.spill_pass()
+        spilled = svc.store.is_spilled(oid)
+        args, _ = svc._resolve_fetch_args(
+            (node_executor.FetchRef(oid, svc.advertised_address),), {},
+            to_shm=True)
+        client = shm_store.ShmClient(untrack_on_attach=True)
+        try:
+            mapped = bytes(client.get(args[0].desc)) == payload
+        finally:
+            client.close_all()
+        return [spilled, mapped,
+                svc._spill_mgr.stats()["restores"] >= 1]
+    finally:
+        svc.stop()
+
+
+def test_spilled_arg_restored_for_a_task(tmp_path):
+    records = _both(spilled_arg_restored_for_a_task, tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == \
+        [True, True, True]
+
+
+def cluster_spill_and_restore_end_to_end(p, tmp_path):
+    """A working set past a daemon's store: results spill on the node,
+    tasks taking spilled arguments restore them there, the driver's gets
+    restore the rest; the counters come over RPC."""
+    import importlib
+
+    rt = p["pkg"] == "ray_tpu" and __import__("ray_tpu") or ray_tpu_torch
+    env_prefix = "RAY_TPU_" if p["pkg"] == "ray_tpu" else "RAY_TPU_TORCH_"
+    cluster_cls = importlib.import_module(
+        f"{p['pkg']}.cluster_utils").Cluster
+    rt.shutdown()
+    cluster = cluster_cls(log_dir=str(tmp_path / "cluster"))
+    cluster.add_node(num_cpus=4, resources={"spl": 10.0}, pool_size=2,
+                     heartbeat_period_s=0.5,
+                     env={env_prefix + "NODE_STORE_PRIMARY_LIMIT_MB": "1",
+                          env_prefix + "SPILL_MIN_OBJECT_KB": "16"})
+    runtime = None
+    try:
+        assert cluster.wait_for_nodes(1, timeout=60)
+        runtime = rt.init(num_cpus=0, address=cluster.address)
+        deadline = time.monotonic() + 30
+        while rt.cluster_resources().get("spl", 0) <= 0:
+            assert time.monotonic() < deadline
+            time.sleep(0.2)
+
+        @rt.remote(resources={"spl": 1.0})
+        def produce(i):
+            import numpy
+
+            return b"%d:" % i + numpy.random.default_rng(i).bytes(
+                600 * 1024)
+
+        @rt.remote(resources={"spl": 1.0})
+        def consume(blob, i):
+            assert blob.startswith(b"%d:" % i)
+            return len(blob)
+
+        refs = [produce.remote(i) for i in range(6)]  # ~3.6 MB on 1 MB
+        sizes = rt.get([consume.remote(r, i) for i, r in enumerate(refs)],
+                       timeout=120)
+        blobs = rt.get(refs, timeout=120)
+        with runtime._remote_nodes_lock:
+            handle = next(iter(runtime._remote_nodes.values()))
+        stats = handle.pool.call("executor_stats")["spill"]
+        return [sizes == [600 * 1024 + len(b"%d:" % i) for i in range(6)],
+                [b[:2] for b in blobs], stats["spills"] > 0,
+                stats["restores"] > 0, stats["torn_restores"]]
+    finally:
+        if runtime is not None:
+            rt.shutdown()
+        cluster.shutdown()
+
+
+def test_cluster_spill_and_restore_end_to_end(tmp_path):
+    from torch_time_limit import time_limit
+
+    with time_limit(300):
+        records = _both(cluster_spill_and_restore_end_to_end, tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == [
+        True, [b"%d:" % i for i in range(6)], True, True, 0]
+
+
+def disarmed_node_store_is_the_legacy_inline_spill(p, tmp_path):
+    monitor = _monitor(p)
+    config = {"spill_enabled": False, "admission_memory_watermark": 0.8}
+    if p["pkg"] == "ray_tpu":
+        config["node_store_native"] = False
+    p["config"].update(config)
+    p["spill"].init_from_config()
+    legacy_dir = str(tmp_path / "legacy")
+    node_executor = _node_executor(p)
+    store = node_executor.NodeObjectStore(primary_limit_bytes=256 * 1024,
+                                          spill_dir=legacy_dir)
+    record = [p["spill"].SPILL_ON, store._spill_mgr]
+    blobs = {}
+    for i in range(4):
+        blobs[_key(40 + i)] = _blob(70 + i, 200 * 1024)
+        store.put(_key(40 + i), blobs[_key(40 + i)], owner="o")
+    names = os.listdir(legacy_dir)
+    record += [store.stats()["spills"] > 0,
+               bool(names) and all(n.startswith(f"{os.getpid()}-")
+                                   and n.endswith(".blob") for n in names),
+               os.path.isdir(p["spill"].process_spill_dir()),
+               all(store.get(k) == b for k, b in blobs.items())]
+    svc = node_executor.NodeExecutorService(
+        host="127.0.0.1", pool_size=1, resources={"CPU": 1})
+    try:
+        record.append(svc._spill_mgr)
+        # One axis: the host watermark sheds even for store bytes.
+        monitor._set_usage_override(0.9)
+        monitor._set_store_fraction_override(0.9)
+        record.append("host memory" in svc._overload_reason())
+    finally:
+        svc.stop()
+    return record
+
+
+def test_disarmed_node_store_is_the_legacy_inline_spill(tmp_path):
+    records = _both(disarmed_node_store_is_the_legacy_inline_spill,
+                    tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == [
+        False, None, True, True, False, True, None, True]
