@@ -108,9 +108,14 @@ source, all started together) and drives the port's two paths:
   its port and session dir; the in-flight request, the name, the KV, the
   job, the daemon's NodeID and the spilled results all come back, and
   the results and RMSNorm over them are bitwise the driver's launches
-  (head_restart).
+  (head_restart); then a second driver, a process with no card,
+  resolves the named actor through the restarted head's directory and
+  is served through the foreign handle token for token, and an actor on
+  the daemon borrows the driver's ``fwd`` output past every handle of
+  the driver and norms it bitwise (the ``cross_driver`` line).
 
-Each phase prints one JSON line. The build phase gives each kernel's
+Each phase prints one JSON line, with the seconds since the phase began
+(``phase_wall_s``); a ``phase_walls`` line lists every phase's wall. The build phase gives each kernel's
 registers, shared memory and spills (the Hopper kernels at every head
 dim). The line before the last lists every kernel with its launches on
 its path (the train phase for the attention kernels, the serve phase for
@@ -265,8 +270,27 @@ SERVE_CHECK_LOGITS_TOL = {"rtol": 0.0, "atol": 5e-4, "rms_tol": 1e-4}
 MEMORY_LEFT_BYTES = 512 << 20
 
 
+# The phase main() is running and when it started; each phase's wall.
+_PHASE_START: list[float] = []
+PHASE_WALLS: dict[str, float] = {}
+
+
 def emit(phase: str, **fields) -> None:
+    """A phase's JSON line, with the seconds since its phase started."""
+    if _PHASE_START:
+        fields.setdefault("phase_wall_s",
+                          time.perf_counter() - _PHASE_START[-1])
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def timed(phase, *args, **kwargs):
+    """Run a phase function; its wall goes into PHASE_WALLS."""
+    _PHASE_START.append(time.perf_counter())
+    try:
+        return phase(*args, **kwargs)
+    finally:
+        PHASE_WALLS[phase.__name__.removeprefix("phase_")] = \
+            time.perf_counter() - _PHASE_START.pop()
 
 
 def require(ok: bool, message: str) -> None:
@@ -3436,7 +3460,7 @@ def phase_serve_deployment(llama, fa, fused, served: dict, runtime: dict,
 # The card's free memory after a process on it ends: back within this of
 # its value before the process started (process_check, process_serve).
 PROCESS_FREE_TOL_BYTES = 64 << 20
-PROCESS_STARTS = 3  # GPU actor starts timed
+PROCESS_STARTS = 2  # GPU actor starts timed (two: the script's length)
 SPMD_MEAN = float(np.mean(np.arange(8, dtype=np.float32)[:, None] ** 2
                           * np.ones((1, 4))))
 
@@ -4919,6 +4943,131 @@ def _rts1_files(session: str, pid: int) -> list[str]:
     return out
 
 
+class BorrowHolder:
+    """A ``num_gpus=1`` actor on daemon A that borrows the driver's
+    ``fwd`` output: handed the ref inside a list, it holds it, reads the
+    object through the driver and runs RMSNorm over it on its card."""
+
+    def __init__(self):
+        self.ref = None
+
+    def hold(self, boxed: list) -> str:
+        self.ref = boxed[0]
+        return "held"
+
+    def read(self) -> tuple:
+        import ray_tpu_torch
+
+        o = ray_tpu_torch.get(self.ref)
+        out, counts = _node_norm(o, HEAD_SEED)
+        return o.device.type, out, counts
+
+    def drop(self) -> str:
+        self.ref = None
+        return "dropped"
+
+
+# A second driver, with no card, on the cluster's head (argv[1]): it
+# resolves the named actor through the head's directory and calls it
+# through the foreign handle. Its work comes as JSON lines on stdin and
+# its answers go to stdout; it times the withdrawal of the name from the
+# first driver's kill (both read the host's monotonic clock).
+SECOND_DRIVER = """
+import json, pickle, sys, time
+start = time.perf_counter()
+import ray_tpu_torch as rt
+
+rt.init(address=sys.argv[1], num_cpus=0, num_gpus=0)
+out = {"init_s": time.perf_counter() - start}
+job = json.loads(sys.stdin.readline())
+t0 = time.perf_counter()
+handle = rt.get_actor(job["name"])
+out["resolve_s"] = time.perf_counter() - t0
+out["handle"] = type(handle).__name__
+out["owner_addr"] = getattr(handle, "_owner_addr", None)
+copy = pickle.loads(pickle.dumps(handle))
+out["copy_equal"] = copy == handle
+
+
+def request(tokens):
+    return {"tokens": tokens, "max_new_tokens": job["max_new_tokens"],
+            "temperature": 0.0}
+
+
+t0 = time.perf_counter()
+refs = [handle.stream.remote(request(p)) for p in job["together"]]
+out["tokens"], out["walls_s"] = [], []
+for ref in refs:
+    out["tokens"].append(rt.get(ref, timeout=600)["tokens"])
+    out["walls_s"].append(time.perf_counter() - t0)
+t0 = time.perf_counter()
+out["pickled_tokens"] = rt.get(copy.stream.remote(request(job["pickled"])),
+                               timeout=600)["tokens"]
+out["pickled_wall_s"] = time.perf_counter() - t0
+print(json.dumps(out), flush=True)
+killed_at = float(sys.stdin.readline())
+gone = None
+while time.perf_counter() - killed_at < 60:
+    try:
+        rt.get_actor(job["name"])
+    except ValueError:
+        gone = time.perf_counter() - killed_at
+        break
+    time.sleep(0.01)
+print(json.dumps({"unpublished_s": gone}), flush=True)
+rt.shutdown()
+"""
+
+
+class _SecondDriver:
+    """The second driver's process (a group of its own), its stdout read
+    line by line on a thread so each answer is waited for with a limit."""
+
+    def __init__(self, addr: str, session: str):
+        import queue
+
+        from ray_tpu_torch._private.node import daemon_child_env
+
+        with open(os.path.join(session, "second_driver.log"), "ab") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", SECOND_DRIVER, addr],
+                env=daemon_child_env({"CUDA_VISIBLE_DEVICES": ""}),
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log,
+                text=True, start_new_session=True)
+        self._lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._read, daemon=True,
+                         name="chip-smoke-second-driver").start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def send(self, line: str) -> None:
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+
+    def answer(self, key: str, wait_s: float) -> dict:
+        """Its next JSON line that holds ``key``."""
+        import queue
+
+        deadline = time.monotonic() + wait_s
+        while True:
+            try:
+                line = self._lines.get(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            require(line is not None, f"the second driver gave no {key} "
+                                      f"(exit {self.proc.poll()})")
+            try:
+                record = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(record, dict) and key in record:
+                return record
+
+
 def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
                        power: str) -> dict:
     """The durable head and the node store's spill tier: a head process
@@ -4937,8 +5086,19 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
     resolving, the KV and the job back; (d) the four results read back
     from A's disk bitwise the driver's launches, RMSNorm over o on A
     bitwise once the actor is shut down (it holds A's GPU); (e) no pid
-    left, the card's free bytes and the GPU back.
-    Returns the kernels' launches in the phase."""
+    left, the card's free bytes and the GPU back. Between (c) and the
+    actor's shutdown, (f): a second driver (a process with no card,
+    connected to the restarted head) resolves the name through the
+    head's directory to a ``ForeignActorHandle`` of this driver and
+    sends the first 4 greedy prompts together through it and one through
+    a pickled copy, token-identical; the name is withdrawn within 10 s
+    of the actor's kill. After (d), (g): the driver's own ``fwd`` output
+    ``put`` and handed to a ``num_gpus=1`` actor on A inside a list is
+    borrowed there past every handle of the driver, normed on A bitwise
+    the driver's launch, and freed by the driver within 20 s of the
+    actor dropping it. The (f) and (g) results go on a ``cross_driver``
+    line. Returns the kernels' launches in the phase."""
+    import gc
     import signal
     import tempfile
 
@@ -4958,7 +5118,7 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
     sizes = {k: t.numel() * t.element_size() for k, t in want.items()}
     session = tempfile.mkdtemp(prefix="chip_smoke_head_")
     pids, procs = [], []
-    head = daemon = None
+    head = daemon = second = None
     try:
         # Setup.
         start = time.perf_counter()
@@ -5072,6 +5232,11 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
         answered_s = time.perf_counter() - wall_kill
         epoch_after = _head_call(addr, "gcs_epoch")
         persist = _head_call(addr, "gcs_persist_stats")
+        # (f)'s second driver starts now, on the restarted head: its
+        # interpreter and torch load while A registers again.
+        second = _SecondDriver(addr, session)
+        procs.append(second.proc)
+        pids.append(second.proc.pid)
 
         def a_back() -> bool:
             nodes = _head_call(addr, "list_nodes") or []
@@ -5100,7 +5265,6 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
         resolved = rt.get_actor("llama3-8b")
         done = rt.get(inflight, timeout=600)
         inflight_wall = done["arrivals"][-1] - t_inflight
-        counters = rt.get(resolved.counters.remote(), timeout=60)
         record = runtime.gcs.get_actor(actor._actor_id)
         head_record = next(a for a in _head_call(addr, "list_cluster_actors")
                            if a["name"] == "llama3-8b")
@@ -5112,9 +5276,28 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
                    internal_kv.internal_kv_get(b"last-write")]
         job_back = (_head_call(addr, "job_status", sub_id) or {}).get(
             "status")
+
+        # (f) The second driver, through the directory the WAL restored.
+        f_start = time.perf_counter()
+        entry_back = _head_call(addr, "kv_get", b"default/llama3-8b",
+                                "named_actors") is not None
+        pickled_i = greedy[HEAD_GREEDY + 2]
+        second.send(json.dumps({
+            "name": "llama3-8b", "max_new_tokens": SERVE_NEW_TOKENS,
+            "together": [prompts[i] for i in greedy[:HEAD_GREEDY]],
+            "pickled": prompts[pickled_i]}))
+        foreign = second.answer("tokens", 900)
+        second_up_s = foreign["init_s"]
+        owner_addr = runtime._client_server_addr()
+        counters = rt.get(resolved.counters.remote(), timeout=60)
         # The actor holds A's one GPU: it goes before the RMSNorm task.
         rt.get(resolved.shutdown.remote(), timeout=60)
         rt.kill(resolved)
+        second.send(repr(time.perf_counter()))
+        withdrawn = second.answer("unpublished_s", 90)["unpublished_s"]
+        f_s = time.perf_counter() - f_start
+        require(_until(lambda: second.proc.poll() is not None, 60),
+                "the second driver did not end")
         require(_until(lambda: rt.available_resources().get("GPU") == 1.0,
                        60), "GPU not back after the actor")
 
@@ -5140,10 +5323,47 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
         bitwise["rmsnorm"] = torch.equal(got_n, want_n)
         devices = {k: t.device.type for k, t in got.items()}
         del got, got_n, n_ref, refs, o_ref, dq_ref, dk_ref, dv_ref
+        require(_until(lambda: rt.available_resources().get("GPU") == 1.0,
+                       60), "GPU not back after the RMSNorm task")
+
+        # (g) A borrower on A: the driver's own fwd output (want_o, the
+        # kernel's launch in this process), put and handed over inside a
+        # list, so A's actor unpickles the ref and borrows it.
+        g_start = time.perf_counter()
+        holder = rt.remote(**with_a)(BorrowHolder).remote()
+        o_put = rt.put(want_o)
+        oid = o_put.id()
+        held = rt.get(holder.hold.remote([o_put]), timeout=HEAD_WAIT_S)
+        del o_put
+        gc.collect()
+        server = runtime.worker_client_server
+
+        def borrowers() -> set:
+            with server._lock:
+                return set(server._borrowers.get(oid.hex(), ())) \
+                    - {"__direct__"}
+
+        t0 = time.perf_counter()
+        borrowed = _until(lambda: bool(borrowers()), 30)
+        borrow_wait_s = time.perf_counter() - t0
+        kept = runtime.store.contains(oid)
+        t0 = time.perf_counter()
+        read_device, got_b, counts_b = rt.get(holder.read.remote(),
+                                              timeout=HEAD_WAIT_S)
+        read_s = time.perf_counter() - t0
+        borrowed_bitwise = torch.equal(got_b, want_n)
+        read_on = got_b.device.type
+        del got_b
+        dropped = rt.get(holder.drop.remote(), timeout=60)
+        t0 = time.perf_counter()
+        freed = _until(lambda: not runtime.store.contains(oid), 20)
+        free_s = time.perf_counter() - t0
+        rt.kill(holder)
+        g_s = time.perf_counter() - g_start
 
         # (e) Teardown.
         require(_until(lambda: rt.available_resources().get("GPU") == 1.0,
-                       60), "GPU not back after the RMSNorm task")
+                       60), "GPU not back after the borrower")
         gpu_back = [rt.available_resources().get("GPU"),
                     handle_a.pool.call("executor_stats")["available"].get(
                         "GPU")]
@@ -5162,7 +5382,9 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
     torch.cuda.empty_cache()
     free_after = _free_back(free_before, NODE_FREE_TOL_BYTES)
     launches = {k: counts_a[k] for k in (*HOPPER_KERNELS, "flash_bwd")}
-    launches["rmsnorm"] = counts_n["rmsnorm"] + counters["rmsnorm"]
+    # The actor's count covers (b), (c) and (f)'s requests.
+    launches["rmsnorm"] = counts_n["rmsnorm"] + counters["rmsnorm"] \
+        + counts_b["rmsnorm"]
     spill_timings = stats_a["spill"]
     result = {
         "daemon": {"resources": {"CPU": 2, "GPU": 1, "worker": 4},
@@ -5247,6 +5469,49 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
     require(all(counts_a[k] == 1 for k in (*HOPPER_KERNELS, "flash_bwd"))
             and counts_n["rmsnorm"] == 1 and counters["rmsnorm"] > 0,
             f"launches {counts_a}, {counts_n}, {counters['rmsnorm']}")
+    cross = {
+        "directory_entry_after_restart": entry_back,
+        "second_driver_init_s": second_up_s,
+        "handle": foreign["handle"],
+        "owner_is_this_driver": foreign["owner_addr"] == owner_addr,
+        "resolve_s": foreign["resolve_s"],
+        "pickled_copy_equal": foreign["copy_equal"],
+        "token_identical": [t == served_tokens[i] for t, i
+                            in zip(foreign["tokens"], greedy[:HEAD_GREEDY])]
+        + [foreign["pickled_tokens"] == served_tokens[pickled_i]],
+        # The 4 prompts sent at once: through the proxy one after the
+        # other; through the direct handle in (b), batched by the engine.
+        "foreign_walls_s": foreign["walls_s"], "direct_walls_s": walls,
+        "foreign_over_direct_wall": max(foreign["walls_s"])
+        / max(max(walls), 1e-9),
+        "pickled_wall_s": foreign["pickled_wall_s"],
+        "kill_to_unpublished_s": withdrawn,
+        "f_s": f_s, "borrow_held": held, "borrowed": borrowed,
+        "borrow_wait_s": borrow_wait_s, "kept_past_handles": kept,
+        "read_device": [read_device, read_on], "read_s": read_s,
+        "rmsnorm_bitwise": borrowed_bitwise, "dropped": dropped,
+        "freed": freed, "drop_to_free_s": free_s, "g_s": g_s,
+        "launches": {"rmsnorm_actor_b_c_f": counters["rmsnorm"],
+                     "rmsnorm_borrower": counts_b["rmsnorm"]},
+        "card": device["kind"], "nvidia_smi": power}
+    emit("cross_driver", **cross)
+    require(entry_back and cross["handle"] == "ForeignActorHandle"
+            and cross["owner_is_this_driver"]
+            and cross["pickled_copy_equal"],
+            f"the second driver resolved {cross['handle']} at "
+            f"{foreign['owner_addr']}, not this driver's {owner_addr}")
+    require(len(cross["token_identical"]) == HEAD_GREEDY + 1
+            and all(cross["token_identical"]),
+            f"foreign outputs differ: {cross['token_identical']}")
+    require(withdrawn is not None and withdrawn <= 10.0,
+            f"the name was withdrawn {withdrawn} s after the kill")
+    require(held == "held" and borrowed and kept and dropped == "dropped",
+            f"the borrow: held {held}, listed {borrowed}, kept {kept}")
+    require(read_device == read_on == torch.device(DEVICE).type
+            and borrowed_bitwise, f"the borrower's RMSNorm on "
+                                  f"{read_device}/{read_on} differs")
+    require(freed, f"the borrowed object not freed {free_s} s after drop")
+    require(counts_b["rmsnorm"] == 1, f"borrower launches {counts_b}")
     return launches
 
 
@@ -5262,67 +5527,76 @@ def main() -> int:
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     fused = importlib.import_module("ray_tpu_torch.ops.fused")
-    device, power = phase_device()
-    phase_build(_build, fa)
-    rows = phase_kernels(fa)
-    phase_model(llama)
-    train = phase_train(llama, train_step, fa, device, power)
+    device, power = timed(phase_device)
+    timed(phase_build, _build, fa)
+    rows = timed(phase_kernels, fa)
+    timed(phase_model, llama)
+    train = timed(phase_train, llama, train_step, fa, device, power)
     launches = train["launches"]
     torch.cuda.empty_cache()
-    mesh = phase_mesh_train(llama, train_step, fa, device, power, train)
+    mesh = timed(phase_mesh_train, llama, train_step, fa, device, power,
+                 train)
     mesh_launches = mesh["launches"]
     torch.cuda.empty_cache()
-    phase_ring_check(llama, fa)
+    timed(phase_ring_check, llama, fa)
     torch.cuda.empty_cache()
-    moe_launches = phase_moe_train(llama, train_step, fa, device, power,
-                                   train)["launches"]
+    moe_launches = timed(phase_moe_train, llama, train_step, fa, device,
+                         power, train)["launches"]
     torch.cuda.empty_cache()
-    pipeline_launches = phase_pipeline_train(llama, train_step, fa, device,
-                                             power, train)["launches"]
+    pipeline_launches = timed(phase_pipeline_train, llama, train_step, fa,
+                              device, power, train)["launches"]
     torch.cuda.empty_cache()
-    phase_collective_check(device, power)
+    timed(phase_collective_check, device, power)
     torch.cuda.empty_cache()
-    trainer_launches, trainer = phase_trainer(llama, fa, device, power, mesh)
+    trainer_launches, trainer = timed(phase_trainer, llama, fa, device,
+                                      power, mesh)
     del mesh
     torch.cuda.empty_cache()
-    data_launches = phase_data_feed(llama, train_step, fa, device, power)
+    data_launches = timed(phase_data_feed, llama, train_step, fa, device,
+                          power)
     torch.cuda.empty_cache()
-    phase_ce_chunk_check(llama, train_step)
+    timed(phase_ce_chunk_check, llama, train_step)
     torch.cuda.empty_cache()
-    rows["rmsnorm"] = phase_rmsnorm(fused)
-    phase_serve_check(llama)
-    served = phase_serve(llama, fused, device, power)
+    rows["rmsnorm"] = timed(phase_rmsnorm, fused)
+    timed(phase_serve_check, llama)
+    served = timed(phase_serve, llama, fused, device, power)
     launches["rmsnorm"] = served["launches"]
-    check = phase_runtime_check(llama, train_step, fa, fused, launches)
-    runtime, runtime_result = phase_runtime(llama, fa, fused, served, device,
-                                            power)
+    check = timed(phase_runtime_check, llama, train_step, fa, fused,
+                  launches)
+    runtime, runtime_result = timed(phase_runtime, llama, fa, fused, served,
+                                    device, power)
     torch.cuda.empty_cache()
-    phase_placement_check(llama, train_step, fa)
+    timed(phase_placement_check, llama, train_step, fa)
     torch.cuda.empty_cache()
-    deployment_check = phase_serve_deployment_check(llama, fa, fused)
+    deployment_check = timed(phase_serve_deployment_check, llama, fa, fused)
     torch.cuda.empty_cache()
-    deployment = phase_serve_deployment(llama, fa, fused, served,
-                                        runtime_result, device, power)
+    deployment = timed(phase_serve_deployment, llama, fa, fused, served,
+                       runtime_result, device, power)
     served_result, served_tokens = served["result"], served["tokens"]
     del served
     torch.cuda.empty_cache()
-    phase_process_check(fa, device, power, runtime_result)
+    timed(phase_process_check, fa, device, power, runtime_result)
     torch.cuda.empty_cache()
-    process_launches = phase_process_trainer(
-        llama, fa, device, power, {**trainer, "launches": trainer_launches})
-    process_served = phase_process_serve(
-        llama, served_result, served_tokens, runtime_result, device, power)
+    process_launches = timed(
+        phase_process_trainer, llama, fa, device, power,
+        {**trainer, "launches": trainer_launches})
+    process_served = timed(
+        phase_process_serve, llama, served_result, served_tokens,
+        runtime_result, device, power)
     process_launches["rmsnorm"] = process_served["rmsnorm"]
     torch.cuda.empty_cache()
-    store_launches = phase_store_recovery(llama, train_step, fa, fused,
-                                          device, power)
+    store_launches = timed(phase_store_recovery, llama, train_step, fa,
+                           fused, device, power)
     torch.cuda.empty_cache()
-    node_launches = phase_node_cluster(
-        llama, fa, fused, served_result, served_tokens,
+    node_launches = timed(
+        phase_node_cluster, llama, fa, fused, served_result, served_tokens,
         process_served["summary"], runtime_result, device, power)
     torch.cuda.empty_cache()
-    restart_launches = phase_head_restart(llama, fa, fused, served_tokens,
-                                          device, power)
+    restart_launches = timed(phase_head_restart, llama, fa, fused,
+                             served_tokens, device, power)
+    emit("phase_walls", walls_s=PHASE_WALLS,
+         total_s=sum(PHASE_WALLS.values()), card=device["kind"],
+         nvidia_smi=power)
     for kind, row in rows.items():
         row["launches"] = launches[kind]
         # bench.py's mesh path (mesh_train); training's norms are

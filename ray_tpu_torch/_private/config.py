@@ -97,6 +97,11 @@ _DEFAULTS: dict[str, Any] = {
     "node_store_primary_limit_mb": 4096,
     "node_store_spill_dir": os.path.join(tempfile.gettempdir(),
                                          "ray_tpu_torch_node_spill"),
+    # A daemon drops the results and actors of a driver whose endpoint
+    # stayed unreachable for owner_dead_grace_s, probing every
+    # owner_sweep_period_ms; 0 disables the sweep.
+    "owner_sweep_period_ms": 5000,
+    "owner_dead_grace_s": 15.0,
     # The head declares a node dead after this long without a heartbeat.
     "gcs_heartbeat_timeout_s": 10.0,
     # The durable head (gcs_persistence.py): its whole hot set as a

@@ -1,8 +1,9 @@
 """Cluster-wide pub/sub channels served by the head.
 
-The port of ``ray_tpu/_private/gcs_pubsub.py``, without its publisher
-client. The head fans each message out to the buffers of the channel's
-subscribers, and a subscriber drains its buffer with a long poll:
+The port of ``ray_tpu/_private/gcs_pubsub.py``. The head fans each
+message out to the buffers of the channel's subscribers, and a
+subscriber drains its buffer with a long poll (``GcsSubscriber``); a
+client publishes through ``GcsPublisher``:
 
     pubsub_subscribe(sub_id, channels)
     pubsub_poll(sub_id, timeout) -> [(channel, message), ...]
@@ -103,6 +104,10 @@ class ChannelHub:
                     return []
                 self._cond.wait(min(remaining, 1.0))
 
+    def num_subscribers(self) -> int:
+        with self._cond:
+            return len(self._subs)
+
 
 class GcsSubscriber:
     """The subscriber's side: subscribe once, then poll in a loop; it
@@ -140,4 +145,20 @@ class GcsSubscriber:
     def close(self) -> None:
         # No goodbye call: with the head gone it would block a socket
         # timeout; the hub prunes silent subscribers.
+        self._client.close()
+
+
+class GcsPublisher:
+    """The publisher's side: one connection to the head."""
+
+    def __init__(self, address: str):
+        from ray_tpu_torch._private.rpc import RpcClient
+
+        self._client = RpcClient(address, timeout_s=10.0)
+
+    def publish(self, channel: str, message: Any) -> int:
+        """The number of subscribers the message reached."""
+        return self._client.call("pubsub_publish", channel, message)
+
+    def close(self) -> None:
         self._client.close()

@@ -109,6 +109,10 @@ class NodeAgent:
         self._seen_epoch: "int | None" = None
         self._epoch_stale = threading.Event()
         self._poke = threading.Event()
+        # The spill events of heartbeats that failed or were refused:
+        # they ride the next one, so no mark in the head's directory is
+        # lost with a beat.
+        self._undelivered_events: list = []
         self.client.on_reply_meta = self._on_reply_meta
         self.node_id = self._register()
         self._shutdown = threading.Event()
@@ -159,6 +163,14 @@ class NodeAgent:
                     stats = self.stats_fn()
             except Exception:  # noqa: BLE001 — the piggyback is best-effort
                 pass
+            events = None
+            if isinstance(stats, dict):
+                events = self._undelivered_events + stats.get(
+                    "spill_events", [])
+                self._undelivered_events = []
+                if events:
+                    stats["spill_events"] = events
+            accepted = False
             try:
                 if self._epoch_stale.is_set():
                     self.node_id = self._register()
@@ -180,6 +192,9 @@ class NodeAgent:
                         pass  # the head went again; the next beat retries
             except (RpcError, OSError):
                 pass  # the head is unreachable (it may restart); keep trying
+            if events and not accepted:
+                # Marks are idempotent: sent again, in their order.
+                self._undelivered_events = events[-4096:]
             # Pokes that land during the wait fold into the next push.
             self._shutdown.wait(self.coalesce_s)
 

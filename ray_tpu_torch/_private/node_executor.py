@@ -96,10 +96,6 @@ _MIN_P2P_CHUNKS = 4
 _CHUNK_FANOUT = 4
 # Pulled copies a node keeps.
 _PULL_CACHE_BYTES = 512 << 20
-# A node sweeps the results and actors of a driver whose endpoint stayed
-# unreachable for _OWNER_DEAD_GRACE_S, probing every _OWNER_SWEEP_S.
-_OWNER_SWEEP_S = 5.0
-_OWNER_DEAD_GRACE_S = 15.0
 
 
 @dataclass
@@ -528,6 +524,8 @@ class NodeObjectStore:
     def stats(self) -> dict:
         with self._lock:
             return {"num_blobs": len(self._blobs),
+                    # Every blob held in memory, pulled copies included.
+                    "bytes": sum(len(b) for b in self._blobs.values()),
                     "primary_bytes": self._primary_bytes,
                     "cached_bytes": self._cache_bytes,
                     "fetches_served": self.fetches_served,
@@ -950,12 +948,19 @@ class NodeExecutorService:
         return f"{host}:{self._server.port}"
 
     def start(self) -> "NodeExecutorService":
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
         self._server.start()
-        self._sweep_thread = threading.Thread(
-            target=self._owner_sweep_loop,
-            args=(_OWNER_SWEEP_S, _OWNER_DEAD_GRACE_S), daemon=True,
-            name="ray_tpu_torch-owner-sweep")
-        self._sweep_thread.start()
+        # A node sweeps the results and actors of a driver whose endpoint
+        # stayed unreachable for owner_dead_grace_s.
+        period_ms = int(GLOBAL_CONFIG.owner_sweep_period_ms or 0)
+        if period_ms > 0:
+            self._sweep_thread = threading.Thread(
+                target=self._owner_sweep_loop,
+                args=(period_ms / 1000.0,
+                      float(GLOBAL_CONFIG.owner_dead_grace_s)),
+                daemon=True, name="ray_tpu_torch-owner-sweep")
+            self._sweep_thread.start()
         return self
 
     def _owner_sweep_loop(self, period_s: float, grace_s: float) -> None:

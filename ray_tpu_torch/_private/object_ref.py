@@ -8,9 +8,26 @@ handle passed into a task keeps the object alive.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import threading
 from typing import Any
 
 from ray_tpu_torch._private.ids import ObjectID
+
+_reduce_sink = threading.local()
+
+
+@contextlib.contextmanager
+def collect_reduced_refs(out: list):
+    """Record every ObjectRef pickled on this thread into ``out``: the
+    complete list of the refs a payload carries, those inside custom
+    objects included, which a walk over containers would miss."""
+    prev = getattr(_reduce_sink, "out", None)
+    _reduce_sink.out = out
+    try:
+        yield out
+    finally:
+        _reduce_sink.out = prev
 
 
 class ObjectRef:
@@ -47,6 +64,10 @@ class ObjectRef:
                 pass
 
     def __reduce__(self):
+        # Unpickled, it registers the receiver as a borrower.
+        sink = getattr(_reduce_sink, "out", None)
+        if sink is not None:
+            sink.append(self)
         return (ObjectRef, (self._id,))
 
     def future(self) -> concurrent.futures.Future:

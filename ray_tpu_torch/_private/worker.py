@@ -48,6 +48,7 @@ memory pressure, and its task is retried on its own budget.
 from __future__ import annotations
 
 import atexit
+import collections
 import concurrent.futures
 import logging
 import os
@@ -204,6 +205,16 @@ class Runtime:
         self._futures_lock = threading.Lock()
         self._futures: dict[ObjectID,
                             list[concurrent.futures.Future]] = {}
+        # (owner address, actor key) -> the ordered call pipe to a named
+        # actor of another driver.
+        self._foreign_proxies: dict[tuple[str, str],
+                                    _ForeignActorProxy] = {}
+        # The (namespace, name) entries this driver published in the
+        # head's actor directory and has not withdrawn yet.
+        self._published_names: set[tuple[str, str]] = set()
+        # (deadline, refs): refs nested in the arguments of calls sent
+        # lately, held until their receivers' borrows have landed.
+        self._arg_pin_pen: collections.deque = collections.deque()
         self.store.add_seal_listener(self._resolve_futures)
         # The head node: CPU as asked, GPU as asked or detected.
         head = {"CPU": float(num_cpus if num_cpus is not None
@@ -235,6 +246,12 @@ class Runtime:
         self._init_connected_mode(
             address, float(num_cpus if num_cpus is not None
                            else cfg.num_cpus))
+        # The pins lapse on time, not at the next submit: an idle driver
+        # must still let its last ones go.
+        self._arg_pin_thread = threading.Thread(
+            target=self._arg_pin_sweeper, daemon=True,
+            name="ray_tpu_torch-arg-pin-sweeper")
+        self._arg_pin_thread.start()
 
     # ------------------------------------------------- worker processes
 
@@ -916,6 +933,7 @@ class Runtime:
             RemoteBlob,
             _inline_reply_bytes,
         )
+        from ray_tpu_torch._private.object_ref import collect_reduced_refs
         from ray_tpu_torch._private.object_store import _sizeof
 
         def convert(a):
@@ -933,9 +951,18 @@ class Runtime:
                 return FetchRef(id_bytes, self._export_addr)
             return value
 
-        return serialization.serialize_framed(
-            (tuple(convert(a) for a in args),
-             {k: convert(v) for k, v in kwargs.items()}))
+        # Every ref the payload carries (those in custom objects and in
+        # values exported by convert() too) is pinned for the grace
+        # period, as _pin_nested_arg_refs pins the plain containers'.
+        nested: list = []
+        with collect_reduced_refs(nested):
+            blob = serialization.serialize_framed(
+                (tuple(convert(a) for a in args),
+                 {k: convert(v) for k, v in kwargs.items()}))
+        if nested:
+            self._arg_pin_pen.append(
+                (time.monotonic() + self._ARG_PIN_GRACE_S, nested))
+        return blob
 
     def _package_runtime_env(self, renv: dict | None) -> dict | None:
         """A runtime env's local directories become content-hashed
@@ -1289,6 +1316,51 @@ class Runtime:
 
     # ---------------------------------------------------------------- tasks
 
+    _ARG_PIN_GRACE_S = 10.0
+
+    def _pin_nested_arg_refs(self, args, kwargs) -> None:
+        """Hold the refs nested in a call's arguments (in lists, tuples
+        and dicts) for a grace period. The callee is not handed their
+        values: it registers as their borrower when it unpickles them,
+        and that registration is asynchronous, so a caller that drops
+        its own handle right after the submit would free the object
+        before the borrow lands. Refs inside custom objects are caught
+        where the arguments are pickled for a node
+        (``_convert_remote_args``); until then the queued arguments keep
+        them alive."""
+        refs: list = []
+
+        def walk(v, depth: int) -> None:
+            if isinstance(v, ObjectRef):
+                refs.append(v)
+            elif depth < 8 and type(v) in (list, tuple):
+                for x in v:
+                    walk(x, depth + 1)
+            elif depth < 8 and type(v) is dict:
+                for x in v.values():
+                    walk(x, depth + 1)
+
+        # A top-level ref is resolved before the call runs: only what is
+        # inside an argument is borrowed.
+        for v in (*args, *kwargs.values()):
+            if type(v) in (list, tuple, dict):
+                walk(v, 1)
+        if refs:
+            self._arg_pin_pen.append(
+                (time.monotonic() + self._ARG_PIN_GRACE_S, refs))
+
+    def _sweep_arg_pins(self) -> None:
+        now = time.monotonic()
+        while self._arg_pin_pen and self._arg_pin_pen[0][0] <= now:
+            try:
+                self._arg_pin_pen.popleft()
+            except IndexError:
+                break
+
+    def _arg_pin_sweeper(self) -> None:
+        while not self._watcher_stop.wait(1.0):
+            self._sweep_arg_pins()
+
     def submit_task(self, func, args: tuple, kwargs: dict, *, name: str,
                     num_returns: int = 1, resources: dict[str, float],
                     max_retries: int = 0,
@@ -1313,6 +1385,7 @@ class Runtime:
                 with self._counter_lock:
                     self._admission_shed += 1
                 raise SystemOverloadedError(reason)
+        self._pin_nested_arg_refs(args, kwargs)
         return_ids = [ObjectID() for _ in range(num_returns)]
         spec = TaskSpec(
             task_id=TaskID(), name=name, func=func, args=args,
@@ -1510,6 +1583,11 @@ class Runtime:
             max_restarts=max_restarts)
         try:
             self.gcs.register_actor(record)
+            # Published before .remote() returns, so another driver
+            # resolves the name at once (its calls queue until the actor
+            # is up); every death path withdraws it.
+            if name is not None:
+                self._publish_named_actor(record)
         except ValueError:
             # Two get_if_exists creators raced past the existence check:
             # the loser joins the winner's actor.
@@ -1699,7 +1777,12 @@ class Runtime:
             self.cluster.release(node_id, resources, shares)
 
     def _mark_actor_dead(self, actor_id: ActorID, reason: str) -> None:
+        """Dead for good: a creation that failed, a constructor that
+        raised, a death with no restart left, a kill or the shutdown."""
         self.gcs.update_actor_state(actor_id, "DEAD", reason)
+        record = self.gcs.get_actor(actor_id)
+        if record is not None and record.name is not None:
+            self._unpublish_named_actor(record.namespace, record.name)
         with self._actors_changed:
             # Its drain thread delivers what is queued (the dead actor
             # fails it) and ends; a later call is failed at submit.
@@ -1716,6 +1799,7 @@ class Runtime:
         ordered submit queue, so each caller's calls keep their order
         across the actor's start-up and the resolution of their
         ObjectRef arguments."""
+        self._pin_nested_arg_refs(args, kwargs)
         return_ids = [ObjectID() for _ in range(max(1, num_returns))]
         for rid in return_ids:
             self.store.create_pending(rid)
@@ -1821,12 +1905,100 @@ class Runtime:
             actor.wait_stopped(_KILL_WAIT_S)
 
     def get_actor_handle(self, name: str, namespace: str | None = None):
-        from ray_tpu_torch.actor import ActorHandle
+        """This driver's named actor, else the head's actor directory's:
+        a ``ForeignActorHandle`` to the driver that owns it (a local
+        handle when that driver is this one)."""
+        import pickle
 
-        record = self.gcs.get_named_actor(name, namespace or self.namespace)
-        if record is None:
-            raise ValueError(f"Failed to look up actor with name {name!r}")
-        return ActorHandle(record.actor_id, record.class_name)
+        from ray_tpu_torch.actor import ActorHandle, ForeignActorHandle
+
+        ns = namespace or self.namespace
+        record = self.gcs.get_named_actor(name, ns)
+        if record is not None:
+            return ActorHandle(record.actor_id, record.class_name)
+        if self.gcs_client is not None:
+            try:
+                blob = self.gcs_client.call(
+                    "kv_get", f"{ns}/{name}".encode(), "named_actors",
+                    timeout_s=10.0)
+            except Exception:  # noqa: BLE001 — the head is unreachable
+                blob = None
+            if blob is not None:
+                info = pickle.loads(blob)
+                if info["owner_addr"] == self._client_server_addr():
+                    return ActorHandle(
+                        ActorID(bytes.fromhex(info["actor_key"])),
+                        info["class_name"])
+                return ForeignActorHandle(
+                    info["owner_addr"], info["actor_key"],
+                    info["class_name"],
+                    method_meta=info.get("method_meta", {}))
+        raise ValueError(f"Failed to look up actor with name {name!r}")
+
+    def _publish_named_actor(self, record: ActorRecord) -> None:
+        """Enter a named actor in the head's directory (its KV namespace
+        ``named_actors``, written to the WAL): the address of this
+        driver's client server, which other drivers' calls go to."""
+        if self.gcs_client is None:
+            return
+        import pickle
+
+        self.ensure_client_server()
+        entry = pickle.dumps({
+            "actor_key": record.actor_id.hex(),
+            "class_name": record.class_name,
+            "owner_addr": self._client_server_addr(),
+            # Per-method defaults (num_returns), so a foreign handle's
+            # calls return what a local handle's would.
+            "method_meta": dict(record.method_meta),
+        })
+        try:
+            self.gcs_client.call(
+                "kv_put", f"{record.namespace}/{record.name}".encode(),
+                entry, "named_actors", timeout_s=10.0)
+            self._published_names.add((record.namespace, record.name))
+        except Exception:  # noqa: BLE001 — the directory is best effort
+            logger.warning("failed to publish named actor %s", record.name)
+
+    def _unpublish_named_actor(self, namespace: str, name: str) -> None:
+        if self.gcs_client is None:
+            return
+        self._published_names.discard((namespace, name))
+        try:
+            self.gcs_client.call("kv_del", f"{namespace}/{name}".encode(),
+                                 "named_actors", timeout_s=10.0)
+        except Exception:  # noqa: BLE001 — the directory is best effort
+            pass
+
+    def submit_foreign_actor_task(self, owner_addr: str, actor_key: str,
+                                  method_name: str, args: tuple,
+                                  kwargs: dict, num_returns: int = 1
+                                  ) -> list[ObjectRef]:
+        """Call an actor another driver owns: the handle's ordered proxy
+        drives that driver's client server and seals the results into
+        this store as they arrive."""
+        return_ids = [ObjectID() for _ in range(max(1, num_returns))]
+        for rid in return_ids:
+            self.store.create_pending(rid)
+        refs = [ObjectRef(rid) for rid in return_ids]
+        key = (owner_addr, actor_key)
+        with self._futures_lock:
+            proxy = self._foreign_proxies.get(key)
+            if proxy is None:
+                proxy = _ForeignActorProxy(self, owner_addr, actor_key)
+                self._foreign_proxies[key] = proxy
+        proxy.submit(method_name, args, kwargs, return_ids)
+        return refs
+
+    def kill_foreign_actor(self, owner_addr: str, actor_key: str) -> None:
+        """Kill an actor another driver owns, in that driver."""
+        from ray_tpu_torch._private.rpc import RpcClient
+
+        client = RpcClient(owner_addr, timeout_s=30.0)
+        try:
+            client.call("client_kill_actor", actor_key)
+        finally:
+            client.close()
 
     # ------------------------------------------------------------ get/put/…
 
@@ -1934,9 +2106,21 @@ class Runtime:
             actor.kill("runtime shutdown", no_restart=True)
         for submit_queue in list(self._actor_queues.values()):
             submit_queue.put(None)
+        with self._futures_lock:
+            proxies = list(self._foreign_proxies.values())
+            self._foreign_proxies.clear()
+        for proxy in proxies:
+            proxy.close()
+        # Withdrawn while the head connection is still open: an entry
+        # left behind would name a driver that is gone.
+        for namespace, name in list(self._published_names):
+            self._unpublish_named_actor(namespace, name)
         self.placement_groups.shutdown()
         self.health_monitor.shutdown()
         self.dispatcher.shutdown()
+        self._watcher_stop.set()
+        self._arg_pin_thread.join(timeout=5.0)
+        self._arg_pin_pen.clear()
         self._stop_connected_mode()
         self._stop_process_plane()
         self.reference_counter.stop()
@@ -1984,6 +2168,92 @@ class Runtime:
                           ignore_errors=True)
         self.shm_client.close_all()
         self.shm_directory.shutdown()
+
+
+class _ForeignActorProxy:
+    """The ordered call pipe to one actor of another driver: a drain
+    thread makes each call (``client_actor_call``), long-polls its
+    results (``client_get``) into this store and releases them on the
+    owner before it sends the next call."""
+
+    def __init__(self, runtime: Runtime, owner_addr: str, actor_key: str):
+        from ray_tpu_torch._private.rpc import RpcClient
+
+        self._runtime = runtime
+        self._actor_key = actor_key
+        self._owner_addr = owner_addr
+        self._rpc = RpcClient(owner_addr, timeout_s=60.0)
+        self._queue: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(
+            target=self._drain, daemon=True,
+            name=f"ray_tpu_torch-foreign-actor-{actor_key[:8]}")
+        self._thread.start()
+
+    def submit(self, method_name: str, args: tuple, kwargs: dict,
+               return_ids: list[ObjectID]) -> None:
+        self._queue.put((method_name, args, kwargs, return_ids))
+
+    def close(self) -> None:
+        self._queue.put(None)
+        self._rpc.close()
+
+    def _fail(self, return_ids, exc: BaseException) -> None:
+        for rid in return_ids:
+            self._runtime.store.put_error(rid, exc)
+
+    def _drain(self) -> None:
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.rpc import RpcError, RpcMethodError
+
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            method_name, args, kwargs, return_ids = item
+            sealed: set = set()
+            try:
+                # The owner cannot read this store: refs go as values.
+                args, kwargs, _ = resolve_args(
+                    args, kwargs, lambda r: self._runtime.get([r])[0])
+                blob = serialization.serialize_framed((args, kwargs))
+                keys = self._rpc.call(
+                    "client_actor_call", self._actor_key, method_name,
+                    blob, len(return_ids))
+                if len(keys) != len(return_ids):
+                    raise ValueError(
+                        f"{method_name} returned {len(keys)} values but "
+                        f"the handle expected {len(return_ids)} (declare "
+                        f"num_returns via .options or @method)")
+                for key, rid in zip(keys, return_ids):
+                    while True:
+                        status, vblob = self._rpc.call(
+                            "client_get", [key], 10.0)
+                        if status == "ok":
+                            value = serialization.deserialize_from_buffer(
+                                memoryview(vblob))[0]
+                            self._runtime.store.put(rid, value)
+                            sealed.add(rid)
+                            break
+                try:
+                    self._rpc.call("client_release", keys)
+                except (RpcError, RpcMethodError):
+                    pass
+            except RpcMethodError as exc:
+                # The owner's own error (the method's, or a dead actor's).
+                self._fail([r for r in return_ids if r not in sealed],
+                           exc.cause)
+            except (RpcError, OSError) as exc:
+                # Results already delivered stay: only the returns still
+                # pending become errors.
+                self._fail([r for r in return_ids if r not in sealed],
+                           ActorDiedError(
+                               None, f"owner driver at {self._owner_addr} "
+                               f"unreachable: {exc}"))
+            except Exception as exc:  # noqa: BLE001 — sealed for the caller
+                self._fail([r for r in return_ids if r not in sealed], exc)
+            # Unbind before blocking on the queue: a stale local would
+            # keep the last call's arguments alive.
+            item = args = kwargs = None
 
 
 # --------------------------------------------------------------------------
@@ -2084,8 +2354,12 @@ def wait(refs, *, num_returns: int = 1, timeout: float | None = None):
 
 
 def kill(actor_handle, *, no_restart: bool = True) -> None:
-    from ray_tpu_torch.actor import ActorHandle
+    from ray_tpu_torch.actor import ActorHandle, ForeignActorHandle
 
+    if isinstance(actor_handle, ForeignActorHandle):
+        auto_init().kill_foreign_actor(actor_handle._owner_addr,
+                                       actor_handle._actor_key)
+        return
     if not isinstance(actor_handle, ActorHandle):
         raise TypeError("kill() expects an ActorHandle")
     auto_init().kill_actor(actor_handle._actor_id, no_restart=no_restart)

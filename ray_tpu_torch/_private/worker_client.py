@@ -93,6 +93,9 @@ class _ProxyReferenceCounter:
         self._deferred: "collections.deque[ObjectID]" = collections.deque()
         self._pending_borrows: "collections.deque[ObjectID]" = \
             collections.deque()
+        # Held across a flush's pop and its call, so settle() also waits
+        # for a flush the reaper has in flight.
+        self._flush_lock = threading.Lock()
         # Borrows are leases on the driver: keep them alive well inside
         # its TTL (the driver's reply gives the TTL).
         self._keepalive_s = 15.0
@@ -110,18 +113,26 @@ class _ProxyReferenceCounter:
         self._deferred.append(object_id)
 
     def _flush_borrows(self, extra: list) -> None:
-        batch = list(extra)
-        with self._lock:
-            while self._pending_borrows:
-                batch.append(self._pending_borrows.popleft().hex())
-        if batch:
-            try:
-                _, ttl = self._runtime._rpc.call(
-                    "client_borrow", self._runtime.borrower_id, batch)
-                if ttl > 0:
-                    self._keepalive_s = ttl / 4
-            except Exception:  # noqa: BLE001 — the driver is going away
-                pass
+        with self._flush_lock:
+            batch = list(extra)
+            with self._lock:
+                while self._pending_borrows:
+                    batch.append(self._pending_borrows.popleft().hex())
+            if batch:
+                try:
+                    _, ttl = self._runtime._rpc.call(
+                        "client_borrow", self._runtime.borrower_id, batch)
+                    if ttl > 0:
+                        self._keepalive_s = ttl / 4
+                except Exception:  # noqa: BLE001 — the driver is going away
+                    pass
+
+    def settle(self) -> None:
+        """Land the borrows queued so far (the refs a call's arguments
+        carried) before the call's reply goes out: a caller that drops
+        its own handles once it has the reply must not free the object
+        before this process's borrow reaches its owner."""
+        self._flush_borrows([])
 
     def _reap_loop(self) -> None:
         last_keepalive = time.monotonic()

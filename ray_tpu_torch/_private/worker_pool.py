@@ -268,6 +268,7 @@ def _exec_task_body(fields: tuple, func_cache: dict,
             result = func(*args, **kwargs)
     finally:
         worker_client.set_task_token(None)
+    _settle_borrows()
     if n_returns == 0:
         values = []
     elif n_returns == 1:
@@ -278,6 +279,16 @@ def _exec_task_body(fields: tuple, func_cache: dict,
                              f"returned {type(result).__name__}")
         values = list(result)
     return _pack_results(values)
+
+
+def _settle_borrows() -> None:
+    """The borrows of the refs this call unpickled reach their owner
+    before its reply does (``_ProxyReferenceCounter.settle``)."""
+    from ray_tpu_torch._private import worker_client
+
+    runtime = worker_client.active_worker_runtime()
+    if runtime is not None:
+        runtime.reference_counter.settle()
 
 
 def _new_actor(msg: tuple, client: ShmClient):
@@ -295,7 +306,9 @@ def _new_actor(msg: tuple, client: ShmClient):
     args, kwargs = _resolve_shm_args(args, kwargs, client)
     # The actor's process is its own: the env stays for its life.
     _runtime_env_ctx(renv).__enter__()
-    return cls(*args, **kwargs)
+    instance = cls(*args, **kwargs)
+    _settle_borrows()
+    return instance
 
 
 def _serve(conn, client: ShmClient) -> None:
@@ -348,6 +361,7 @@ def _invoke_actor_method(instance, client: ShmClient, method_name: str,
             memoryview(args_blob))
         args, kwargs = _resolve_shm_args(args, kwargs, client)
         result = getattr(instance, method_name)(*args, **kwargs)
+        _settle_borrows()
         values = [result] if n_returns == 1 else (
             list(result) if isinstance(result, (tuple, list))
             else [None] * n_returns)

@@ -3,7 +3,8 @@
 The port of ``ray_tpu/actor.py``. An actor runs on a thread of the
 calling process, or (``process=True``) in a worker process of its own;
 a handle pickles to its actor id, so it can be passed to tasks and other
-actors, in this process or in a worker process.
+actors, in this process or in a worker process. A named actor of another
+driver is reached through a ``ForeignActorHandle`` (``get_actor``).
 """
 
 from __future__ import annotations
@@ -86,6 +87,71 @@ class ActorHandle:
 
     def __repr__(self):
         return f"ActorHandle({self._class_name}, {self._actor_id.hex()[:12]})"
+
+
+class _ForeignActorMethod:
+    """A bound method of an actor another driver owns: its calls go to
+    that driver's client server through this driver's ordered proxy."""
+
+    def __init__(self, handle: "ForeignActorHandle", method_name: str,
+                 num_returns: int = 1):
+        self._handle = handle
+        self._method_name = method_name
+        self._num_returns = num_returns
+
+    def options(self, *, num_returns: int = 1) -> "_ForeignActorMethod":
+        return _ForeignActorMethod(self._handle, self._method_name,
+                                   num_returns)
+
+    def remote(self, *args, **kwargs):
+        refs = worker_mod.auto_init().submit_foreign_actor_task(
+            self._handle._owner_addr, self._handle._actor_key,
+            self._method_name, args, kwargs,
+            num_returns=self._num_returns)
+        return refs[0] if self._num_returns == 1 else refs
+
+    def __call__(self, *args, **kwargs):
+        raise TypeError(
+            f"Actor method '{self._method_name}' cannot be called directly; "
+            "use '.remote()'.")
+
+
+class ForeignActorHandle:
+    """A handle to a named actor of another driver, resolved through the
+    head's actor directory: the owner's client server address and the
+    actor's key there."""
+
+    def __init__(self, owner_addr: str, actor_key: str,
+                 class_name: str = "Actor",
+                 method_meta: dict | None = None):
+        self._owner_addr = owner_addr
+        self._actor_key = actor_key
+        self._class_name = class_name
+        self._method_meta = dict(method_meta or {})
+
+    def __getattr__(self, name: str) -> _ForeignActorMethod:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _ForeignActorMethod(
+            self, name,
+            self._method_meta.get(name, {}).get("num_returns", 1))
+
+    def __reduce__(self):
+        return (ForeignActorHandle,
+                (self._owner_addr, self._actor_key, self._class_name,
+                 self._method_meta))
+
+    def __hash__(self):
+        return hash((self._owner_addr, self._actor_key))
+
+    def __eq__(self, other):
+        return (isinstance(other, ForeignActorHandle)
+                and other._owner_addr == self._owner_addr
+                and other._actor_key == self._actor_key)
+
+    def __repr__(self):
+        return (f"ForeignActorHandle({self._class_name}, "
+                f"{self._actor_key[:12]}@{self._owner_addr})")
 
 
 class ActorClass:

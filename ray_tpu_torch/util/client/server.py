@@ -6,6 +6,10 @@ a process actor calls ``remote``, ``get``, ``put``, ``wait`` and actors
 through ``worker_client.WorkerModeRuntime``, which sends each call here;
 the endpoints run it against this process's runtime.
 
+Another driver calls a named actor of this process through the same
+endpoints (``client_actor_call``, ``client_get``, ``client_release``,
+``client_kill_actor``), with the actor's key from the head's directory.
+
 Object lifetime: every ref handed to a worker is pinned in
 ``self._refs`` until the worker releases it. A worker that unpickles a
 ref this process owns registers as its borrower; borrows are leases the

@@ -127,12 +127,27 @@ def _stop(procs) -> None:
             proc.wait(timeout=10)
 
 
+# The step each side is at: a failure (a wait that ran out, a get past
+# its timeout, the time limit) names the package and the step.
+_STEP: dict[str, str] = {}
+
+
+def _step(name: str, label: str) -> None:
+    _STEP[name] = label
+
+
 def _both(scenario, tmp_path, limit_s: int) -> dict:
     records = {}
     for name in PACKAGES:
         (tmp_path / name).mkdir()
-        with time_limit(limit_s):
-            records[name] = scenario(name, tmp_path / name)
+        _step(name, "start")
+        try:
+            with time_limit(limit_s):
+                records[name] = scenario(name, tmp_path / name)
+        except Exception as exc:
+            raise AssertionError(
+                f"the {name} side failed at step {_STEP[name]!r}: "
+                f"{type(exc).__name__}: {exc}") from exc
     assert records["ray_tpu"] == records["ray_tpu_torch"], records
     return records["ray_tpu_torch"]
 
@@ -148,7 +163,9 @@ def inflight_tasks_and_broadcast_drain(name, tmp_path):
     workers = [_spawn_worker_daemon(name, addr) for _ in range(2)]
     runtime = None
     try:
+        _step(name, "60 s wait for three live nodes")
         assert _wait(lambda: len(_alive_nodes(name, addr)) >= 3, 60)
+        _step(name, "init and 30 s wait for 8 worker slots")
         runtime = rt.init(address=addr, num_cpus=0)
         assert _wait(lambda: rt.cluster_resources().get("worker", 0) >= 8,
                      30)
@@ -171,17 +188,24 @@ def inflight_tasks_and_broadcast_drain(name, tmp_path):
         refs = [slow_batch.remote(i) for i in range(12)]
         bcast = [touch.remote(blob_ref, i) for i in range(6)]
         # Dispatched: the daemons report their worker slots taken.
+        _step(name, "60 s wait for taken worker slots")
         assert _wait(lambda: _worker_available(name, addr) < 8, 60)
 
+        _step(name, "the head's SIGKILL and restart")
         head_proc.send_signal(signal.SIGKILL)
         head_proc.wait(timeout=10)
         head_proc, addr2 = _spawn_head(name, session, port=port)
-        record = {"same_port": addr2.rsplit(":", 1)[1] == str(port),
-                  "results": sorted(rt.get(refs, timeout=180.0)),
-                  "bcast": sorted(rt.get(bcast, timeout=180.0))}
+        record = {"same_port": addr2.rsplit(":", 1)[1] == str(port)}
+        _step(name, "180 s get of the 12 slow tasks")
+        record["results"] = sorted(rt.get(refs, timeout=180.0))
+        _step(name, "180 s get of the 6 broadcast tasks")
+        record["bcast"] = sorted(rt.get(bcast, timeout=180.0))
+        _step(name, "90 s wait for the re-registration")
         record["reregistered"] = _wait(
             lambda: len(_alive_nodes(name, addr)) >= 3, 90)
+        _step(name, "120 s get of new work")
         record["new_work"] = rt.get(slow_batch.remote(99), timeout=120.0)
+        _step(name, "shutdown")
         return record
     finally:
         if runtime is not None:
@@ -295,10 +319,13 @@ def kill_restart_cluster_resumes(name, tmp_path):
     workers = [_spawn_worker_daemon(name, addr) for _ in range(2)]
     runtime = None
     try:
+        _step(name, "60 s wait for three live nodes")
         assert _wait(lambda: len(_alive_nodes(name, addr)) >= 3, 60)
+        _step(name, "init and 30 s wait for 8 worker slots")
         runtime = rt.init(address=addr, num_cpus=0)
         assert _wait(lambda: rt.cluster_resources().get("worker", 0) >= 8,
                      30)
+        _step(name, "the KV write and the job")
         internal_kv.internal_kv_put(b"durable-key", b"durable-value")
 
         head_client = rpc.RpcClient(addr, timeout_s=10.0)
@@ -328,9 +355,11 @@ def kill_restart_cluster_resumes(name, tmp_path):
             def get(self, k):
                 return self.values.get(k)
 
+        _step(name, "the keeper's first call")
         keeper = Keeper.options(name="keeper", lifetime="detached").remote()
         record["put_a"] = rt.get(keeper.put.remote("a", 1), timeout=60)
         # The keeper holds one worker slot once placed.
+        _step(name, "60 s wait for the keeper's slot")
         assert _wait(lambda: _worker_available(name, addr) <= 7, 60)
 
         @rt.remote(num_cpus=1, resources={"worker": 1})
@@ -342,15 +371,20 @@ def kill_restart_cluster_resumes(name, tmp_path):
 
         pending = slow.remote()
         # Running on a daemon: a second slot is taken.
+        _step(name, "60 s wait for the slow task's slot")
         assert _wait(lambda: _worker_available(name, addr) <= 6, 60)
 
+        _step(name, "the head's SIGKILL and restart")
         head_proc.send_signal(signal.SIGKILL)
         head_proc.wait(timeout=10)
         head_proc, addr2 = _spawn_head(name, session, port=port)
         record["same_port"] = addr2.rsplit(":", 1)[1] == str(port)
+        _step(name, "120 s get of the task in flight")
         record["pending"] = rt.get(pending, timeout=120.0)
+        _step(name, "90 s wait for the re-registration")
         record["reregistered"] = _wait(
             lambda: len(_alive_nodes(name, addr)) >= 3, 90)
+        _step(name, "the KV, the job and the keeper after the restart")
         record["kv"] = internal_kv.internal_kv_get(b"durable-key")
         head_client = rpc.RpcClient(addr, timeout_s=10.0)
         record["job_after"] = (head_client.call("job_status",
@@ -360,6 +394,7 @@ def kill_restart_cluster_resumes(name, tmp_path):
         again = rt.get_actor("keeper")
         record["get_a"] = rt.get(again.get.remote("a"), timeout=60)
         record["put_b"] = rt.get(again.put.remote("b", 2), timeout=60)
+        _step(name, "shutdown")
         return record
     finally:
         if runtime is not None:

@@ -60,6 +60,12 @@ NODE_MODULES = (
 DURABLE_HEAD_MODULES = (
     "ray_tpu_torch._private.gcs_persistence", "ray_tpu_torch._private.chaos",
     "ray_tpu_torch.experimental", "ray_tpu_torch.experimental.internal_kv")
+# Named actors across drivers, borrowed refs and the owner sweep.
+DIRECTORY_MODULES = (
+    "ray_tpu_torch.actor", "ray_tpu_torch._private.worker",
+    "ray_tpu_torch._private.object_ref", "ray_tpu_torch._private.config",
+    "ray_tpu_torch._private.node_executor",
+    "ray_tpu_torch._private.gcs_pubsub", "ray_tpu_torch.util.client.server")
 # The data package: every module, imported where importing jax, ray_tpu
 # or cloudpickle raises.
 DATA_MODULES = tuple(
@@ -157,6 +163,21 @@ def test_durable_head_modules_import_without_jax_ray_tpu_or_cloudpickle():
             "ray_tpu_torch/experimental/internal_kv.py"} <= checked
     assert _import_blocked(DURABLE_HEAD_MODULES,
                            FORBIDDEN + ("cloudpickle",)) == "[]"
+
+
+def test_directory_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    assert _import_blocked(DIRECTORY_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.gcs_pubsub import GcsPublisher
+    from ray_tpu_torch._private.object_ref import collect_reduced_refs
+    from ray_tpu_torch.actor import ForeignActorHandle
+
+    assert callable(GcsPublisher) and callable(collect_reduced_refs)
+    assert ForeignActorHandle("127.0.0.1:1", "ab" * 16) \
+        == ForeignActorHandle("127.0.0.1:1", "ab" * 16, "Other")
+    assert GLOBAL_CONFIG.get("owner_sweep_period_ms") > 0
+    assert GLOBAL_CONFIG.get("owner_dead_grace_s") > 0
 
 
 def test_a_node_daemon_starts_without_jax_ray_tpu_or_cloudpickle():

@@ -875,3 +875,83 @@ def test_spilled_kernel_result_survives_a_head_restart(cuda_device,
         cluster.shutdown()
     assert restores >= 1
     assert got.device.type == "cuda" and torch.equal(got, attend(5))
+
+
+@pytest.mark.gpu
+def test_borrowed_fwd_result_is_normed_by_a_daemon_actor(cuda_device,
+                                                         tmp_path):
+    """The driver's own ``fwd`` result, ``put`` and handed to a
+    ``num_gpus=1`` actor on a daemon inside a list, is borrowed there: it
+    outlives every handle in the driver, the actor reads it on its card
+    and its RMSNorm over it is bitwise the driver's own launch, and the
+    driver's store lets the object go once the actor drops it."""
+    import gc
+    import time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    gen = torch.Generator("cuda").manual_seed(9)
+    q, k, v = (torch.randn(2, 1024, h, 64, generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (16, 8, 8))
+    scale = torch.randn(1024, generator=gen, device="cuda") + 1
+    with torch.no_grad():
+        o = fa.flash_attention(q, k, v, causal=True)
+        want = fused.rms_norm(o.float().reshape(-1, 1024), scale)
+
+    class Holder:
+        def __init__(self):
+            self.ref = None
+
+        def hold(self, boxed):
+            self.ref = boxed[0]
+            return "held"
+
+        def norm(self, scale):
+            import ray_tpu_torch
+
+            got = ray_tpu_torch.get(self.ref)
+            with torch.no_grad():
+                return got.device.type, fused.rms_norm(
+                    got.float().reshape(-1, 1024), scale)
+
+        def drop(self):
+            self.ref = None
+            return "dropped"
+
+    def wait(predicate, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not predicate():
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+
+    rt.shutdown()
+    cluster = Cluster(log_dir=str(tmp_path / "log"))
+    cluster.add_node(num_cpus=2, resources={"GPU": 1})
+    try:
+        assert cluster.wait_for_nodes(1, timeout=120)
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        wait(lambda: rt.cluster_resources().get("GPU", 0) >= 1)
+        holder = rt.remote(num_gpus=1)(Holder).remote()
+        ref = rt.put(o)
+        oid = ref.id()
+        assert rt.get(holder.hold.remote([ref]), timeout=300) == "held"
+        del ref
+        gc.collect()
+        server = runtime.worker_client_server
+
+        def borrowed():
+            with server._lock:
+                return bool(set(server._borrowers.get(oid.hex(), ()))
+                            - {"__direct__"})
+
+        wait(borrowed, 30)
+        assert runtime.store.contains(oid)
+        device, normed = rt.get(holder.norm.remote(scale), timeout=300)
+        assert rt.get(holder.drop.remote(), timeout=60) == "dropped"
+        wait(lambda: not runtime.store.contains(oid), 30)
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+    assert device == "cuda" and normed.device.type == "cuda"
+    assert torch.equal(normed, want)
