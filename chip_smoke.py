@@ -82,8 +82,8 @@ source, all started together) and drives the port's two paths:
   and a ``num_gpus=1`` process actor (its one card) taking CUDA tensors
   across the boundary, the actor's ``fwd`` launch bitwise the driver's,
   its crash and the card's memory coming back, a 2-process gloo gang
-  (process_check); the trainer phase's two runs through a gang of one
-  process (NCCL world of one, the crash an exit of the process),
+  (process_check); the trainer phase's resumed run through a gang of
+  one process (NCCL world of one, the crash an exit of the process),
   held to the trainer phase (process_trainer); the runtime phase's
   serving actor as a process actor making Llama-3-8B on its own card,
   greedy outputs token for token the serve phase's (process_serve);
@@ -98,17 +98,21 @@ source, all started together) and drives the port's two paths:
   retried on its budget and the memory watermark's shed and store
   pressure (store_recovery);
 - node daemons: a head in this process and two daemons on card 0, the
-  flash kernels on one and RMSNorm on the other, Llama-3-8B served from
-  a remote actor that restarts on the survivor when its node is killed
-  (node_cluster);
+  flash kernels on one and RMSNorm on the other, the flash output moved
+  between them by the same-host plane (one copy out of the holder's
+  shared-memory segment under a lease), a gloo train gang spread over
+  both daemons and a one-process GPU gang on one training bench.py's
+  Llama bitwise the train phase, Llama-3-8B served from a remote actor
+  that restarts on the survivor when its node is killed (node_cluster);
 - the durable head and the node store's spill tier: a head process and
   a daemon with a 48 MiB store, the flash results spilled to its disk
   and marked in the head's directory, Llama-3-8B served from a named,
   detached actor there while the head is SIGKILLed and started again on
   its port and session dir; the in-flight request, the name, the KV, the
   job, the daemon's NodeID and the spilled results all come back, and
-  the results and RMSNorm over them are bitwise the driver's launches
-  (head_restart); then a second driver, a process with no card,
+  the results and RMSNorm over them are bitwise the driver's launches,
+  the spilled ones read back by the chunked pull and the one left in
+  memory by the same-host plane (head_restart); then a second driver, a process with no card,
   resolves the named actor through the restarted head's directory and
   is served through the foreign handle token for token, and an actor on
   the daemon borrows the driver's ``fwd`` output past every handle of
@@ -126,8 +130,9 @@ the pipeline (``moe_launches``, ``pipeline_launches``), through
 (``runtime_launches``), through the serve deployments
 (``deployment_launches``), in worker processes
 (``process_launches``), through the store_recovery phase
-(``store_launches``), on the node daemons (``node_launches``) and
-across the head restart (``restart_launches``), its error
+(``store_launches``), on the node daemons (``node_launches``), in the
+GPU gang on a daemon (``daemon_gang_launches``) and across the head
+restart (``restart_launches``), its error
 against the plain version, its times, and for the attention kernels the
 achieved TFLOP/s and share of the bound, then the whole backward
 (pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
@@ -342,8 +347,12 @@ def phase_device() -> tuple[dict, str]:
     print(smi[0], flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
+    # The same-host plane's segments live in /dev/shm: a tmpfs too small
+    # for a 100 MB result would fault the daemon writing it.
+    dev_shm = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
     emit("device", **device, nvidia_smi=smi[0], torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, dev_shm=dev_shm.splitlines())
     return device, smi[0]
 
 
@@ -3460,7 +3469,6 @@ def phase_serve_deployment(llama, fa, fused, served: dict, runtime: dict,
 # The card's free memory after a process on it ends: back within this of
 # its value before the process started (process_check, process_serve).
 PROCESS_FREE_TOL_BYTES = 64 << 20
-PROCESS_STARTS = 2  # GPU actor starts timed (two: the script's length)
 SPMD_MEAN = float(np.mean(np.arange(8, dtype=np.float32)[:, None] ** 2
                           * np.ones((1, 4))))
 
@@ -3468,6 +3476,19 @@ SPMD_MEAN = float(np.mean(np.arange(8, dtype=np.float32)[:, None] ** 2
 def _free_bytes() -> int:
     """The card's free bytes, device-wide (every process's use)."""
     return torch.cuda.mem_get_info()[0]
+
+
+def _settled_free_bytes() -> int:
+    """A phase's baseline of the card's free bytes: taken after this
+    process's garbage is collected and its cached blocks released, so
+    tensors an earlier phase left in reference cycles (freed whenever
+    the collector next runs) cannot move it during the phase."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return _free_bytes()
 
 
 def _free_back(before: int, tol: float, wait_s: float = 60.0) -> int:
@@ -3580,21 +3601,12 @@ def phase_process_check(fa, device: dict, power: str, runtime: dict) -> dict:
             fork_ms.append(1e3 * (time.perf_counter() - t0))
             worker.stop()
         actor_cls = rt.remote(process=True, num_gpus=1)(ProcessKernelActor)
-        torch.cuda.empty_cache()
-        baseline = _free_bytes()
-        boot_ms = []
-        for _ in range(PROCESS_STARTS - 1):
-            t0 = time.perf_counter()
-            starter = actor_cls.remote()
-            rt.get(starter.noop.remote(), timeout=300)
-            boot_ms.append(1e3 * (time.perf_counter() - t0))
-            rt.kill(starter)
-        # The timed actors' contexts are gone.
-        free_before = _free_back(baseline, PROCESS_FREE_TOL_BYTES)
-        t0 = time.perf_counter()  # the last start timed is this actor's
+        free_before = _settled_free_bytes()
+        # One start timed, this actor's (the script's length).
+        t0 = time.perf_counter()
         actor = actor_cls.remote()
         rt.get(actor.noop.remote(), timeout=300)
-        boot_ms.append(1e3 * (time.perf_counter() - t0))
+        boot_ms = [1e3 * (time.perf_counter() - t0)]
         a_pid, a_cards, a_visible, a_kind, a_back = rt.get(
             actor.info.remote(x), timeout=300)
         o, lse, a_launches = rt.get(actor.fwd.remote(q, k, v), timeout=300)
@@ -3693,14 +3705,15 @@ def _process_trainer_loop(config):
 
 def phase_process_trainer(llama, fa, device: dict, power: str,
                           trainer: dict) -> dict:
-    """The trainer phase's two runs again through a process gang: one
+    """The trainer phase's resumed run again through a process gang: one
     gang process (``use_process_workers=True``, ``dist_config="auto"``, a
-    world of one on NCCL) trains bench.py's Llama 7 steps with DCP saves
-    at 1, 3 and 5; the second run's process exits after step 3's report
-    on its first attempt, and the next gang resumes from that
-    checkpoint. Held to the trainer phase's losses and grad norms.
-    Returns the flash kernels' launches counted in the straight run's
-    process."""
+    world of one on NCCL) trains bench.py's Llama with DCP saves at 1, 3
+    and 5, exits after step 3's report on its first attempt, and the
+    next gang resumes from that checkpoint to step 6. Its 7 steps (4 in
+    the first process, 3 in the second) are held to the trainer phase's
+    losses and grad norms. Cut for the script's length: the straight run
+    of 7 steps in one process that earlier runs took first is left out.
+    Returns the flash kernels' launches counted in the two processes."""
     import os
     import shutil
     import tempfile
@@ -3711,115 +3724,107 @@ def phase_process_trainer(llama, fa, device: dict, power: str,
     from ray_tpu_torch import train
 
     require(not dist.is_initialized(), "a process group exists already")
-    runs = {}
     rt.init(num_cpus=8)
     try:
-        for name in ("straight", "resumed"):
-            storage = tempfile.mkdtemp(prefix="chip_smoke_ptrainer_")
-            crash = _exit_once(os.path.join(storage, "crashed")) \
-                if name == "resumed" else None
-            torch.cuda.empty_cache()
-            free_before = _free_bytes()
-            start = time.perf_counter()
-            try:
-                result = train.MeshTrainer(
-                    _process_trainer_loop, dist_config="auto",
-                    train_loop_config={"crash": crash},
-                    scaling_config=train.ScalingConfig(
-                        num_workers=1, use_gpu=True,
-                        use_process_workers=True),
-                    run_config=train.RunConfig(
-                        name=name, storage_path=storage,
-                        checkpoint_config=train.CheckpointConfig(
-                            num_to_keep=2),
-                        failure_config=train.FailureConfig(
-                            max_failures=1 if crash else 0))).fit()
-                kept = sorted(p for p in os.listdir(os.path.join(storage,
-                                                                 name)))
-            finally:
-                shutil.rmtree(storage, ignore_errors=True)
-            elapsed = time.perf_counter() - start
-            free_after = _free_back(free_before, 0.01 * free_before)
-            runs[name] = {
-                "error": repr(result.error) if result.error else None,
-                "history": result.metrics_history,
-                "checkpoints_kept": len(kept), "elapsed_s": elapsed,
-                "gpu_back": _until(
-                    lambda: rt.available_resources().get("GPU") == 1.0),
-                "free_bytes_before_after": [free_before, free_after]}
-            require(result.error is None, f"process trainer run {name}: "
-                                          f"{result.error!r}")
+        storage = tempfile.mkdtemp(prefix="chip_smoke_ptrainer_")
+        crash = _exit_once(os.path.join(storage, "crashed"))
+        free_before = _settled_free_bytes()
+        start = time.perf_counter()
+        try:
+            result = train.MeshTrainer(
+                _process_trainer_loop, dist_config="auto",
+                train_loop_config={"crash": crash},
+                scaling_config=train.ScalingConfig(
+                    num_workers=1, use_gpu=True, use_process_workers=True),
+                run_config=train.RunConfig(
+                    name="resumed", storage_path=storage,
+                    checkpoint_config=train.CheckpointConfig(num_to_keep=2),
+                    failure_config=train.FailureConfig(
+                        max_failures=1))).fit()
+            kept = sorted(os.listdir(os.path.join(storage, "resumed")))
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        elapsed = time.perf_counter() - start
+        free_after = _free_back(free_before, 0.01 * free_before)
+        run = {"error": repr(result.error) if result.error else None,
+               "checkpoints_kept": len(kept), "elapsed_s": elapsed,
+               "gpu_back": _until(
+                   lambda: rt.available_resources().get("GPU") == 1.0),
+               "free_bytes_before_after": [free_before, free_after]}
+        require(result.error is None,
+                f"process trainer: {result.error!r}")
     finally:
         rt.shutdown()
-    straight, resumed = runs["straight"]["history"], runs["resumed"]["history"]
-    got = np.array([[m["loss"] for m in straight],
-                    [m["grad_norm"] for m in straight]])
+    history = result.metrics_history
+    got = np.array([[m["loss"] for m in history],
+                    [m["grad_norm"] for m in history]])
     want = np.array([trainer["loss"], trainer["grad_norm"]])
-    diff = np.abs(got - want)
-    ok = bool(got.shape == want.shape and np.all(
+    same_shape = got.shape == want.shape
+    diff = np.abs(got - want) if same_shape else None
+    ok = bool(same_shape and np.all(
         diff <= MESH_TRAIN_ATOL + MESH_TRAIN_RTOL * np.abs(want)))
-    tail = np.array([[m["loss"], m["grad_norm"]] for m in resumed[4:]])
-    tail_want = np.array([[m["loss"], m["grad_norm"]] for m in straight[4:]])
-    resumed_ok = bool(tail.shape == tail_want.shape and np.all(
-        np.abs(tail - tail_want)
-        <= MESH_TRAIN_ATOL + MESH_TRAIN_RTOL * np.abs(tail_want)))
-    launches = straight[-1]["launches"]
+    # Each process counts from its loop's start: its last report holds
+    # all of its launches.
+    last = {}
+    for m in history:
+        last[m["pid"]] = m["launches"]
+    launches: dict = {}
+    for counts in last.values():
+        for kind, n in counts.items():
+            launches[kind] = launches.get(kind, 0) + n
     restored = [{k: m[k] for k in ("step", "restore_s", "resumed_at",
                                    "restored_dtensors_placed", "pid")}
-                for m in resumed if "restore_s" in m]
+                for m in history if "restore_s" in m]
+    # The first step of each process compiles and warms up.
+    warm = [m["step_s"] for m in history
+            if m["step"] not in (0, 1, TRAINER_CRASH_AFTER + 1)]
     result = {
         "config": "bench.py:50-54", "batch": [8, 2048],
         "scaling": "1 process worker, use_gpu, dist_config='auto' (NCCL, "
                    "world 1)",
         "steps": TRAINER_STEPS, "checkpoint_steps": list(TRAINER_CKPT_STEPS),
         "crash_after_step": TRAINER_CRASH_AFTER,
+        "cut": "the straight 7-step run left out (the script's length)",
         "loss": got[0].tolist(), "grad_norm": got[1].tolist(),
         "against_trainer": {
-            "max_abs_loss_diff": float(diff[0].max()),
-            "max_abs_grad_norm_diff": float(diff[1].max()),
+            "max_abs_loss_diff": float(diff[0].max()) if same_shape
+            else None,
+            "max_abs_grad_norm_diff": float(diff[1].max()) if same_shape
+            else None,
             "bitwise": bool(np.array_equal(got, want)),
             "rtol": MESH_TRAIN_RTOL, "atol": MESH_TRAIN_ATOL, "ok": ok},
-        "resumed_steps": [m["step"] for m in resumed],
-        "resumed_steps_4_6_ok": resumed_ok,
-        "resumed_bitwise_steps_4_6": bool(np.array_equal(tail, tail_want)),
-        "resumed_pids": [m["pid"] for m in resumed],
-        "restored": restored, "launches_in_the_process": launches,
-        "step_s": [m["step_s"] for m in straight],
-        "step_s_median": statistics.median(m["step_s"]
-                                           for m in straight[2:]),
+        "steps_run": [m["step"] for m in history],
+        "pids": [m["pid"] for m in history],
+        "restored": restored, "launches_in_the_processes": launches,
+        "step_s": [m["step_s"] for m in history],
+        "step_s_median": statistics.median(warm) if warm else None,
         "trainer_step_s_median": trainer["step_s_median"],
-        "save_s": [m["save_s"] for run in (straight, resumed) for m in run
-                   if "save_s" in m],
+        "save_s": [m["save_s"] for m in history if "save_s" in m],
         "trainer_save_s": trainer["save_s"],
-        "process_max_memory_allocated": straight[-1]["max_memory_allocated"],
-        "runs": {name: {k: v for k, v in run.items() if k != "history"}
-                 for name, run in runs.items()},
-        "card": device["kind"], "nvidia_smi": power,
+        "process_max_memory_allocated": max(
+            m["max_memory_allocated"] for m in history),
+        "run": run, "card": device["kind"], "nvidia_smi": power,
     }
     emit("process_trainer", **result)
     require(ok, f"process trainer losses/grad norms {got.tolist()} disagree "
                 f"with the trainer phase's {want.tolist()}")
-    require(result["resumed_steps"] == list(range(TRAINER_STEPS)),
-            f"resumed run's steps {result['resumed_steps']}")
-    require(resumed_ok, "the resumed steps 4-6 are not within the bound of "
-                        "the straight run's")
+    require(result["steps_run"] == list(range(TRAINER_STEPS)),
+            f"the run's steps {result['steps_run']}")
     require(len(restored) == 1 and restored[0]["resumed_at"]
             == TRAINER_CRASH_AFTER + 1
             and restored[0]["restored_dtensors_placed"],
             f"restore: {restored}")
-    require(len(set(result["resumed_pids"])) == 2,
-            f"the resumed run's steps ran in {result['resumed_pids']}")
-    for name, run in runs.items():
-        require(run["checkpoints_kept"] == 2, f"{name}: kept "
-                                              f"{run['checkpoints_kept']}")
-        require(run["gpu_back"], f"{name}: GPU not back after fit()")
-        before, after = run["free_bytes_before_after"]
-        require(abs(after - before) <= 0.01 * before,
-                f"{name}: free memory {after} after fit(), {before} before")
-    _check_train_launches("process_trainer (straight)", launches,
+    require(len(set(result["pids"])) == 2,
+            f"the run's steps ran in {result['pids']}")
+    require(run["checkpoints_kept"] == 2, f"kept {run['checkpoints_kept']}")
+    require(run["gpu_back"], "GPU not back after fit()")
+    before, after = run["free_bytes_before_after"]
+    require(abs(after - before) <= 0.01 * before,
+            f"free memory {after} after fit(), {before} before")
+    _check_train_launches("process_trainer", launches,
                           bench_config(llama).num_layers, TRAINER_STEPS)
     require(launches == trainer["launches"],
-            f"launches in the gang process {launches}, the trainer "
+            f"launches in the gang processes {launches}, the trainer "
             f"phase's {trainer['launches']}")
     return launches
 
@@ -3950,8 +3955,7 @@ def phase_process_serve(llama, served: dict, served_tokens: list,
     start = time.perf_counter()
     config = serve_config(llama)
     lengths, prompts, temperatures = serve_requests(config)
-    torch.cuda.empty_cache()
-    free_before = _free_bytes()
+    free_before = _settled_free_bytes()
     rt.init(num_cpus=8)
     try:
         boot = time.perf_counter()
@@ -4452,9 +4456,7 @@ def _store_memory(fa) -> dict:
     q, k, v, _ = _lost_inputs(LOST_SEED)
     want = fa.flash_fwd_kernel(q, k, v, causal=True)[0]
     del q, k, v
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    free_before = _free_bytes()
+    free_before = _settled_free_bytes()
     marker = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_oom_"),
                           "attempted")
     rt.init(num_cpus=8, process_workers=2,
@@ -4620,11 +4622,40 @@ def _parent(pid: int) -> int:
         return int(f.read().rsplit(")", 1)[1].split()[1])
 
 
+def _plane_on() -> bool:
+    """Whether the same-host plane is armed in this process (the
+    reference's ``same_host_plane`` knob; ``RAY_TPU_TORCH_SAME_HOST_PLANE=0``
+    turns it off, in the daemons too)."""
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    return bool(GLOBAL_CONFIG.same_host_plane)
+
+
+def _rate_gbps(nbytes: float, seconds: float) -> float | None:
+    return nbytes / seconds / 1e9 if seconds > 0 else None
+
+
+def _get_paths(before: dict, after: dict) -> dict:
+    """The driver's reads of nodes' results between two
+    ``remote_get_stats()``: per path, reads, bytes, seconds and GB/s."""
+    out = {}
+    for path in ("mapped", "chunked"):
+        d = {k: after[path][k] - before[path][k]
+             for k in ("gets", "bytes", "seconds")}
+        d["gb_per_s"] = _rate_gbps(d["bytes"], d["seconds"])
+        out[path] = d
+    out["spilled_plans"] = after["spilled_plans"] - before["spilled_plans"]
+    return out
+
+
 def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
     """(a) The flash forward and backward in a ``num_gpus=1`` task pinned
-    to node A, RMSNorm over its output in one pinned to B: the output
-    moves A to B by the chunked pull, never through the driver, and
-    everything is bitwise the driver's own launches on the same seeds."""
+    to node A, RMSNorm over its output in one pinned to B, never through
+    the driver, and everything bitwise the driver's own launches on the
+    same seeds. With the same-host plane armed (the default) the output
+    moves A to B by one copy out of A's segment under a lease A grants
+    and B releases, A serving no chunk, and the driver reads the results
+    the same way; with it off, by the chunked pull."""
     from ray_tpu_torch.util.scheduling_strategies import (
         NodeAffinitySchedulingStrategy,
     )
@@ -4632,9 +4663,12 @@ def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
     def pinned(node: str):
         return NodeAffinitySchedulingStrategy(ids[node].hex(), soft=False)
 
+    plane = _plane_on()
     want_o, want_dq, want_dk, want_dv, _ = _node_attention(NODE_SEED)
     want_n, _ = _node_norm(want_o, NODE_SEED)
     exports_before = runtime._export_store.stats()["num_blobs"]
+    before_a = handles["A"].pool.call("executor_stats")
+    before_b = handles["B"].pool.call("executor_stats")
     start = time.perf_counter()
     o_ref, dq_ref, dk_ref, dv_ref, counts_a_ref = rt.remote(
         num_gpus=1, num_returns=5, scheduling_strategy=pinned("A"))(
@@ -4653,14 +4687,34 @@ def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
     driver_bytes = runtime.store.stats()["memory_used_bytes"]
     stats_a = handles["A"].pool.call("executor_stats")
     stats_b = handles["B"].pool.call("executor_stats")
+    # B released its lease as soon as it had copied.
+    released = _until(lambda: handles["A"].pool.call("executor_stats")[
+        "data_plane"]["leases"]["active"] == 0, 30)
+    gets_before = runtime.remote_get_stats()
     start = time.perf_counter()
     got = dict(zip(refs, rt.get(list(refs.values()), timeout=NODE_WAIT_S)))
     driver_pull_s = time.perf_counter() - start
+    driver_paths = _get_paths(gets_before, runtime.remote_get_stats())
     want = {"o": want_o, "dq": want_dq, "dk": want_dk, "dv": want_dv,
             "n": want_n}
+    plane_a = {k: stats_a["data_plane"]["leases"][k]
+               - before_a["data_plane"]["leases"][k]
+               for k in ("granted", "released")}
+    plane_b = {k: stats_b["data_plane"][k] - before_b["data_plane"][k]
+               for k in ("same_host_map_hits", "same_host_copy_hits",
+                         "chunked_pulls")}
+    b_same_host_bytes = stats_b["same_host_bytes"] \
+        - before_b["same_host_bytes"]
+    b_same_host_s = stats_b["same_host_seconds"] \
+        - before_b["same_host_seconds"]
+    b_pulled = stats_b["pulled_bytes"] - before_b["pulled_bytes"]
+    b_pull_s = stats_b["pull_seconds"] - before_b["pull_seconds"]
+    a_chunks = stats_a["store"]["fetches_served"] \
+        - before_a["store"]["fetches_served"]
     result = {
         "shape": list(LOST_SHAPE), "norm_rows_cols": [
             LOST_SHAPE[0] * LOST_SHAPE[1], LOST_SHAPE[2] * LOST_SHAPE[4]],
+        "same_host_plane": plane,
         "bitwise": {k: torch.equal(got[k], want[k]) for k in want},
         "devices": {k: got[k].device.type for k in got},
         "output_bytes": want_o.numel() * want_o.element_size(),
@@ -4668,11 +4722,15 @@ def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
         "driver_store_bytes_before_get": driver_bytes,
         "driver_exports": runtime._export_store.stats()["num_blobs"]
         - exports_before,
-        "b_pulled_bytes": stats_b["pulled_bytes"],
-        "b_pull_s": stats_b["pull_seconds"],
-        "pull_gb_per_s": stats_b["pulled_bytes"]
-        / max(stats_b["pull_seconds"], 1e-9) / 1e9,
-        "a_chunks_served": stats_a["store"]["fetches_served"],
+        "b_data_plane": plane_b, "a_leases": plane_a,
+        "a_leases_released": released,
+        "b_same_host_bytes": b_same_host_bytes,
+        "b_same_host_s": b_same_host_s,
+        "b_mapped_gb_per_s": _rate_gbps(b_same_host_bytes, b_same_host_s),
+        "b_pulled_bytes": b_pulled, "b_pull_s": b_pull_s,
+        "pull_gb_per_s": _rate_gbps(b_pulled, b_pull_s),
+        "a_chunks_served": a_chunks,
+        "driver_get_paths": driver_paths,
         "tasks_s": tasks_s, "driver_get_s": driver_pull_s,
         "launches_a": counts_a, "launches_b": counts_b}
     del got, want, want_o, want_dq, want_dk, want_dv, want_n, refs
@@ -4687,30 +4745,183 @@ def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
             f"{result['driver_exports']} exports")
     require(driver_bytes < result["output_bytes"],
             f"the driver's store holds {driver_bytes} bytes")
-    require(stats_b["pulled_bytes"] >= result["output_bytes"]
-            and stats_a["store"]["fetches_served"] > 0,
-            f"B pulled {stats_b['pulled_bytes']} bytes, A served "
-            f"{stats_a['store']['fetches_served']} chunks")
+    if plane:
+        # The map path, and nothing quietly carried on by chunks.
+        require(plane_b["same_host_map_hits"]
+                + plane_b["same_host_copy_hits"] >= 1
+                and plane_b["chunked_pulls"] == 0 and a_chunks == 0
+                and b_same_host_bytes >= result["output_bytes"],
+                f"o did not move A to B by the map path: B {plane_b}, "
+                f"{b_same_host_bytes} bytes copied, A served {a_chunks} "
+                f"chunks")
+        require(plane_a["granted"] == 1 and released,
+                f"A's leases: {plane_a}, released {released}")
+        require(driver_paths["mapped"]["gets"] == len(result["bitwise"])
+                and driver_paths["chunked"]["gets"] == 0,
+                f"the driver's reads: {driver_paths}")
+    else:
+        require(b_pulled >= result["output_bytes"] and a_chunks > 0
+                and plane_b["same_host_copy_hits"] == 0
+                and plane_a["granted"] == 0,
+                f"B pulled {b_pulled} bytes, A served {a_chunks} chunks, "
+                f"B {plane_b}, A {plane_a}")
+        require(driver_paths["chunked"]["gets"] == len(result["bitwise"]),
+                f"the driver's reads: {driver_paths}")
     require(all(counts_a[k] == 1 for k in (*HOPPER_KERNELS, "flash_bwd"))
             and counts_b["rmsnorm"] == 1,
             f"node launches {counts_a}, {counts_b}: one of each expected")
     return result
 
 
+# The daemon gangs of node_cluster: bench.py's Llama for this many steps,
+# held bitwise to the train phase's first ones.
+DAEMON_GANG_STEPS = 3
+
+
+def _daemon_gang_loop(config):
+    """bench.py's model, seeds and batch (the train phase's plain step)
+    in a gang process on a daemon: each step's loss and grad norm, the
+    flash kernels' launches counted in this process, its pid and its
+    parent's."""
+    import importlib
+    import os
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    model, params, optimizer, step = _bench_training(llama, train_step)
+    state = train_step.create_train_state(params, optimizer)
+    del params
+    batch = train_step.place_batch(_bench_batch(model, 8, 2048))
+    losses, norms, times = [], [], []
+    with _LaunchCount(fa) as count:
+        for _ in range(DAEMON_GANG_STEPS):
+            start = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+    train.report({"loss": losses, "grad_norm": norms, "step_s": times,
+                  "launches": count.counts, "pid": os.getpid(),
+                  "ppid": _parent(os.getpid()),
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+
+
+def _daemon_spread_loop(config):
+    """A gloo gang member's pid and parent pid, all-gathered."""
+    import os
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+
+    mine = torch.tensor([os.getpid(), _parent(os.getpid())],
+                        dtype=torch.int64)
+    gathered = [torch.zeros(2, dtype=torch.int64)
+                for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, mine)
+    train.report({"world": dist.get_world_size(),
+                  "backend": dist.get_backend(),
+                  "pids": [int(t[0]) for t in gathered],
+                  "ppids": [int(t[1]) for t in gathered]})
+
+
+def _daemon_of(pid: int, daemons: dict) -> str | None:
+    """The daemon (by name) a gang process descends from: daemon ->
+    (fork server ->) worker."""
+    by_pid = {p: name for name, p in daemons.items()}
+    for _ in range(3):
+        if pid in by_pid:
+            return by_pid[pid]
+        try:
+            pid = _parent(pid)
+        except (OSError, ValueError, IndexError):
+            return None
+    return by_pid.get(pid)
+
+
+def _daemon_gangs(nodes: dict, train_phase: dict, layers: int) -> dict:
+    """Train gangs placed by their placement groups onto the daemons: a
+    ``STRICT_SPREAD`` gloo gang of two CPU processes over A and B (one
+    world of two, one member under each daemon), then a one-process
+    ``num_gpus=1`` gang on A (``node_a`` holds it there) training bench.py's
+    Llama ``DAEMON_GANG_STEPS`` steps, bitwise the train phase's first
+    ones. One card gives NCCL one rank, so the GPU gang is one process."""
+    from ray_tpu_torch import train
+
+    daemons = {name: node.pid for name, node in nodes.items()}
+    start = time.perf_counter()
+    spread = train.MeshTrainer(
+        _daemon_spread_loop, dist_config="auto",
+        scaling_config=train.ScalingConfig(
+            num_workers=2, use_process_workers=True,
+            placement_strategy="STRICT_SPREAD"),
+        run_config=train.RunConfig(report_timeout_s=NODE_WAIT_S)).fit()
+    spread_s = time.perf_counter() - start
+    require(spread.error is None, f"the spread gang: {spread.error!r}")
+    under = sorted(str(_daemon_of(p, daemons))
+                   for p in spread.metrics["ppids"])
+    start = time.perf_counter()
+    gang = train.MeshTrainer(
+        _daemon_gang_loop, dist_config="auto",
+        scaling_config=train.ScalingConfig(
+            num_workers=1, use_gpu=True, use_process_workers=True,
+            resources_per_worker={"CPU": 1, "node_a": 1}),
+        run_config=train.RunConfig(report_timeout_s=NODE_WAIT_S)).fit()
+    gang_s = time.perf_counter() - start
+    require(gang.error is None, f"the GPU gang: {gang.error!r}")
+    m = gang.metrics
+    want_loss = train_phase["loss"][:DAEMON_GANG_STEPS]
+    want_norm = train_phase["grad_norm"][:DAEMON_GANG_STEPS]
+    result = {
+        "spread": {"world": spread.metrics["world"],
+                   "backend": spread.metrics["backend"],
+                   "members_under": under, "fit_s": spread_s},
+        "gpu_gang": {"config": "bench.py:50-54", "batch": [8, 2048],
+                     "steps": DAEMON_GANG_STEPS,
+                     "under": _daemon_of(m["ppid"], daemons),
+                     "loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "train_loss": want_loss, "train_grad_norm": want_norm,
+                     "bitwise": m["loss"] == want_loss
+                     and m["grad_norm"] == want_norm,
+                     "step_s": m["step_s"],
+                     "train_step_s": train_phase["step_s"],
+                     "max_memory_allocated": m["max_memory_allocated"],
+                     "launches": m["launches"], "fit_s": gang_s}}
+    require(result["spread"]["world"] == 2 and under == ["A", "B"],
+            f"the spread gang: {result['spread']}")
+    require(result["gpu_gang"]["under"] == "A",
+            f"the GPU gang ran under {result['gpu_gang']['under']}")
+    require(result["gpu_gang"]["bitwise"],
+            f"the daemon gang's steps {m['loss']}, {m['grad_norm']} are "
+            f"not the train phase's {want_loss}, {want_norm}")
+    _check_train_launches("daemon gang", m["launches"], layers,
+                          DAEMON_GANG_STEPS)
+    return result
+
+
 def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
                        process_served: dict, runtime_phase: dict,
-                       device: dict, power: str) -> dict:
+                       train_phase: dict, device: dict,
+                       power: str) -> tuple[dict, dict]:
     """Worker-node daemons on the card: a ``Cluster`` with its head in
     this process and two daemons, A and B, each ``{"CPU": 2, "GPU": 1}``
-    on card 0, and a driver connected with no CPU and no GPU of its own.
-    (a) the flash kernels on A and RMSNorm on B, bitwise, the output
-    pulled A to B; (b) Llama-3-8B served from a remote actor on A, the
-    serve phase's first 8 requests, greedy outputs token-identical to
-    the serve phase's;
+    on card 0 (A also ``node_a``), and a driver connected with no CPU and
+    no GPU of its own. (a) the flash kernels on A and RMSNorm on B,
+    bitwise, the output moved A to B by the same-host plane (one copy
+    out of A's segment; the chunked pull with the plane off); then the
+    daemon gangs: a gloo gang spread over A and B, and a one-process
+    ``num_gpus=1`` gang on A training bench.py's Llama bitwise the train
+    phase; (b) Llama-3-8B served from a remote actor on A, the serve
+    phase's first 8 requests, greedy outputs token-identical to the
+    serve phase's;
     (c) A killed, the actor restarted on B from the same seed and
     token-identical again; (d) after shutdown no daemon or actor process
     is left, the card's free bytes are back and so is every ``GPU``.
-    Returns the kernels' launches on the nodes."""
+    Returns the kernels' launches on the nodes and in the GPU gang."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.exceptions import ActorDiedError
@@ -4722,14 +4933,13 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     config = serve_config(llama)
     _, prompts, temperatures = serve_requests(config)
     greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    free_before = _free_bytes()
+    free_before = _settled_free_bytes()
     cluster = Cluster(heartbeat_timeout_s=NODE_HEARTBEAT_TIMEOUT_S)
     pids = []
     try:
         start = time.perf_counter()
-        nodes = {"A": cluster.add_node(num_cpus=2, resources={"GPU": 1}),
+        nodes = {"A": cluster.add_node(num_cpus=2, resources={
+                     "GPU": 1, "node_a": 1}),
                  "B": cluster.add_node(num_cpus=2, resources={"GPU": 1})}
         require(cluster.wait_for_nodes(2, timeout=NODE_WAIT_S),
                 "the daemons did not register")
@@ -4747,6 +4957,10 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         kernels = _node_kernels(rt, runtime, handles, ids)
         task_us = _round_trips_us(rt, rt.remote(_noop).remote)
         torch.cuda.empty_cache()
+        gangs = _daemon_gangs(nodes, train_phase,
+                              bench_config(llama).num_layers)
+        require(_until(lambda: rt.available_resources().get("GPU") == 2.0,
+                       60), "GPU not back after the daemon gang")
 
         # (b) Serving from a remote actor on A.
         boot = time.perf_counter()
@@ -4815,7 +5029,7 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         "daemons": {"resources": {"CPU": 2, "GPU": 1}, "card": 0,
                     "heartbeat_timeout_s": NODE_HEARTBEAT_TIMEOUT_S},
         "daemons_registered_s": daemons_s, "nodes_joined_s": joined_s,
-        "kernels": kernels,
+        "kernels": kernels, "daemon_gangs": gangs,
         "remote_task_round_trip_us": task_us,
         "thread_task_round_trip_us": runtime_phase["task_round_trip_us"],
         "actor": "num_gpus=1, max_restarts=1, max_concurrency=16, "
@@ -4860,7 +5074,7 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
             == per_forward * served_here["forwards"] > 0,
             f"rmsnorm launched {served_here['rmsnorm_launches']} times in "
             f"the remote actor over {served_here['forwards']} forwards")
-    return launches
+    return launches, gangs["gpu_gang"]["launches"]
 
 
 HEAD_SEED = 37
@@ -5109,9 +5323,7 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
     config = serve_config(llama)
     _, prompts, temperatures = serve_requests(config)
     greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    free_before = _free_bytes()
+    free_before = _settled_free_bytes()
     want_o, want_dq, want_dk, want_dv, _ = _node_attention(HEAD_SEED)
     want_n, _ = _node_norm(want_o, HEAD_SEED)
     want = {"o": want_o, "dq": want_dq, "dk": want_dk, "dv": want_dv}
@@ -5307,14 +5519,18 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
             addr, "list_object_locations", None, True)
         listed = sorted(k for k, h in hexes.items()
                         if node_a.hex() in locations.get(h, ()))
-        before = handle_a.pool.call("executor_stats")["spill"]
+        stats_before_get = handle_a.pool.call("executor_stats")
+        before = stats_before_get["spill"]
+        spilled_before_get = stats_before_get["store"]["spilled_blobs"]
         restores_before = before["restores"]
         restore_bytes_before = before["restore_timed_bytes"]
         restore_s_before = before["restore_seconds"]
+        gets_before = runtime.remote_get_stats()
         t0 = time.perf_counter()
         got = dict(zip(refs, rt.get(list(refs.values()),
                                     timeout=HEAD_WAIT_S)))
         get_s = time.perf_counter() - t0
+        get_paths = _get_paths(gets_before, runtime.remote_get_stats())
         spill_stats = handle_a.pool.call("executor_stats")["spill"]
         n_ref, counts_n_ref = rt.remote(num_returns=2, **with_a)(
             _node_norm).remote(o_ref, HEAD_SEED)
@@ -5429,6 +5645,12 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
         "restores": spill_stats["restores"] - restores_before,
         "driver_get_gb_per_s": sum(sizes.values()) / 1e9
         / max(get_s, 1e-9),
+        "same_host_plane": _plane_on(),
+        "spilled_before_get": spilled_before_get,
+        "driver_get_paths": get_paths,
+        "driver_get_gb_per_s_by_path": {
+            path: get_paths[path]["gb_per_s"]
+            for path in ("mapped", "chunked")},
         "spill_counters": spill_stats, "bitwise": bitwise,
         "devices": devices, "gpu_driver_node": gpu_back,
         "pids_left": left, "free_bytes_before_after": [free_before,
@@ -5462,6 +5684,17 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
     require(all(bitwise.values())
             and set(devices.values()) == {torch.device(DEVICE).type},
             f"results differ from the driver's: {bitwise} {devices}")
+    # A spilled result has no segment: it comes back by the chunked pull,
+    # its plan saying so; one left in memory maps (plane armed).
+    n_spilled = result["spilled_before_get"]
+    if result["same_host_plane"]:
+        want_paths = (len(hexes) - n_spilled, n_spilled, n_spilled)
+    else:
+        want_paths = (0, len(hexes), 0)
+    require((get_paths["mapped"]["gets"], get_paths["chunked"]["gets"],
+             get_paths["spilled_plans"]) == want_paths,
+            f"the driver's reads {get_paths}, expected (mapped, chunked, "
+            f"spilled plans) {want_paths}")
     require(gpu_back == [1.0, 1.0], f"GPU not back: {gpu_back}")
     require(not left, f"processes left: {left}")
     require(abs(free_after - free_before) <= NODE_FREE_TOL_BYTES,
@@ -5588,9 +5821,9 @@ def main() -> int:
     store_launches = timed(phase_store_recovery, llama, train_step, fa,
                            fused, device, power)
     torch.cuda.empty_cache()
-    node_launches = timed(
+    node_launches, gang_launches = timed(
         phase_node_cluster, llama, fa, fused, served_result, served_tokens,
-        process_served["summary"], runtime_result, device, power)
+        process_served["summary"], runtime_result, train, device, power)
     torch.cuda.empty_cache()
     restart_launches = timed(phase_head_restart, llama, fa, fused,
                              served_tokens, device, power)
@@ -5630,6 +5863,9 @@ def main() -> int:
         # task on node A, RMSNorm in the task on B and in the remote
         # serving actor, before and after its restart.
         row["node_launches"] = node_launches.get(kind, 0)
+        # And in node_cluster's one-process GPU gang on daemon A: the
+        # flash kernels of its bench.py steps (training: no RMSNorm).
+        row["daemon_gang_launches"] = gang_launches.get(kind, 0)
         # And across a head restart (head_restart): the flash kernels in
         # the task on A whose results spilled, RMSNorm in the named
         # serving actor and in the task over the restored output.
@@ -5654,6 +5890,10 @@ def main() -> int:
                          f"phase: {missing}")
     missing = [k for k, row in rows.items() if not row["node_launches"]]
     require(not missing, f"kernels not launched on the node daemons: "
+                         f"{missing}")
+    missing = [k for k in (*HOPPER_KERNELS, "flash_bwd")
+               if not rows[k]["daemon_gang_launches"]]
+    require(not missing, f"kernels not launched in the daemon gang: "
                          f"{missing}")
     missing = [k for k, row in rows.items() if not row["restart_launches"]]
     require(not missing, f"kernels not launched across the head restart: "

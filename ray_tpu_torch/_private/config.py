@@ -102,6 +102,15 @@ _DEFAULTS: dict[str, Any] = {
     # owner_sweep_period_ms; 0 disables the sweep.
     "owner_sweep_period_ms": 5000,
     "owner_dead_grace_s": 15.0,
+    # The same-host plane (same_host.py): a daemon or driver on the same
+    # host as an object's holder maps the holder's named shared-memory
+    # segment (or copies out of it once) instead of pulling the bytes in
+    # chunks over RPC. Objects of at least same_host_map_min_kb get such
+    # a segment; a puller's pin lease outlives same_host_pin_ttl_s only
+    # while the puller still answers pings.
+    "same_host_plane": True,
+    "same_host_map_min_kb": 1024,
+    "same_host_pin_ttl_s": 30.0,
     # The head declares a node dead after this long without a heartbeat.
     "gcs_heartbeat_timeout_s": 10.0,
     # The durable head (gcs_persistence.py): its whole hot set as a

@@ -106,6 +106,9 @@ class ObjectDirectory:
         # owner address -> {object hex -> node hex}: copies on disk.
         self._spilled: dict[str, dict[str, str]] = {}
         self._seen: dict[str, float] = {}
+        # object hex -> when its newest mark landed: a mark under a
+        # daemon's owner key waits one lease for the owner's publish.
+        self._marked_at: dict[str, float] = {}
         # Mutations the head persists (TTL pruning is not one: it
         # derives again from the lease clocks a restore resets).
         self.version = 0
@@ -142,6 +145,7 @@ class ObjectDirectory:
                 self._seen[owner] = now
             for owner, table in (state.get("spilled") or {}).items():
                 self._spilled.setdefault(owner, {}).update(table)
+                self._marked_at.update(dict.fromkeys(table, now))
 
     def update(self, owner: str, adds: list, removes: list) -> int:
         """One owner's deltas; an empty update is a keepalive of its
@@ -182,6 +186,7 @@ class ObjectDirectory:
                     bucket = loc_owner
                     break
             self._spilled.setdefault(bucket, {})[obj_hex] = node_hex
+            self._marked_at[obj_hex] = time.monotonic()
             self._mutated(("dir_spill", bucket, obj_hex, node_hex))
 
     def clear_spilled(self, owner: str, obj_hex: str) -> None:
@@ -227,14 +232,22 @@ class ObjectDirectory:
                 self._locations.pop(owner, None)
                 self._spilled.pop(owner, None)
             # Marks under a daemon's owner key with no lease behind them
-            # go once their objects are in no bucket.
+            # go once their objects are in no bucket and the mark is a
+            # lease old. A heartbeat's mark often lands before the
+            # owner's first publish of the object, and the daemon never
+            # sends it again: dropped at once, it was lost for good
+            # (and came back only from a WAL no snapshot had covered).
             for owner in [o for o in self._spilled if o not in self._seen]:
                 table = self._spilled[owner]
                 for obj_hex in [h for h in table if not any(
-                        h in t for t in self._locations.values())]:
+                        h in t for t in self._locations.values())
+                        and now - self._marked_at.get(h, 0.0) > ttl_s]:
                     del table[obj_hex]
                 if not table:
                     self._spilled.pop(owner, None)
+            marked = set().union(*self._spilled.values())
+            for obj_hex in [h for h in self._marked_at if h not in marked]:
+                del self._marked_at[obj_hex]
 
     def prune_node(self, node_hex: str) -> list[str]:
         """A node died: drop it from every holder set, and its spilled
@@ -329,6 +342,10 @@ class NodeRecord:
     # The RPC address of the node's executor service ("" for a node that
     # runs no tasks, such as a driver).
     executor_address: str = ""
+    # The host's identity (same_host.host_identity): daemons of equal
+    # host_id share POSIX shared memory and map each other's objects
+    # instead of pulling them in chunks.
+    host_id: str = ""
     alive: bool = True
     # When the node last heartbeat (time.monotonic()); the health
     # monitor declares it dead once this is stale.
@@ -417,6 +434,7 @@ class GlobalControlService:
                 "resources": dict(record.resources),
                 "labels": dict(record.labels),
                 "executor_address": record.executor_address,
+                "host_id": record.host_id,
                 "alive": record.alive, "available": dict(record.available)}
 
     @staticmethod
@@ -466,6 +484,7 @@ class GlobalControlService:
                 resources=dict(plain.get("resources") or {}),
                 labels=dict(plain.get("labels") or {}),
                 executor_address=plain.get("executor_address", ""),
+                host_id=plain.get("host_id", ""),
                 alive=bool(plain.get("alive", True)),
                 available=dict(plain.get("available") or {}))
             with self._lock:

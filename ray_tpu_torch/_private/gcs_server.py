@@ -314,7 +314,8 @@ class GcsServer:
     def _register_node(self, address: str, resources: dict,
                        labels: dict | None = None,
                        executor_address: str = "",
-                       prior_id: bytes | None = None) -> bytes:
+                       prior_id: bytes | None = None,
+                       host_id: str = "") -> bytes:
         """``prior_id``: a node registering again asks to keep its id.
         Granted for an id this head never saw or a live record of the
         same address (a retried request, or a daemon re-syncing after a
@@ -332,7 +333,8 @@ class GcsServer:
             node_id = NodeID()
         self.gcs.register_node(NodeRecord(
             node_id=node_id, address=address, resources=dict(resources),
-            labels=dict(labels or {}), executor_address=executor_address))
+            labels=dict(labels or {}), executor_address=executor_address,
+            host_id=host_id))
         return node_id.binary()
 
     def _heartbeat(self, node_id_bytes: bytes,
@@ -375,7 +377,8 @@ class GcsServer:
         return [{"node_id": r.node_id.hex(), "address": r.address,
                  "resources": dict(r.resources),
                  "available": dict(r.available), "labels": dict(r.labels),
-                 "executor_address": r.executor_address, "alive": r.alive}
+                 "executor_address": r.executor_address,
+                 "host_id": r.host_id, "alive": r.alive}
                 for r in self.gcs.list_nodes()]
 
     def _drain_node(self, node_id_bytes: bytes) -> bool:

@@ -124,10 +124,12 @@ class NodeAgent:
     def _register(self) -> bytes:
         # Idempotent under prior_id (the head grants the same id to a
         # retried request), so it takes the retry policy.
+        from ray_tpu_torch._private.same_host import host_identity
+
         node_id = call_with_retry(
             self.client.call, "register_node", self._address,
             self.resources, self.labels, self.executor_address,
-            prior_id=self.node_id or None)
+            prior_id=self.node_id or None, host_id=host_identity())
         # The reply's meta carried the head's epoch: registering is the
         # re-sync, and the heartbeats stamp it from now on.
         self.gcs_epoch = self._seen_epoch

@@ -37,11 +37,20 @@ restored events to the head's directory. A CUDA tensor result is in the
 store as its serialized host copy already, so it spills as that and
 comes back on ``cuda`` where it is read.
 
-Not ported: the same-host shared-memory plane with its map leases and
-``unpin_object``, and the native store (ROADMAP); the pipelined
-``execute_task_batch`` with its fused and columnar routes, speculation,
-chaos sites, perf traces and the flight ring (10c): every task goes
-through ``execute_task``.
+The same-host plane (``same_host.py``): a stored result of at least
+``same_host_map_min_kb`` gets a named-segment twin, and a puller on the
+same host (``fetch_plan``'s ``puller_host`` equal to this daemon's
+``host_id``) is granted a lease on it in the plan's reply. A pool task's
+argument then maps the owner's segment with no copy; a read in the
+daemon's own process (every ``GPU`` task) copies out of it once. The
+puller releases the lease (``unpin_object``); the sweep ends the leases
+of pullers that died. Anything that fails falls through to the chunked
+pull. A spilled primary has no twin and is pulled in chunks.
+
+Not ported: the native store and its arena kind of map source (ROADMAP
+10b); the pipelined ``execute_task_batch`` with its fused and columnar
+routes, speculation, chaos sites, perf traces and the flight ring (10c):
+every task goes through ``execute_task``.
 """
 
 from __future__ import annotations
@@ -96,6 +105,12 @@ _MIN_P2P_CHUNKS = 4
 _CHUNK_FANOUT = 4
 # Pulled copies a node keeps.
 _PULL_CACHE_BYTES = 512 << 20
+# executor_stats()["data_plane"]: how a node's pulls went (a mapped peer
+# segment, one copy out of one, the chunked pull), the map sources it
+# serves, the peers' segments it holds and its leases' counters.
+DATA_PLANE_STAT_KEYS = ("same_host_map_hits", "same_host_copy_hits",
+                        "chunked_pulls", "map_sources",
+                        "attached_mappings", "leases")
 
 
 @dataclass
@@ -151,7 +166,7 @@ def _exc_blob(exc: BaseException) -> bytes:
 def _purge_stale_spills(spill_dir: str) -> None:
     """Delete the inline-spill files of daemons that died (the pid leads
     each file's name; a live pid's files stay)."""
-    from ray_tpu_torch._private.spill_manager import pid_is_dead
+    from ray_tpu_torch._private.same_host import pid_is_dead
 
     try:
         names = os.listdir(spill_dir)
@@ -182,14 +197,12 @@ class NodeObjectStore:
     file drops the object: a reader sees it gone, never garbage). Off,
     a put past the cap writes the oldest primaries inline to
     ``node_store_spill_dir``. Pulled copies and protected ids
-    (``leased_fn``) are never spilled. ``spill=False`` (the driver's
-    export store, whose objects its own store holds too) keeps
-    everything in memory.
+    (``leased_fn``) are never spilled.
     """
 
     def __init__(self, cache_limit_bytes: int = _PULL_CACHE_BYTES,
                  primary_limit_bytes: int | None = None,
-                 spill_dir: str | None = None, spill: bool = True):
+                 spill_dir: str | None = None):
         from ray_tpu_torch._private.config import GLOBAL_CONFIG
 
         self._lock = threading.Lock()
@@ -198,7 +211,6 @@ class NodeObjectStore:
         self._cache_limit = cache_limit_bytes
         self._cache_bytes = 0
         self._primary_bytes = 0
-        self._spill = spill
         self._primary_limit = (
             primary_limit_bytes if primary_limit_bytes is not None
             else int(GLOBAL_CONFIG.node_store_primary_limit_mb) << 20)
@@ -217,8 +229,7 @@ class NodeObjectStore:
         self.fetches_served = 0
         self.spills = 0
         self.restores = 0
-        if spill:
-            _purge_stale_spills(self._spill_dir)
+        _purge_stale_spills(self._spill_dir)
 
     # ------------------------------------------------------ managed tier
 
@@ -400,7 +411,7 @@ class NodeObjectStore:
             if owner is not None:
                 self._owner_of[id_bytes] = owner
                 self._owned_ids.setdefault(owner, set()).add(id_bytes)
-            if self._spill and self._spill_mgr is None:
+            if self._spill_mgr is None:
                 # Inline path: past the cap, the oldest primaries (never
                 # the one just put) are picked here and written below.
                 projected = self._primary_bytes
@@ -497,7 +508,8 @@ class NodeObjectStore:
             managed = id_bytes in self._managed_spills
             if blob is not None:
                 self.fetches_served += 1
-                return len(blob), blob[offset:offset + length]
+                # A view of a segment (a driver's export) ships as bytes.
+                return len(blob), bytes(blob[offset:offset + length])
         if spilled is None:
             return None
         if managed:
@@ -534,6 +546,28 @@ class NodeObjectStore:
                                          in self._spilled.values()),
                     "spills": self.spills, "restores": self.restores,
                     "owners": len(self._owned_ids)}
+
+
+def _probe_peer(addr: str) -> bool:
+    """Whether the RPC server at ``addr`` answers a ping."""
+    client = RpcClient(addr, timeout_s=2.0, connect_timeout_s=1.0)
+    try:
+        return client.call("ping") == "pong"
+    except Exception:  # noqa: BLE001 — unreachable
+        return False
+    finally:
+        client.close()
+
+
+def _close_borrowed(seg) -> None:
+    """Close this process's mapping of a peer's segment (never unlink:
+    the owner does)."""
+    if seg is None:
+        return
+    try:
+        seg.close()
+    except (BufferError, OSError):
+        pass  # a view still uses it: it goes with the process
 
 
 class _PeerClients:
@@ -872,10 +906,32 @@ class NodeExecutorService:
         self._partials_lock = threading.Lock()
         self.chunk_directory = ChunkDirectory()
         self.advertised_address = self._server.address
+        # The same-host plane: pullers on this host map this daemon's
+        # segments under a lease instead of pulling chunks.
+        from ray_tpu_torch._private.same_host import LeaseTable, host_identity
+
+        self.host_id = host_identity()
+        self.leases = LeaseTable()  # the owner's side: peers' pins
+        # key -> ("seg", segment name, size): the objects this daemon
+        # serves to pullers on its host by name (its own segments only).
+        self._map_sources: dict[bytes, tuple] = {}
+        # The puller's side: key -> (owner address, lease token, segment)
+        # of a peer's segment handed to pool tasks.
+        self._attached: dict[bytes, tuple] = {}
+        self._attached_owner_strikes: dict[str, int] = {}
+        self.lease_orphans_swept = 0
+        # How pulls went: a peer's segment mapped for a pool task, one
+        # copy out of a peer's segment, the chunked pull.
+        self.same_host_map_hits = 0
+        self.same_host_copy_hits = 0
         self.chunked_pulls = 0
-        # Bytes pulled from peers and the seconds the pulls took.
+        # Bytes pulled in chunks and the seconds those pulls took; bytes
+        # copied out of peers' segments and the seconds those reads took
+        # (the plan, the lease, the attach and the copy).
         self.pulled_bytes = 0
         self.pull_seconds = 0.0
+        self.same_host_bytes = 0
+        self.same_host_seconds = 0.0
         self.peer_blacklists = 0
         self.relay_chunks_served = 0
         self.task_timeouts = 0
@@ -930,6 +986,7 @@ class NodeExecutorService:
         s.register("execute_task", self.execute_task, concurrent=True)
         s.register("fetch_object", self.fetch_object, concurrent=True)
         s.register("fetch_plan", self.fetch_plan, concurrent=True)
+        s.register("unpin_object", self.unpin_object)
         s.register("free_objects", self.free_objects)
         s.register("executor_stats", self.executor_stats)
         s.register("cancel_task", self.cancel_task)
@@ -1015,7 +1072,13 @@ class NodeExecutorService:
 
     def _sweep_transfer_plane(self) -> None:
         """Drop finished relay copies past their TTL and stale holder
-        registrations."""
+        registrations; end the map leases that outlived the TTL and whose
+        puller stopped answering (a killed puller must not pin this
+        daemon's segments forever); drop the peers' segments this daemon
+        holds for pool tasks once their owner failed two probes in a row
+        (its lease went with it)."""
+        from ray_tpu_torch._private.same_host import pin_ttl_s
+
         now = time.monotonic()
         with self._partials_lock:
             for key in [k for k, p in self._partials.items()
@@ -1024,10 +1087,39 @@ class NodeExecutorService:
                             or now - p.completed_at > ChunkDirectory.TTL_S)]:
                 del self._partials[key]
         self.chunk_directory.prune()
+        self.leases.sweep(pin_ttl_s(), _probe_peer)
+        with self._shm_args_lock:
+            owners = {addr for addr, _, _ in self._attached.values()}
+        for addr in owners:
+            if _probe_peer(addr):
+                self._attached_owner_strikes.pop(addr, None)
+                continue
+            strikes = self._attached_owner_strikes.get(addr, 0) + 1
+            self._attached_owner_strikes[addr] = strikes
+            if strikes < 2:
+                continue
+            self._attached_owner_strikes.pop(addr, None)
+            with self._shm_args_lock:
+                victims = [k for k, (a, _, _) in self._attached.items()
+                           if a == addr]
+            for key in victims:
+                self._drop_shm_arg(key)
+                self.lease_orphans_swept += 1
 
     def stop(self) -> None:
         self._stop_event.set()
         self._server.stop()
+        # The same-host plane: the peers' leases on this daemon's
+        # segments end, and the peers' segments it holds are let go,
+        # before the directories unwind.
+        self.leases.clear()
+        with self._shm_args_lock:
+            attached = list(self._attached.values())
+            self._attached.clear()
+            self._map_sources.clear()
+        for owner_addr, token, seg in attached:
+            _close_borrowed(seg)
+            self._unpin_at(owner_addr, token)
         if self._spill_mgr is not None:
             import shutil
 
@@ -1072,20 +1164,25 @@ class NodeExecutorService:
     _SHM_ARG_GRACE_S = 10.0
 
     def _spill_protected(self) -> set:
-        """Ids the spiller skips: those whose segment went to a pool task
-        within the grace window."""
+        """Ids the spiller skips: those a same-host peer holds a lease on,
+        and those whose segment went to a pool task within the grace
+        window."""
+        out = self.leases.pinned_ids()
         now = time.monotonic()
         with self._shm_args_lock:
             for key in [k for k, at in self._shm_out_stamp.items()
                         if now - at > self._SHM_ARG_GRACE_S]:
                 del self._shm_out_stamp[key]
-            return set(self._shm_out_stamp)
+            out.update(self._shm_out_stamp)
+        return out
 
     def _on_blob_spilled(self, key: bytes, owner: str | None) -> None:
-        """A primary went to disk: its segment copy goes too, unless a
-        pool task took it within the grace window (the victims were
-        chosen before; the task may still be attaching). The event waits
-        for the next heartbeat."""
+        """A primary went to disk: it is no longer a map source, and its
+        segment twin goes too, unless a pool task took it within the
+        grace window (the victims were chosen before; the task may still
+        be attaching). The event waits for the next heartbeat."""
+        with self._shm_args_lock:
+            self._map_sources.pop(key, None)
         if key not in self._spill_protected():
             self._drop_shm_arg(key)
         self._queue_spill_event(owner, key, "spilled")
@@ -1343,7 +1440,34 @@ class NodeExecutorService:
         if len(blob) <= _inline_reply_bytes():
             return ("inline", blob)
         self.store.put(id_bytes, blob, owner=owner, notify=False)
+        self._maybe_export_stored(id_bytes, blob)
         return ("stored", len(blob))
+
+    def _maybe_export_stored(self, id_bytes: bytes, blob) -> None:
+        """Give a large stored primary a named-segment twin, so pullers
+        on this host (peer daemons, the driver) map it instead of pulling
+        chunks: one copy here saves one per puller. The twin is a pool
+        task's argument segment too, and the shm-args FIFO bounds it."""
+        from multiprocessing import shared_memory
+
+        from ray_tpu_torch._private.same_host import map_enabled, map_min_bytes
+
+        if not map_enabled() or len(blob) < map_min_bytes():
+            return
+        with self._shm_args_lock:
+            if self._shm_directory.lookup(ObjectID(id_bytes)) is not None:
+                return
+        try:
+            seg = shared_memory.SharedMemory(create=True,
+                                             size=max(len(blob), 1))
+        except OSError:
+            return  # /dev/shm is full: the chunked pull still serves it
+        seg.buf[:len(blob)] = blob
+        self._register_shm_arg(id_bytes, seg, len(blob))
+        if self.store.is_spilled(id_bytes):
+            # The spiller took the primary while the twin was written
+            # (a spilled primary has no twin).
+            self._drop_shm_arg(id_bytes)
 
     def _run(self, func, digest: str, func_blob: bytes | None, args: tuple,
              kwargs: dict, n_returns: int, runtime_env: dict | None,
@@ -1411,21 +1535,60 @@ class NodeExecutorService:
             self.relay_chunks_served += 1
         return reply
 
-    def fetch_plan(self, id_bytes: bytes, puller_addr: str | None = None):
-        """(total size, the other holders, {"spilled": bool}) for an
-        object here, and the puller registered as a holder; None when it
-        is unknown here. ``spilled``: the copy here is on disk, so the
-        first chunk pays its restore."""
+    def fetch_plan(self, id_bytes: bytes, puller_addr: str | None = None,
+                   puller_host: str | None = None):
+        """(total size, the other holders, the map source, {"spilled":
+        bool}) for an object here; None when it is unknown here. The
+        puller is registered as a holder, so later pullers take chunks
+        from it too. ``map_source``: for a puller whose host is this
+        daemon's, how to map the object's segment (kind, name, size) and
+        the token of the lease granted on it before this reply leaves,
+        which pins it until ``unpin_object`` or the TTL sweep; None
+        otherwise (the chunked pull). ``spilled``: the copy here is on
+        disk (it has no segment), so the first chunk pays its restore."""
         total = self.store.size(id_bytes)
         if total is None:
             with self._partials_lock:
                 part = self._partials.get(id_bytes)
             if part is None:
-                return None
-            total = part.total
+                with self._shm_args_lock:
+                    source = self._map_sources.get(id_bytes)
+                if source is None:
+                    return None
+                total = source[2]
+            else:
+                total = part.total
+        map_info = None
+        if puller_addr and puller_host and puller_host == self.host_id:
+            map_info = self._grant_map_lease(id_bytes, puller_addr)
+        # A puller that maps holds no chunks to relay.
+        reg_addr = None if map_info is not None else puller_addr
         return (total, plan_holders(self.chunk_directory, id_bytes,
-                                    puller_addr, total),
+                                    reg_addr, total), map_info,
                 {"spilled": self.store.is_spilled(id_bytes)})
+
+    def _grant_map_lease(self, id_bytes: bytes,
+                         holder: str) -> dict | None:
+        """The owner's half: the object's segment and a lease for
+        ``holder`` on it. A segment needs no pin in memory (POSIX keeps a
+        mapped segment past its unlink): the lease keeps the object off
+        the spiller's victims and records the grant."""
+        from ray_tpu_torch._private.same_host import map_enabled
+
+        if not map_enabled():
+            return None
+        with self._shm_args_lock:
+            source = self._map_sources.get(id_bytes)
+        if source is None:
+            return None
+        kind, name, size = source
+        token = self.leases.grant(id_bytes, holder)
+        return {"kind": kind, "name": name, "key": b"", "size": size,
+                "host": self.host_id, "token": token}
+
+    def unpin_object(self, token: str) -> bool:
+        """End one map lease (the puller let its mapping go)."""
+        return self.leases.release(token)
 
     def free_objects(self, ids: list[bytes]) -> int:
         self.chunk_directory.drop(ids)
@@ -1449,13 +1612,21 @@ class NodeExecutorService:
                 return a
             if to_shm:
                 return _ShmRef(self._shm_fetch_blob(a))
-            return serialization.deserialize_from_buffer(
-                memoryview(self._blob_of(a)))
+            return self._load_object(a)
 
         return (tuple(convert(a) for a in args),
                 {k: convert(v) for k, v in kwargs.items()})
 
-    def _blob_of(self, ref: FetchRef) -> bytes:
+    def _load_object(self, ref: FetchRef) -> Any:
+        """The value of ``ref`` in this process: from this node, or pulled
+        (one copy out of the holder's segment on the same host)."""
+        blob = self._local_blob(ref)
+        if blob is None:
+            blob = self._fetch_remote(ref)
+        return serialization.deserialize_from_buffer(memoryview(blob))
+
+    def _local_blob(self, ref: FetchRef) -> bytes | None:
+        """The object from this node's store or a finished pull here."""
         blob = self.store.get(ref.id_bytes)
         if blob is None:
             with self._partials_lock:
@@ -1464,78 +1635,200 @@ class NodeExecutorService:
                     and part.error is None:
                 with part.lock:
                     blob = bytes(part.buf)
-        if blob is None:
-            blob = self._fetch_remote(ref)
         return blob
 
     def _shm_fetch_blob(self, ref: FetchRef):
-        """The object in a segment of this node (written once, shared by
-        every task that takes it; FIFO-bounded)."""
+        """The object in a segment a pool task maps: this node's own (the
+        stored primary's twin, or written once here and shared by every
+        task that takes it) or, on the same host, the owner's, mapped
+        under a lease. FIFO-bounded."""
         from ray_tpu_torch._private.shm_store import ShmDescriptor
 
         oid = ObjectID(ref.id_bytes)
         with self._shm_args_lock:
             desc = self._shm_directory.lookup(oid)
+            # The descriptor is about to ride a worker frame: the spiller
+            # must not unlink its segment before the worker attaches.
+            self._shm_out_stamp[ref.id_bytes] = time.monotonic()
             if desc is not None:
                 self._shm_args_order.move_to_end(ref.id_bytes)
-                self._shm_out_stamp[ref.id_bytes] = time.monotonic()
                 return desc
-        blob = self._blob_of(ref)
+        blob = self._local_blob(ref)
+        if blob is None:
+            got = self._fetch_remote(ref, to_shm=True)
+            if isinstance(got, ShmDescriptor):
+                return got
+            blob = got
         from multiprocessing import shared_memory
 
         seg = shared_memory.SharedMemory(create=True,
                                          size=max(len(blob), 1))
         seg.buf[:len(blob)] = blob
-        desc = ShmDescriptor(seg.name, len(blob))
+        return self._register_shm_arg(ref.id_bytes, seg, len(blob))
+
+    def _register_shm_arg(self, key: bytes, seg, size: int,
+                          desc=None, attached: tuple | None = None):
+        """Record a descriptor pool workers map in the node's directory
+        (FIFO-bounded; the loser of a concurrent race discards its
+        segment) and return the one that stands. This daemon's own
+        segment (``attached`` None) is a map source too;
+        ``attached=(owner address, token)`` records a peer's segment
+        instead: never a source, never unlinked here, and its lease is
+        released at the owner when the entry goes."""
+        from ray_tpu_torch._private.shm_store import ShmDescriptor
+
+        if desc is None:
+            desc = ShmDescriptor(seg.name, size)
+        oid = ObjectID(key)
         evicted = []
         with self._shm_args_lock:
-            winner = self._shm_directory.lookup(oid)
-            self._shm_out_stamp[ref.id_bytes] = time.monotonic()
-            if winner is None:
-                self._shm_directory.register(oid, desc, seg)
-                self._shm_args_order[ref.id_bytes] = len(blob)
+            existing = self._shm_directory.lookup(oid)
+            if existing is None:
+                self._shm_directory.register(
+                    oid, desc, seg if attached is None else None)
+                if attached is not None:
+                    self._attached[key] = (attached[0], attached[1], seg)
+                else:
+                    self._map_sources[key] = ("seg", seg.name, size)
+                self._shm_args_order[key] = size
                 total = sum(self._shm_args_order.values())
                 while total > self._SHM_ARGS_MAX_BYTES \
                         and len(self._shm_args_order) > 1:
-                    key, size = self._shm_args_order.popitem(last=False)
-                    total -= size
-                    evicted.append(key)
-        if winner is not None:
-            # A concurrent task wrote the same object first.
-            seg.unlink()
-            seg.close()
-            return winner
-        for key in evicted:
-            self._drop_shm_arg(key, locked_order=True)
+                    old_key, old_size = self._shm_args_order.popitem(
+                        last=False)
+                    total -= old_size
+                    evicted.append(old_key)
+        if existing is not None:
+            # A concurrent task got there first.
+            if attached is not None:
+                _close_borrowed(seg)
+                self._unpin_at(*attached)
+            else:
+                seg.unlink()
+                seg.close()
+            return existing
+        for old_key in evicted:
+            self._drop_shm_arg(old_key, locked_order=True)
         return desc
 
     def _drop_shm_arg(self, key: bytes, locked_order: bool = False) -> None:
         with self._shm_args_lock:
             if not locked_order:
                 self._shm_args_order.pop(key, None)
+        self._release_plane_state(key)
         name = self._shm_directory.free(ObjectID(key))
         if name is not None:
             self._shm_client.close_segment(name)
 
-    def _fetch_remote(self, ref: FetchRef) -> bytes:
-        """Pull ``ref`` from the cluster: a small object from its owner
-        alone, a large one in chunks from the owner and every peer that
-        holds it, this node relaying its chunks meanwhile. One pull per
-        object: concurrent tasks that need it wait for the first."""
+    def _release_plane_state(self, key: bytes) -> None:
+        """The same-host plane's state of one object: it stops being a
+        map source, the peers' leases on it end, and a peer's segment this
+        daemon holds for it is closed and its lease released at the
+        owner."""
+        with self._shm_args_lock:
+            self._map_sources.pop(key, None)
+            attached = self._attached.pop(key, None)
+        self.leases.release_object(key)
+        if attached is not None:
+            owner_addr, token, seg = attached
+            _close_borrowed(seg)
+            self._unpin_at(owner_addr, token)
+
+    def _unpin_at(self, owner_addr: str, token: str) -> None:
+        """Release a lease at its owner, without waiting (the owner's TTL
+        sweep is the backstop when this is lost)."""
+        try:
+            self._peers.get(owner_addr).call_async("unpin_object", token)
+        except Exception:  # noqa: BLE001 — the owner is gone: nothing pinned
+            pass
+
+    def _fetch_remote(self, ref: FetchRef, to_shm: bool = False):
+        """Pull ``ref`` from the cluster. The owner's plan comes first: on
+        the same host it grants a lease on its segment, which a pool
+        task's argument (``to_shm``) maps, a descriptor returned, and a
+        read in this process copies once; otherwise (or when that fails)
+        a small object comes from its owner alone, a large one in chunks
+        from the owner and every peer that holds it, this node relaying
+        its chunks meanwhile. One pull per object: concurrent tasks that
+        need it wait for the first."""
+        from ray_tpu_torch._private.rpc import call_with_retry
+        from ray_tpu_torch._private.same_host import map_enabled
+
         start = time.perf_counter()
-        blob = self._pull(ref)
+        owner = self._peers.get(ref.addr)
+        plan = call_with_retry(owner.call, "fetch_plan", ref.id_bytes,
+                               self.advertised_address,
+                               self.host_id if map_enabled() else None,
+                               attempts=2, timeout_s=30.0)
+        if plan is not None and len(plan) > 3 and plan[3] \
+                and plan[3].get("spilled"):
+            # The holder's copy is on its disk: it has no segment, and
+            # the first chunk pays the restore.
+            self.spilled_plan_hits += 1
+        map_info = plan[2] if plan is not None and len(plan) > 2 else None
+        if map_info is not None:
+            got = self._try_same_host(ref, map_info, to_shm)
+            if got is not None:
+                if not to_shm:
+                    with self._running_lock:
+                        self.same_host_bytes += len(got)
+                        self.same_host_seconds += \
+                            time.perf_counter() - start
+                return got
+        start = time.perf_counter()
+        blob = self._pull(ref, plan)
         with self._running_lock:
             self.pulled_bytes += len(blob)
             self.pull_seconds += time.perf_counter() - start
         return blob
 
-    def _pull(self, ref: FetchRef) -> bytes:
-        from ray_tpu_torch._private.rpc import call_with_retry
+    def _try_same_host(self, ref: FetchRef, info: dict, to_shm: bool):
+        """Take a granted map lease: map the holder's segment for a pool
+        task (its descriptor, the lease kept until the entry goes) or
+        copy out of it once (``read_segment``: the bytes, the lease
+        released). None on any failure, the lease released first: the
+        chunked pull decides."""
+        from ray_tpu_torch._private.same_host import (
+            attach_segment,
+            read_segment,
+        )
+        from ray_tpu_torch._private.shm_store import ShmDescriptor
 
+        key = ref.id_bytes
+        token = info.get("token")
+        owner_addr = ref.addr
+        try:
+            if info.get("host") != self.host_id or not token \
+                    or info.get("kind") != "seg":
+                if token:
+                    self._unpin_at(owner_addr, token)
+                return None
+            size = int(info.get("size", 0))
+            try:
+                if to_shm:
+                    seg = attach_segment(info["name"])
+                else:
+                    blob = read_segment(info["name"], size)
+            except (OSError, ValueError):
+                self._unpin_at(owner_addr, token)
+                return None  # the holder let it go: the chunked pull
+            if to_shm:
+                desc = self._register_shm_arg(
+                    key, seg, size, desc=ShmDescriptor(info["name"], size),
+                    attached=(owner_addr, token))
+                self.same_host_map_hits += 1
+                return desc
+            self._unpin_at(owner_addr, token)
+            self.same_host_copy_hits += 1
+            self.store.put(key, blob, cached=True)
+            return blob
+        except Exception:  # noqa: BLE001 — any failure: the chunked pull
+            if token:
+                self._unpin_at(owner_addr, token)
+            return None
+
+    def _pull(self, ref: FetchRef, plan) -> bytes:
         owner = self._peers.get(ref.addr)
-        plan = call_with_retry(owner.call, "fetch_plan", ref.id_bytes,
-                               self.advertised_address, attempts=2,
-                               timeout_s=30.0)
         chunk = _fetch_chunk_bytes()
         n_chunks = -(-plan[0] // chunk) if plan is not None and plan[0] \
             else 0
@@ -1545,8 +1838,6 @@ class NodeExecutorService:
             self.store.put(ref.id_bytes, blob, cached=True)
             return blob
         total, holders = plan[0], plan[1]
-        if len(plan) > 2 and plan[2].get("spilled"):
-            self.spilled_plan_hits += 1
         with self._partials_lock:
             part = self._partials.get(ref.id_bytes)
             leader = part is None or (part.done.is_set()
@@ -1559,6 +1850,7 @@ class NodeExecutorService:
             if part.error is None:
                 with part.lock:
                     return bytes(part.buf)
+            self.chunked_pulls += 1
             blob = fetch_blob(owner, ref.id_bytes)
             self.store.put(ref.id_bytes, blob, cached=True)
             return blob
@@ -1743,14 +2035,29 @@ class NodeExecutorService:
                 "pid": os.getpid(), "chunked_pulls": self.chunked_pulls,
                 "pulled_bytes": self.pulled_bytes,
                 "pull_seconds": self.pull_seconds,
+                "same_host_bytes": self.same_host_bytes,
+                "same_host_seconds": self.same_host_seconds,
+                "data_plane": self._data_plane_stats(),
                 "available": self.available_resources(),
                 "relay_chunks_served": self.relay_chunks_served,
                 "faults": {"rpc_retries": rpc_retry_count(),
                            "peer_blacklists": self.peer_blacklists,
                            "task_timeouts": self.task_timeouts,
                            "admission_shed": self.admission_shed,
+                           "lease_orphans_swept": self.lease_orphans_swept,
                            "breaker_open": breaker_stats()["opens"]},
                 "threads": _threading.active_count()}
+
+    def _data_plane_stats(self) -> dict:
+        with self._shm_args_lock:
+            data_plane = {
+                "same_host_map_hits": self.same_host_map_hits,
+                "same_host_copy_hits": self.same_host_copy_hits,
+                "chunked_pulls": self.chunked_pulls,
+                "map_sources": len(self._map_sources),
+                "attached_mappings": len(self._attached)}
+        data_plane["leases"] = self.leases.stats()
+        return data_plane
 
     def stats_for_sync(self) -> dict:
         """The heartbeat's stats: cheap counters only, with the spill

@@ -141,10 +141,13 @@ class ShmDirectory:
         self._leaked: list[shared_memory.SharedMemory] = []
 
     def register(self, object_id: ObjectID, desc: ShmDescriptor,
-                 segment: shared_memory.SharedMemory) -> None:
+                 segment: "shared_memory.SharedMemory | None") -> None:
+        """``segment`` None: another process owns it (a peer's segment
+        mapped on the same host), so this directory never unlinks it."""
         with self._lock:
             self._by_object[object_id] = desc
-            self._owned[desc.name] = segment
+            if segment is not None:
+                self._owned[desc.name] = segment
 
     def adopt(self, object_id: ObjectID, desc: ShmDescriptor) -> None:
         """Record a segment a worker created; the driver takes over its

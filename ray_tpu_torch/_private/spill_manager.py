@@ -39,6 +39,8 @@ import time
 import zlib
 from typing import Callable
 
+from ray_tpu_torch._private.same_host import pid_is_dead
+
 SESSION_DIR_ENV = "RAY_TPU_TORCH_SESSION_DIR"
 
 # Whether the runtime arms the tier; set from ``spill_enabled`` at init.
@@ -386,18 +388,6 @@ def merged_stats(*managers) -> dict:
                                     stats["restore_p50_ms"])
         out["backing_off"] = out["backing_off"] or stats["backing_off"]
     return out
-
-
-def pid_is_dead(pid: int) -> bool:
-    """True only for a pid that provably does not exist (a 0-signal
-    probe): a process of another user (EPERM) counts as alive."""
-    try:
-        os.kill(pid, 0)
-        return False
-    except ProcessLookupError:
-        return True
-    except PermissionError:
-        return False
 
 
 def sweep_orphan_spill_dirs(root: str | None = None) -> int:

@@ -331,9 +331,13 @@ class Runtime:
             return self._inflight_blocks.get(token)
 
     def _on_object_freed(self, object_id: ObjectID) -> None:
+        """A value freed or spilled: its segment for workers goes, and so
+        does its export twin (a daemon that mapped it keeps its
+        mapping)."""
         name = self.shm_directory.free(object_id)
         if name is not None:
             self.shm_client.close_segment(name)
+        self._drop_export_source(object_id.binary())
 
     def _function_blob(self, func) -> tuple[str, bytes]:
         """A task function pickled once per identity (the reference's
@@ -433,14 +437,17 @@ class Runtime:
         set_store_bytes_provider(self.store._host_used)
 
     def _spill_protected_ids(self) -> set:
-        """Id bytes the spiller must skip: values promoted to a segment
-        for a pool task within the grace window."""
+        """Id bytes the spiller must skip: the exports a daemon on this
+        host holds a map lease on, and values promoted to a segment for a
+        pool task within the grace window."""
+        out = self._export_leases.pinned_ids()
         now = time.monotonic()
         with self._promote_lock:
             for oid in [o for o, at in self._recent_promotes.items()
                         if now - at > self._SHM_PROMOTE_GRACE_S]:
                 del self._recent_promotes[oid]
-            return {oid.binary() for oid in self._recent_promotes}
+            out.update(oid.binary() for oid in self._recent_promotes)
+        return out
 
     def _recover_torn_object(self, object_id: ObjectID) -> None:
         """A spill file failed its check on restore and the store marked
@@ -554,6 +561,7 @@ class Runtime:
         if self._export_store is not None:
             self._export_store.free([object_id.binary()])
             self._export_directory.drop([object_id.binary()])
+        self._drop_export_source(object_id.binary())
         if node_id is not None and node_id in self._remote_ever:
             # The holder drops it at the watcher's next flush (kept
             # queued while the node is away).
@@ -586,10 +594,33 @@ class Runtime:
         self._node_watcher = None
         self._export_store = None
         self._export_directory = None
+        self._export_spill_mgr = None
         self._obj_server = None
         self._export_addr = ""
+        # The same-host plane, the driver's side: an export of at least
+        # same_host_map_min_kb is written into a named segment, which
+        # daemons on this host map under a lease instead of pulling it
+        # in chunks (same_host.py); a node's result is read by one copy
+        # out of its holder's segment.
+        from ray_tpu_torch._private.same_host import LeaseTable, host_identity
+
+        self.host_id = host_identity()
+        self._export_sources: dict[bytes, tuple] = {}
+        self._export_segments: dict[bytes, Any] = {}
+        self._export_leases = LeaseTable()
+        self._export_lock = threading.Lock()
+        # The exports being written, each with the event its other
+        # converters wait on (_export_once).
+        self._export_put_lock = threading.Lock()
+        self._export_puts: dict[bytes, threading.Event] = {}
+        self._lease_sweep_at = 0.0
+        # How this driver read nodes' results: per path, reads, bytes and
+        # seconds; and the plans that said the holder's copy was on disk.
+        self._remote_gets = {"mapped": [0, 0, 0.0], "chunked": [0, 0, 0.0]}
+        self._remote_get_spilled_plans = 0
         if not address:
             return
+        from ray_tpu_torch._private import spill_manager
         from ray_tpu_torch._private.node import NodeAgent
         from ray_tpu_torch._private.node_executor import (
             ChunkDirectory,
@@ -599,8 +630,14 @@ class Runtime:
 
         # Daemon tasks and actors call the driver back through it.
         self.ensure_client_server()
-        # Its objects are in this driver's store too: never spilled.
-        self._export_store = NodeObjectStore(spill=False)
+        self._export_store = NodeObjectStore()
+        if spill_manager.SPILL_ON:
+            # The exports ride the spill tier too; spilling one frees its
+            # segment twin. A leased export (a daemon on this host is
+            # mapping it) is never a victim.
+            self._export_spill_mgr = self._export_store.enable_managed_spill(
+                leased_fn=self._export_leases.pinned_ids,
+                on_spilled=lambda key, _owner: self._drop_export_source(key))
         self._export_directory = ChunkDirectory()
         self._obj_server = RpcServer()
         self._obj_server.register("ping", lambda: "pong")
@@ -608,6 +645,8 @@ class Runtime:
                                   concurrent=True)
         self._obj_server.register("fetch_plan", self._export_fetch_plan,
                                   concurrent=True)
+        self._obj_server.register("unpin_object",
+                                  self._export_leases.release)
         self._obj_server.start()
         self._export_addr = self._obj_server.address
         self.gcs.pubsub.subscribe("actors", self._queue_actor_mirror)
@@ -626,16 +665,85 @@ class Runtime:
         return self._export_store.read_chunk(id_bytes, offset, length)
 
     def _export_fetch_plan(self, id_bytes: bytes,
-                           puller_addr: str | None = None):
-        """(size, the other holders) of an exported object; the puller is
-        registered, so the next one takes chunks from it too."""
+                           puller_addr: str | None = None,
+                           puller_host: str | None = None):
+        """(size, the other holders, the map source) of an exported
+        object. A puller on another host is registered, so the next one
+        takes chunks from it too; one on this host is granted a lease on
+        the export's segment instead and moves no bytes through the
+        transport."""
         from ray_tpu_torch._private.node_executor import plan_holders
+        from ray_tpu_torch._private.same_host import map_enabled
 
         total = self._export_store.size(id_bytes)
         if total is None:
             return None
+        map_info = None
+        if puller_addr and puller_host and map_enabled() \
+                and puller_host == self.host_id:
+            map_info = self._grant_export_lease(id_bytes, puller_addr)
+        reg_addr = None if map_info is not None else puller_addr
         return (total, plan_holders(self._export_directory, id_bytes,
-                                    puller_addr, total))
+                                    reg_addr, total), map_info)
+
+    def _grant_export_lease(self, id_bytes: bytes,
+                            holder: str) -> dict | None:
+        with self._export_lock:
+            source = self._export_sources.get(id_bytes)
+        if source is None:
+            return None
+        kind, name, size = source
+        token = self._export_leases.grant(id_bytes, holder)
+        return {"kind": kind, "name": name, "key": b"", "size": size,
+                "host": self.host_id, "token": token}
+
+    def _register_export_source(self, id_bytes: bytes, header, buffers,
+                                size: int):
+        """Write a large export straight into a named segment, which
+        daemons on this host map. Returns a view of the framed bytes (the
+        export store keeps it), or None when the caller keeps a heap copy
+        (the plane off, under the threshold, no room in /dev/shm)."""
+        from multiprocessing import shared_memory
+
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.same_host import map_enabled, map_min_bytes
+
+        if not map_enabled() or size < map_min_bytes():
+            return None
+        try:
+            seg = shared_memory.SharedMemory(create=True, size=max(size, 1))
+        except OSError:
+            return None  # /dev/shm is full: a heap copy, pulled in chunks
+        serialization.write_framed(seg.buf, header, buffers)
+        with self._export_lock:
+            self._export_sources[id_bytes] = ("seg", seg.name, size)
+            self._export_segments[id_bytes] = seg
+        return memoryview(seg.buf)[:size]
+
+    def _drop_export_source(self, id_bytes: bytes) -> None:
+        """The export is freed or spilled: the leases on it end and its
+        segment is unlinked (a daemon that mapped it keeps its
+        mapping)."""
+        with self._export_lock:
+            source = self._export_sources.pop(id_bytes, None)
+            seg = self._export_segments.pop(id_bytes, None)
+        if source is None:
+            return
+        self._export_leases.release_object(id_bytes)
+        if seg is not None:
+            _unlink_export_segment(seg)
+
+    def remote_get_stats(self) -> dict:
+        """How this driver read nodes' results, per path (``mapped``: one
+        copy out of the holder's segment on this host; ``chunked``: the
+        chunked pull): reads, bytes, seconds; ``spilled_plans``: plans
+        that said the holder's copy was on its disk."""
+        with self._counter_lock:
+            out = {path: {"gets": n, "bytes": b, "seconds": t}
+                   for path, (n, b, t) in self._remote_gets.items()}
+            out["spilled_plans"] = self._remote_get_spilled_plans
+        out["export_leases"] = self._export_leases.stats()
+        return out
 
     def _client_server_addr(self) -> str:
         server = self.worker_client_server
@@ -940,14 +1048,14 @@ class Runtime:
             if not isinstance(a, ObjectRef):
                 return a
             id_bytes = a.binary()
-            if self._export_store.get(id_bytes) is not None:
+            # size(), not get(): a spilled export stays on disk.
+            if self._export_store.size(id_bytes) is not None:
                 return FetchRef(id_bytes, self._export_addr)
             value = self.store.get(a.id())  # sealed before dispatch
             if isinstance(value, RemoteBlob):
                 return FetchRef(id_bytes, value.addr)
             if _sizeof(value) > _inline_reply_bytes():
-                self._export_store.put(
-                    id_bytes, serialization.serialize_framed(value))
+                self._export_once(id_bytes, value)
                 return FetchRef(id_bytes, self._export_addr)
             return value
 
@@ -963,6 +1071,39 @@ class Runtime:
             self._arg_pin_pen.append(
                 (time.monotonic() + self._ARG_PIN_GRACE_S, nested))
         return blob
+
+    def _export_once(self, id_bytes: bytes, value: Any) -> None:
+        """Export a large value once, even when tasks convert it at once:
+        the first serializes it straight into a named segment (which
+        daemons on this host map and the chunked pull serves from) and
+        the others wait for it; exports of other objects go on."""
+        from ray_tpu_torch._private import serialization
+
+        while True:
+            with self._export_put_lock:
+                if self._export_store.size(id_bytes) is not None:
+                    return
+                done = self._export_puts.get(id_bytes)
+                leader = done is None
+                if leader:
+                    done = self._export_puts[id_bytes] = threading.Event()
+            if not leader:
+                # Then look again: the first may have failed.
+                done.wait()
+                continue
+            try:
+                header, buffers = serialization.serialize(value)
+                size = serialization.framed_size(header, buffers)
+                shm_blob = self._register_export_source(
+                    id_bytes, header, buffers, size)
+                self._export_store.put(
+                    id_bytes, shm_blob if shm_blob is not None
+                    else serialization.serialize_framed(value))
+            finally:
+                with self._export_put_lock:
+                    del self._export_puts[id_bytes]
+                done.set()
+            return
 
     def _package_runtime_env(self, renv: dict | None) -> dict | None:
         """A runtime env's local directories become content-hashed
@@ -1034,14 +1175,29 @@ class Runtime:
         with self._remote_nodes_lock:
             handle = self._remote_nodes.get(node_id)
         try:
-            if handle is not None:
-                blob = handle.fetch(object_id.binary())
-            else:
-                client = RpcClient(value.addr)
-                try:
-                    blob = fetch_blob(client, object_id.binary())
-                finally:
+            start = time.perf_counter()
+            client = None if handle is not None else RpcClient(value.addr)
+            try:
+                call = handle.pool.call if handle is not None \
+                    else client.call
+                # A holder on this host: one copy out of its segment;
+                # otherwise (or when no lease is granted) the chunked
+                # pull.
+                blob = self._fetch_mapped(call, object_id.binary())
+                path = "mapped"
+                if blob is None:
+                    path = "chunked"
+                    blob = handle.fetch(object_id.binary()) \
+                        if handle is not None \
+                        else fetch_blob(client, object_id.binary())
+            finally:
+                if client is not None:
                     client.close()
+            with self._counter_lock:
+                entry = self._remote_gets[path]
+                entry[0] += 1
+                entry[1] += len(blob)
+                entry[2] += time.perf_counter() - start
             real = serialization.deserialize_from_buffer(memoryview(blob))
         except Exception as exc:  # noqa: BLE001 — the holder is gone
             if not self.store.mark_lost(object_id):
@@ -1057,6 +1213,24 @@ class Runtime:
             raise err from exc
         self.store.put(object_id, real)
         return real
+
+    def _fetch_mapped(self, call, id_bytes: bytes) -> bytes | None:
+        """A node's result copied out of its holder's segment, when the
+        holder is on this host and grants a lease; else None."""
+        from ray_tpu_torch._private.same_host import (
+            fetch_mapped_blob,
+            map_enabled,
+        )
+
+        if not (map_enabled() and self._export_addr):
+            return None
+        plan: dict = {}
+        blob = fetch_mapped_blob(call, id_bytes, self._export_addr,
+                                 self.host_id, plan_out=plan)
+        if plan.get("spilled"):
+            with self._counter_lock:
+                self._remote_get_spilled_plans += 1
+        return blob
 
     def _execute_remote(self, spec: TaskSpec, node: NodeState,
                         handle) -> None:
@@ -1234,6 +1408,20 @@ class Runtime:
             self._node_agent.stop(drain=True)
         if self._obj_server is not None:
             self._obj_server.stop()
+        # The export twins: the leases die with the runtime, and the
+        # segments are unlinked here or they outlive it in /dev/shm.
+        self._export_leases.clear()
+        with self._export_lock:
+            export_ids = list(self._export_segments)
+            export_segs = list(self._export_segments.values())
+            self._export_segments.clear()
+            self._export_sources.clear()
+        if export_ids:
+            self._export_store.free(export_ids)
+        for seg in export_segs:
+            _unlink_export_segment(seg)
+        if self._export_spill_mgr is not None:
+            self._export_spill_mgr.stop()
         self.gcs_client.close()
 
     # ------------------------------------------------------------ deadlines
@@ -1358,8 +1546,21 @@ class Runtime:
                 break
 
     def _arg_pin_sweeper(self) -> None:
+        from ray_tpu_torch._private.node_executor import _probe_peer
+        from ray_tpu_torch._private.same_host import pin_ttl_s
+
         while not self._watcher_stop.wait(1.0):
             self._sweep_arg_pins()
+            # The export map leases: a lease past the TTL whose daemon
+            # stopped answering ends, so a killed daemon cannot pin this
+            # driver's segments forever.
+            now = time.monotonic()
+            if now - self._lease_sweep_at >= 5.0:
+                self._lease_sweep_at = now
+                try:
+                    self._export_leases.sweep(pin_ttl_s(), _probe_peer)
+                except Exception:  # noqa: BLE001 — the sweep is best-effort
+                    pass
 
     def submit_task(self, func, args: tuple, kwargs: dict, *, name: str,
                     num_returns: int = 1, resources: dict[str, float],
@@ -2168,6 +2369,22 @@ class Runtime:
                           ignore_errors=True)
         self.shm_client.close_all()
         self.shm_directory.shutdown()
+
+
+def _unlink_export_segment(seg) -> None:
+    """Unlink and close an export's segment. A chunk read in flight (or
+    the export store's view) may still use the mapping: then it stays
+    mapped until the process exits."""
+    from ray_tpu_torch._private.shm_store import _defuse
+
+    try:
+        seg.unlink()
+    except OSError:
+        pass  # already unlinked
+    try:
+        seg.close()
+    except (BufferError, OSError):
+        _defuse(seg)
 
 
 class _ForeignActorProxy:

@@ -10,6 +10,15 @@ environment); a queue cannot cross the process boundary, so a process
 gang reports through a ``_TrainChannel`` actor, and a pump of this
 process forwards the reports to the trainer's queue and the trainer's
 stop back.
+
+On a cluster the group places the gang onto worker daemons, as the
+reference's does: a bundle the group reserved on a daemon makes its
+worker an actor in that daemon's tree (forked from its fork server, or
+for a ``GPU`` worker a fresh interpreter on the card its lease names),
+so a ``STRICT_SPREAD`` gang has one member under each daemon, and
+``MeshTrainer(dist_config="auto")`` forms one world across them
+(``_private/dist.init_world``; gloo on the CPU). The channel stays in
+this driver.
 """
 
 from __future__ import annotations

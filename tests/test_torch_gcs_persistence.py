@@ -681,3 +681,35 @@ def test_each_package_reads_the_others_frames(tmp_path, writer, reader):
     assert seen == [payload[:seq * 10] for seq in (2, 3, 4)]
     assert stats == {"replayed": 3, "skipped": 1, "truncated": 1,
                      "last_seq": 4}
+
+
+@pytest.mark.parametrize("writer,reader", [
+    ("ray_tpu", "ray_tpu_torch"), ("ray_tpu_torch", "ray_tpu")])
+def test_each_package_restores_the_others_node_host(tmp_path, writer,
+                                                    reader):
+    """A node registered with its host's identity on one package's
+    durable head (its record in the snapshot and the WAL) comes back with
+    that ``host_id`` in the other package's head, which a same-host
+    puller's check reads."""
+    w, r = PACKAGES[writer], PACKAGES[reader]
+    with time_limit(120):
+        server = _head(w, tmp_path)
+        server.start()
+        client = w["mux"](server.address)
+        try:
+            node_id = client.call("register_node", "10.0.0.1:42",
+                                  {"CPU": 4.0}, {}, "10.0.0.1:999",
+                                  host_id="host-x")
+        finally:
+            client.close()
+        w["crash"](server)
+        restarted = _head(r, tmp_path)
+        try:
+            records = [(n.node_id.binary() == node_id, n.host_id, n.alive,
+                        n.executor_address)
+                       for n in restarted.gcs.list_nodes()]
+            listed = [n["host_id"] for n in restarted._list_nodes()]
+        finally:
+            r["crash"](restarted)
+    assert records == [(True, "host-x", True, "10.0.0.1:999")]
+    assert listed == ["host-x"]

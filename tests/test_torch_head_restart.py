@@ -11,6 +11,12 @@ wait for the state itself: the daemons' reported availability of the
 ``worker`` marker resource dropping. The first case runs on the port's
 per-task ``execute_task`` path (the reference batches; the batch RPC is
 ROADMAP item 10c). Each case has a time limit of its own.
+
+The last case is the port's alone (F17.4): a daemon's spill mark that
+reaches the head before the owner's first publish of the object, a
+monitor pass and a snapshot in between, is still there after the
+publish and after a restart. The reference prunes such a mark at once,
+and its next snapshot loses it.
 """
 
 from __future__ import annotations
@@ -37,10 +43,12 @@ def _mod(name: str, sub: str):
     return importlib.import_module(f"{name}.{sub}")
 
 
-def _spawn_head(name: str, session_dir: str, port: int = 0) -> tuple:
+def _spawn_head(name: str, session_dir: str, port: int = 0,
+                extra_env: dict | None = None) -> tuple:
     node = _mod(name, "_private.node")
     rpc = _mod(name, "_private.rpc")
-    env = node.daemon_child_env({PACKAGES[name][1]: session_dir})
+    env = node.daemon_child_env({PACKAGES[name][1]: session_dir,
+                                 **(extra_env or {})})
     args = {"port": port, "dashboard_port": None}
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{name}._private.node", "head",
@@ -143,6 +151,12 @@ def _both(scenario, tmp_path, limit_s: int) -> dict:
         _step(name, "start")
         try:
             with time_limit(limit_s):
+                if PACKAGES[name][0].is_initialized():
+                    # A test file run before this one in the same
+                    # worker process left its runtime up; the scenario
+                    # connects a driver of its own.
+                    _step(name, "shutdown of a runtime left up")
+                    PACKAGES[name][0].shutdown()
                 records[name] = scenario(name, tmp_path / name)
         except Exception as exc:
             raise AssertionError(
@@ -408,3 +422,59 @@ def test_head_kill_restart_cluster_resumes(tmp_path):
         "pending": "survived", "reregistered": True,
         "kv": b"durable-value", "job_after": "SUCCEEDED", "get_a": 1,
         "put_b": 2}
+
+
+def test_a_spill_mark_before_the_publish_survives_a_snapshot_and_restart(
+        tmp_path):
+    name = "ray_tpu_torch"
+    rpc = _mod(name, "_private.rpc")
+    session = str(tmp_path / "session")
+    os.makedirs(session)
+    extra = {"RAY_TPU_TORCH_GCS_SNAPSHOT_INTERVAL_S": "0.2"}
+    obj_hex = "cd" * 10
+    with time_limit(90):
+        head_proc, addr = _spawn_head(name, session, extra_env=extra)
+        port = int(addr.rsplit(":", 1)[1])
+        client = rpc.RpcClient(addr, timeout_s=10.0)
+        try:
+            epoch = client.call("gcs_epoch")
+            node_id = client.call("register_node", "10.4.4.4:17",
+                                  {"CPU": 1.0}, {}, "10.4.4.4:900")
+
+            def snapshots() -> int:
+                return client.call("gcs_persist_stats")["snapshots_written"]
+
+            def next_snapshot(after: int) -> None:
+                while snapshots() <= after:
+                    time.sleep(0.05)
+
+            # The daemon names the owner by its client endpoint; the
+            # owner publishes under its export address, later.
+            client.call("heartbeat", node_id, None, {"spill_events": [
+                ("client-endpoint", obj_hex, "spilled")]}, None,
+                epoch=epoch)
+            next_snapshot(snapshots())
+            # A pass that began after the mark: it pruned, then wrote.
+            client.call("kv_put", b"dirty", b"1", "t")
+            next_snapshot(snapshots())
+            client.call("object_locations_update", "export-owner",
+                        [(obj_hex, node_id.hex())], [], epoch=epoch)
+            before = client.call("list_object_locations", None, True)[1]
+            # The snapshot that covers the publish, then the kill.
+            next_snapshot(snapshots())
+            head_proc.send_signal(signal.SIGKILL)
+            head_proc.wait(timeout=10)
+        finally:
+            client.close()
+        head_proc, addr = _spawn_head(name, session, port=port,
+                                      extra_env=extra)
+        client = rpc.RpcClient(addr, timeout_s=10.0)
+        try:
+            locations, after = client.call("list_object_locations", None,
+                                           True)
+        finally:
+            client.close()
+            _stop([head_proc])
+    assert [before, locations, after] == [
+        {obj_hex: node_id.hex()}, {obj_hex: [node_id.hex()]},
+        {obj_hex: node_id.hex()}]

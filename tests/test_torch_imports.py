@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``ray_tpu_torch``, not
-``chip_smoke.py`` and not ``rmsnorm_launch_cost.py`` imports JAX, the
+``chip_smoke.py``, ``rmsnorm_launch_cost.py`` or
+``same_host_plane_compare.py`` imports JAX, the
 JAX package or ``cloudpickle`` (the port pickles code itself), and its
 entry points never fall back to the CPU on their own."""
 
@@ -14,6 +15,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "rmsnorm_launch_cost.py",
+    ROOT / "same_host_plane_compare.py",
     # The ranks that tests/test_torch_parallel.py and
     # tests/test_torch_pipeline.py spawn import torch only.
     ROOT / "tests" / "torch_parallel_ranks.py",
@@ -178,6 +180,24 @@ def test_directory_modules_import_without_jax_ray_tpu_or_cloudpickle():
         == ForeignActorHandle("127.0.0.1:1", "ab" * 16, "Other")
     assert GLOBAL_CONFIG.get("owner_sweep_period_ms") > 0
     assert GLOBAL_CONFIG.get("owner_dead_grace_s") > 0
+
+
+def test_same_host_plane_imports_without_jax_ray_tpu_or_cloudpickle():
+    """The same-host plane's own module, and the spill tier that takes
+    its liveness probe, where importing jax, ray_tpu or cloudpickle
+    raises; its three knobs carry the reference's defaults."""
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "ray_tpu_torch/_private/same_host.py" in checked
+    assert _import_blocked(("ray_tpu_torch._private.same_host",
+                            "ray_tpu_torch._private.spill_manager"),
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+    from ray_tpu_torch._private import same_host, spill_manager
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    assert spill_manager.pid_is_dead is same_host.pid_is_dead
+    assert (GLOBAL_CONFIG.get("same_host_plane"),
+            GLOBAL_CONFIG.get("same_host_map_min_kb"),
+            GLOBAL_CONFIG.get("same_host_pin_ttl_s")) == (True, 1024, 30.0)
 
 
 def test_a_node_daemon_starts_without_jax_ray_tpu_or_cloudpickle():

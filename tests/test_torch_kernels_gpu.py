@@ -821,6 +821,68 @@ def test_gpu_task_on_a_node_daemon_returns_the_drivers_bits(cuda_device):
 
 
 @pytest.mark.gpu
+def test_a_fwd_result_maps_between_co_hosted_daemons(cuda_device):
+    """Two daemons on this host (both on card 0): a ``fwd`` result made
+    on A is read by a ``num_gpus=1`` task on B through the same-host
+    plane (one copy out of A's segment under a lease A grants, no chunk
+    served), arrives on ``cuda`` there, and comes back to the driver
+    bitwise the driver's own launch on the same seed."""
+    import time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    def attend(seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        q, k, v = (torch.randn(8, 2048, h, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for h in (16, 8, 8))
+        with torch.no_grad():
+            return fa.flash_attention(q, k, v, causal=True)
+
+    def echo(o):
+        return o.device.type, o
+
+    rt.shutdown()
+    cluster = Cluster()
+    nodes = [cluster.add_node(num_cpus=2, resources={"GPU": 1})
+             for _ in range(2)]
+    try:
+        assert cluster.wait_for_nodes(2, timeout=120)
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        deadline = time.monotonic() + 120
+        while rt.cluster_resources().get("GPU", 0) < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        with runtime._remote_nodes_lock:
+            by_pid = {h.pool.call("exec_ping"): (nid, h)
+                      for nid, h in runtime._remote_nodes.items()}
+        (id_a, handle_a), (id_b, handle_b) = (by_pid[n.pid] for n in nodes)
+
+        def on(node_id):
+            return NodeAffinitySchedulingStrategy(node_id.hex(), soft=False)
+
+        o_ref = rt.remote(num_gpus=1, scheduling_strategy=on(id_a))(
+            attend).remote(5)
+        device_on_b, got = rt.get(rt.remote(
+            num_gpus=1, scheduling_strategy=on(id_b))(echo).remote(o_ref),
+            timeout=300)
+        plane_b = handle_b.pool.call("executor_stats")["data_plane"]
+        stats_a = handle_a.pool.call("executor_stats")
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+    assert device_on_b == "cuda" and got.device.type == "cuda"
+    assert torch.equal(got, attend(5))
+    assert plane_b["same_host_copy_hits"] + plane_b["same_host_map_hits"] \
+        >= 1 and plane_b["chunked_pulls"] == 0
+    assert stats_a["data_plane"]["leases"]["granted"] >= 1
+    assert stats_a["store"]["fetches_served"] == 0
+
+
+@pytest.mark.gpu
 def test_spilled_kernel_result_survives_a_head_restart(cuda_device,
                                                        tmp_path):
     """A ``fwd`` result (67 MB) made on a daemon whose node store is

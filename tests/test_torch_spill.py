@@ -15,7 +15,10 @@ The port-only cases at the end each state where the port differs: an
 object holding a tensor on a card is never spilled by the tier (the
 reference pickles ``jax.Array``s to disk); it moves to ``device_bytes``
 and is never marked unspillable. ``meta`` tensors stand in for tensors
-on a card here.
+on a card here. The head's directory keeps a spill mark that landed
+before its owner's publish for one lease (the reference drops it at the
+next prune, and the mark is lost: F17.4); the two cases after the
+mirrored directory case hold that.
 """
 
 import os
@@ -618,11 +621,61 @@ def test_directory_spilled_location_pruned_on_node_death(tmp_path):
         {}, {"obj2": ["nodeY"]}, {}]
 
 
-def _executor(p):
-    """A node executor with the tier armed; the reference's same-host
-    plane off, so both take the chunked pull."""
+def spill_mark_before_the_owners_publish(p, tmp_path):
+    """A daemon's heartbeat marks a result spilled under its own name for
+    the owner before the owner's first publish of the object lands; the
+    head's monitor prunes in between. Then the same from a restored
+    directory, before the owner's republish."""
+    import importlib
+
+    directory_type = importlib.import_module(
+        f"{p['pkg']}._private.gcs").ObjectDirectory
+    directory = directory_type()
+    directory.mark_spilled("client-endpoint", "obj1", "nodeX")
+    directory.prune()
+    directory.update("export-owner", [("obj1", "nodeX")], [])
+    record = [directory.spilled()]
+    restored = directory_type()
+    restored.restore_state(
+        {"locations": {}, "spilled": {"client-endpoint": {"obj1": "nodeX"}}})
+    restored.prune()
+    restored.update("export-owner", [("obj1", "nodeX")], [])
+    return record + [restored.spilled()]
+
+
+def test_a_spill_mark_before_the_owners_publish_survives_the_prune(
+        tmp_path):
+    """Port only (F17.4): the reference drops such a mark at the prune
+    and the daemon never sends it again, so the spilled result has no
+    mark for good; the port keeps an unowned mark for one lease."""
+    records = _both(spill_mark_before_the_owners_publish, tmp_path)
+    assert records["ray_tpu"] == [{}, {}]
+    assert records["ray_tpu_torch"] == [{"obj1": "nodeX"}] * 2
+
+
+def test_an_orphan_spill_mark_goes_a_lease_after_it_landed():
+    """Port only (F17.4): a mark whose object no owner ever publishes is
+    kept for one lease, then pruned."""
+    from ray_tpu_torch._private.gcs import ObjectDirectory
+
+    directory = ObjectDirectory()
+    directory.mark_spilled("client-endpoint", "obj1", "nodeX")
+    directory.prune(ttl_s=60.0)
+    kept = directory.spilled()
+    time.sleep(0.05)
+    directory.prune(ttl_s=0.01)
+    assert [kept, directory.spilled(), directory._marked_at] == [
+        {"obj1": "nodeX"}, {}, {}]
+
+
+def _executor(p, plane: bool = False):
+    """A node executor with the tier armed; the same-host plane off in
+    both packages (both take the chunked pull) unless ``plane``, with
+    every object then given a segment twin."""
     config = {"spill_min_object_kb": 1}
-    if p["pkg"] == "ray_tpu":
+    if plane:
+        config["same_host_map_min_kb"] = 1
+    else:
         config["same_host_plane"] = False
     p["config"].update(config)
     svc = _node_executor(p).NodeExecutorService(
@@ -662,6 +715,47 @@ def test_fetch_plan_reply_is_spill_aware(tmp_path):
     records = _both(fetch_plan_reply_is_spill_aware, tmp_path)
     assert records["ray_tpu_torch"] == records["ray_tpu"] == [
         True, True, True, True, True, False,
+        [("test-owner", "restored"), ("test-owner", "spilled")]]
+
+
+def fetch_plan_spill_aware_with_the_plane(p, tmp_path):
+    """tests/test_spill.py:340 as it runs there (the plane on, a segment
+    twin for every object): a spilled primary's plan has no map source
+    (the twin went with the spill) and says spilled; a read restores it."""
+    from ray_tpu_torch._private import serialization
+
+    svc = _executor(p, plane=True)
+    svc.start()
+    try:
+        blob = serialization.serialize_framed(_blob(51, 200 * 1024))
+        oid = _key(21)
+        svc.store.put(oid, blob, owner="test-owner")
+        svc._maybe_export_stored(oid, blob)
+        with svc._shm_args_lock:
+            record = [svc._spill_mgr is not None, oid in svc._map_sources]
+        svc._spill_mgr.capacity = 1
+        svc._spill_mgr.spill_pass()
+        with svc._shm_args_lock:
+            record += [svc.store.is_spilled(oid), oid in svc._map_sources]
+        plan = svc.fetch_plan(oid, None, None)
+        record += [plan[3]["spilled"], plan[0] == len(blob), plan[2]]
+        # A puller on this host is granted no lease on a spilled copy.
+        plan = svc.fetch_plan(oid, "127.0.0.1:1", svc.host_id)
+        record += [plan[2], svc.leases.stats()["granted"]]
+        record.append(svc.store.get(oid) == blob)
+        record.append(svc.fetch_plan(oid, None, None)[3]["spilled"])
+        kinds = {(owner, kind) for owner, _hex, kind
+                 in svc._drain_spill_events()}
+        record.append(sorted(kinds))
+        return record
+    finally:
+        svc.stop()
+
+
+def test_fetch_plan_spill_aware_with_the_plane(tmp_path):
+    records = _both(fetch_plan_spill_aware_with_the_plane, tmp_path)
+    assert records["ray_tpu_torch"] == records["ray_tpu"] == [
+        True, True, True, False, True, True, None, None, 0, True, False,
         [("test-owner", "restored"), ("test-owner", "spilled")]]
 
 
