@@ -81,7 +81,10 @@ source, all started together) and drives the port's two paths:
 - worker processes: ``init(process_workers=2)``, a pool task (no card)
   and a ``num_gpus=1`` process actor (its one card) taking CUDA tensors
   across the boundary, the actor's ``fwd`` launch bitwise the driver's,
-  its crash and the card's memory coming back, a 2-process gloo gang
+  RMSNorm in the actor on 512 KiB inputs the driver put, argument and
+  result each through the driver's native arena (and at 2 MiB, past the
+  arena's cap, for contrast), bitwise the driver's launches, its crash
+  and the card's memory coming back, a 2-process gloo gang
   (process_check); the trainer phase's resumed run through a gang of
   one process (NCCL world of one, the crash an exit of the process),
   held to the trainer phase (process_trainer); the runtime phase's
@@ -102,7 +105,9 @@ source, all started together) and drives the port's two paths:
   between them by the same-host plane (one copy out of the holder's
   shared-memory segment under a lease), a gloo train gang spread over
   both daemons and a one-process GPU gang on one training bench.py's
-  Llama bitwise the train phase, Llama-3-8B served from a remote actor
+  Llama bitwise the train phase, 512 KiB RMSNorm inputs the driver put
+  read on one daemon out of the driver's arena and normed bitwise (the
+  head's KV in the native engine), Llama-3-8B served from a remote actor
   that restarts on the survivor when its node is killed (node_cluster);
 - the durable head and the node store's spill tier: a head process and
   a daemon with a 48 MiB store, the flash results spilled to its disk
@@ -131,8 +136,9 @@ the pipeline (``moe_launches``, ``pipeline_launches``), through
 (``deployment_launches``), in worker processes
 (``process_launches``), through the store_recovery phase
 (``store_launches``), on the node daemons (``node_launches``), in the
-GPU gang on a daemon (``daemon_gang_launches``) and across the head
-restart (``restart_launches``), its error
+GPU gang on a daemon (``daemon_gang_launches``), across the head
+restart (``restart_launches``) and on inputs that rode the driver's
+native arena (``arena_launches``), its error
 against the plain version, its times, and for the attention kernels the
 achieved TFLOP/s and share of the bound, then the whole backward
 (pre-pass, dq and dk/dv) against SDPA's; the last line is ``{"ok": true,
@@ -3538,6 +3544,18 @@ class ProcessKernelActor:
         torch.cuda.synchronize()
         return o, lse, self.fa.launches["fwd"]
 
+    def norm(self, x, scale):
+        """RMSNorm over ``x`` with the kernel: the result, the launches it
+        made and the device ``x`` arrived on."""
+        import importlib
+
+        fused = importlib.import_module("ray_tpu_torch.ops.fused")
+        fused.launches["rmsnorm"] = 0
+        with torch.no_grad():
+            out = fused.rms_norm(x, scale, RMS_EPS)
+        torch.cuda.synchronize()
+        return out, fused.launches["rmsnorm"], x.device.type
+
     def noop(self):
         return None
 
@@ -3545,6 +3563,74 @@ class ProcessKernelActor:
         import os
 
         os._exit(1)
+
+
+# An RMSNorm input of 512 KiB: over the 64 KiB inline limit and under the
+# 1 MiB arena cap, so it and its result ride the driver's arena; and one
+# of 2 MiB, over the cap, for contrast (process_check, node_cluster).
+ARENA_NORM_ROWS, ARENA_NORM_COLS, SEGMENT_NORM_ROWS = 32, 4096, 128
+
+
+def _norm_inputs(rows: int, seed: int):
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    x = torch.randn(rows, ARENA_NORM_COLS, generator=gen, device=DEVICE)
+    scale = torch.randn(ARENA_NORM_COLS, generator=gen, device=DEVICE)
+    return x, scale
+
+
+# Timed round trips of each size in process_check (the first one's arena
+# entries counted).
+ARENA_TRIPS = 3
+
+
+def _arena_norm_round_trip(rt, runtime, fused, actor) -> dict:
+    """The driver puts an RMSNorm input and the ``num_gpus=1`` process
+    actor norms it with the kernel: at 512 KiB the argument and the
+    result each take one arena entry; at 2 MiB neither does (each
+    crosses a segment). Each result
+    bitwise the driver's own launch; each round trip (put, call, get) in
+    ms, after one warm-up call that loads the kernel in the actor."""
+    out = {"arena": type(runtime.arena).__name__,
+           "arena_module": type(runtime.arena).__module__,
+           "arena_name": runtime.arena.name,
+           "expected_name": f"/ray_tpu_torch_arena_{os.getpid()}"}
+    small, scale = _norm_inputs(2, NODE_SEED)  # 32 KiB: inline
+    rt.get(actor.norm.remote(small, scale), timeout=300)
+    # The 2 MiB trips first: their frees touch no arena entry, so the
+    # count around the first 512 KiB trip is that trip's alone.
+    for label, rows in (("2MiB", SEGMENT_NORM_ROWS),
+                        ("512KiB", ARENA_NORM_ROWS)):
+        x, scale = _norm_inputs(rows, NODE_SEED + rows)
+        with torch.no_grad():
+            want = fused.rms_norm(x, scale, RMS_EPS)
+        torch.cuda.synchronize()
+        trips = []
+        for trip in range(ARENA_TRIPS):
+            before = runtime.arena.stats()
+            t0 = time.perf_counter()
+            x_ref = rt.put(x)
+            result_ref = actor.norm.remote(x_ref, scale)
+            got, launched, arrived_on = rt.get(result_ref, timeout=300)
+            trips.append(1e3 * (time.perf_counter() - t0))
+            after = runtime.arena.stats()
+            if trip == 0:
+                out[label] = {
+                    "input_bytes": x.numel() * x.element_size(),
+                    "arena_objects_added": after["num_objects"]
+                    - before["num_objects"],
+                    "arena_used_bytes_added": after["used_bytes"]
+                    - before["used_bytes"],
+                    "bitwise": torch.equal(got, want),
+                    "on": got.device.type, "arrived_on": arrived_on,
+                    "launches": launched}
+            else:
+                out[label]["bitwise"] &= torch.equal(got, want)
+                out[label]["launches"] += launched
+            del x_ref, result_ref, got
+        out[label]["round_trip_ms"] = trips
+        out[label]["round_trip_ms_median"] = statistics.median(trips)
+    out["arena_stats"] = runtime.arena.stats()
+    return out
 
 
 def _spmd_mean_loop(config):
@@ -3563,12 +3649,15 @@ def _spmd_mean_loop(config):
                   "backend": dist.get_backend()})
 
 
-def phase_process_check(fa, device: dict, power: str, runtime: dict) -> dict:
+def phase_process_check(fa, fused, device: dict, power: str,
+                        runtime: dict) -> dict:
     """Real processes on the card's machine, at small shapes:
-    ``init(process_workers=2)``; a pool task in another pid that sees no
-    card and gets a CUDA bf16 tensor as a bitwise CPU copy; a ``num_gpus=1``
-    process actor that sees its one card, gets CUDA tensors on it, runs
-    the ``fwd`` kernel on the driver's inputs bitwise as the driver does,
+    ``init(process_workers=2)`` with the driver's native arena; a pool
+    task in another pid that sees no card and gets a CUDA bf16 tensor as
+    a bitwise CPU copy; a ``num_gpus=1`` process actor that sees its one
+    card, gets CUDA tensors on it, runs the ``fwd`` kernel on the
+    driver's inputs bitwise as the driver does and the RMSNorm kernel on
+    an input the driver put, argument and result through the arena,
     then dies in a call (``ActorDiedError``) and gives the card's memory
     back; a 2-process gloo gang's global mean; the host cost of starting
     a worker of each kind and of an empty call."""
@@ -3586,7 +3675,7 @@ def phase_process_check(fa, device: dict, power: str, runtime: dict) -> dict:
     q, k, v, _ = _inputs(8, 2048, 16, 8, 64, seed=11)
     o_ref, lse_ref = fa.flash_fwd_kernel(q, k, v, causal=True)
     torch.cuda.synchronize()
-    rt.init(num_cpus=8, process_workers=2)
+    rt_runtime = rt.init(num_cpus=8, process_workers=2)
     try:
         pid, cards, visible, kind, back = rt.get(
             rt.remote(_pool_probe).remote(x), timeout=300)
@@ -3610,6 +3699,7 @@ def phase_process_check(fa, device: dict, power: str, runtime: dict) -> dict:
         a_pid, a_cards, a_visible, a_kind, a_back = rt.get(
             actor.info.remote(x), timeout=300)
         o, lse, a_launches = rt.get(actor.fwd.remote(q, k, v), timeout=300)
+        arena = _arena_norm_round_trip(rt, rt_runtime, fused, actor)
         gpu_actor = {
             "other_pid": a_pid not in (os.getpid(), pid), "cards": a_cards,
             "cuda_visible_devices": a_visible, "arrived_on": a_kind,
@@ -3642,7 +3732,7 @@ def phase_process_check(fa, device: dict, power: str, runtime: dict) -> dict:
         rt.shutdown()
     result = {
         "pool_task": pool, "gpu_process_actor": gpu_actor,
-        "fwd_shape": [8, 2048, 16, 8, 64],
+        "fwd_shape": [8, 2048, 16, 8, 64], "arena": arena,
         "crash_error": type(crash_error).__name__,
         "free_bytes_before_after": [free_before, free_after],
         "gpu_available_after_crash": gpu_after,
@@ -3673,6 +3763,19 @@ def phase_process_check(fa, device: dict, power: str, runtime: dict) -> dict:
     require(gpu_actor["fwd_output_on"] == "cuda" and a_launches == 1
             and gpu_actor["fwd_bitwise"],
             f"the actor's fwd launch differs from the driver's: {gpu_actor}")
+    require(arena["arena"] == "ArenaStore" and arena["arena_module"]
+            == "ray_tpu_torch._private.arena_store"
+            and arena["arena_name"] == arena["expected_name"],
+            f"the driver's arena: {arena}")
+    require(arena["512KiB"]["bitwise"] and arena["512KiB"]["on"] == "cuda"
+            and arena["512KiB"]["arrived_on"] == "cuda"
+            and arena["512KiB"]["launches"] == ARENA_TRIPS
+            and arena["512KiB"]["arena_objects_added"] == 2,
+            f"RMSNorm's input and result through the arena: {arena}")
+    require(arena["2MiB"]["bitwise"]
+            and arena["2MiB"]["launches"] == ARENA_TRIPS
+            and arena["2MiB"]["arena_objects_added"] == 0,
+            f"RMSNorm at 2 MiB (no arena): {arena}")
     require(isinstance(crash_error, ActorDiedError),
             f"the crashed call raised {crash_error!r}, not ActorDiedError")
     require(abs(free_after - free_before) <= PROCESS_FREE_TOL_BYTES,
@@ -4076,15 +4179,18 @@ def _host_attention(seed: int):
 
 
 def _oom_target(path: str):
-    """A pool task: its first attempt sleeps to be killed, the retry
+    """A pool task: its first attempt holds 64 MiB, which makes its worker
+    the largest (the one the monitor kills: without it the two workers'
+    RSS can tie to the page), and sleeps to be killed; the retry
     returns."""
     import os
 
     if not os.path.exists(path):
+        ballast = b"\1" * (64 << 20)  # written: in the worker's RSS
         with open(path, "w") as f:
             f.write("1")
         time.sleep(60)
-        return "slow-path"
+        return "slow-path" if ballast else None
     return "retried-ok"
 
 
@@ -4469,9 +4575,13 @@ def _store_memory(fa) -> dict:
         runtime.memory_monitor = killer
         ref = rt.remote(max_retries=0)(_oom_target).remote(marker)
 
+        rss_at_kill: dict = {}
+
         def shoot():
             _until(lambda: os.path.exists(marker), STORE_WAIT_S)
             time.sleep(0.5)  # the first attempt is in its sleep
+            rss_at_kill.update({pid: memory_monitor.process_rss_bytes(pid)
+                                for pid in workers})
             killer.check_once()
 
         shooter = threading.Thread(target=shoot)
@@ -4507,6 +4617,13 @@ def _store_memory(fa) -> dict:
                 LOST_SEED), timeout=STORE_WAIT_S)[0]
         result = {
             "workers": len(workers), "kills": killer.num_kills,
+            # The statm RSS of the worker killed and of the other one,
+            # read just before the monitor's check.
+            "worker_rss_bytes_at_kill": {
+                "killed": [rss_at_kill.get(pid) for pid in workers
+                           if pid in killer.killed_pids],
+                "other": [rss_at_kill.get(pid) for pid in workers
+                          if pid not in killer.killed_pids]},
             "killed_a_pool_worker": killed, "oom_retried": retried,
             "shed": shed, "shed_counted": runtime.stats()["admission_shed"]
             - shed_before, "store_kind": kind,
@@ -4773,6 +4890,103 @@ def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
     return result
 
 
+def _arena_node_norm(x, scale):
+    """A ``num_gpus=1`` task on a daemon: RMSNorm over ``x`` with the
+    kernel, and the launches it made."""
+    import importlib
+
+    fused = importlib.import_module("ray_tpu_torch.ops.fused")
+    fused.launches["rmsnorm"] = 0
+    with torch.no_grad():
+        out = fused.rms_norm(x, scale, RMS_EPS)
+    torch.cuda.synchronize()
+    return out, fused.launches["rmsnorm"]
+
+
+def _node_arena_read(rt, runtime, fused, handles: dict, ids: dict,
+                     seed: int) -> dict:
+    """One 512 KiB RMSNorm input put by the driver and normed by a
+    ``num_gpus=1`` task pinned to B: how B read it, and the result
+    against the driver's own launch."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    x, scale = _norm_inputs(ARENA_NORM_ROWS, seed)
+    with torch.no_grad():
+        want = fused.rms_norm(x, scale, RMS_EPS)
+    torch.cuda.synchronize()
+    before = handles["B"].pool.call("executor_stats")
+    x_ref = rt.put(x)
+    start = time.perf_counter()
+    out_ref, count_ref = rt.remote(
+        num_gpus=1, num_returns=2, scheduling_strategy=(
+            NodeAffinitySchedulingStrategy(ids["B"].hex(), soft=False)))(
+        _arena_node_norm).remote(x_ref, scale)
+    got, launched = rt.get([out_ref, count_ref], timeout=NODE_WAIT_S)
+    task_s = time.perf_counter() - start
+    after = handles["B"].pool.call("executor_stats")
+    source = runtime._export_sources.get(x_ref.id().binary())
+    read_bytes = after["same_host_bytes"] - before["same_host_bytes"]
+    read_s = after["same_host_seconds"] - before["same_host_seconds"]
+    result = {
+        "input_bytes": x.numel() * x.element_size(),
+        "export_source_kind": source[0] if source else None,
+        # The export's twin, under the object's id.
+        "in_driver_arena": runtime.arena.contains(x_ref.id().binary()),
+        "b_data_plane": {k: after["data_plane"][k] - before["data_plane"][k]
+                         for k in ("same_host_map_hits",
+                                   "same_host_copy_hits", "chunked_pulls")},
+        "b_read_bytes": read_bytes, "b_read_s": read_s,
+        "b_read_gb_per_s": _rate_gbps(read_bytes, read_s),
+        "b_pulled_bytes": after["pulled_bytes"] - before["pulled_bytes"],
+        "task_s": task_s, "bitwise": torch.equal(got, want),
+        "on": got.device.type, "launches": launched}
+    del x_ref, out_ref, count_ref, got
+    return result
+
+
+def _node_arena(rt, runtime, cluster, fused, handles: dict,
+                ids: dict) -> dict:
+    """node_cluster's arena check: the driver puts a 512 KiB RMSNorm
+    input; a ``num_gpus=1`` task pinned to B reads it out of the driver's
+    arena (the export's map source is of the ``"arena"`` kind), one copy
+    in B's own process under the driver's lease, no chunk pulled, and
+    norms it bitwise as the driver does. Twice: B's first read also
+    connects to the driver's export server and attaches its arena. The
+    head in this process (a ``GcsServer``, as the reference's
+    ``Cluster`` makes it) keeps its KV in the native engine, the
+    driver's own tables in the Python store."""
+    reads = [_node_arena_read(rt, runtime, fused, handles, ids, seed)
+             for seed in (NODE_SEED, NODE_SEED + 1)]
+    result = {"first": reads[0], "second": reads[1],
+              "launches": sum(r["launches"] for r in reads),
+              "head_kv": type(cluster.gcs.gcs.kv).__name__,
+              "driver_kv": type(runtime.gcs.kv).__name__}
+    for read in reads:
+        require(read["export_source_kind"] == "arena"
+                and read["in_driver_arena"],
+                f"the input was not exported through the driver's arena: "
+                f"{read}")
+        # A GPU task runs in B's own process: it copies the input out of
+        # the driver's arena once (a copy hit; a pool task's argument
+        # would be handed over, a map hit).
+        require(read["b_data_plane"] == {"same_host_map_hits": 0,
+                                         "same_host_copy_hits": 1,
+                                         "chunked_pulls": 0}
+                and read["b_pulled_bytes"] == 0
+                and read["b_read_bytes"] >= read["input_bytes"],
+                f"B did not read the input out of the driver's arena: "
+                f"{read}")
+        require(read["bitwise"] and read["on"] == "cuda"
+                and read["launches"] == 1, f"B's RMSNorm differs: {read}")
+    require(result["head_kv"] == "NativeKVStore"
+            and result["driver_kv"] == "KVStore",
+            f"KV engines: head {result['head_kv']}, driver "
+            f"{result['driver_kv']}")
+    return result
+
+
 # The daemon gangs of node_cluster: bench.py's Llama for this many steps,
 # held bitwise to the train phase's first ones.
 DAEMON_GANG_STEPS = 3
@@ -4921,7 +5135,9 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     (c) A killed, the actor restarted on B from the same seed and
     token-identical again; (d) after shutdown no daemon or actor process
     is left, the card's free bytes are back and so is every ``GPU``.
-    Returns the kernels' launches on the nodes and in the GPU gang."""
+    (a) also: a 512 KiB RMSNorm input the driver put, read on B out of
+    the driver's arena. Returns the kernels' launches on the nodes, in
+    the GPU gang and on the arena's input."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.exceptions import ActorDiedError
@@ -4955,6 +5171,7 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         ids = {k: by_pid[n.pid][0] for k, n in nodes.items()}
         handles = {k: by_pid[n.pid][1] for k, n in nodes.items()}
         kernels = _node_kernels(rt, runtime, handles, ids)
+        arena = _node_arena(rt, runtime, cluster, fused, handles, ids)
         task_us = _round_trips_us(rt, rt.remote(_noop).remote)
         torch.cuda.empty_cache()
         gangs = _daemon_gangs(nodes, train_phase,
@@ -5024,12 +5241,14 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     launches = {k: kernels["launches_a"][k]
                 for k in (*HOPPER_KERNELS, "flash_bwd")}
     launches["rmsnorm"] = kernels["launches_b"]["rmsnorm"] \
-        + served_here["rmsnorm_launches"] + counters_b["rmsnorm"]
+        + arena["launches"] + served_here["rmsnorm_launches"] \
+        + counters_b["rmsnorm"]
     result = {
         "daemons": {"resources": {"CPU": 2, "GPU": 1}, "card": 0,
                     "heartbeat_timeout_s": NODE_HEARTBEAT_TIMEOUT_S},
         "daemons_registered_s": daemons_s, "nodes_joined_s": joined_s,
-        "kernels": kernels, "daemon_gangs": gangs,
+        "kernels": kernels, "arena_input_on_b": arena,
+        "daemon_gangs": gangs,
         "remote_task_round_trip_us": task_us,
         "thread_task_round_trip_us": runtime_phase["task_round_trip_us"],
         "actor": "num_gpus=1, max_restarts=1, max_concurrency=16, "
@@ -5074,7 +5293,7 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
             == per_forward * served_here["forwards"] > 0,
             f"rmsnorm launched {served_here['rmsnorm_launches']} times in "
             f"the remote actor over {served_here['forwards']} forwards")
-    return launches, gangs["gpu_gang"]["launches"]
+    return launches, gangs["gpu_gang"]["launches"], arena["launches"]
 
 
 HEAD_SEED = 37
@@ -5808,7 +6027,12 @@ def main() -> int:
     served_result, served_tokens = served["result"], served["tokens"]
     del served
     torch.cuda.empty_cache()
-    timed(phase_process_check, fa, device, power, runtime_result)
+    process_check = timed(phase_process_check, fa, fused, device, power,
+                          runtime_result)
+    # RMSNorm's launches on inputs that rode the driver's arena: in the
+    # process actor (process_check), then on daemon B (node_cluster).
+    arena_launches = {"rmsnorm": process_check["arena"]["512KiB"][
+        "launches"]}
     torch.cuda.empty_cache()
     process_launches = timed(
         phase_process_trainer, llama, fa, device, power,
@@ -5821,9 +6045,10 @@ def main() -> int:
     store_launches = timed(phase_store_recovery, llama, train_step, fa,
                            fused, device, power)
     torch.cuda.empty_cache()
-    node_launches, gang_launches = timed(
+    node_launches, gang_launches, node_arena_launches = timed(
         phase_node_cluster, llama, fa, fused, served_result, served_tokens,
         process_served["summary"], runtime_result, train, device, power)
+    arena_launches["rmsnorm"] += node_arena_launches
     torch.cuda.empty_cache()
     restart_launches = timed(phase_head_restart, llama, fa, fused,
                              served_tokens, device, power)
@@ -5870,6 +6095,10 @@ def main() -> int:
         # the task on A whose results spilled, RMSNorm in the named
         # serving actor and in the task over the restored output.
         row["restart_launches"] = restart_launches.get(kind, 0)
+        # And on inputs that rode the driver's native arena: RMSNorm in
+        # process_check's actor and in node_cluster's task on B (the
+        # flash kernels' inputs are larger than the arena's cap).
+        row["arena_launches"] = arena_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
                          f"{missing}")
@@ -5895,6 +6124,11 @@ def main() -> int:
                if not rows[k]["daemon_gang_launches"]]
     require(not missing, f"kernels not launched in the daemon gang: "
                          f"{missing}")
+    require(rows["rmsnorm"]["arena_launches"] == ARENA_TRIPS + 2,
+            f"RMSNorm on the arena's inputs: "
+            f"{rows['rmsnorm']['arena_launches']} launches, "
+            f"{ARENA_TRIPS + 2} expected (process_check's 512 KiB trips, "
+            f"node_cluster's two reads on B)")
     missing = [k for k, row in rows.items() if not row["restart_launches"]]
     require(not missing, f"kernels not launched across the head restart: "
                          f"{missing}")

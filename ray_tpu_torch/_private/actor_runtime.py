@@ -57,6 +57,10 @@ class _ActorCall:
     # Absolute end-to-end deadline (time.time()), checked before the
     # method runs.
     deadline: "float | None" = None
+    # A process actor's top-level ObjectRef arguments, whose values cross
+    # as shared-memory descriptors: held with the call until its results
+    # are stored, so no entry is freed under the actor.
+    refs: tuple = ()
 
 
 class LocalActor:

@@ -72,6 +72,13 @@ _DEFAULTS: dict[str, Any] = {
     # Growth cap of the pool for nested submission (0: 4 x size + 8).
     "worker_pool_max_size": 0,
     "worker_startup_timeout_s": 30.0,
+    # The native shared-memory arena (plasma-lite,
+    # _native/plasma_store.cpp) the driver creates at init and its worker
+    # processes attach: a pool result, a promoted argument or an export
+    # of at most object_arena_max_object_bytes lives there instead of in
+    # a segment of its own. 0: segments only.
+    "object_arena_bytes": 64 * 1024 * 1024,
+    "object_arena_max_object_bytes": 1024 * 1024,
     # Pool results up to this size come back through the pipe; larger
     # ones in a shared-memory segment of their own.
     "worker_inline_result_kb": 64,
@@ -111,6 +118,17 @@ _DEFAULTS: dict[str, Any] = {
     "same_host_plane": True,
     "same_host_map_min_kb": 1024,
     "same_host_pin_ttl_s": 30.0,
+    # The retry policy of idempotent control calls (rpc.call_with_retry:
+    # heartbeats, fetch plans, head reads) and its per-destination
+    # circuit breaker: a destination that fails rpc_breaker_failures
+    # logical calls in a row fails fast until one half-open probe, let
+    # through after rpc_breaker_reset_s, succeeds. 0 disables the
+    # breaker.
+    "rpc_retry_attempts": 3,
+    "rpc_retry_base_ms": 50,
+    "rpc_retry_deadline_s": 15.0,
+    "rpc_breaker_failures": 5,
+    "rpc_breaker_reset_s": 5.0,
     # The head declares a node dead after this long without a heartbeat.
     "gcs_heartbeat_timeout_s": 10.0,
     # The durable head (gcs_persistence.py): its whole hot set as a
@@ -133,7 +151,17 @@ _DEFAULTS: dict[str, Any] = {
     # controller at most this often: the latency autoscaler's feed.
     # 0 disables the push.
     "serve_latency_report_s": 1.0,
+    # The native (C++) daemon blob store (node_store.cpp), used when the
+    # managed spill tier is off; a failed build raises.
+    "node_store_native": True,
+    # The native (C++) KV engine (gcs_kv.cpp) of head processes; a failed
+    # build raises.
+    "gcs_kv_native": True,
 }
+
+# The environment that hands a worker process its driver's arena.
+ARENA_NAME_ENV = "RAY_TPU_TORCH_ARENA_NAME"
+ARENA_MAX_ENV = "RAY_TPU_TORCH_ARENA_MAX"
 
 
 class Config:

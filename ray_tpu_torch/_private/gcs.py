@@ -383,8 +383,11 @@ class GlobalControlService:
 
     TASK_EVENT_LIMIT = 100_000
 
-    def __init__(self):
-        self.kv = KVStore()
+    def __init__(self, kv=None):
+        # A head's GcsServer passes the native engine
+        # (gcs_kv_native.make_kv_store); a driver's own tables keep the
+        # Python store and never build native code.
+        self.kv = kv if kv is not None else KVStore()
         self._lock = threading.Lock()
         self._actors: dict[ActorID, ActorRecord] = {}
         self._named_actors: dict[tuple[str, str], ActorID] = {}

@@ -197,7 +197,11 @@ class GcsServer:
 
             log_dir = os.path.join(tempfile.gettempdir(),
                                    f"ray_tpu_torch_head_{os.getpid()}")
-        self.gcs = GlobalControlService()
+        # The head's KV in the native engine (reference: the GCS storage
+        # layer is C++, in_memory_store_client.h:31) under gcs_kv_native.
+        from ray_tpu_torch._private.gcs_kv_native import make_kv_store
+
+        self.gcs = GlobalControlService(kv=make_kv_store())
         self.jobs = JobManager(self.gcs, os.path.join(log_dir, "jobs"))
         self.heartbeat_timeout_s = heartbeat_timeout_s
         self.object_directory = ObjectDirectory()

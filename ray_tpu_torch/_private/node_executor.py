@@ -45,12 +45,21 @@ argument then maps the owner's segment with no copy; a read in the
 daemon's own process (every ``GPU`` task) copies out of it once. The
 puller releases the lease (``unpin_object``); the sweep ends the leases
 of pullers that died. Anything that fails falls through to the chunked
-pull. A spilled primary has no twin and is pulled in chunks.
+pull. A spilled primary has no twin and is pulled in chunks. A driver's
+export of at most ``object_arena_max_object_bytes`` is an ``"arena"``
+source, an object in the driver's native arena: a pool task's argument
+then reads it out of the attached arena (a ``PeerArenaDescriptor``, one
+copy in the worker) and a read here copies it once. Only a driver owns
+an arena; the sweep unlinks the arenas of owners that died
+(``arena_orphans_swept``).
 
-Not ported: the native store and its arena kind of map source (ROADMAP
-10b); the pipelined ``execute_task_batch`` with its fused and columnar
-routes, speculation, chaos sites, perf traces and the flight ring (10c):
-every task goes through ``execute_task``.
+The store is the native one (``node_store_native.py``) when
+``node_store_native`` is on and the managed spill tier is off, else
+``NodeObjectStore`` (``make_node_store``).
+
+Not ported: the pipelined ``execute_task_batch`` with its fused and
+columnar routes, speculation, chaos sites, perf traces and the flight
+ring (ROADMAP 10c): every task goes through ``execute_task``.
 """
 
 from __future__ import annotations
@@ -874,8 +883,10 @@ class NodeExecutorService:
         from ray_tpu_torch._private.shm_store import ShmClient, ShmDirectory
         from ray_tpu_torch._private.worker_pool import WorkerPool
 
+        from ray_tpu_torch._private.node_store_native import make_node_store
+
         self._server = RpcServer(host, port)
-        self.store = NodeObjectStore()
+        self.store = make_node_store()
         # The store's spill tier: armed under spill_enabled. Its spilled
         # and restored events, (owner, object hex, kind), wait here for
         # the next heartbeat, which carries them to the head's directory.
@@ -920,6 +931,13 @@ class NodeExecutorService:
         self._attached: dict[bytes, tuple] = {}
         self._attached_owner_strikes: dict[str, int] = {}
         self.lease_orphans_swept = 0
+        # The drivers' arenas this daemon reads (attached at first use),
+        # and the dead owners' arenas its sweep unlinked.
+        from ray_tpu_torch._private.same_host import PeerArenaRegistry
+
+        self._peer_arenas = PeerArenaRegistry()
+        self.arena_orphans_swept = 0
+        self.peer_arenas_detached = 0
         # How pulls went: a peer's segment mapped for a pool task, one
         # copy out of a peer's segment, the chunked pull.
         self.same_host_map_hits = 0
@@ -1105,6 +1123,13 @@ class NodeExecutorService:
             for key in victims:
                 self._drop_shm_arg(key)
                 self.lease_orphans_swept += 1
+        # The arenas of co-hosted owners killed without a destroy have no
+        # other unlinker, and this daemon's mappings of dead owners'
+        # arenas would keep their pages.
+        from ray_tpu_torch._private.same_host import sweep_orphan_shm
+
+        self.arena_orphans_swept += sweep_orphan_shm()
+        self.peer_arenas_detached += self._peer_arenas.close_dead_owners()
 
     def stop(self) -> None:
         self._stop_event.set()
@@ -1143,6 +1168,7 @@ class NodeExecutorService:
         self._peers.close()
         self._shm_client.close_all()
         self._shm_directory.shutdown()
+        self._peer_arenas.close_all()
 
     # ------------------------------------------------------------ admission
 
@@ -1638,11 +1664,14 @@ class NodeExecutorService:
         return blob
 
     def _shm_fetch_blob(self, ref: FetchRef):
-        """The object in a segment a pool task maps: this node's own (the
-        stored primary's twin, or written once here and shared by every
-        task that takes it) or, on the same host, the owner's, mapped
-        under a lease. FIFO-bounded."""
-        from ray_tpu_torch._private.shm_store import ShmDescriptor
+        """The object in shared memory a pool task reads: this node's own
+        segment (the stored primary's twin, or written once here and
+        shared by every task that takes it) or, on the same host, the
+        owner's segment or arena object, under a lease. FIFO-bounded."""
+        from ray_tpu_torch._private.shm_store import (
+            PeerArenaDescriptor,
+            ShmDescriptor,
+        )
 
         oid = ObjectID(ref.id_bytes)
         with self._shm_args_lock:
@@ -1656,7 +1685,7 @@ class NodeExecutorService:
         blob = self._local_blob(ref)
         if blob is None:
             got = self._fetch_remote(ref, to_shm=True)
-            if isinstance(got, ShmDescriptor):
+            if isinstance(got, (ShmDescriptor, PeerArenaDescriptor)):
                 return got
             blob = got
         from multiprocessing import shared_memory
@@ -1783,29 +1812,46 @@ class NodeExecutorService:
         return blob
 
     def _try_same_host(self, ref: FetchRef, info: dict, to_shm: bool):
-        """Take a granted map lease: map the holder's segment for a pool
-        task (its descriptor, the lease kept until the entry goes) or
-        copy out of it once (``read_segment``: the bytes, the lease
-        released). None on any failure, the lease released first: the
-        chunked pull decides."""
+        """Take a granted map lease: for a pool task, map the holder's
+        segment or hand over the holder's arena object (its descriptor,
+        the lease kept until the entry goes); for a read here, copy out
+        of either once (the bytes, the lease released). None on any
+        failure, the lease released first: the chunked pull decides."""
         from ray_tpu_torch._private.same_host import (
             attach_segment,
             read_segment,
         )
-        from ray_tpu_torch._private.shm_store import ShmDescriptor
+        from ray_tpu_torch._private.shm_store import (
+            PeerArenaDescriptor,
+            ShmDescriptor,
+        )
 
         key = ref.id_bytes
         token = info.get("token")
         owner_addr = ref.addr
+        kind = info.get("kind")
         try:
             if info.get("host") != self.host_id or not token \
-                    or info.get("kind") != "seg":
+                    or kind not in ("seg", "arena"):
                 if token:
                     self._unpin_at(owner_addr, token)
                 return None
             size = int(info.get("size", 0))
+            seg = blob = None
             try:
-                if to_shm:
+                if kind == "arena":
+                    # A pool task reads it in its own process; a read
+                    # here copies it now. Either way the owner's pin
+                    # holds it in place.
+                    if to_shm:
+                        if self._peer_arenas.get(info["name"]) is None:
+                            raise OSError(f"arena {info['name']} is gone")
+                    else:
+                        blob = self._peer_arenas.read(info["name"],
+                                                      info["key"])
+                        if blob is None:
+                            raise OSError("arena object is gone")
+                elif to_shm:
                     seg = attach_segment(info["name"])
                 else:
                     blob = read_segment(info["name"], size)
@@ -1813,9 +1859,11 @@ class NodeExecutorService:
                 self._unpin_at(owner_addr, token)
                 return None  # the holder let it go: the chunked pull
             if to_shm:
+                desc = (PeerArenaDescriptor(info["name"], info["key"], size)
+                        if kind == "arena"
+                        else ShmDescriptor(info["name"], size))
                 desc = self._register_shm_arg(
-                    key, seg, size, desc=ShmDescriptor(info["name"], size),
-                    attached=(owner_addr, token))
+                    key, seg, size, desc=desc, attached=(owner_addr, token))
                 self.same_host_map_hits += 1
                 return desc
             self._unpin_at(owner_addr, token)
@@ -2045,6 +2093,7 @@ class NodeExecutorService:
                            "task_timeouts": self.task_timeouts,
                            "admission_shed": self.admission_shed,
                            "lease_orphans_swept": self.lease_orphans_swept,
+                           "arena_orphans_swept": self.arena_orphans_swept,
                            "breaker_open": breaker_stats()["opens"]},
                 "threads": _threading.active_count()}
 

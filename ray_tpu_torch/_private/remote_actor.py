@@ -346,6 +346,12 @@ class RemoteActor:
             self._handle_crash(gen, f"node unreachable: {exc}")
             return
         if reply[0] == "ok":
+            if pre_ack:
+                # The node answered once the constructor ran, which can be
+                # before this driver took in the creation's reply: seal
+                # after it, so the actor table has the actor's node and
+                # pid before any of its results is seen.
+                self._create_settled.wait(timeout=600.0)
             try:
                 self._runtime._seal_remote_results(
                     call.return_ids, reply[1], node_id, handle.address)

@@ -491,20 +491,12 @@ def classify_rpc_failure(exc: BaseException) -> str:
 _FAULTS_LOCK = threading.Lock()
 _RPC_RETRIES = 0
 
-# The retry policy's defaults (the reference's), and the breaker's: it
-# opens after BREAKER_FAILURES failed logical calls in a row and admits
-# a probe every BREAKER_RESET_S.
-RETRY_ATTEMPTS = 3
-RETRY_BASE_S = 0.05
-RETRY_DEADLINE_S = 15.0
-BREAKER_FAILURES = 5
-BREAKER_RESET_S = 5.0
-
 
 class _Breaker:
-    """One destination's circuit breaker: open after ``BREAKER_FAILURES``
-    consecutive failed logical calls, one half-open probe after
-    ``BREAKER_RESET_S``, closed when the probe succeeds."""
+    """One destination's circuit breaker: open after
+    ``rpc_breaker_failures`` consecutive failed logical calls, one
+    half-open probe after ``rpc_breaker_reset_s``, closed when the probe
+    succeeds."""
 
     __slots__ = ("failures", "open", "opened_at", "probing")
 
@@ -520,16 +512,27 @@ _BREAKERS: dict[str, _Breaker] = {}
 _BREAKER_OPENS = 0
 
 
+def _breaker_knobs() -> tuple[int, float]:
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    return (int(GLOBAL_CONFIG.rpc_breaker_failures),
+            float(GLOBAL_CONFIG.rpc_breaker_reset_s))
+
+
 def breaker_allow(dest: str) -> bool:
     """May a logical call to ``dest`` go out now? An open breaker admits
-    one probe per reset interval."""
+    one probe per reset interval; ``rpc_breaker_failures`` 0 disables the
+    breaker."""
+    threshold, reset_s = _breaker_knobs()
+    if threshold <= 0:
+        return True
     with _BREAKERS_LOCK:
         breaker = _BREAKERS.get(dest)
         if breaker is None or not breaker.open:
             return True
         if breaker.probing:
             return False
-        if time.monotonic() - breaker.opened_at >= BREAKER_RESET_S:
+        if time.monotonic() - breaker.opened_at >= reset_s:
             breaker.probing = True  # this caller is the probe
             return True
         return False
@@ -539,6 +542,9 @@ def breaker_record(dest: str, ok: bool) -> None:
     """The outcome of one logical call to ``dest`` (however many
     attempts it took)."""
     global _BREAKER_OPENS
+    threshold, _ = _breaker_knobs()
+    if threshold <= 0:
+        return
     with _BREAKERS_LOCK:
         breaker = _BREAKERS.get(dest)
         if ok:
@@ -552,7 +558,7 @@ def breaker_record(dest: str, ok: bool) -> None:
         was_open = breaker.open
         breaker.failures += 1
         breaker.probing = False
-        if breaker.failures >= BREAKER_FAILURES or was_open:
+        if breaker.failures >= threshold or was_open:
             if not was_open:
                 _BREAKER_OPENS += 1
             breaker.open = True
@@ -588,14 +594,22 @@ def call_with_retry(call: Callable, method: str, *args,
     head reads). A failure that may have executed is retried too, so the
     method must be idempotent; task submits never come through here.
 
-    A destination that fails ``BREAKER_FAILURES`` logical calls in a row
-    opens its breaker, and further calls fail at once with a
-    retryable ``RpcError``. A method that raised counts as a success (the
-    node answered); a transport failure counts once per logical call."""
+    The defaults are ``rpc_retry_attempts``, ``rpc_retry_base_ms`` and
+    ``rpc_retry_deadline_s``. A destination that fails
+    ``rpc_breaker_failures`` logical calls in a row opens its breaker,
+    and further calls fail at once with a retryable ``RpcError``. A
+    method that raised counts as a success (the node answered); a
+    transport failure counts once per logical call."""
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
     global _RPC_RETRIES
-    attempts = RETRY_ATTEMPTS if attempts is None else max(1, attempts)
-    base_delay_s = RETRY_BASE_S if base_delay_s is None else base_delay_s
-    deadline_s = RETRY_DEADLINE_S if deadline_s is None else deadline_s
+    attempts = (int(GLOBAL_CONFIG.rpc_retry_attempts) if attempts is None
+                else attempts)
+    attempts = max(1, attempts)
+    if base_delay_s is None:
+        base_delay_s = float(GLOBAL_CONFIG.rpc_retry_base_ms) / 1000.0
+    if deadline_s is None:
+        deadline_s = float(GLOBAL_CONFIG.rpc_retry_deadline_s)
     dest = getattr(getattr(call, "__self__", None), "address", None)
     counted = False
     deadline = time.monotonic() + deadline_s

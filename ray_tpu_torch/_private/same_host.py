@@ -17,21 +17,26 @@ process, or the driver's).
   lease's life. A lease ends by ``unpin_object`` or, once it outlives
   the TTL and its holder stops answering pings, by the sweep: a dead
   puller cannot pin an object forever.
-- ``attach_segment``, ``read_segment`` and ``fetch_mapped_blob``: the
-  puller's side.
+- ``attach_segment``, ``read_segment``, ``PeerArenaRegistry`` and
+  ``fetch_mapped_blob``: the puller's side.
+- ``sweep_orphan_shm``: unlinks the arenas of owners that died.
 
-A map source crosses the RPC boundary as a plain dict: ``{"kind": "seg",
-"name": ..., "key": ..., "size": ..., "host": ..., "token": ...}``.
+A map source crosses the RPC boundary as a plain dict: ``{"kind": "seg"
+or "arena", "name": ..., "key": ..., "size": ..., "host": ...,
+"token": ...}``. A ``"seg"`` source is a named segment of its own; an
+``"arena"`` source is an object (``key``) in the owner's native arena
+(``name``), which only a driver owns (an export of at most
+``object_arena_max_object_bytes``): the owner pins it for the lease's
+life, and the puller attaches the arena and reads it without touching
+its references.
 
-Not ported: the native arena's kind of source (``"arena"``), the
-``PeerArenaRegistry`` of attached arenas and the sweep of dead owners'
-arena segments (ROADMAP item 10b, with the arena), and the
-``lease.expire`` chaos site (item 10c).
+Not ported: the ``lease.expire`` chaos site (ROADMAP item 10c).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import threading
 import time
 from typing import Callable
@@ -203,8 +208,9 @@ class LeaseTable:
 def pid_is_dead(pid: int) -> bool:
     """True only for a pid that provably does not exist (a 0-signal
     probe): a process of another user (EPERM) counts as alive, so what
-    another user holds is never touched. The spill tier's sweep of dead
-    daemons' directories uses it."""
+    another user holds is never touched. The sweeps of dead owners'
+    arenas (``sweep_orphan_shm``) and of dead daemons' spill directories
+    use it."""
     try:
         os.kill(pid, 0)
         return False
@@ -212,6 +218,115 @@ def pid_is_dead(pid: int) -> bool:
         return True
     except PermissionError:
         return False
+
+
+
+
+def arena_owner_pid(name: str) -> int | None:
+    """The owner's pid in a driver arena's name
+    (``[/]ray_tpu_torch_arena_<pid>``), else None. The JAX package's
+    arenas (``ray_tpu_arena_<pid>``) never match."""
+    from ray_tpu_torch._private.arena_store import ARENA_PREFIX
+
+    match = re.fullmatch(re.escape(ARENA_PREFIX) + r"(\d+)",
+                         name.lstrip("/"))
+    return None if match is None else int(match.group(1))
+
+
+def sweep_orphan_shm() -> int:
+    """Unlink the arenas (``/dev/shm/ray_tpu_torch_arena_<pid>``) whose
+    owner died without destroying them; the number unlinked. An arena is
+    made by ``shm_open`` in C, so no resource tracker unlinks it after a
+    SIGKILL: any process of the host that lives on (a daemon's sweep, the
+    driver's pin sweeper) does. Only this user's segments of provably
+    dead pids are touched; a mapping of an unlinked arena stays valid."""
+    try:
+        names = os.listdir("/dev/shm")
+    except OSError:
+        return 0
+    swept = 0
+    for name in names:
+        pid = arena_owner_pid(name)
+        if pid is None or pid == os.getpid() or not pid_is_dead(pid):
+            continue
+        path = os.path.join("/dev/shm", name)
+        try:
+            if os.stat(path).st_uid != os.getuid():
+                continue
+            os.unlink(path)
+            swept += 1
+        except OSError:
+            continue  # another sweeper won, or not ours to remove
+    return swept
+
+
+class PeerArenaRegistry:
+    """This process's attachments of other processes' arenas, by name.
+    They are kept while their owner lives (a mapping is cheap to hold and
+    dear to churn), detached once it has died (``close_dead_owners``: an
+    unlinked arena's pages stay committed while any mapping holds them,
+    and the port reserves every page at create) and at ``close_all``.
+    The mapping is read only: the puller takes no reference in the
+    owner's arena (the owner pins for it under the lease), so a puller
+    that crashes cannot wedge or corrupt the owner's arena."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._arenas: dict[str, object] = {}
+
+    def get(self, name: str):
+        from ray_tpu_torch._private.arena_store import ArenaStore
+
+        with self._lock:
+            arena = self._arenas.get(name)
+        if arena is not None:
+            return arena
+        # A new attachment: a process that serves driver after driver
+        # lets the dead ones' arenas go first.
+        self.close_dead_owners()
+        with self._lock:
+            arena = self._arenas.get(name)
+            if arena is None:
+                arena = ArenaStore.attach(name)
+                if arena is not None:
+                    self._arenas[name] = arena
+            return arena
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._arenas)
+
+    def close_dead_owners(self) -> int:
+        """Detach the arenas whose owner provably died; the number
+        detached."""
+        with self._lock:
+            dead = [name for name in self._arenas
+                    if (pid := arena_owner_pid(name)) is not None
+                    and pid_is_dead(pid)]
+            arenas = [self._arenas.pop(name) for name in dead]
+        for arena in arenas:
+            try:
+                arena.close()
+            except Exception:  # noqa: BLE001 — a detach is best-effort
+                pass
+        return len(arenas)
+
+    def read(self, name: str, key: bytes) -> bytes | None:
+        """A copy of a sealed object in a peer's arena, made with the
+        attachment held open; None when the arena or the object is
+        gone."""
+        arena = self.get(name)
+        return None if arena is None else arena.read_sealed(key)
+
+    def close_all(self) -> None:
+        with self._lock:
+            arenas = list(self._arenas.values())
+            self._arenas.clear()
+        for arena in arenas:
+            try:
+                arena.close()
+            except Exception:  # noqa: BLE001 — a detach is best-effort
+                pass
 
 
 def attach_segment(name: str):
@@ -276,9 +391,19 @@ def fetch_mapped_blob(call, id_bytes: bytes, my_addr: str, my_host: str,
         return None
     token = info["token"]
     try:
-        if info.get("kind") != "seg":
-            return None
-        return read_segment(info["name"], int(info.get("size", 0)))
+        if info.get("kind") == "seg":
+            return read_segment(info["name"], int(info.get("size", 0)))
+        if info.get("kind") == "arena":
+            from ray_tpu_torch._private.arena_store import ArenaStore
+
+            arena = ArenaStore.attach(info["name"])
+            if arena is None:
+                return None
+            try:
+                return arena.read_sealed(info["key"])
+            finally:
+                arena.close()
+        return None
     except Exception:  # noqa: BLE001 — any failure: the chunked pull
         return None
     finally:

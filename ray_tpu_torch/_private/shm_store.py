@@ -1,17 +1,20 @@
 """Shared-memory object transport between the driver and its worker
 processes.
 
-The port of ``ray_tpu/_private/shm_store.py`` without the native arena
-(``arena_store.py`` and ``ray_tpu/_native/``): every object that crosses
-in shared memory has a POSIX segment of its own
-(``multiprocessing.shared_memory``), as the reference's objects above
-``object_arena_max_object_bytes`` do. An object is serialized once into
-a segment and mapped by every process that reads it, so an argument
-passed from worker to worker never copies through the driver.
+The port of ``ray_tpu/_private/shm_store.py``. An object that crosses in
+shared memory is serialized once and read by every process that needs
+it, so an argument passed from worker to worker never copies through the
+driver. One of at most ``object_arena_max_object_bytes`` lives in the
+driver's native arena (``arena_store.py``: an ``ArenaDescriptor``, read
+by one copy out); a larger one has a POSIX segment of its own
+(``multiprocessing.shared_memory``: a ``ShmDescriptor``, mapped with no
+copy). A ``PeerArenaDescriptor`` names an object in another process's
+arena on this host (the same-host plane), read by one copy under the
+holder's lease.
 
-The driver owns the directory (object id -> segment), the owner half of
-the reference's ownership-based object directory; readers keep their
-mappings open in a per-process cache.
+The driver owns the directory (object id -> descriptor), the owner half
+of the reference's ownership-based object directory; readers keep their
+segment mappings open in a per-process cache.
 """
 
 from __future__ import annotations
@@ -31,6 +34,31 @@ class ShmDescriptor:
 
     name: str
     size: int
+
+
+@dataclass(frozen=True)
+class ArenaDescriptor:
+    """An object in the arena this process attached: its 16-byte key and
+    payload size. ``name`` is a sentinel: segment call sites pass over
+    it."""
+
+    key: bytes
+    size: int
+    name: str = "<arena>"
+
+
+@dataclass(frozen=True)
+class PeerArenaDescriptor:
+    """An object in another process's arena on this host: the arena's
+    name and the object's key. Read by attaching the arena and copying
+    the payload out once; the holder's lease keeps the bytes in place
+    for the copy, and the copy keeps deserialized views valid after the
+    lease ends."""
+
+    arena: str
+    key: bytes
+    size: int
+    name: str = "<peer-arena>"
 
 
 def untrack(seg: shared_memory.SharedMemory) -> None:
@@ -79,6 +107,21 @@ class ShmObjectWriter:
         size = serialization.framed_size(header, buffers)
         return ShmObjectWriter.put_serialized(header, buffers, size)
 
+    @staticmethod
+    def put_arena_serialized(arena, key: bytes, header, buffers,
+                             size: int) -> "ArenaDescriptor | None":
+        """Write serialized framed data into the arena under ``key``,
+        sealed pinned (the one reference belongs to the directory that
+        registers it; ``ShmDirectory.free`` drops it). None when there is
+        no arena or it is full: the caller takes a segment."""
+        if arena is None:
+            return None
+        if not arena.write_object(
+                key, size, lambda view: serialization.write_framed(
+                    view, header, buffers)):
+            return None
+        return ArenaDescriptor(key, size)
+
 
 class ShmClient:
     """Per-process reader with an open-segment cache. Values view the
@@ -94,8 +137,45 @@ class ShmClient:
         # unregisters, so it keeps them.
         self._untrack_on_attach = untrack_on_attach
         self._leaked: list[shared_memory.SharedMemory] = []
+        self._arena = None
+        # Attachments of peers' arenas (the same-host plane), made at the
+        # first PeerArenaDescriptor.
+        self._peer_arenas = None
 
-    def get(self, desc: ShmDescriptor) -> Any:
+    def set_arena(self, arena) -> None:
+        self._arena = arena
+
+    @property
+    def arena(self):
+        """The arena this process attached (or owns), or None."""
+        return self._arena
+
+    def get(self, desc) -> Any:
+        if isinstance(desc, PeerArenaDescriptor):
+            with self._lock:
+                if self._peer_arenas is None:
+                    from ray_tpu_torch._private.same_host import (
+                        PeerArenaRegistry,
+                    )
+
+                    self._peer_arenas = PeerArenaRegistry()
+                registry = self._peer_arenas
+            blob = registry.read(desc.arena, desc.key)
+            if blob is None:
+                raise KeyError(f"peer-arena object {desc.key.hex()} "
+                               f"unavailable in {desc.arena}")
+            return serialization.deserialize_from_buffer(
+                memoryview(blob)[:desc.size])
+        if isinstance(desc, ArenaDescriptor):
+            if self._arena is None:
+                raise RuntimeError("arena object but no arena attached")
+            blob = self._arena.get_bytes(desc.key)
+            if blob is None:
+                raise KeyError(
+                    f"arena object {desc.key.hex()} evicted or deleted")
+            # The copy owns its memory: views deserialized from it stay
+            # valid whatever the arena does next.
+            return serialization.deserialize_from_buffer(memoryview(blob))
         with self._lock:
             seg = self._segments.get(desc.name)
             if seg is None:
@@ -120,6 +200,9 @@ class ShmClient:
         with self._lock:
             segments = list(self._segments.values())
             self._segments.clear()
+            peer_arenas, self._peer_arenas = self._peer_arenas, None
+        if peer_arenas is not None:
+            peer_arenas.close_all()
         for seg in segments:
             try:
                 seg.close()
@@ -130,15 +213,28 @@ class ShmClient:
 
 
 class ShmDirectory:
-    """The driver's registry of segment-resident objects: each segment
+    """The driver's registry of objects in shared memory: each segment
     is unlinked exactly once, at free or at shutdown (POSIX shared
-    memory outlives its processes until it is unlinked)."""
+    memory outlives its processes until it is unlinked), and each arena
+    object is unpinned and deleted at its free."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._by_object: dict[ObjectID, ShmDescriptor] = {}
+        self._by_object: dict[ObjectID, Any] = {}
         self._owned: dict[str, shared_memory.SharedMemory] = {}
         self._leaked: list[shared_memory.SharedMemory] = []
+        self._arena = None
+
+    def set_arena(self, arena) -> None:
+        self._arena = arena
+
+    def register_arena(self, object_id: ObjectID,
+                       desc: ArenaDescriptor) -> None:
+        """Record an object in the arena. It arrives sealed pinned, so it
+        was never evictable on its way here; the directory takes over
+        that reference and drops it in ``free``."""
+        with self._lock:
+            self._by_object[object_id] = desc
 
     def register(self, object_id: ObjectID, desc: ShmDescriptor,
                  segment: "shared_memory.SharedMemory | None") -> None:
@@ -164,13 +260,21 @@ class ShmDirectory:
             return self._by_object.get(object_id)
 
     def free(self, object_id: ObjectID) -> "str | None":
-        """Unlink the object's segment; its name, or None."""
+        """Unlink the object's segment (its name returned), or unpin and
+        delete its arena entry (None returned: no segment to close)."""
         with self._lock:
             desc = self._by_object.pop(object_id, None)
-            seg = self._owned.pop(desc.name, None) if desc else None
+            arena = self._arena
+            seg = self._owned.pop(desc.name, None) \
+                if isinstance(desc, ShmDescriptor) else None
+        if isinstance(desc, ArenaDescriptor):
+            if arena is not None:
+                arena.unpin(desc.key)  # the seal_pinned reference
+                arena.delete(desc.key)
+            return None
         if seg is not None:
             self._close_and_unlink(seg)
-        return desc.name if desc else None
+        return desc.name if isinstance(desc, ShmDescriptor) else None
 
     def shutdown(self) -> None:
         with self._lock:

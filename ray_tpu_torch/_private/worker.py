@@ -89,6 +89,7 @@ from ray_tpu_torch._private.scheduler import (
 from ray_tpu_torch._private.task import SchedulingStrategy, TaskSpec
 from ray_tpu_torch.exceptions import (
     ActorDiedError,
+    ActorError,
     ObjectLostError,
     PlacementGroupError,
     SystemOverloadedError,
@@ -256,15 +257,36 @@ class Runtime:
     # ------------------------------------------------- worker processes
 
     def _start_process_plane(self, pool_size: int) -> None:
-        """The pieces worker processes use: the segment directory, the
-        client server (started at the first process spawn, so a runtime
-        of threads pays nothing), the log monitor and the pool."""
+        """The pieces worker processes use: the shared-memory directory
+        and the driver's arena, the client server (started at the first
+        process spawn, so a runtime of threads pays nothing), the log
+        monitor and the pool."""
         from ray_tpu_torch._private import serialization
         from ray_tpu_torch._private.shm_store import ShmClient, ShmDirectory
 
         serialization.init_raw_from_config()
         self.shm_directory = ShmDirectory()
         self.shm_client = ShmClient()
+        # The native shared arena (plasma-lite, _native/plasma_store.cpp):
+        # this driver owns it, and its worker processes attach it by the
+        # name they are handed. A failed build raises; object_arena_bytes
+        # 0 keeps every object in a segment of its own.
+        self.arena = None
+        arena_bytes = int(GLOBAL_CONFIG.object_arena_bytes or 0)
+        if arena_bytes > 0:
+            from ray_tpu_torch._private.arena_store import (
+                ArenaStore,
+                default_arena_name,
+            )
+
+            self.arena = ArenaStore.create(default_arena_name(), arena_bytes)
+            if self.arena is None:
+                raise RuntimeError(
+                    f"cannot create the {arena_bytes}-byte arena "
+                    f"{default_arena_name()} in /dev/shm (object_arena_bytes"
+                    f"=0 runs without it)")
+            self.shm_client.set_arena(self.arena)
+            self.shm_directory.set_arena(self.arena)
         self.store.add_free_listener(self._on_object_freed)
         self.worker_pool = None
         self.worker_client_server = None
@@ -305,7 +327,8 @@ class Runtime:
         os.environ[pool_mod.THREADS_ENV] = str(
             max(1, (os.cpu_count() or 1) // int(pool_size)))
         self.worker_pool = pool_mod.WorkerPool(
-            int(pool_size), self.shm_directory, self.shm_client)
+            int(pool_size), self.shm_directory, self.shm_client,
+            arena=self.arena)
         refresh_ms = int(GLOBAL_CONFIG.memory_monitor_refresh_ms or 0)
         if refresh_ms > 0:
             from ray_tpu_torch._private.memory_monitor import MemoryMonitor
@@ -362,17 +385,58 @@ class Runtime:
         return entry
 
     def _promote_to_shm(self, ref: ObjectRef):
-        """Make an object of this process readable by worker processes:
-        its segment, written at the first use."""
+        """Make an object of this process readable by worker processes,
+        at its first use: in the arena (keyed by its id) when it is at
+        most ``object_arena_max_object_bytes`` and fits, else in a
+        segment of its own. Serialized under a lock: two threads
+        promoting one object would race the arena's duplicate-key
+        check."""
+        from ray_tpu_torch._private import serialization
         from ray_tpu_torch._private.shm_store import ShmObjectWriter
 
         with self._promote_lock:
             self._recent_promotes[ref.id()] = time.monotonic()
             desc = self.shm_directory.lookup(ref.id())
-            if desc is None:
-                desc, seg = ShmObjectWriter.put(self.store.get(ref.id()))
-                self.shm_directory.register(ref.id(), desc, seg)
+            if desc is not None:
+                return desc
+            header, buffers = serialization.serialize(
+                self._materialize_value(ref.id(), self.store.get(ref.id())))
+            size = serialization.framed_size(header, buffers)
+            if size <= int(GLOBAL_CONFIG.object_arena_max_object_bytes):
+                desc = ShmObjectWriter.put_arena_serialized(
+                    self.arena, ref.id().binary(), header, buffers, size)
+                if desc is not None:
+                    self.shm_directory.register_arena(ref.id(), desc)
+                    return desc
+            desc, seg = ShmObjectWriter.put_serialized(header, buffers, size)
+            self.shm_directory.register(ref.id(), desc, seg)
             return desc
+
+    def _shm_actor_args(self, call: _ActorCall) -> None:
+        """A process actor's call: each top-level ObjectRef argument
+        crosses as the descriptor of its value in the arena or a segment,
+        as a pool task's does. The call keeps the refs (``call.refs``)
+        until its results are stored: the entry is freed with the last
+        ref, and the caller may hold none."""
+        from ray_tpu_torch._private.worker_pool import _ShmRef
+
+        refs = ref_args(call.args, call.kwargs)
+        if not refs:
+            return
+        self.get(refs)  # ready (or the first error fails the call)
+
+        def convert(a):
+            if not isinstance(a, ObjectRef):
+                return a
+            try:
+                return _ShmRef(self._promote_to_shm(a))
+            except Exception as exc:  # noqa: BLE001 — a value that cannot be pickled
+                raise ActorError(exc, "", f"{call.method_name} (argument "
+                                          f"serialization)") from exc
+
+        call.refs = tuple(refs)
+        call.args = tuple(convert(a) for a in call.args)
+        call.kwargs = {k: convert(v) for k, v in call.kwargs.items()}
 
     def _try_execute_on_pool(self, spec: TaskSpec, node: NodeState,
                              bundled: bool) -> bool:
@@ -688,28 +752,57 @@ class Runtime:
 
     def _grant_export_lease(self, id_bytes: bytes,
                             holder: str) -> dict | None:
+        """A lease for ``holder`` on the export's segment, or on its arena
+        twin, which stays pinned in the arena until the lease ends."""
         with self._export_lock:
             source = self._export_sources.get(id_bytes)
         if source is None:
             return None
         kind, name, size = source
-        token = self._export_leases.grant(id_bytes, holder)
-        return {"kind": kind, "name": name, "key": b"", "size": size,
+        key = b""
+        if kind == "arena":
+            arena, key = self.arena, id_bytes
+            if arena is None or arena.pin(key) is None:
+                return None
+            token = self._export_leases.grant(
+                id_bytes, holder, on_release=lambda: arena.unpin(key))
+        else:
+            token = self._export_leases.grant(id_bytes, holder)
+        return {"kind": kind, "name": name, "key": key, "size": size,
                 "host": self.host_id, "token": token}
 
     def _register_export_source(self, id_bytes: bytes, header, buffers,
                                 size: int):
-        """Write a large export straight into a named segment, which
-        daemons on this host map. Returns a view of the framed bytes (the
-        export store keeps it), or None when the caller keeps a heap copy
-        (the plane off, under the threshold, no room in /dev/shm)."""
+        """Back an export with shared memory that daemons on this host
+        read: one of at least ``same_host_map_min_kb`` is written straight
+        into a named segment (returned as a view of the framed bytes,
+        which the export store keeps); one of at most
+        ``object_arena_max_object_bytes`` gets a twin in the arena under
+        its id (the export store keeps a heap copy of its own: the twin
+        is what same-host peers read, the copy what the chunked pull
+        serves). None when the caller keeps a heap copy alone (the plane
+        off, no room)."""
         from multiprocessing import shared_memory
 
         from ray_tpu_torch._private import serialization
         from ray_tpu_torch._private.same_host import map_enabled, map_min_bytes
+        from ray_tpu_torch._private.shm_store import ShmObjectWriter
 
-        if not map_enabled() or size < map_min_bytes():
+        if not map_enabled():
             return None
+        if size < map_min_bytes():
+            if self.arena is None or size > int(
+                    GLOBAL_CONFIG.object_arena_max_object_bytes):
+                return None
+            if ShmObjectWriter.put_arena_serialized(
+                    self.arena, id_bytes, header, buffers, size) is None:
+                return None
+            with self._export_lock:
+                self._export_sources[id_bytes] = ("arena", self.arena.name,
+                                                  size)
+            buf = bytearray(size)
+            serialization.write_framed(memoryview(buf), header, buffers)
+            return bytes(buf)
         try:
             seg = shared_memory.SharedMemory(create=True, size=max(size, 1))
         except OSError:
@@ -721,15 +814,19 @@ class Runtime:
         return memoryview(seg.buf)[:size]
 
     def _drop_export_source(self, id_bytes: bytes) -> None:
-        """The export is freed or spilled: the leases on it end and its
-        segment is unlinked (a daemon that mapped it keeps its
-        mapping)."""
+        """The export is freed or spilled: the leases on it end (their
+        arena pins with them), then its segment is unlinked (a daemon
+        that mapped it keeps its mapping) or its arena twin unpinned and
+        deleted."""
         with self._export_lock:
             source = self._export_sources.pop(id_bytes, None)
             seg = self._export_segments.pop(id_bytes, None)
         if source is None:
             return
         self._export_leases.release_object(id_bytes)
+        if source[0] == "arena" and self.arena is not None:
+            self.arena.unpin(id_bytes)  # the seal_pinned reference
+            self.arena.delete(id_bytes)
         if seg is not None:
             _unlink_export_segment(seg)
 
@@ -1502,6 +1599,23 @@ class Runtime:
                     "queue_depth": self.dispatcher.pending_count(),
                     "lineage_rebuilds": self.recovery.num_recoveries}
 
+    def fault_stats(self) -> dict:
+        """This driver's failure counters, in the shape of a daemon's
+        ``executor_stats()["faults"]``: how often each recovery path
+        fired in this process."""
+        from ray_tpu_torch._private.rpc import breaker_stats, rpc_retry_count
+
+        with self._counter_lock:
+            task_timeouts = self._task_timeouts
+            admission_shed = self._admission_shed
+        return {"rpc_retries": rpc_retry_count(),
+                "peer_blacklists": 0,  # a driver pulls whole blobs
+                "lease_orphans_swept": self._export_leases.expired,
+                "lineage_rebuilds": self.recovery.num_recoveries,
+                "task_timeouts": task_timeouts,
+                "admission_shed": admission_shed,
+                "breaker_open": breaker_stats()["opens"]}
+
     # ---------------------------------------------------------------- tasks
 
     _ARG_PIN_GRACE_S = 10.0
@@ -1547,7 +1661,10 @@ class Runtime:
 
     def _arg_pin_sweeper(self) -> None:
         from ray_tpu_torch._private.node_executor import _probe_peer
-        from ray_tpu_torch._private.same_host import pin_ttl_s
+        from ray_tpu_torch._private.same_host import (
+            pin_ttl_s,
+            sweep_orphan_shm,
+        )
 
         while not self._watcher_stop.wait(1.0):
             self._sweep_arg_pins()
@@ -1559,6 +1676,12 @@ class Runtime:
                 self._lease_sweep_at = now
                 try:
                     self._export_leases.sweep(pin_ttl_s(), _probe_peer)
+                except Exception:  # noqa: BLE001 — the sweep is best-effort
+                    pass
+                # The arenas of co-hosted owners killed without a
+                # destroy have no other unlinker.
+                try:
+                    sweep_orphan_shm()
                 except Exception:  # noqa: BLE001 — the sweep is best-effort
                     pass
 
@@ -1894,9 +2017,11 @@ class Runtime:
                         on_death=self._mark_actor_dead,
                         on_release=self._release_actor_lease,
                         set_context=set_context)
+                # Recorded before the actor is published: no call's result
+                # is seen before the table has its placement.
+                self._record_actor_placement(actor)
                 self._actors[actor_id] = actor
                 self._actors_changed.notify_all()
-            self._record_actor_placement(actor)
 
         threading.Thread(target=start_actor, daemon=True,
                          name=f"ray_tpu_torch-actor-create-"
@@ -2072,6 +2197,8 @@ class Runtime:
                 # argument still fails the call.
                 for ref in ref_args(call.args, call.kwargs):
                     self.store.get(ref.id())
+            elif getattr(actor, "takes_shm_args", False):
+                self._shm_actor_args(call)
             else:
                 call.args, call.kwargs, _ = resolve_args(
                     call.args, call.kwargs, lambda ref: self.get([ref])[0])
@@ -2369,6 +2496,9 @@ class Runtime:
                           ignore_errors=True)
         self.shm_client.close_all()
         self.shm_directory.shutdown()
+        if self.arena is not None:
+            self.arena.close()  # the owner's: unmapped and unlinked
+            self.arena = None
 
 
 def _unlink_export_segment(seg) -> None:

@@ -3,9 +3,13 @@
 The port of ``ray_tpu/_private/worker_pool.py``. With
 ``init(process_workers=N)`` the driver keeps N worker processes, sends
 each task over a duplex pipe behind the serialization boundary
-(``serialization.py``) and moves data through named shared-memory
-segments (``shm_store.py``), so an argument passed from worker to worker
-never copies through the driver. Threads of one process share one GIL; a
+(``serialization.py``) and moves data through shared memory
+(``shm_store.py``): a result, a promoted argument or an export of at
+most ``object_arena_max_object_bytes`` through the driver's native
+arena, which each of its worker processes attaches by the name it is
+handed (``RAY_TPU_TORCH_ARENA_NAME``; a node daemon's workers get none),
+and a larger one through a segment of its own. An argument passed from
+worker to worker never copies through the driver. Threads of one process share one GIL; a
 worker process does not, so CPU-bound fan-out runs on as many cores as
 there are workers. A crashed worker is seen as the pipe's EOF: its task
 fails with ``WorkerCrashedError`` (retried as a system failure while
@@ -47,6 +51,7 @@ from typing import Any, Callable
 from ray_tpu_torch._private import serialization
 from ray_tpu_torch._private.ids import ActorID, ObjectID
 from ray_tpu_torch._private.shm_store import (
+    ArenaDescriptor,
     ShmClient,
     ShmDescriptor,
     ShmDirectory,
@@ -188,10 +193,20 @@ def _resolve_shm_args(args, kwargs, client: ShmClient):
     return args, kwargs
 
 
-def _pack_results(values: list) -> list:
-    """Each value -> ("inline", bytes) | ("shm", name, size) | ("err",
-    blob): inline up to ``worker_inline_result_kb``, else a segment of
-    its own that the driver adopts."""
+def _arena_max_bytes() -> int:
+    from ray_tpu_torch._private.config import ARENA_MAX_ENV
+
+    return int(os.environ.get(ARENA_MAX_ENV) or 1024 * 1024)
+
+
+def _pack_results(values: list, arena=None) -> list:
+    """Each value -> ("inline", bytes) | ("arena", key, size) | ("shm",
+    name, size) | ("err", blob): inline up to
+    ``worker_inline_result_kb``; else in the driver's ``arena`` up to its
+    object cap (sealed pinned: the driver's directory takes over the
+    reference, so the result cannot be evicted on its way); else, or
+    when the arena is full, a segment of its own that the driver
+    adopts."""
     from multiprocessing import shared_memory
 
     out = []
@@ -211,6 +226,15 @@ def _pack_results(values: list) -> list:
             serialization.write_framed(memoryview(blob), header, buffers)
             out.append(("inline", bytes(blob)))
             continue
+        if arena is not None and size <= _arena_max_bytes():
+            key = os.urandom(16)
+            # A worker killed between here and the driver's reply leaks
+            # this one pin, bounded by the crashes; the arena dies with
+            # the driver.
+            if arena.write_object(key, size, lambda view: (
+                    serialization.write_framed(view, header, buffers))):
+                out.append(("arena", key, size))
+                continue
         seg = shared_memory.SharedMemory(create=True, size=size)
         untrack(seg)  # its unlink is the driver's
         serialization.write_framed(seg.buf, header, buffers)
@@ -234,10 +258,30 @@ def worker_main(conn) -> None:
 
         torch.set_num_threads(int(threads))
     client = ShmClient(untrack_on_attach=True)
+    arena = _attach_driver_arena(client)
     try:
         _serve(conn, client)
     finally:
         client.close_all()
+        if arena is not None:
+            arena.close()
+
+
+def _attach_driver_arena(client: ShmClient):
+    """Attach the arena this worker was handed (none when the name is
+    empty: a node daemon's worker, or a driver without one)."""
+    from ray_tpu_torch._private.config import ARENA_NAME_ENV
+
+    name = os.environ.get(ARENA_NAME_ENV)
+    if not name:
+        return None
+    from ray_tpu_torch._private.arena_store import ArenaStore
+
+    arena = ArenaStore.attach(name)
+    if arena is None:
+        raise RuntimeError(f"worker cannot attach its driver's arena {name}")
+    client.set_arena(arena)
+    return arena
 
 
 def _exec_task_body(fields: tuple, func_cache: dict,
@@ -278,7 +322,7 @@ def _exec_task_body(fields: tuple, func_cache: dict,
             raise ValueError(f"task declared num_returns={n_returns} but "
                              f"returned {type(result).__name__}")
         values = list(result)
-    return _pack_results(values)
+    return _pack_results(values, client.arena)
 
 
 def _settle_borrows() -> None:
@@ -365,7 +409,7 @@ def _invoke_actor_method(instance, client: ShmClient, method_name: str,
         values = [result] if n_returns == 1 else (
             list(result) if isinstance(result, (tuple, list))
             else [None] * n_returns)
-        return ("ok", _pack_results(values))
+        return ("ok", _pack_results(values, client.arena))
     except BaseException as exc:  # noqa: BLE001 — sent to the driver
         return ("err", _exception_blob(exc))
 
@@ -453,13 +497,15 @@ def _visible_cards(gpu_ids: list[int]) -> str:
 
 
 def _spawn_worker(name: str, extra_env: dict | None = None,
-                  gpu_ids: list[int] | None = None):
+                  gpu_ids: list[int] | None = None, arena=None):
     """Start a worker: a fork of the factory for a CPU worker whose
     environment the factory can honour; otherwise (a GPU actor, or
     import-time settings of its own) a fresh interpreter that connects
     back over a Unix socket. ``gpu_ids`` (a ``GPU`` lease's cards) is
     what the worker sees in ``CUDA_VISIBLE_DEVICES``; without it the
-    worker sees no card."""
+    worker sees no card. ``arena``: the driver's, which the worker
+    attaches; without it the worker attaches none, whatever this
+    process's environment says."""
     import secrets
     import socket
     import tempfile
@@ -468,9 +514,13 @@ def _spawn_worker(name: str, extra_env: dict | None = None,
     from ray_tpu_torch._private.config import GLOBAL_CONFIG
     from ray_tpu_torch._private.worker_factory import cpu_worker_env
 
+    from ray_tpu_torch._private.config import ARENA_MAX_ENV, ARENA_NAME_ENV
+
     env = dict(os.environ)
     if extra_env:
         env.update({k: str(v) for k, v in extra_env.items()})
+    env[ARENA_NAME_ENV] = arena.name if arena is not None else ""
+    env[ARENA_MAX_ENV] = str(int(GLOBAL_CONFIG.object_arena_max_object_bytes))
     if gpu_ids:
         env["CUDA_VISIBLE_DEVICES"] = _visible_cards(gpu_ids)
         if serialization.sees_card():
@@ -566,14 +616,14 @@ class PoolWorker:
     """One worker process and its pipe; one request in flight."""
 
     def __init__(self, index: int, extra_env: dict | None = None,
-                 gpu_ids: list[int] | None = None):
+                 gpu_ids: list[int] | None = None, arena=None):
         self.index = index
         self._lock = threading.Lock()
         # Digests of the functions this worker has been sent: each
         # crosses once per worker.
         self.known_digests: set[str] = set()
         self.proc, self.conn = _spawn_worker(f"w{index}", extra_env,
-                                             gpu_ids)
+                                             gpu_ids, arena)
 
     def _crashed(self, exc: BaseException) -> WorkerCrashedError:
         err = WorkerCrashedError(f"worker {self.index} (pid "
@@ -633,7 +683,8 @@ class WorkerPool:
     lease and takes it back after)."""
 
     def __init__(self, size: int, directory: ShmDirectory,
-                 driver_client: ShmClient, max_size: int | None = None):
+                 driver_client: ShmClient, max_size: int | None = None,
+                 arena=None):
         from concurrent.futures import ThreadPoolExecutor
 
         from ray_tpu_torch._private.config import GLOBAL_CONFIG
@@ -647,6 +698,8 @@ class WorkerPool:
         self.idle_cap = size if size > 0 else min(4, self.max_size)
         self.directory = directory
         self.driver_client = driver_client
+        # The driver's arena, handed to every worker (None on a daemon).
+        self.arena = arena
         self._lock = threading.Condition(threading.Lock())
         self._index_lock = threading.Lock()
         self._idle: list[PoolWorker] = []
@@ -666,7 +719,7 @@ class WorkerPool:
         with self._index_lock:
             index = self._next_index
             self._next_index += 1
-        worker = PoolWorker(index, extra_env=extra_env)
+        worker = PoolWorker(index, extra_env=extra_env, arena=self.arena)
         with self._index_lock:
             self._all_workers = {w for w in self._all_workers if w.alive()}
             self._all_workers.add(worker)
@@ -725,9 +778,10 @@ class WorkerPool:
             threading.Thread(target=retire.stop, daemon=True).start()
 
     def marshal_args(self, args: tuple, kwargs: dict,
-                     promote: Callable[[Any], ShmDescriptor]) -> bytes:
+                     promote: Callable[[Any], Any]) -> bytes:
         """Top-level ObjectRef arguments become _ShmRef descriptors (the
-        driver's values promoted into segments); the rest is framed."""
+        driver's values promoted into its arena or a segment); the rest
+        is framed."""
         from ray_tpu_torch._private.object_ref import ObjectRef
 
         if not any(isinstance(a, ObjectRef) for a in args) \
@@ -822,9 +876,14 @@ class WorkerPool:
 def unpack_result(packed: tuple, rid: ObjectID, directory: ShmDirectory,
                   client: ShmClient) -> Any:
     """One packed result as a value; a segment is adopted by the
-    directory under ``rid``. A result that failed to pickle raises."""
+    directory under ``rid``, and an arena entry registered there (its
+    pin with it). A result that failed to pickle raises."""
     if packed[0] == "inline":
         return serialization.deserialize_from_buffer(memoryview(packed[1]))
+    if packed[0] == "arena":
+        desc = ArenaDescriptor(packed[1], packed[2])
+        directory.register_arena(rid, desc)
+        return client.get(desc)
     if packed[0] == "shm":
         desc = ShmDescriptor(packed[1], packed[2])
         directory.adopt(rid, desc)
@@ -843,7 +902,13 @@ class ProcessActor:
     It has ``LocalActor``'s interface (``submit``, ``kill``,
     ``wait_stopped``, ``is_dead``), so the runtime treats both alike.
     ``gpu_ids`` are the cards of its ``GPU`` lease: the process sees
-    exactly those."""
+    exactly those. A top-level ObjectRef argument crosses as the
+    descriptor of its value in the driver's arena or a segment
+    (``takes_shm_args``), and a result the way a task's does, as for a
+    pool task; the reference pickles every argument's value into the
+    pipe."""
+
+    takes_shm_args = True
 
     def __init__(self, actor_id: ActorID, cls: type, init_args: tuple,
                  init_kwargs: dict, runtime, *, max_restarts: int = 0,
@@ -955,7 +1020,8 @@ class ProcessActor:
             # interpreter instead of a fork.
             self._worker = PoolWorker(
                 -1, extra_env=(self._runtime_env or {}).get("env_vars"),
-                gpu_ids=self._gpu_ids)
+                gpu_ids=self._gpu_ids,
+                arena=getattr(self._runtime, "arena", None))
             reply = self._worker.request(
                 ("actor_new", serialization.dumps_function(self._cls),
                  serialization.serialize_framed((self._init_args,

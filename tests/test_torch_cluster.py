@@ -359,9 +359,10 @@ def test_call_with_retry_retries_transport_failures_only():
 
 def test_breaker_opens_after_consecutive_failures(monkeypatch):
     from ray_tpu_torch._private import rpc
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
 
-    monkeypatch.setattr(rpc, "BREAKER_FAILURES", 2)
-    monkeypatch.setattr(rpc, "BREAKER_RESET_S", 60.0)
+    GLOBAL_CONFIG.update({"rpc_breaker_failures": 2,
+                          "rpc_breaker_reset_s": 60.0})
     rpc.reset_breakers()
     try:
         class Dead:
@@ -380,6 +381,7 @@ def test_breaker_opens_after_consecutive_failures(monkeypatch):
         assert rpc.breaker_stats()["open_now"] == ["127.0.0.1:1"]
     finally:
         rpc.reset_breakers()
+        GLOBAL_CONFIG.reset()
 
 
 def test_head_publishes_node_death_and_resources(tmp_path):

@@ -17,8 +17,6 @@ Where the port deliberately differs:
   daemon's own process, on the card its lease names, and a daemon that
   declares more ``GPU`` than it sees refuses to start (the port-only
   cases at the end; here ``RAY_TPU_TORCH_NUM_GPUS`` stands for a card);
-- the same-host plane serves named segments only, not the native arena
-  (ROADMAP item 10b);
 - there is no pipelined ``execute_task_batch`` (item 10c): every task
   goes through ``execute_task``, so the spillback case makes only that
   refuse once per node;

@@ -234,6 +234,90 @@ def test_a_node_daemon_starts_without_jax_ray_tpu_or_cloudpickle():
     assert out.stdout.strip() == "1 False []"
 
 
+def test_native_layer_builds_from_the_ports_sources_into_its_build_dir():
+    """The library the port loads is built from
+    ``ray_tpu_torch/_native/*.cpp`` into ``build/ray_tpu_torch/`` (named by
+    their hash, linked ``-Wl,-Bsymbolic``), and once the arena, the KV
+    engine and the node store have been used in a fresh interpreter where
+    importing jax, ray_tpu or cloudpickle raises, ``ray_tpu`` is still
+    absent from ``sys.modules``."""
+    import subprocess
+    import sys
+
+    from ray_tpu_torch import _native
+
+    assert sorted(_native.SOURCES) == sorted(
+        (ROOT / "ray_tpu_torch" / "_native").glob("*.cpp"))
+    assert _native.library_path().parent == ROOT / "build" / "ray_tpu_torch"
+    assert "-Wl,-Bsymbolic" in _native.CXX_FLAGS
+    code = "\n".join([
+        "import os, sys",
+        "class Block:",
+        "    def find_spec(self, name, path=None, target=None):",
+        "        if name.split('.')[0] in ('jax', 'ray_tpu', 'cloudpickle'):",
+        "            raise ImportError('blocked: ' + name)",
+        "sys.meta_path.insert(0, Block())",
+        "from ray_tpu_torch import _native",
+        "from ray_tpu_torch._private.arena_store import ArenaStore",
+        "from ray_tpu_torch._private.gcs_kv_native import NativeKVStore",
+        "from ray_tpu_torch._private.node_store_native import "
+        "NativeNodeObjectStore",
+        "lib = _native.load()",
+        "arena = ArenaStore.create(f'/rtt_imports_{os.getpid()}', 1 << 20)",
+        "arena.put_bytes(b'k' * 16, [b'v'])",
+        "assert arena.get_bytes(b'k' * 16) == b'v'",
+        "arena.close()",
+        "kv = NativeKVStore(lib)",
+        "kv.put(b'k', b'v')",
+        "assert kv.get(b'k') == b'v'",
+        "store = NativeNodeObjectStore(lib, spill_dir=sys.argv[1])",
+        "store.put(b'k' * 16, b'v')",
+        "assert store.get(b'k' * 16) == b'v'",
+        "print(lib._name)",
+        "print(sorted(m for m in sys.modules",
+        "      if m.split('.')[0] in ('jax', 'ray_tpu', 'cloudpickle')))",
+    ])
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as spill_dir:
+        out = subprocess.run([sys.executable, "-c", code, spill_dir],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded, modules = out.stdout.strip().splitlines()
+    assert loaded == str(_native.library_path())
+    assert modules == "[]"
+
+
+@pytest.mark.parametrize("fault", ["timeout", "no_compiler_binary"])
+def test_native_build_that_cannot_finish_raises_native_load_error(
+        fault, monkeypatch, tmp_path):
+    """A compiler run past its time limit, or one that cannot be started,
+    raises ``NativeLoadError`` (with the output so far), as a failed
+    build does, and leaves no temporary file behind."""
+    import subprocess
+
+    from ray_tpu_torch import _native
+
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_native, "library_path",
+                        lambda: tmp_path / "libnative-test.so")
+    if fault == "timeout":
+        def run(cmd, **kwargs):
+            raise subprocess.TimeoutExpired(cmd, kwargs["timeout"],
+                                            output="partial output")
+
+        monkeypatch.setattr(_native.subprocess, "run", run)
+        expected = "partial output"
+    else:
+        monkeypatch.setattr(_native.shutil, "which",
+                            lambda name: str(tmp_path / "missing-g++"))
+        expected = "cannot run"
+    with pytest.raises(_native.NativeLoadError, match=expected):
+        _native.build()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [".native.lock"]
+
+
 def test_data_modules_import_without_jax_ray_tpu_or_cloudpickle():
     assert len(DATA_MODULES) == 12  # the 11 ported modules, _device_feed
     assert _import_blocked(DATA_MODULES,

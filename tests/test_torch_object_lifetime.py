@@ -7,15 +7,18 @@ by daemon actors after their owner dropped every handle.
 The cases of tests/test_object_lifetime.py on ported modules, each once
 through ``ray_tpu`` and once through ``ray_tpu_torch``, returning plain
 records that must be equal, and equal to what the reference case
-asserts. The node store's cases run its ``python`` half only (the
-native store is ROADMAP item 10b). Where the reference sleeps for the
+asserts. The node store's cases run both halves, the ``python`` store
+and the ``native`` one (``node_store.cpp``), and which of the two a
+daemon takes. Where the reference sleeps for the
 borrow to be flushed, these wait for the owner's borrower table to list
 a borrower other than the driver itself. Each case that starts processes
 has a time limit of its own.
 
 Where the port deliberately differs: the node store's managed spill
 files are ``RTS1`` files (``*.spill``); the record lists every file left
-in the spill directory, whatever its name.
+in the spill directory, whatever its name. The native store has no
+silent fallback: where the reference skips without a toolchain, the
+port's build raises.
 """
 
 from __future__ import annotations
@@ -47,16 +50,21 @@ def _mod(name: str, sub: str):
     return importlib.import_module(f"{name}.{sub}")
 
 
-def _node_store(name: str, **kwargs):
-    return _mod(name, "_private.node_executor").NodeObjectStore(**kwargs)
+def _node_store(name: str, impl: str = "python", **kwargs):
+    if impl == "python":
+        return _mod(name, "_private.node_executor").NodeObjectStore(**kwargs)
+    lib = importlib.import_module(f"{name}._native").load()
+    assert lib is not None
+    return _mod(name, "_private.node_store_native").NativeNodeObjectStore(
+        lib, **kwargs)
 
 
 # ------------------------------------------------- the node store (python)
 
 
-def spills_primaries_and_restores(name, tmp_path) -> dict:
-    spill_dir = tmp_path / name / "spill"
-    store = _node_store(name, primary_limit_bytes=3 * 1024 * 1024,
+def spills_primaries_and_restores(name, tmp_path, impl="python") -> dict:
+    spill_dir = tmp_path / name / impl / "spill"
+    store = _node_store(name, impl, primary_limit_bytes=3 * 1024 * 1024,
                         spill_dir=str(spill_dir))
     blobs = {}
     for i in range(8):  # 8 x 1 MB against a 3 MB cap
@@ -90,8 +98,9 @@ def test_node_store_spills_primaries_and_restores(tmp_path):
         "spilled_after_free": 0, "files_left": []}, records
 
 
-def owner_free(name, tmp_path) -> dict:
-    store = _node_store(name, spill_dir=str(tmp_path / name / "spill"))
+def owner_free(name, tmp_path, impl="python") -> dict:
+    store = _node_store(name, impl,
+                        spill_dir=str(tmp_path / name / impl / "spill"))
     store.put(b"a" * 16, b"x" * 100, owner="owner-a")
     store.put(b"b" * 16, b"y" * 100, owner="owner-b")
     store.put(b"c" * 16, b"z" * 100, owner="owner-a")
@@ -105,6 +114,60 @@ def test_owner_free_drops_only_that_owners_blobs(tmp_path):
     assert records["ray_tpu"] == records["ray_tpu_torch"] == {
         "freed": 2, "kept": b"y" * 100, "gone": None,
         "owners": ["owner-b"]}, records
+
+
+def test_native_node_store_spills_primaries_and_restores(tmp_path):
+    """tests/test_object_lifetime.py:39, its ``native`` half."""
+    records = {name: spills_primaries_and_restores(name, tmp_path, "native")
+               for name in PACKAGES}
+    assert records["ray_tpu"] == records["ray_tpu_torch"] == {
+        "spilled_5_or_more": True, "under_the_cap": True,
+        "reads": [True] * 8, "restored": True, "blobs_after_free": 0,
+        "spilled_after_free": 0, "files_left": []}, records
+
+
+def test_native_owner_free_drops_only_that_owners_blobs(tmp_path):
+    """tests/test_object_lifetime.py:70, its ``native`` half."""
+    records = {name: owner_free(name, tmp_path, "native")
+               for name in PACKAGES}
+    assert records["ray_tpu"] == records["ray_tpu_torch"] == {
+        "freed": 2, "kept": b"y" * 100, "gone": None,
+        "owners": ["owner-b"]}, records
+
+
+def daemon_store_choice(name: str) -> dict:
+    """Which store a daemon's executor takes: the native one exactly when
+    ``node_store_native`` is on and the managed spill tier is off."""
+    config = _mod(name, "_private.config").GLOBAL_CONFIG
+    spill = _mod(name, "_private.spill_manager")
+    executor = _mod(name, "_private.node_executor")
+    out = {}
+    try:
+        for native in (True, False):
+            for spill_on in (True, False):
+                config.update({"node_store_native": native,
+                               "spill_enabled": spill_on})
+                spill.init_from_config()
+                svc = executor.NodeExecutorService(
+                    host="127.0.0.1", pool_size=0, resources={"CPU": 1})
+                try:
+                    out[f"native={native},spill={spill_on}"] = \
+                        type(svc.store).__name__
+                finally:
+                    svc.stop()
+    finally:
+        config.reset()
+        spill.init_from_config()
+    return out
+
+
+def test_daemon_store_is_native_exactly_when_the_spill_tier_is_off():
+    records = {name: daemon_store_choice(name) for name in PACKAGES}
+    assert records["ray_tpu"] == records["ray_tpu_torch"] == {
+        "native=True,spill=True": "NodeObjectStore",
+        "native=True,spill=False": "NativeNodeObjectStore",
+        "native=False,spill=True": "NodeObjectStore",
+        "native=False,spill=False": "NodeObjectStore"}, records
 
 
 # ---------------------------------------------- the owner sweep of daemons

@@ -494,3 +494,31 @@ def test_actor_table_records_placement(actor_cluster):
     assert both(placement, actor_cluster) == {
         "remote_node": True, "remote_pid": True,
         "local_on_driver_node": True}
+
+
+@pytest.mark.parametrize("slowed", ["ray_tpu_torch-ractor-create-",
+                                    "ray_tpu_torch-actor-create-"],
+                         ids=["creation_reply", "actor_start"])
+def test_actor_results_wait_for_the_actors_placement(actor_cluster,
+                                                     monkeypatch, slowed):
+    """Port only: the actor table has an actor's node and pid once any of
+    its results is seen, with the driver's recording slowed by a second
+    in one thread. ``creation_reply``: a call sent behind its remote
+    actor's creation is answered once the constructor ran, which can be
+    before the driver has taken in the creation's reply; its result is
+    sealed after that reply. ``actor_start``: a local actor is recorded
+    before it takes calls."""
+    import threading
+
+    side = actor_cluster["ray_tpu_torch"]
+    runtime_cls = type(side.runtime)
+    record = runtime_cls._record_actor_placement
+
+    def slow_record(self, actor):
+        if threading.current_thread().name.startswith(slowed):
+            time.sleep(1.0)
+        record(self, actor)
+
+    monkeypatch.setattr(runtime_cls, "_record_actor_placement", slow_record)
+    assert placement(side) == {"remote_node": True, "remote_pid": True,
+                               "local_on_driver_node": True}
