@@ -40,9 +40,9 @@ source, all started together) and drives the port's two paths:
   its replicas bitwise equal after every step (collective_check); then
   bench.py's mesh path as ``MeshTrainer``'s train loop (one worker on the
   card's ``GPU``, ``train.get_mesh()``): 7 steps with the TrainState
-  checkpointed at steps 1, 3 and 5 (two kept), held against mesh_train,
-  then a run that fails after step 3 and resumes from its checkpoint,
-  bitwise the first run on steps 4-6 (trainer);
+  checkpointed at steps 1, 3 and 5 (two kept), failing after step 3 and
+  resuming from its checkpoint, held against mesh_train and bitwise it
+  on steps 4-6 (trainer);
 - the data package: bench.py's batches (a seeded int32 token array in a
   ``ray_tpu_torch.data`` Dataset of 4 blocks, split into tokens and
   targets by ``map_batches``) fed through ``iter_device_batches``, 7
@@ -1634,8 +1634,8 @@ def phase_collective_check(device: dict, power: str) -> dict:
 
 # The trainer phase: bench.py's mesh path as MeshTrainer's loop, 7 steps
 # with the whole TrainState checkpointed at steps 1, 3 and 5 (two kept),
-# then the same run failing once after step 3's report and resuming
-# from step 3's checkpoint.
+# failing once after step 3's report and resuming from step 3's
+# checkpoint.
 TRAINER_STEPS = 7
 TRAINER_CKPT_STEPS = (1, 3, 5)
 TRAINER_CRASH_AFTER = 3
@@ -1732,11 +1732,14 @@ def _trainer_loop(config):
 def phase_trainer(llama, fa, device: dict, power: str,
                   mesh: dict) -> tuple[dict, dict]:
     """bench.py's Llama through ``MeshTrainer`` (one worker on the
-    card's ``GPU``): 7 steps checkpointed at 1, 3 and 5, held against
-    mesh_train's losses and grad norms; then a run that fails after step
-    3 and resumes from its checkpoint, bitwise the first run on steps
-    4-6. Returns the kernels' launches through the first run, and the
-    phase's result."""
+    card's ``GPU``): 7 steps checkpointed at 1, 3 and 5, failing after
+    step 3 and resuming from its checkpoint, held against mesh_train's
+    losses and grad norms, and its steps 4-6 (after the restore) bitwise
+    mesh_train's, an uninterrupted run of the same step. Cut for the
+    script's length: the straight run of 7 steps that earlier runs took
+    first, to which the resumed steps were held, is left out (it was
+    bitwise mesh_train). Returns the kernels' launches through the run,
+    and the phase's result."""
     import os
     import shutil
     import tempfile
@@ -1752,8 +1755,7 @@ def phase_trainer(llama, fa, device: dict, power: str,
     runs = {}
     rt.init(num_cpus=8)
     try:
-        for name, crash in (("straight", None),
-                            ("resumed", _raise_once(threading.Event()))):
+        for name, crash in (("resumed", _raise_once(threading.Event())),):
             # Checkpoints are written under the temporary directory and
             # moved into storage there: a rename, not a copy.
             storage = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
@@ -1792,20 +1794,17 @@ def phase_trainer(llama, fa, device: dict, power: str,
         rt.shutdown()
         if dist.is_initialized():
             dist.destroy_process_group()
-    straight, resumed = runs["straight"]["history"], runs["resumed"]["history"]
-    got = np.array([[m["loss"] for m in straight],
-                    [m["grad_norm"] for m in straight]])
+    resumed = runs["resumed"]["history"]
+    got = np.array([[m["loss"] for m in resumed],
+                    [m["grad_norm"] for m in resumed]])
     want = np.array([mesh["loss"], mesh["grad_norm"]])
     diff = np.abs(got - want)
     ok = bool(got.shape == want.shape and np.all(
         diff <= MESH_TRAIN_ATOL + MESH_TRAIN_RTOL * np.abs(want)))
 
-    def numbers(history):
-        return [(m["step"], m["loss"], m["grad_norm"]) for m in history]
-
+    after_restore = slice(TRAINER_CRASH_AFTER + 1, TRAINER_STEPS)
     restored = [m for m in resumed if "restore_s" in m]
-    saves = [m["save_s"] for run in (straight, resumed) for m in run
-             if "save_s" in m]
+    saves = [m["save_s"] for m in resumed if "save_s" in m]
     result = {
         "config": "bench.py:50-54", "batch": [8, 2048],
         "steps": TRAINER_STEPS, "checkpoint_steps": list(TRAINER_CKPT_STEPS),
@@ -1816,17 +1815,17 @@ def phase_trainer(llama, fa, device: dict, power: str,
             "max_abs_grad_norm_diff": float(diff[1].max()),
             "bitwise": bool(np.array_equal(got, want)),
             "rtol": MESH_TRAIN_RTOL, "atol": MESH_TRAIN_ATOL, "ok": ok},
+        "cut": "the straight 7-step run left out (the script's length)",
         "resumed_steps": [m["step"] for m in resumed],
-        "resumed_bitwise_steps_4_6": numbers(resumed)[4:]
-        == numbers(straight)[4:],
-        "resumed_bitwise_all": numbers(resumed) == numbers(straight),
+        "resumed_bitwise_steps_4_6": bool(np.array_equal(
+            got[:, after_restore], want[:, after_restore])),
         "restored": restored,
-        "step_s": [m["step_s"] for m in straight],
+        "step_s": [m["step_s"] for m in resumed],
         "step_s_median": statistics.median(m["step_s"]
-                                           for m in straight[2:]),
+                                           for m in resumed[2:]),
         "mesh_train_step_s_median": mesh["step_s_median"],
         "save_s": saves, "checkpoint_bytes": [m["checkpoint_bytes"]
-                                              for m in straight
+                                              for m in resumed
                                               if "checkpoint_bytes" in m],
         "runs": {name: {k: v for k, v in run.items() if k != "history"}
                  for name, run in runs.items()},
@@ -1839,7 +1838,7 @@ def phase_trainer(llama, fa, device: dict, power: str,
     require(result["resumed_steps"] == list(range(TRAINER_STEPS)),
             f"resumed run's steps {result['resumed_steps']}")
     require(result["resumed_bitwise_steps_4_6"],
-            "the resumed steps 4-6 are not bitwise the straight run's")
+            "the resumed steps 4-6 are not bitwise mesh_train's")
     require(len(restored) == 1 and restored[0]["resumed_at"]
             == TRAINER_CRASH_AFTER + 1
             and restored[0]["restored_dtensors_placed"],
@@ -1854,7 +1853,7 @@ def phase_trainer(llama, fa, device: dict, power: str,
                 f"before ({allocated_before})")
         _check_train_launches(f"trainer ({name})", run["launches"],
                               bench_config(llama).num_layers, TRAINER_STEPS)
-    return runs["straight"]["launches"], result
+    return runs["resumed"]["launches"], result
 
 
 # The data_feed phase: bench.py's batches from a Dataset through the
@@ -4765,7 +4764,7 @@ def _get_paths(before: dict, after: dict) -> dict:
     return out
 
 
-def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
+def _node_kernels(rt, runtime, handles: dict, ids: dict) -> tuple:
     """(a) The flash forward and backward in a ``num_gpus=1`` task pinned
     to node A, RMSNorm over its output in one pinned to B, never through
     the driver, and everything bitwise the driver's own launches on the
@@ -4850,6 +4849,7 @@ def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
         "driver_get_paths": driver_paths,
         "tasks_s": tasks_s, "driver_get_s": driver_pull_s,
         "launches_a": counts_a, "launches_b": counts_b}
+    kept = {"o": o_ref, "n": got["n"]}
     del got, want, want_o, want_dq, want_dk, want_dv, want_n, refs
     del o_ref, dq_ref, dk_ref, dv_ref, n_ref
     require(all(result["bitwise"].values()),
@@ -4887,7 +4887,7 @@ def _node_kernels(rt, runtime, handles: dict, ids: dict) -> dict:
     require(all(counts_a[k] == 1 for k in (*HOPPER_KERNELS, "flash_bwd"))
             and counts_b["rmsnorm"] == 1,
             f"node launches {counts_a}, {counts_b}: one of each expected")
-    return result
+    return result, kept
 
 
 def _arena_node_norm(x, scale):
@@ -5117,6 +5117,224 @@ def _daemon_gangs(nodes: dict, train_phase: dict, layers: int) -> dict:
     return result
 
 
+# node_cluster's head: durable (its persist path under the phase's
+# session directory) and sharded.
+NODE_GCS_SHARDS = 4
+# The daemons' flight-ring flush period (flight_recorder_flush_s's
+# default).
+NODE_FLUSH_S = 2.0
+
+
+def _directory_by_shard(head) -> dict:
+    """{shard index: the object ids its directory holds}."""
+    return {shard.index: set(shard.directory.locations())
+            for shard in head._shards}
+
+
+def _node_shard_kill(rt, runtime, cluster, kept: dict, ids: dict) -> dict:
+    """(a') On the sharded head, after (a): 4 shard rows; every published
+    id in the shard ``shard_of`` names; ``gcs_kill_shard`` of the shard
+    that owns o's id replays its records and moves that shard's epoch
+    and restores only; then a new RMSNorm task on B over o is bitwise
+    (a)'s. The driver and the daemons re-sync under the new epoch (their
+    writes stamped with the old one are refused and counted) and the
+    driver's live results are back in the directory: none lost."""
+    from ray_tpu_torch._private import gcs_shard
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    head = cluster.gcs
+    client = runtime.gcs_client
+    o_hex = kept["o"].hex()
+    require(_until(lambda: o_hex in head._list_object_locations(), 30),
+            "o's location never reached the head's directory")
+    rows_before = client.call("gcs_shard_stats")
+    by_shard = _directory_by_shard(head)
+    misrouted = sorted(key for index, keys in by_shard.items()
+                       for key in keys
+                       if gcs_shard.shard_of(key, NODE_GCS_SHARDS) != index)
+    victim = gcs_shard.shard_of(o_hex, NODE_GCS_SHARDS)
+    published = sorted(set().union(*by_shard.values()))
+    epoch_before = client.call("gcs_epoch")
+    fenced_before = head.persist_stats()["fenced_writes"]
+    start = time.perf_counter()
+    replayed = client.call("gcs_kill_shard", victim)
+    kill_ms = (time.perf_counter() - start) * 1000.0
+    killed_at = time.perf_counter()
+    rows_after = client.call("gcs_shard_stats")
+    epoch_after = client.call("gcs_epoch")
+    n_ref, counts_ref = rt.remote(
+        num_gpus=1, num_returns=2, scheduling_strategy=(
+            NodeAffinitySchedulingStrategy(ids["B"].hex(), soft=False)))(
+        _node_norm).remote(kept["o"], NODE_SEED)
+    counts_b = rt.get(counts_ref, timeout=NODE_WAIT_S)
+    n_again = rt.get(n_ref, timeout=NODE_WAIT_S)
+    # The re-sync: the driver republishes everything it owns under the
+    # new epoch (o's holder back in the killed shard, the new result in
+    # its own), and both daemons re-register.
+    n_hex = n_ref.hex()
+    resynced = _until(lambda: o_hex in _directory_by_shard(head)[victim]
+                      and n_hex in head._list_object_locations()
+                      and runtime._gcs_epoch == head.epoch, NODE_WAIT_S)
+    resync_s = time.perf_counter() - killed_at
+    # The driver's live results (o, kept since (a), and the new one):
+    # their holders are all in the directory again.
+    lost = [h for h in (o_hex, n_hex)
+            if h not in head._list_object_locations()]
+    result = {
+        "gcs_shards": NODE_GCS_SHARDS, "rows": len(rows_before),
+        "published_ids": len(published), "misrouted": misrouted,
+        "victim": victim, "replayed": replayed, "kill_ms": kill_ms,
+        "epoch": [epoch_before, epoch_after],
+        "restores": [r["restores"] for r in rows_after],
+        "shard_epochs": [[b["epoch"], a["epoch"]]
+                         for b, a in zip(rows_before, rows_after)],
+        "resynced": resynced, "resync_s": resync_s,
+        "stale_epoch_writes": head.persist_stats()["fenced_writes"]
+        - fenced_before,
+        "locations_lost": lost,
+        "bitwise_after_kill": torch.equal(n_again, kept["n"]),
+        "launches_b": counts_b}
+    del n_ref, n_again
+    require(len(rows_before) == NODE_GCS_SHARDS and not misrouted,
+            f"shard rows {len(rows_before)}, misrouted ids {misrouted}")
+    require(replayed >= 1 and epoch_after == epoch_before + 1
+            and result["restores"] == [int(i == victim)
+                                       for i in range(NODE_GCS_SHARDS)]
+            and all(a - b == int(i == victim) for i, (b, a)
+                    in enumerate(result["shard_epochs"])),
+            f"the shard kill: {result}")
+    require(resynced and not lost, f"the re-sync: {result}")
+    require(result["bitwise_after_kill"] and counts_b["rmsnorm"] == 1,
+            f"B's RMSNorm over o after the kill: {result}")
+    return result
+
+
+def _scrape_metrics(runtime) -> tuple:
+    """One scrape of the driver's /metrics: the text, its bytes and
+    milliseconds."""
+    import urllib.request
+
+    start = time.perf_counter()
+    body = urllib.request.urlopen(
+        f"http://127.0.0.1:{runtime.metrics_agent.port}/metrics",
+        timeout=30).read()
+    return body.decode(), len(body), (time.perf_counter() - start) * 1000.0
+
+
+def _series(body: str, family: str, **labels) -> "float | None":
+    """The value of the one sample of ``family`` with ``labels``."""
+    import re
+
+    inner = ",".join(f'{k}="{v}"' for k, v in labels.items())
+    m = re.search(r"^%s\{%s\} (\S+)$" % (re.escape(family),
+                                          re.escape(inner)), body, re.M)
+    return float(m.group(1)) if m else None
+
+
+def _node_scrape(runtime, ids: dict, streamed: dict) -> dict:
+    """(b') After the requests on A: one scrape of the driver's /metrics
+    serves A's and B's ``exec`` and ``admit_worker`` histograms, each
+    counting at least the tasks the node ran; A's engine counters, off
+    its heartbeat, counting at least the requests' tokens; the four
+    shards' rows. The head's history has samples of A and B, and its
+    watchdog no verdict."""
+    import re
+
+    p = "ray_tpu_torch"
+    hexes = {name: node_id.hex() for name, node_id in ids.items()}
+    want_tokens = sum(len(r["tokens"]) for r in streamed["records"])
+
+    def ready(body: str) -> bool:
+        generated = (_series(body, f"{p}_node_engine",
+                             node=hexes["A"][:16], key="decode_tokens")
+                     or 0) + (_series(body, f"{p}_node_engine",
+                                      node=hexes["A"][:16], key="finished")
+                              or 0)
+        return generated >= want_tokens
+
+    scrape = _scrape_metrics(runtime)
+    # The engine's counters ride A's next heartbeat (1 s).
+    deadline = time.monotonic() + 30
+    while not ready(scrape[0]) and time.monotonic() < deadline:
+        time.sleep(0.5)
+        scrape = _scrape_metrics(runtime)
+    body, nbytes, ms = scrape
+    stages = {}
+    for name, h in hexes.items():
+        row = {"tasks_executed": _series(body, f"{p}_node_tasks_executed",
+                                         node=h[:16])}
+        for stage in ("exec", "admit_worker"):
+            row[stage] = _series(body, f"{p}_stage_latency_count",
+                                 stage=stage, node=h[:16])
+        stages[name] = row
+    engine = {key: _series(body, f"{p}_node_engine", node=hexes["A"][:16],
+                           key=key)
+              for key in ("admitted", "finished", "prefill_tokens",
+                          "decode_tokens")}
+    shard_rows = sorted({int(s) for s in re.findall(
+        r'^%s_gcs_shard\{shard="(\d+)",key="epoch"\}' % p, body, re.M)})
+    history = runtime.metrics_history(window_s=600.0) or {}
+    health = runtime.cluster_health() or {}
+    result = {
+        "scrape_bytes": nbytes, "scrape_ms": ms, "stages": stages,
+        "engine_a": engine, "requests_tokens": want_tokens,
+        "shard_rows": shard_rows,
+        "history_nodes": sorted(name for name, h in hexes.items()
+                                if h in (history.get("nodes") or {})),
+        "history_samples": {name: len(history["nodes"][h]["samples"])
+                            for name, h in hexes.items()
+                            if h in (history.get("nodes") or {})},
+        "verdicts": health.get("verdicts"),
+        "fired": health.get("fired")}
+    for name, row in stages.items():
+        require(row["tasks_executed"] and row["exec"] and row["admit_worker"]
+                and row["exec"] >= row["tasks_executed"]
+                and row["admit_worker"] >= row["tasks_executed"],
+                f"{name}'s stage histograms in the scrape: {row}")
+    require(ready(body), f"A's engine counters in the scrape: {engine}, "
+                         f"{want_tokens} tokens streamed")
+    require(shard_rows == list(range(NODE_GCS_SHARDS)),
+            f"the shards' rows in the scrape: {shard_rows}")
+    require(result["history_nodes"] == ["A", "B"]
+            and health.get("armed") and health.get("verdicts") == [],
+            f"the history and the watchdog: {result}")
+    return result
+
+
+def _node_flight_ring(node_a_pid: int) -> dict:
+    """(c') After A's SIGKILL: within one flush period and a second, A's
+    ring file is in the session's ``flight/`` folder,
+    ``collect_session_dumps`` returns it, and its ring holds the re-sync
+    of (a')."""
+    from ray_tpu_torch._private import flight_recorder
+
+    killed = time.time()
+
+    def dump():
+        return next((d for d in flight_recorder.collect_session_dumps()
+                     if d.get("pid") == node_a_pid), None)
+
+    found = _until(lambda: dump() is not None, NODE_FLUSH_S + 1.0)
+    doc = dump() or {}
+    kinds = [e["kind"] for e in doc.get("events", [])]
+    result = {"found_within_s": time.time() - killed if found else None,
+              "file": doc.get("file"), "role": doc.get("role"),
+              "age_at_collection_s": killed - doc["dumped_at"]
+              if doc else None,
+              "events": len(kinds),
+              "epoch_bump": kinds.count("epoch.bump"),
+              "heartbeat_stale_epoch": kinds.count("heartbeat.stale_epoch"),
+              "post_mortem_keys": sorted(k for k in ("fault_stats", "breaker",
+                                                     "spill", "stage_hist")
+                                         if k in doc)}
+    require(found and (result["epoch_bump"]
+                       or result["heartbeat_stale_epoch"]),
+            f"A's flight ring: {result}")
+    return result
+
+
 def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
                        process_served: dict, runtime_phase: dict,
                        train_phase: dict, device: dict,
@@ -5136,9 +5354,18 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     token-identical again; (d) after shutdown no daemon or actor process
     is left, the card's free bytes are back and so is every ``GPU``.
     (a) also: a 512 KiB RMSNorm input the driver put, read on B out of
-    the driver's arena. Returns the kernels' launches on the nodes, in
-    the GPU gang and on the arena's input."""
+    the driver's arena. The head is durable and sharded
+    (``gcs_shards=4``) and the driver serves ``/metrics``: (a') a shard
+    kill after (a), (b') a scrape after (b), (c') A's flight ring after
+    (c). Returns the kernels' launches on the nodes, in the GPU gang and
+    on the arena's input."""
+    import shutil
+    import tempfile
+
     import ray_tpu_torch as rt
+    from ray_tpu_torch._private import gcs_shard
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.node import SESSION_DIR_ENV
     from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.exceptions import ActorDiedError
     from ray_tpu_torch.util.scheduling_strategies import (
@@ -5150,7 +5377,21 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     _, prompts, temperatures = serve_requests(config)
     greedy = [i for i, t in enumerate(temperatures) if t == 0.0]
     free_before = _settled_free_bytes()
-    cluster = Cluster(heartbeat_timeout_s=NODE_HEARTBEAT_TIMEOUT_S)
+    # The phase's session directory: the head's persisted files, the
+    # daemons' flight rings and spill files.
+    session = tempfile.mkdtemp(prefix="ray_tpu_torch_node_cluster_")
+    prior_session = os.environ.get(SESSION_DIR_ENV)
+    os.environ[SESSION_DIR_ENV] = session
+    # The shards snapshot at the head's first tick and then every
+    # gcs_snapshot_interval_s: at an hour, (a)'s records are still in the
+    # victim's WAL when (a') kills it, so the kill replays them.
+    head_config = {"gcs_shards": NODE_GCS_SHARDS,
+                   "gcs_snapshot_interval_s": 3600.0}
+    prior_config = {key: GLOBAL_CONFIG.get(key) for key in head_config}
+    GLOBAL_CONFIG.update(head_config)
+    cluster = Cluster(heartbeat_timeout_s=NODE_HEARTBEAT_TIMEOUT_S,
+                      persist_path=os.path.join(session,
+                                                "gcs_snapshot.pkl"))
     pids = []
     try:
         start = time.perf_counter()
@@ -5161,7 +5402,8 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
                 "the daemons did not register")
         daemons_s = time.perf_counter() - start
         pids += [node.pid for node in nodes.values()]
-        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address,
+                          metrics_port=0)
         require(_until(lambda: rt.cluster_resources().get("GPU") == 2.0,
                        NODE_WAIT_S), "the nodes did not join the driver")
         joined_s = time.perf_counter() - start
@@ -5170,7 +5412,9 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
                       for nid, h in runtime._remote_nodes.items()}
         ids = {k: by_pid[n.pid][0] for k, n in nodes.items()}
         handles = {k: by_pid[n.pid][1] for k, n in nodes.items()}
-        kernels = _node_kernels(rt, runtime, handles, ids)
+        kernels, kept = _node_kernels(rt, runtime, handles, ids)
+        shard_kill = _node_shard_kill(rt, runtime, cluster, kept, ids)
+        del kept
         arena = _node_arena(rt, runtime, cluster, fused, handles, ids)
         task_us = _round_trips_us(rt, rt.remote(_noop).remote)
         torch.cuda.empty_cache()
@@ -5197,10 +5441,12 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         actor_a = streamed["counters"]["pid"]
         pids.append(actor_a)
         actor_on_a = _parent(actor_a) == nodes["A"].pid
+        scrape = _node_scrape(runtime, ids, streamed)
 
         # (c) A dies: the actor restarts on B.
         wall_kill = time.perf_counter()
         cluster.remove_node(nodes["A"], allow_graceful=False)
+        flight_ring = _node_flight_ring(nodes["A"].pid)
         deadline = time.monotonic() + NODE_WAIT_S
         while True:
             with runtime._remote_nodes_lock:
@@ -5235,19 +5481,28 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     finally:
         rt.shutdown()
         cluster.shutdown()
+        # head_restart keeps the unsharded head.
+        GLOBAL_CONFIG.update(prior_config)
+        gcs_shard.init_from_config()
+        if prior_session is None:
+            os.environ.pop(SESSION_DIR_ENV, None)
+        else:
+            os.environ[SESSION_DIR_ENV] = prior_session
+        shutil.rmtree(session, ignore_errors=True)
     # (d) Teardown.
     left = [pid for pid in pids if not _until(lambda: _pid_gone(pid), 30)]
     free_after = _free_back(free_before, NODE_FREE_TOL_BYTES)
     launches = {k: kernels["launches_a"][k]
                 for k in (*HOPPER_KERNELS, "flash_bwd")}
     launches["rmsnorm"] = kernels["launches_b"]["rmsnorm"] \
-        + arena["launches"] + served_here["rmsnorm_launches"] \
-        + counters_b["rmsnorm"]
+        + shard_kill["launches_b"]["rmsnorm"] + arena["launches"] \
+        + served_here["rmsnorm_launches"] + counters_b["rmsnorm"]
     result = {
         "daemons": {"resources": {"CPU": 2, "GPU": 1}, "card": 0,
                     "heartbeat_timeout_s": NODE_HEARTBEAT_TIMEOUT_S},
         "daemons_registered_s": daemons_s, "nodes_joined_s": joined_s,
-        "kernels": kernels, "arena_input_on_b": arena,
+        "kernels": kernels, "shard_kill": shard_kill,
+        "arena_input_on_b": arena,
         "daemon_gangs": gangs,
         "remote_task_round_trip_us": task_us,
         "thread_task_round_trip_us": runtime_phase["task_round_trip_us"],
@@ -5257,6 +5512,7 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         **served_here,
         "serve_phase": {k: served[k] for k in SERVE_SUMMARY_KEYS},
         "process_serve_phase": process_served,
+        "scrape": scrape, "flight_ring": flight_ring,
         "kill_to_detect_s": wall_detect - wall_kill,
         "detect_to_first_token_s": again["arrivals"][0] - wall_detect
         if again["arrivals"] else None,
@@ -5269,7 +5525,10 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         "pids_left": left, "free_bytes_before_after": [free_before,
                                                        free_after],
         "launches": launches, "card": device["kind"], "nvidia_smi": power,
-        "phase_s": time.perf_counter() - phase_start}
+        "phase_s": time.perf_counter() - phase_start,
+        # This phase's wall on the H100 before its head was sharded and
+        # its driver scraped (the previous version of this script).
+        "phase_s_before": 116.1}
     emit("node_cluster", **result)
     require(actor_on_a and actor_on_b, "the actor did not run in A's tree, "
                                        "then B's")

@@ -23,13 +23,23 @@ Sites wired in the port (``SITES``):
 - ``gcs.torn_wal`` head persistence: write a WAL record's payload short
   under a full-length header (the SIGKILL-mid-append shape); restart
   truncates the torn tail and replays everything before it
+- ``gcs.shard_die`` sharded head (``gcs_shards`` > 1): crash-restart the
+  shard owning the mutation in flight; it replays only its own WAL and
+  mints its next epoch, so the in-flight write (stamped with the epoch
+  before the death) is refused typed, and the other shards serve on
+- ``gcs.shard_stall`` sharded head: wedge the owning shard for
+  ``RAY_TPU_TORCH_SHARD_STALL_S`` (default 2.0) x U[0.5, 1.5) seconds;
+  reads serve its stale view, writes queue WAL-first and shed past
+  ``gcs_shard_max_queued_writes``
+
+Every fire is recorded in the process's flight-recorder ring
+(``chaos``, site).
 
 Not ported (ROADMAP item 10c): every other site of the reference (the
-transport's sever, drop, delay and stream kill, network partitions, the
-shard die and stall, heartbeat skips, daemon death, lease expiry,
-overload, stragglers, the spill tier's torn write, disk full and restore
-delay, the LLM engine's slow step) and the flight recorder and trace pins
-a fire leaves there.
+transport's sever, drop, delay and stream kill, network partitions,
+heartbeat skips, daemon death, lease expiry, overload, stragglers, the
+spill tier's torn write, disk full and restore delay, the LLM engine's
+slow step) and the trace pins a fire leaves.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ import threading
 SITES: "tuple[str, ...]" = (
     "gcs.torn_snapshot",
     "gcs.torn_wal",
+    "gcs.shard_die",
+    "gcs.shard_stall",
 )
 
 CHAOS_ENV = "RAY_TPU_TORCH_CHAOS"
@@ -72,7 +84,17 @@ class ChaosController:
             fire = self._rng.random() < rate
             if fire:
                 self.injected[site] = self.injected.get(site, 0) + 1
+        if fire:
+            from ray_tpu_torch._private import flight_recorder
+
+            flight_recorder.record("chaos", site)
         return fire
+
+    def uniform(self) -> float:
+        """A seeded draw in [0, 1) for a site that needs a magnitude
+        (a stall's length) beside its fire decision."""
+        with self._lock:
+            return self._rng.random()
 
 
 def _parse(spec: str) -> "tuple[dict, int]":

@@ -157,6 +157,39 @@ _DEFAULTS: dict[str, Any] = {
     # The native (C++) KV engine (gcs_kv.cpp) of head processes; a failed
     # build raises.
     "gcs_kv_native": True,
+    # The sharded head (gcs_shard.py): the object directory, node stats
+    # and task events split into this many in-head domains, each with
+    # its own lock, WAL and snapshot segment and epoch. 1 keeps the
+    # single snapshot and WAL; a changed count over a persisted layout
+    # is refused (ReshardError).
+    "gcs_shards": 1,
+    # A stalled shard queues writes (WAL-durable at once) up to this
+    # many, then sheds SystemOverloadedError.
+    "gcs_shard_max_queued_writes": 512,
+    # The performance plane (perf_plane.py): stage-latency histograms
+    # and per-function resource attribution, shipped on heartbeats.
+    "perf_plane": True,
+    # The flight recorder (flight_recorder.py): a bounded per-process
+    # event ring; daemons rewrite it under <session>/flight/ every
+    # flight_recorder_flush_s when it moved (0: on demand only).
+    "flight_recorder_events": 512,
+    "flight_recorder_flush_s": 2.0,
+    # The head's metrics history (metrics_history.py): one
+    # delta-encoded sample per node per interval, kept for the
+    # retention window, and the health watchdog over it.
+    "metrics_history": True,
+    "metrics_history_interval_s": 2.0,
+    "metrics_history_retention_s": 600.0,
+    # The watchdog's thresholds (metrics_history.HEALTH_RULES); rates
+    # are taken over health_window_s.
+    "health_window_s": 30.0,
+    "health_overload_shed_per_s": 0.5,
+    "health_breaker_storm_opens": 3.0,
+    "health_spill_churn_per_s": 2.0,
+    "health_spill_restore_p50_ms": 50.0,
+    "health_wedged_age_s": 10.0,
+    "health_stale_shard_age_s": 3.0,
+    "health_fused_fallback_per_s": 1.0,
 }
 
 # The environment that hands a worker process its driver's arena.

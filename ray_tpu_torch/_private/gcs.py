@@ -10,7 +10,9 @@ Each is thread-safe. The tables the head persists count their mutations
 (``version``, ``table_versions``) and hand each to ``wal_emit`` while
 their lock is held, so the WAL's order is the order of application;
 ``control_snapshot``/``restore_control``/``apply_op`` are the snapshot
-and replay sides. Not ported: the sharded tables (ROADMAP).
+and replay sides. With ``gcs_shards`` > 1 (gcs_shard.py) the node stats
+and the task events split into per-shard lock domains, and
+``crash_shard`` drops one domain's slices as a shard's death would.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from ray_tpu_torch._private import gcs_shard
 from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, TaskID
 
 
@@ -376,6 +379,7 @@ class TaskEvent:
     end_time: float = 0.0
     node_id: str = ""
     error: str | None = None
+    actor_id: str | None = None
 
 
 class GlobalControlService:
@@ -395,19 +399,20 @@ class GlobalControlService:
         self._jobs: dict[JobID, JobRecord] = {}
         # PlacementGroupRecords, kept by the placement-group manager.
         self._placement_groups: dict = {}
-        self._task_events: dict[TaskID, TaskEvent] = {}
-        # Events refused at the cap.
-        self.task_events_dropped = 0
         # Node ("ALIVE"/"DEAD", node id) and actor (state, actor id)
         # transitions.
         self.pubsub = PubSub()
-        # node hex -> (the executor stats its heartbeat carried, when).
-        self._node_stats: dict[str, tuple[dict, float]] = {}
-        self._node_stats_lock = threading.Lock()
         # Mutations of the persisted tables (a liveness refresh is not
         # one), and the head's WAL hook, called under self._lock.
         self.table_versions = {"actors": 0, "nodes": 0, "jobs": 0}
         self.wal_emit = None
+        # Node stats and task events live in per-shard lock domains
+        # (gcs_shard.py): one domain each unless the head is sharded.
+        n = gcs_shard.shard_count()
+        self._stats_shards = [gcs_shard.NodeStatsShard(i) for i in range(n)]
+        per_limit = max(1, self.TASK_EVENT_LIMIT // n)
+        self._task_shards = [gcs_shard.TaskEventShard(i, per_limit)
+                             for i in range(n)]
 
     # ----------------------------------------------------------- persistence
 
@@ -631,20 +636,64 @@ class GlobalControlService:
     # ----------------------------------------------------------- node stats
 
     def record_node_stats(self, node_hex: str, stats: dict) -> None:
-        """A node's executor stats, stamped when they arrived."""
-        with self._node_stats_lock:
-            self._node_stats[node_hex] = (stats, time.monotonic())
+        """A node's executor stats, stamped when they arrived (the age of
+        a wedged daemon's last report keeps growing)."""
+        dom = self._stats_domain(node_hex)
+        with dom.lock:
+            dom.rows[node_hex] = (stats, time.monotonic())
+
+    def _stats_domain(self, node_hex: str):
+        shards = self._stats_shards
+        return shards[gcs_shard.shard_of(node_hex, len(shards))]
 
     def drop_node_stats(self, node_hex: str) -> None:
-        with self._node_stats_lock:
-            self._node_stats.pop(node_hex, None)
+        dom = self._stats_domain(node_hex)
+        with dom.lock:
+            dom.rows.pop(node_hex, None)
 
     def node_stats(self) -> dict:
-        """{node hex -> its last stats, with ``age_s`` since arrival}."""
+        """{node hex -> its last stats, with ``age_s`` since arrival},
+        merged across the stats domains."""
         now = time.monotonic()
-        with self._node_stats_lock:
-            return {node_hex: {**stats, "age_s": now - at}
-                    for node_hex, (stats, at) in self._node_stats.items()}
+        out: dict = {}
+        for dom in self._stats_shards:
+            with dom.lock:
+                for node_hex, (stats, at) in dom.rows.items():
+                    out[node_hex] = {**stats, "age_s": now - at}
+        return out
+
+    def cluster_stage_latency(self) -> dict:
+        """{stage: every live node's heartbeat-shipped histogram, merged
+        by bucket addition}; a dropped (dead) node's share goes with
+        it."""
+        from ray_tpu_torch._private import perf_plane
+
+        tables = []
+        for dom in self._stats_shards:
+            with dom.lock:
+                tables.extend(stats.get("stage_hist")
+                              for stats, _at in dom.rows.values()
+                              if isinstance(stats, dict))
+        merged: dict[str, dict] = {}
+        for table in tables:
+            if not isinstance(table, dict):
+                continue
+            for stage, snap in table.items():
+                if isinstance(snap, dict):
+                    perf_plane.merge_snapshots(
+                        merged.setdefault(stage, {}), snap)
+        return merged
+
+    def crash_shard(self, index: int) -> None:
+        """A shard domain crashed: its volatile slices (node stats, task
+        events) go with it; the next heartbeats and events refill
+        them."""
+        dom = self._stats_shards[index]
+        with dom.lock:
+            dom.rows.clear()
+        dom = self._task_shards[index]
+        with dom.lock:
+            dom.events.clear()
 
     # ------------------------------------------------------ placement groups
 
@@ -681,16 +730,30 @@ class GlobalControlService:
 
     # ----------------------------------------------------------- task events
 
+    @property
+    def task_events_dropped(self) -> int:
+        """Events refused at the cap (summed over the shards)."""
+        return sum(dom.dropped for dom in self._task_shards)
+
+    def _task_domain(self, task_id: TaskID):
+        shards = self._task_shards
+        return shards[gcs_shard.shard_of(task_id.hex(), len(shards))]
+
     def record_task_event(self, event: TaskEvent) -> None:
-        """Keep the task's latest state; a new task past the cap is
-        counted in ``task_events_dropped`` instead."""
-        with self._lock:
-            if len(self._task_events) >= self.TASK_EVENT_LIMIT \
-                    and event.task_id not in self._task_events:
-                self.task_events_dropped += 1
+        """Keep the task's latest state; a new task past its shard's
+        slice of the cap is counted in ``task_events_dropped``
+        instead."""
+        dom = self._task_domain(event.task_id)
+        with dom.lock:
+            if len(dom.events) >= dom.limit \
+                    and event.task_id not in dom.events:
+                dom.dropped += 1
                 return
-            self._task_events[event.task_id] = event
+            dom.events[event.task_id] = event
 
     def list_task_events(self) -> list[TaskEvent]:
-        with self._lock:
-            return list(self._task_events.values())
+        out: list[TaskEvent] = []
+        for dom in self._task_shards:
+            with dom.lock:
+                out.extend(dom.events.values())
+        return out

@@ -23,8 +23,12 @@ After a snapshot commits the live WAL rotates to ``<wal>.prev``, so a
 restore reads the current snapshot (else ``.prev``), then ``wal.prev``
 and ``wal``, seq-gated.
 
-``ReshardError`` is kept for the frame contract; the sharded tables that
-raise it are not ported yet (ROADMAP).
+A sharded head (``gcs_shards`` > 1, gcs_shard.py) writes the same two
+frames per shard: ``<path>.shard<i>`` and ``<path>.shard<i>.wal``. Its
+restore raises ``ReshardError`` when the layout on disk was written
+under another count: a snapshot records the count it was written with,
+and a WAL-only layout is judged by its segment indices and by
+directory entries in the single WAL.
 """
 
 from __future__ import annotations

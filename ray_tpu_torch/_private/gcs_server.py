@@ -24,11 +24,22 @@ driver and tool of the cluster:
   actor or group update stamped with an older one is refused typed
   (``StaleEpochError``) until its writer re-syncs. A dead node's id and
   a DEAD actor stay dead across restarts, and jobs left ``RUNNING`` are
-  reported ``FAILED``. A failed persist write is counted and backs off
-  for 5 s; it never stops the head.
+  reported ``FAILED``. A failed persist write is counted, recorded in
+  the flight ring and backs off for 5 s; it never stops the head;
+- with ``gcs_shards`` > 1 (gcs_shard.py), the sharded head: the object
+  directory is routed per object id onto shard domains, each with its
+  own WAL and snapshot segment and epoch (the advertised epoch is the
+  head's plus the shards'), so ``gcs_kill_shard`` (or the
+  ``gcs.shard_die`` chaos site) crash-restarts one shard, which replays
+  only its WAL while the others serve on; a stalled shard
+  (``gcs.shard_stall``) serves stale reads and queues writes. A layout
+  written under another count is refused (``ReshardError``).
+  ``gcs_shards=1`` keeps the single snapshot and WAL byte for byte;
+- the metrics history (metrics_history.py): the monitor tick samples
+  the node-stats table into per-node rings and the health watchdog
+  sweeps them, served by ``metrics_history`` and ``cluster_health``.
 
-Not ported, each with its ROADMAP item: the sharded tables; the metrics
-history, its watchdog and the heartbeat-shipped trace spans (10c).
+Not ported: the heartbeat-shipped trace spans (ROADMAP 10c).
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import subprocess
 import threading
 import time
 
+from ray_tpu_torch._private import flight_recorder, gcs_shard, metrics_history
 from ray_tpu_torch._private.gcs import (
     GlobalControlService,
     JobRecord,
@@ -201,7 +213,13 @@ class GcsServer:
         # layer is C++, in_memory_store_client.h:31) under gcs_kv_native.
         from ray_tpu_torch._private.gcs_kv_native import make_kv_store
 
-        self.gcs = GlobalControlService(kv=make_kv_store())
+        kv = make_kv_store()
+        # The shard gate is latched before the control service builds
+        # its tables: node stats and task events shard inside it, the
+        # object directory behind self._shards.
+        self._shard_count = gcs_shard.init_from_config()
+        self._shards = None
+        self.gcs = GlobalControlService(kv=kv)
         self.jobs = JobManager(self.gcs, os.path.join(log_dir, "jobs"))
         self.heartbeat_timeout_s = heartbeat_timeout_s
         self.object_directory = ObjectDirectory()
@@ -218,6 +236,7 @@ class GcsServer:
         self._fencing = self._persist_armed and bool(
             GLOBAL_CONFIG.gcs_epoch_fencing)
         self.epoch = 0
+        self._base_epoch = 0
         self._wal = None
         self._wal_seq = 0
         self._persist_lock = threading.Lock()
@@ -231,21 +250,7 @@ class GcsServer:
             "fenced_writes": 0,
         }
         if self._persist_armed:
-            from ray_tpu_torch._private import gcs_persistence as gp
-
-            self.epoch = gp.mint_epoch(os.path.join(
-                os.path.dirname(persist_path) or ".", "gcs_epoch"))
-            self._restore_full()
-            try:
-                self._wal = gp.WalWriter(
-                    persist_path + ".wal",
-                    fsync=bool(GLOBAL_CONFIG.gcs_wal_fsync))
-            except OSError:
-                self._count_persist_error()
-            # From here on every durable mutation appends its record
-            # with its table's lock held.
-            self.gcs.wal_emit = self._wal_append
-            self.object_directory.wal_emit = self._wal_append
+            self._boot_persisted(persist_path)
         elif persist_path:
             self._restore_snapshot()
         self._server = RpcServer(host, port)
@@ -259,10 +264,71 @@ class GcsServer:
         # The availability last published per node (change detection).
         self._last_published_avail: dict[str, dict] = {}
         self._avail_lock = threading.Lock()
+        # The metrics history, sharded along the node-stats domains, and
+        # the watchdog that sweeps it.
+        self._history: metrics_history.HistoryStore | None = None
+        self._watchdog: metrics_history.HealthWatchdog | None = None
+        if metrics_history.HISTORY_ON:
+            self._history = metrics_history.HistoryStore.from_config(
+                domains=max(1, self._shard_count))
+            self._watchdog = metrics_history.HealthWatchdog(self._history)
         self._register_methods()
         self._monitor = threading.Thread(
             target=self._monitor_loop, daemon=True,
             name="ray_tpu_torch-gcs-monitor")
+
+    def _boot_persisted(self, persist_path: str) -> None:
+        """Mint the epoch, restore, and open the WAL (and on a sharded
+        head each shard's). A layout written under another
+        ``gcs_shards`` count raises ``ReshardError``."""
+        import glob
+        import re
+
+        from ray_tpu_torch._private import gcs_persistence as gp
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        segments = glob.glob(persist_path + ".shard*")
+        if self._shard_count == 1 and segments:
+            # Shard segments under a single-shard config: their entries
+            # would be ignored.
+            raise gp.ReshardError("2+", self._shard_count)
+        self.epoch = gp.mint_epoch(os.path.join(
+            os.path.dirname(persist_path) or ".", "gcs_epoch"))
+        self._base_epoch = self.epoch
+        self._restore_full()
+        if self._shard_count > 1 and (self.object_directory.locations()
+                                      or self.object_directory.spilled()):
+            # Directory entries in the single WAL: written with
+            # gcs_shards=1 (a snapshot records its count; this catches
+            # a WAL-only layout).
+            raise gp.ReshardError(1, self._shard_count)
+        try:
+            self._wal = gp.WalWriter(persist_path + ".wal",
+                                     fsync=bool(GLOBAL_CONFIG.gcs_wal_fsync))
+        except OSError:
+            self._count_persist_error("wal_open")
+        # From here on every durable mutation appends its record with
+        # its table's lock held.
+        self.gcs.wal_emit = self._wal_append
+        self.object_directory.wal_emit = self._wal_append
+        if self._shard_count == 1:
+            return
+        seen = {int(m.group(1)) for m in (
+            re.match(r".*\.shard(\d+)", seg) for seg in segments)
+            if m is not None}
+        if seen and seen != set(range(self._shard_count)):
+            # Segments of another ring, even a WAL-only one: every shard
+            # opens its WAL at boot, so max + 1 is the old count.
+            raise gp.ReshardError(max(seen) + 1, self._shard_count)
+        self._shards = [gcs_shard.ShardState(
+            i, self._shard_count, persist_path,
+            fsync=bool(GLOBAL_CONFIG.gcs_wal_fsync),
+            queue_cap=int(GLOBAL_CONFIG.gcs_shard_max_queued_writes))
+            for i in range(self._shard_count)]
+        for shard in self._shards:
+            shard.on_persist_error = self._count_persist_error
+            shard.boot()
+        self._refresh_epoch()
 
     @property
     def address(self) -> str:
@@ -296,6 +362,10 @@ class GcsServer:
                    self._list_cluster_placement_groups)
         s.register("gcs_epoch", lambda: self.epoch)
         s.register("gcs_persist_stats", self.persist_stats)
+        s.register("gcs_shard_stats", self.shard_stats)
+        s.register("gcs_kill_shard", self._kill_shard)
+        s.register("metrics_history", self.metrics_history)
+        s.register("cluster_health", self.cluster_health)
         s.register("pubsub_subscribe", self.pubsub.subscribe)
         s.register("pubsub_unsubscribe", self.pubsub.unsubscribe)
         s.register("pubsub_publish", self.pubsub.publish)
@@ -310,7 +380,16 @@ class GcsServer:
         directory and publishes the objects it was the last holder of."""
         kind, node_id = event
         if kind == "DEAD":
-            orphaned = self.object_directory.prune_node(node_id.hex())
+            if self._shards is not None:
+                # A stalled shard queues the prune; its orphans reach
+                # owners through the holder-miss path instead.
+                orphaned = []
+                for shard in self._shards:
+                    orphaned.extend(self._shard_apply(
+                        shard, ("dir_prune_node", node_id.hex()), None,
+                        "prune_node") or [])
+            else:
+                orphaned = self.object_directory.prune_node(node_id.hex())
             if orphaned:
                 self.pubsub.publish("object_loss", orphaned)
         self.pubsub.publish("nodes", (kind, node_id.hex()))
@@ -357,12 +436,15 @@ class GcsServer:
             # copies: deltas for the directory, not stats.
             events = stats.pop("spill_events", None)
             node_hex = node_id_bytes.hex()
-            for owner, obj_hex, kind in events or ():
-                if kind == "spilled":
-                    self.object_directory.mark_spilled(owner, obj_hex,
-                                                       node_hex)
-                else:
-                    self.object_directory.clear_spilled(owner, obj_hex)
+            if events and self._shards is not None:
+                self._route_spill_events(events, node_hex, epoch)
+            else:
+                for owner, obj_hex, kind in events or ():
+                    if kind == "spilled":
+                        self.object_directory.mark_spilled(
+                            owner, obj_hex, node_hex)
+                    else:
+                        self.object_directory.clear_spilled(owner, obj_hex)
             self.gcs.record_node_stats(node_hex, stats)
         if accepted and available is not None:
             # Only a change goes out: steady heartbeats publish nothing.
@@ -406,13 +488,25 @@ class GcsServer:
         """One owner's location deltas (empty: a keepalive). An owner of
         an earlier epoch is refused typed, so its deltas never land in a
         restored directory; it re-syncs and publishes everything."""
+        if self._shards is not None:
+            return self._sharded_locations_update(owner, adds, removes,
+                                                  epoch)
         self._check_epoch(epoch, "object_locations_update")
         return self.object_directory.update(owner, adds, removes)
 
     def _list_object_locations(self, owner: str | None = None,
                                include_spilled: bool = False):
         """The holders, and with ``include_spilled`` the spilled marks
-        beside them."""
+        beside them. A stalled shard's view is served as it stands (its
+        queued writes unapplied; its ``age_s`` says how stale)."""
+        if self._shards is not None:
+            locations: dict = {}
+            spilled: dict = {}
+            for shard in self._shards:
+                locations.update(shard.directory.locations(owner))
+                if include_spilled:
+                    spilled.update(shard.directory.spilled(owner))
+            return (locations, spilled) if include_spilled else locations
         locations = self.object_directory.locations(owner)
         if not include_spilled:
             return locations
@@ -451,17 +545,156 @@ class GcsServer:
 
     # ------------------------------------------------------ epoch fence
 
-    def _check_epoch(self, epoch: int | None, site: str) -> None:
+    def _check_epoch(self, epoch: int | None, site: str,
+                     shard=None) -> None:
         """Refuse a write stamped with an earlier incarnation's epoch.
         An unstamped write (a writer that has learned no epoch yet, or a
-        cluster without fencing) passes."""
+        cluster without fencing) passes. ``shard``: a shard-routed write,
+        counted on that shard's row too."""
         if epoch is None or not self._fencing or epoch == self.epoch:
             return
         from ray_tpu_torch._private.gcs import StaleEpochError
 
         with self._persist_lock:
             self._persist_stats["fenced_writes"] += 1
+        if shard is not None:
+            with shard.lock:
+                shard.fenced_writes += 1
+            flight_recorder.record("gcs.shard_fenced_write", shard.index,
+                                   site, epoch)
+        flight_recorder.record("gcs.fenced_write", site, epoch)
         raise StaleEpochError(self.epoch, epoch)
+
+    # ------------------------------------------------------------- shards
+
+    def _refresh_epoch(self) -> None:
+        # The advertised epoch is the head's plus every shard's: each is
+        # a persisted counter, so it only grows, and it moves when the
+        # head or any one shard restarts; the fence and the reply-meta
+        # re-sync cover shard failover unchanged.
+        self.epoch = self._base_epoch + sum(
+            shard.epoch for shard in self._shards)
+
+    def _shard_apply(self, shard, op: tuple, epoch: int | None, site: str):
+        """Every shard-routed durable mutation: the chaos draws, the
+        fence against the current epoch (a shard restart just moved
+        it), then the op under the shard's lock, or queued WAL-first on
+        a stalled shard."""
+        from ray_tpu_torch._private import chaos
+
+        ctl = chaos.ACTIVE
+        if ctl is not None:
+            if ctl.should("gcs.shard_die"):
+                shard.crash_restart("chaos")
+                self.gcs.crash_shard(shard.index)
+                self._refresh_epoch()
+            elif ctl.should("gcs.shard_stall"):
+                base = float(os.environ.get(
+                    "RAY_TPU_TORCH_SHARD_STALL_S", "2.0"))
+                shard.stall(base * (0.5 + ctl.uniform()))
+        self._check_epoch(epoch, site, shard=shard)
+        with shard.lock:
+            if shard._stall_active_locked():
+                if op[0] == "dir_update" and not op[2] and not op[3]:
+                    return None  # a keepalive: nothing durable to queue
+                shard.enqueue_locked(op)
+                return None
+            return gcs_shard.apply_dir_op(shard.directory, op)
+
+    def _sharded_locations_update(self, owner: str, adds: list,
+                                  removes: list, epoch: int | None) -> int:
+        """Each object's delta lands on its shard (by object id: owner
+        strings differ between a daemon's view and a driver's). An empty
+        update refreshes the owner's lease on every shard; a non-empty
+        one refreshes the untouched shards' for free."""
+        shards = self._shards
+        n = len(shards)
+        per: list = [([], []) for _ in range(n)]
+        for add in adds:
+            per[gcs_shard.shard_of(add[0], n)][0].append(add)
+        for obj_hex in removes:
+            per[gcs_shard.shard_of(obj_hex, n)][1].append(obj_hex)
+        total = 0
+        for shard, (s_adds, s_removes) in zip(shards, per):
+            if s_adds or s_removes or not (adds or removes):
+                total += self._shard_apply(
+                    shard, ("dir_update", owner, s_adds, s_removes),
+                    epoch, "object_locations_update") or 0
+            else:
+                # A bare lease refresh: no WAL record, skipped while
+                # stalled (the lease outlives any stall).
+                with shard.lock:
+                    if not shard._stall_active_locked():
+                        shard.directory.update(owner, [], [])
+        return total
+
+    def _route_spill_events(self, events, node_hex: str,
+                            epoch: int | None) -> None:
+        """Heartbeat spill marks land on the object's shard. A stalled
+        shard past its cap sheds them: they are hints, and the heartbeat
+        (liveness) must not fail for them."""
+        from ray_tpu_torch.exceptions import SystemOverloadedError
+
+        n = len(self._shards)
+        for owner, obj_hex, kind in events:
+            shard = self._shards[gcs_shard.shard_of(obj_hex, n)]
+            op = (("dir_spill", owner, obj_hex, node_hex)
+                  if kind == "spilled" else ("dir_unspill", owner, obj_hex))
+            try:
+                self._shard_apply(shard, op, epoch, "heartbeat_spill")
+            except SystemOverloadedError:
+                break
+
+    def shard_stats(self) -> list:
+        """One row per shard (``GCS_SHARD_STAT_KEYS`` and ``shard``);
+        empty on an unsharded head."""
+        if self._shards is None:
+            return []
+        return [{**shard.stats(), "shard": shard.index}
+                for shard in self._shards]
+
+    def _kill_shard(self, index: int | None = None) -> int:
+        """Crash-restart one shard as ``gcs.shard_die`` would: its
+        volatile slices go, it mints its next epoch and replays only its
+        WAL. The records replayed; -1 on an unsharded head."""
+        if self._shards is None:
+            return -1
+        shard = self._shards[int(index or 0) % len(self._shards)]
+        replayed = shard.crash_restart("admin")
+        self.gcs.crash_shard(shard.index)
+        self._refresh_epoch()
+        return replayed
+
+    # ------------------------------------------------------------ history
+
+    def metrics_history(self, window_s: float | None = None,
+                        node: str | None = None) -> dict:
+        """Per-node samples and rates over the window (``node``: a hex
+        prefix); ``armed=False`` on a head without the history."""
+        if self._history is None:
+            return metrics_history.disarmed_history()
+        return self._history.query(window_s=window_s, node=node)
+
+    def cluster_health(self) -> dict:
+        """The watchdog's active verdicts and its recent fires."""
+        if self._watchdog is None:
+            return metrics_history.disarmed_health()
+        return self._watchdog.report()
+
+    def _history_tick(self) -> None:
+        """When an interval passed: sample the node-stats table into the
+        rings and sweep the watchdog over the fresh window."""
+        history = self._history
+        if history is None or not history.due():
+            return
+        try:
+            node_stats = self.gcs.node_stats()
+            shard_rows = self.shard_stats()
+            history.sample(node_stats, shard_rows)
+            if self._watchdog is not None:
+                self._watchdog.sweep(node_stats, shard_rows)
+        except Exception:  # noqa: BLE001 — never stops the monitor
+            pass
 
     # ------------------------------------------------------------ the WAL
 
@@ -494,7 +727,7 @@ class GcsServer:
             wal.append(seq, pickle.dumps(op,
                                          protocol=pickle.HIGHEST_PROTOCOL))
         except OSError:
-            self._count_persist_error()
+            self._count_persist_error("wal_append")
             return
         with self._persist_lock:
             self._persist_stats["wal_records_written"] += 1
@@ -526,11 +759,12 @@ class GcsServer:
                 self._pg_table[owner] = list(records)
                 self._pg_version += 1
 
-    def _count_persist_error(self) -> None:
+    def _count_persist_error(self, where: str) -> None:
         with self._persist_lock:
             self._persist_stats["persist_errors"] += 1
             self._persist_backoff_until = (time.monotonic()
                                            + _PERSIST_BACKOFF_S)
+        flight_recorder.record("gcs.persist_error", where)
 
     def persist_stats(self) -> dict:
         """The persistence counters, the live epoch and the switches."""
@@ -567,6 +801,13 @@ class GcsServer:
         with self._persist_lock:
             if now < self._persist_backoff_until:
                 return
+        for shard in self._shards or ():
+            # Each shard snapshots when due; a stalled one is skipped
+            # (its WAL holds its writes until it heals).
+            shard.maybe_snapshot(
+                float(GLOBAL_CONFIG.gcs_snapshot_interval_s),
+                float(GLOBAL_CONFIG.gcs_wal_max_mb),
+                bool(GLOBAL_CONFIG.gcs_wal_fsync), force=force)
         wal_over = (self._wal is not None and self._wal.size()
                     > float(GLOBAL_CONFIG.gcs_wal_max_mb) * 1024 * 1024)
         interval = float(GLOBAL_CONFIG.gcs_snapshot_interval_s)
@@ -593,8 +834,13 @@ class GcsServer:
         state = {"format": 2, "wal_seq": wal_seq, "epoch": self.epoch,
                  "kv": self.gcs.kv.snapshot(),
                  **self.gcs.control_snapshot(),
-                 "directory": self.object_directory.snapshot_state(),
+                 "directory": (self.object_directory.snapshot_state()
+                               if self._shards is None else {}),
                  "placement_groups": pgs}
+        if self._shards is not None:
+            # The shards hold the directory; the count recorded here is
+            # what lets a restore refuse a changed gcs_shards.
+            state["gcs_shards"] = self._shard_count
         try:
             gp.write_snapshot(
                 self._persist_path,
@@ -603,7 +849,7 @@ class GcsServer:
             if self._wal is not None:
                 self._wal.rotate()
         except OSError:
-            self._count_persist_error()
+            self._count_persist_error("snapshot")
             return
         self._persisted_version = version
         self._last_snapshot_at = time.monotonic()
@@ -624,6 +870,7 @@ class GcsServer:
             except gp.TornSnapshotError:
                 with self._persist_lock:
                     self._persist_stats["torn_snapshots"] += 1
+                flight_recorder.record("gcs.torn_snapshot", path)
             except gp.LegacySnapshotError:
                 # A raw {kv, jobs} pickle of a disarmed head: load it,
                 # then persist forward in the framed format.
@@ -634,9 +881,13 @@ class GcsServer:
             except (OSError, EOFError, pickle.UnpicklingError):
                 with self._persist_lock:
                     self._persist_stats["persist_errors"] += 1
+                flight_recorder.record("gcs.persist_error", "restore", path)
                 continue
         base_seq = 0
         if state is not None:
+            recorded = int(state.get("gcs_shards", 1))
+            if recorded != self._shard_count:
+                raise gp.ReshardError(recorded, self._shard_count)
             base_seq = int(state.get("wal_seq", 0))
             self.gcs.kv.restore(state.get("kv", {}))
             self.gcs.restore_control(state)
@@ -658,12 +909,16 @@ class GcsServer:
         for record in self.gcs.list_jobs():
             if record.status == "RUNNING":
                 self.gcs.finish_job(record.job_id, status="FAILED")
+        restore_ms = (time.perf_counter() - t0) * 1000.0
         with self._persist_lock:
             self._persist_stats["wal_records_replayed"] += replayed
             self._persist_stats["wal_replay_skipped"] += skipped
             self._persist_stats["torn_wal_tails"] += torn
             self._persist_stats["snapshot_restore_ms"] = round(
-                (time.perf_counter() - t0) * 1000.0, 3)
+                restore_ms, 3)
+        if state is not None or replayed:
+            flight_recorder.record("gcs.restore", replayed,
+                                   round(restore_ms, 1))
 
     def _save_snapshot(self) -> None:
         """The disarmed head's snapshot: a raw pickle of {kv, jobs},
@@ -690,7 +945,7 @@ class GcsServer:
             os.replace(tmp, self._persist_path)
             self._persisted_version = version
         except OSError:
-            self._count_persist_error()
+            self._count_persist_error("snapshot_legacy")
 
     def _restore_snapshot(self) -> None:
         try:
@@ -736,8 +991,15 @@ class GcsServer:
             for hex_id in list(self.gcs.node_stats()):
                 if hex_id not in alive_ids:
                     self.gcs.drop_node_stats(hex_id)
-            self.object_directory.prune()
+            if self._shards is not None:
+                for shard in self._shards:
+                    with shard.lock:
+                        if not shard._stall_active_locked():
+                            shard.directory.prune()
+            else:
+                self.object_directory.prune()
             self.pubsub.prune()
+            self._history_tick()
             if self._persist_path:
                 self._persist_tick()
 
@@ -749,6 +1011,8 @@ class GcsServer:
             self._persist_tick(force=True)
         if self._wal is not None:
             self._wal.close()
+        for shard in self._shards or ():
+            shard.close()
         self._server.stop()
         if self._monitor.is_alive():
             self._monitor.join(timeout=5.0)
@@ -763,6 +1027,12 @@ class GcsServer:
         wal, self._wal = self._wal, None
         if wal is not None:
             wal.close()
+        for shard in self._shards or ():
+            with shard.lock:
+                shard.directory.wal_emit = None
+                if shard.wal is not None:
+                    shard.wal.close()
+                    shard.wal = None
         self._server.stop()
         if self._monitor.is_alive():
             self._monitor.join(timeout=5.0)

@@ -20,10 +20,19 @@ sees a new epoch on any reply, or whose heartbeat is refused with
 ``StaleEpochError``, registers again asking to keep its NodeID, so a
 daemon rides a head restart without losing its id, its actors or the
 results in its store. The heartbeat carries the node store's spill stats
-and the spilled/restored events the head's directory marks.
+and the spilled/restored events the head's directory marks, the hosted
+LLM engines' counters and the performance plane's stage histograms and
+resource table (``NodeExecutorService.stats_for_sync``).
 
-Not ported: the chaos sites of the agent and the flight recorder (ROADMAP
-10c), the head's dashboard and client server (item 12).
+Each daemon installs the flight recorder with its flusher: its ring
+(the re-syncs, worker crashes, spill-tier events, its stop) is rewritten
+to ``<session dir>/flight/<role>-<pid>.json`` every
+``flight_recorder_flush_s``, so it outlives a SIGKILL, with the
+daemon's failure counters, breaker state, spill counters and stage
+histograms beside it.
+
+Not ported: the chaos sites of the agent (ROADMAP 10c), the head's
+dashboard and client server (item 12).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import socket
 import sys
 import threading
 
+from ray_tpu_torch._private import flight_recorder
 from ray_tpu_torch._private.rpc import (
     MuxRpcClient,
     RpcError,
@@ -143,7 +153,9 @@ class NodeAgent:
         if not isinstance(epoch, int):
             return
         self._seen_epoch = epoch
-        if self.gcs_epoch is not None and epoch != self.gcs_epoch:
+        if self.gcs_epoch is not None and epoch != self.gcs_epoch \
+                and not self._epoch_stale.is_set():
+            flight_recorder.record("epoch.bump", self.gcs_epoch, epoch)
             self._epoch_stale.set()
             self._poke.set()
 
@@ -182,16 +194,28 @@ class NodeAgent:
                     timeout_s=max(3.0, self.heartbeat_period_s * 3),
                     epoch=self.gcs_epoch)
                 if not accepted:
+                    flight_recorder.record("heartbeat.rejected")
                     self.node_id = self._register()
+                    flight_recorder.record("re-registered",
+                                           self.node_id.hex()[:16])
             except RpcMethodError as exc:
                 from ray_tpu_torch._private.gcs import StaleEpochError
+                from ray_tpu_torch.exceptions import SystemOverloadedError
 
                 if isinstance(exc.cause, StaleEpochError):
-                    # Cut off across a head restart: re-sync.
+                    # Cut off across a head (or shard) restart: re-sync.
+                    flight_recorder.record("heartbeat.stale_epoch",
+                                           exc.cause.current_epoch)
                     try:
                         self.node_id = self._register()
                     except (RpcError, RpcMethodError, OSError):
                         pass  # the head went again; the next beat retries
+                elif isinstance(exc.cause, SystemOverloadedError):
+                    # A stalled head shard shed the beat's marks; the
+                    # next beat carries them again.
+                    flight_recorder.record(
+                        "heartbeat.shed",
+                        getattr(exc.cause, "retry_after_s", 0.0))
             except (RpcError, OSError):
                 pass  # the head is unreachable (it may restart); keep trying
             if events and not accepted:
@@ -253,14 +277,33 @@ def _serve_until(stop_event: threading.Event, cleanup,
         cleanup()
 
 
+def _install_daemon_recorder(role: str, executor):
+    """The daemon's flight recorder: flushing (its ring file outlives a
+    SIGKILL), its dumps carrying the failure counters, breaker state,
+    spill counters and stage histograms."""
+    from ray_tpu_torch._private import perf_plane
+    from ray_tpu_torch._private.rpc import breaker_stats
+
+    def extra() -> dict:
+        return {"fault_stats": executor._fault_stats(),
+                "breaker": breaker_stats(),
+                "spill": executor._spill_stats(),
+                "stage_hist": perf_plane.stage_snapshot()}
+
+    return flight_recorder.install(role, flush=True, extra_fn=extra)
+
+
 def _start_executor_node(gcs_address: str, resources: dict,
                          pool_size: int | None, labels: dict,
-                         heartbeat_period_s: float):
+                         heartbeat_period_s: float, role: str):
+    from ray_tpu_torch._private import perf_plane
     from ray_tpu_torch._private.node_executor import NodeExecutorService
 
+    perf_plane.init_from_config()
     executor = NodeExecutorService(pool_size=pool_size, resources=resources)
     executor.advertised_address = executor.address_for("127.0.0.1")
     executor.start()
+    _install_daemon_recorder(role, executor)
     agent = NodeAgent(gcs_address, resources, labels=labels,
                       heartbeat_period_s=heartbeat_period_s,
                       usage_fn=executor.available_resources,
@@ -286,9 +329,12 @@ def run_worker(gcs_address: str, resources: dict | None = None,
     os.environ[NODE_TAG_ENV] = os.urandom(6).hex()
     executor, agent = _start_executor_node(
         gcs_address, resources, pool_size,
-        {"node_role": "worker", **(labels or {})}, heartbeat_period_s)
+        {"node_role": "worker", **(labels or {})}, heartbeat_period_s,
+        f"daemon-{os.environ[NODE_TAG_ENV][:8]}")
 
     def cleanup():
+        flight_recorder.record("daemon.stop")
+        flight_recorder.dump("shutdown")
         agent.stop()
         executor.stop()
 
@@ -314,6 +360,9 @@ def run_head(port: int = 0, resources: dict | None = None,
     session_dir = _session_dir()
     os.makedirs(session_dir, exist_ok=True)
     snapshot_path = os.path.join(session_dir, "gcs_snapshot.pkl")
+    # A bare ring before the restore, so the recovery's events land in
+    # it; the executor's install arms the flusher later.
+    flight_recorder.install("daemon-head")
     server = GcsServer(host="127.0.0.1", port=port, log_dir=session_dir,
                        persist_path=snapshot_path).start()
     resources = {k: float(v) for k, v in
@@ -321,17 +370,26 @@ def run_head(port: int = 0, resources: dict | None = None,
     _check_cards(resources)
     os.environ.setdefault(NODE_TAG_ENV, f"head-{os.urandom(4).hex()}")
     executor, agent = _start_executor_node(
-        server.address, resources, None, {"node_role": "head"}, 1.0)
+        server.address, resources, None, {"node_role": "head"}, 1.0,
+        "daemon-head")
     with open(os.path.join(session_dir, "head_address"), "w") as f:
         f.write(server.address)
 
     def cleanup():
+        import glob
+
+        flight_recorder.record("daemon.stop")
+        flight_recorder.dump("shutdown")
         agent.stop()
         executor.stop()
         server.stop()
-        for suffix in ("", ".prev", ".wal", ".wal.prev"):
+        # The shard segments go too; the shards' epoch files stay with
+        # the head's.
+        for path in [snapshot_path + suffix for suffix in
+                     ("", ".prev", ".wal", ".wal.prev")] \
+                + glob.glob(snapshot_path + ".shard*"):
             try:
-                os.unlink(snapshot_path + suffix)
+                os.unlink(path)
             except OSError:
                 pass  # that generation was never written
 

@@ -72,7 +72,8 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private import flight_recorder, serialization
+from ray_tpu_torch._private import perf_plane as perf
 from ray_tpu_torch._private.accelerators import CardLedger
 from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch._private.rpc import (
@@ -81,6 +82,8 @@ from ray_tpu_torch._private.rpc import (
     RpcError,
     RpcMethodError,
     RpcServer,
+    breaker_stats,
+    rpc_retry_count,
 )
 
 logger = logging.getLogger("ray_tpu_torch")
@@ -760,7 +763,9 @@ class _ActorNewError(Exception):
 class _MuxPipe:
     """Calls multiplexed over an actor process's pipe (``max_concurrency
     > 1``): each carries an id, a reader thread matches the replies, and
-    up to ``max_concurrency`` run in the actor at once."""
+    up to ``max_concurrency`` run in the actor at once. ``engine_stats``:
+    the actor process's LLM-engine counters as its last reply carried
+    them (None while it hosts no engine)."""
 
     def __init__(self, conn):
         import queue
@@ -772,6 +777,7 @@ class _MuxPipe:
         self._pending: dict[int, Any] = {}
         self._next_id = 0
         self._closed = False
+        self.engine_stats: dict | None = None
         threading.Thread(target=self._reader, daemon=True,
                          name="ray_tpu_torch-daemon-actor-mux").start()
 
@@ -808,7 +814,7 @@ class _MuxPipe:
                 break
             if msg[0] != "reply":
                 continue
-            _, call_id, status, payload = msg
+            _, call_id, status, payload, self.engine_stats = msg
             with self._lock:
                 slot = self._pending.pop(call_id, None)
             if slot is not None:
@@ -1400,6 +1406,7 @@ class NodeExecutorService:
         shares = self._try_reserve(token, demand)
         if shares is None:
             return ("busy",)
+        t_admit = time.time()
         try:
             if self._token_cancelled(task_token):
                 return ("cancelled",)
@@ -1425,7 +1432,7 @@ class NodeExecutorService:
 
             values = self._run(func, digest, func_blob, args, kwargs,
                                n_returns, resolve_runtime_env(runtime_env),
-                               on_card, shares, token, client_addr)
+                               on_card, shares, token, client_addr, t_admit)
         except BaseException as exc:  # noqa: BLE001 — shipped to the driver
             return ("err", _exc_blob(exc))
         finally:
@@ -1498,7 +1505,14 @@ class NodeExecutorService:
     def _run(self, func, digest: str, func_blob: bytes | None, args: tuple,
              kwargs: dict, n_returns: int, runtime_env: dict | None,
              on_card: bool, shares: dict, token: str,
-             client_addr: str | None) -> list:
+             client_addr: str | None, t_admit: float) -> list:
+        """Run the function where it belongs. With the performance plane
+        armed: ``admit_worker`` is admission to the hand-off (the call
+        on this thread, or the pool's dispatch), ``exec`` the function's
+        wall where it ran, and its resources are rolled up here."""
+        perf_on = perf.PERF_ON
+        if perf_on:
+            perf.record_stage("admit_worker", max(0.0, time.time() - t_admit))
         if on_card:
             # A GPU task runs in this process, on its dispatch thread, on
             # the card its lease names; admission bounds how many.
@@ -1510,7 +1524,11 @@ class NodeExecutorService:
             if runtime_env:
                 logger.warning("a GPU task runs in the daemon's process: "
                                "its runtime_env is ignored")
+            sample = perf.sample_start() if perf_on else None
             result = func(*args, **kwargs)
+            if sample is not None:
+                self._record_sample(perf.sample_end(
+                    getattr(func, "__qualname__", digest[:8]), sample))
             if n_returns == 0:
                 return []
             if n_returns == 1:
@@ -1528,11 +1546,13 @@ class NodeExecutorService:
         return_ids = [ObjectID() for _ in range(max(1, n_returns))]
         with self._func_lock:
             sys_path = list(self._driver_sys_path) or None
+        sample: list | None = [] if perf_on else None
         try:
             pairs = self.pool.run_task_blobs(
                 digest, func_blob, args_blob, n_returns, return_ids,
                 runtime_env=runtime_env, task_token=token,
-                client_addr=client_addr, sys_path=sys_path)
+                client_addr=client_addr, sys_path=sys_path,
+                perf_sample=sample)
         except _RemoteTaskError as rte:
             rte.cause.__ray_tpu_remote_tb__ = rte.remote_tb
             raise rte.cause from None
@@ -1543,7 +1563,16 @@ class NodeExecutorService:
                 name = self._shm_directory.free(rid)
                 if name is not None:
                     self._shm_client.close_segment(name)
+        if sample:
+            self._record_sample(sample[0])
         return [value for _, value in pairs]
+
+    @staticmethod
+    def _record_sample(sample: tuple) -> None:
+        """A (name, wall, cpu, rss) sample: the function's resources and
+        its ``exec`` hop."""
+        perf.record_task_resources(*sample)
+        perf.record_stage("exec", float(sample[1]))
 
     # -------------------------------------------------------------- objects
 
@@ -2071,8 +2100,6 @@ class NodeExecutorService:
     def executor_stats(self) -> dict:
         import threading as _threading
 
-        from ray_tpu_torch._private.rpc import breaker_stats, rpc_retry_count
-
         with self._running_lock:
             running = len(self._running)
         with self._actors_lock:
@@ -2088,13 +2115,7 @@ class NodeExecutorService:
                 "data_plane": self._data_plane_stats(),
                 "available": self.available_resources(),
                 "relay_chunks_served": self.relay_chunks_served,
-                "faults": {"rpc_retries": rpc_retry_count(),
-                           "peer_blacklists": self.peer_blacklists,
-                           "task_timeouts": self.task_timeouts,
-                           "admission_shed": self.admission_shed,
-                           "lease_orphans_swept": self.lease_orphans_swept,
-                           "arena_orphans_swept": self.arena_orphans_swept,
-                           "breaker_open": breaker_stats()["opens"]},
+                "faults": self._fault_stats(),
                 "threads": _threading.active_count()}
 
     def _data_plane_stats(self) -> dict:
@@ -2108,20 +2129,61 @@ class NodeExecutorService:
         data_plane["leases"] = self.leases.stats()
         return data_plane
 
+    def _fault_stats(self) -> dict:
+        """The failure counters: how often each recovery path fired."""
+        return {"rpc_retries": rpc_retry_count(),
+                "peer_blacklists": self.peer_blacklists,
+                "task_timeouts": self.task_timeouts,
+                "admission_shed": self.admission_shed,
+                "lease_orphans_swept": self.lease_orphans_swept,
+                "arena_orphans_swept": self.arena_orphans_swept,
+                "breaker_open": breaker_stats()["opens"]}
+
+    def _engine_stats(self) -> "dict | None":
+        """The counters of the LLM engines this daemon hosts, summed: in
+        its own process and in its multiplexed actors' processes (a GPU
+        actor runs in a process of its own), as each actor's last reply
+        carried them. None when no process of the node has an
+        engine."""
+        from ray_tpu_torch._private.worker_pool import _hosted_engine_stats
+
+        with self._actors_lock:
+            rows = [actor._mux.engine_stats for actor in self._actors.values()
+                    if actor._mux is not None]
+        merged = None
+        for row in [_hosted_engine_stats(), *rows]:
+            if not row:
+                continue
+            merged = merged or {}
+            for key, value in row.items():
+                merged[key] = merged.get(key, 0) + int(value)
+        return merged
+
     def stats_for_sync(self) -> dict:
-        """The heartbeat's stats: cheap counters only, with the spill
-        tier's counters and its events since the last beat."""
+        """The heartbeat's stats: cheap counters only (the groups the
+        head's node-stats table, the metrics history and /metrics read),
+        with the spill tier's counters and its events since the last
+        beat, the hosted LLM engines' counters, and the performance
+        plane's stage histograms and resource table."""
         with self._running_lock:
             running = len(self._running)
             depth = max(0, running - len(self._blocked_cpu))
         stats = {"tasks_executed": self.tasks_executed, "running": running,
                  "depth": depth, "stats_ts": time.time(),
-                 "chunked_pulls": self.chunked_pulls}
+                 "chunked_pulls": self.chunked_pulls,
+                 "data_plane": self._data_plane_stats(),
+                 "faults": self._fault_stats()}
         if self._spill_mgr is not None:
             stats["spill"] = self._spill_stats()
             events = self._drain_spill_events()
             if events:
                 stats["spill_events"] = events
+        engine = self._engine_stats()
+        if engine is not None:
+            stats["engine"] = engine
+        if perf.PERF_ON:
+            stats["stage_hist"] = perf.stage_snapshot()
+            stats["task_resources"] = perf.resource_snapshot()
         return stats
 
     # --------------------------------------------------------------- actors
@@ -2224,6 +2286,7 @@ class NodeExecutorService:
                 method, serialization.serialize_framed((args, kwargs)),
                 max(1, n_returns))
         except (WorkerCrashedError, _WorkerUnavailable) as exc:
+            flight_recorder.record("worker.crash", str(exc)[:120])
             self._reap_actor(actor_key)
             return ("dead", _exc_blob(exc))
         except BaseException as exc:  # noqa: BLE001 — shipped to the driver

@@ -561,6 +561,9 @@ def breaker_record(dest: str, ok: bool) -> None:
         if breaker.failures >= threshold or was_open:
             if not was_open:
                 _BREAKER_OPENS += 1
+                from ray_tpu_torch._private import flight_recorder
+
+                flight_recorder.record("breaker.open", dest)
             breaker.open = True
             breaker.opened_at = time.monotonic()
 
@@ -578,6 +581,19 @@ def reset_breakers() -> None:
     with _BREAKERS_LOCK:
         _BREAKERS.clear()
         _BREAKER_OPENS = 0
+
+
+def overload_retry_after(exc: BaseException) -> "float | None":
+    """The retry hint of a remote ``SystemOverloadedError`` (a stalled
+    head shard's shed), clamped to [0.05, 2.0] s so a long stall never
+    wedges the caller; None for any other error."""
+    from ray_tpu_torch.exceptions import SystemOverloadedError
+
+    cause = getattr(exc, "cause", None)
+    if isinstance(cause, SystemOverloadedError):
+        return min(max(float(getattr(cause, "retry_after_s", 0.1)), 0.05),
+                   2.0)
+    return None
 
 
 def rpc_retry_count() -> int:

@@ -35,6 +35,7 @@ import traceback
 from dataclasses import dataclass, field
 from typing import Callable
 
+from ray_tpu_torch._private import perf_plane as perf
 from ray_tpu_torch._private.accelerators import CardLedger
 from ray_tpu_torch._private.ids import NodeID
 from ray_tpu_torch._private.task import TaskSpec
@@ -343,6 +344,8 @@ class Dispatcher:
     def submit(self, spec: TaskSpec,
                run: Callable[[TaskSpec, NodeState], None],
                deps: list) -> None:
+        if perf.PERF_ON and not spec.submit_ts:
+            spec.submit_ts = time.time()
         with self._lock:
             task = _QueuedTask(spec=spec, run=run)
             # Checked under the lock: a dependency sealing concurrently
@@ -522,6 +525,12 @@ class Dispatcher:
                     self._by_return_id.pop(rid, None)
         if expired and self._on_deadline is not None:
             self._on_deadline(task.spec, "dispatch")
+        if not expired and perf.PERF_ON and task.spec.submit_ts:
+            # The submit-to-claim hop, on this process's clock (outside
+            # the scheduler's lock: the histogram has its own).
+            task.spec.dispatch_ts = time.time()
+            perf.record_stage("submit_dispatch", max(
+                0.0, task.spec.dispatch_ts - task.spec.submit_ts))
         return not expired
 
     def _launch(self, task: _QueuedTask, node: NodeState) -> None:

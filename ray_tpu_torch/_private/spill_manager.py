@@ -39,6 +39,7 @@ import time
 import zlib
 from typing import Callable
 
+from ray_tpu_torch._private import flight_recorder
 from ray_tpu_torch._private.same_host import pid_is_dead
 
 SESSION_DIR_ENV = "RAY_TPU_TORCH_SESSION_DIR"
@@ -269,6 +270,7 @@ class SpillManager:
             with self._lock:
                 self.disk_full += 1
                 self._backoff_until = time.monotonic() + self._backoff_s
+            flight_recorder.record("spill.disk_full", self.role)
             return False
         size = len(payload)
         if not self._commit(key, path, size):
@@ -283,6 +285,7 @@ class SpillManager:
             self.spilled_bytes += size
             if len(self._timings["spill"]) < 512:
                 self._timings["spill"].append((size, wall))
+        flight_recorder.record("spill.spill", key.hex()[:16], size)
         return True
 
     # ------------------------------------------------------------- restore
@@ -300,6 +303,7 @@ class SpillManager:
                 os.unlink(path)
             except OSError:
                 pass  # already gone; the tear is counted
+            flight_recorder.record("spill.torn", key.hex()[:16])
             raise
         wall = time.monotonic() - start
         with self._lock:
@@ -308,6 +312,8 @@ class SpillManager:
             if len(self._restore_walls) < 512:
                 self._restore_walls.append(wall)
                 self._timings["restore"].append((len(payload), wall))
+        flight_recorder.record("spill.restore", key.hex()[:16],
+                               len(payload))
         return payload
 
     def delete_file(self, path: str) -> None:
@@ -318,6 +324,7 @@ class SpillManager:
             return
         with self._lock:
             self.files_deleted += 1
+        flight_recorder.record("spill.evict", os.path.basename(path))
 
     # --------------------------------------------------------------- stats
 
@@ -412,4 +419,6 @@ def sweep_orphan_spill_dirs(root: str | None = None) -> int:
             swept += 1
         except OSError:
             continue  # raced another sweeper
+    if swept:
+        flight_recorder.record("spill.orphan_sweep", swept)
     return swept

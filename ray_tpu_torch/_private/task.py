@@ -70,3 +70,7 @@ class TaskSpec:
     runtime_env: dict | None = None
     # The card shares of its GPU lease, set at admission.
     gpu_shares: dict[int, float] = field(default_factory=dict)
+    # The performance plane's stamps (time.time()): first submitted, and
+    # claimed by the scheduler; 0.0 while the plane is off.
+    submit_ts: float = 0.0
+    dispatch_ts: float = 0.0

@@ -60,7 +60,8 @@ from typing import Any, Sequence
 
 import torch
 
-from ray_tpu_torch._private import accelerators, worker_client
+from ray_tpu_torch._private import accelerators, flight_recorder, worker_client
+from ray_tpu_torch._private import perf_plane as perf
 from ray_tpu_torch._private.actor_runtime import LocalActor, _ActorCall
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.gcs import (
@@ -151,9 +152,20 @@ class Runtime:
                  object_store_memory: int | None = None,
                  namespace: str = "default",
                  process_workers: int | None = None,
-                 address: str | None = None):
+                 address: str | None = None,
+                 metrics_port: int | None = None):
         cfg = GLOBAL_CONFIG
         self.namespace = namespace
+        # The performance plane, armed from config, its histograms
+        # cleared (a new session does not replay the last one's), and
+        # the flight ring: no flusher in a driver (no per-driver files);
+        # it is read live or dumped on demand.
+        perf.init_from_config()
+        perf.reset()
+        flight_recorder.install("driver")
+        # The head's stats for /metrics: (method, arguments) -> (fetched
+        # at, value), kept briefly so scrapes do not become head calls.
+        self._head_stats: dict[tuple, tuple] = {}
         self.job_id = JobID()
         self.gcs_client = None
         self._node_agent = None
@@ -253,6 +265,14 @@ class Runtime:
             target=self._arg_pin_sweeper, daemon=True,
             name="ray_tpu_torch-arg-pin-sweeper")
         self._arg_pin_thread.start()
+        # The Prometheus endpoint, with metrics_port (0: a free port).
+        self.metrics_agent = None
+        if metrics_port is not None:
+            from ray_tpu_torch._private.metrics_agent import (
+                start_metrics_agent,
+            )
+
+            self.metrics_agent = start_metrics_agent(self, port=metrics_port)
 
     # ------------------------------------------------- worker processes
 
@@ -457,11 +477,12 @@ class Runtime:
         with self._inflight_blocks_lock:
             self._inflight_blocks[token] = BlockedResourceContext(
                 self.cluster, node.node_id, {} if bundled else spec.resources)
+        sample: list | None = [] if perf.PERF_ON else None
         try:
             results = self.worker_pool.run_task_blobs(
                 digest, func_blob, args_blob, spec.num_returns,
                 spec.return_ids, runtime_env=spec.runtime_env,
-                task_token=token)
+                task_token=token, perf_sample=sample)
         except _RemoteTaskError as rte:
             rte.cause.__ray_tpu_remote_tb__ = rte.remote_tb
             raise rte.cause from None
@@ -471,6 +492,10 @@ class Runtime:
             # A worker that died in a blocked get() left the CPU given
             # away: take it back before the dispatcher releases it.
             ctx.drain()
+        if sample:
+            # The worker's (name, wall, cpu, rss) around the function.
+            perf.record_task_resources(*sample[0])
+            perf.record_stage("exec_local", float(sample[0][1]))
         for rid, value in results:
             self.store.put(rid, value)
         return True
@@ -566,6 +591,7 @@ class Runtime:
         allows."""
         logger.warning("Node %s died; rebuilding its objects",
                        node_id.hex()[:8])
+        flight_recorder.record("node.dead", node_id.hex()[:16])
         self.remove_node(node_id)
         for spec in self.dispatcher.fail_hard_affinity(node_id.hex()):
             err = TaskError(
@@ -992,6 +1018,7 @@ class Runtime:
     def _handle_object_loss(self, obj_hexes) -> None:
         """The head reports objects whose last holder died: rebuild ours
         now, not at the next get()."""
+        flight_recorder.record("object.loss", len(obj_hexes))
         for obj_hex in obj_hexes:
             oid = ObjectID(bytes.fromhex(obj_hex))
             with self._locations_lock:
@@ -1039,6 +1066,7 @@ class Runtime:
             return
         prior, self._gcs_epoch = self._gcs_epoch, epoch
         if prior is not None and epoch != prior:
+            flight_recorder.record("epoch.bump", prior, epoch)
             self._epoch_republish = True
             self._loc_keepalive = 0.0
 
@@ -1051,6 +1079,7 @@ class Runtime:
         cause = exc.cause if isinstance(exc, RpcMethodError) else exc
         if not isinstance(cause, StaleEpochError):
             return False
+        flight_recorder.record("gcs.stale_epoch", cause.current_epoch)
         self._gcs_epoch = cause.current_epoch
         self._epoch_republish = True
         self._loc_keepalive = 0.0
@@ -1366,6 +1395,10 @@ class Runtime:
                 {} if bundled else spec.resources,
                 on_release=control("task_block"),
                 on_reacquire=control("task_unblock"))
+        t_send = time.time()
+        if perf.PERF_ON and spec.dispatch_ts:
+            perf.record_stage("dispatch_rpc",
+                              max(0.0, t_send - spec.dispatch_ts))
         try:
             results = handle.execute(
                 digest, func_blob, args_blob, spec.num_returns,
@@ -1387,6 +1420,8 @@ class Runtime:
             ctx.drain()
         self._seal_remote_results(spec.return_ids, results, node.node_id,
                                   handle.address)
+        if perf.PERF_ON:
+            perf.record_stage("rpc_seal", max(0.0, time.time() - t_send))
 
     def _spillback_requeue(self, spec: TaskSpec, node: NodeState) -> None:
         """The node refused the lease: queue the task again, avoiding it.
@@ -1599,6 +1634,47 @@ class Runtime:
                     "queue_depth": self.dispatcher.pending_count(),
                     "lineage_rebuilds": self.recovery.num_recoveries}
 
+    def _head_call(self, max_age_s: float, method: str, kind: type,
+                   **kwargs):
+        """A head stat for /metrics: the cached value while younger than
+        ``max_age_s``, else a fresh call (the last value when the head
+        does not answer or answers with another type). None without a
+        head."""
+        if self.gcs_client is None:
+            return None
+        key = (method, tuple(sorted(kwargs.items())))
+        fetched_at, cached = self._head_stats.get(key, (0.0, None))
+        now = time.monotonic()
+        if cached is not None and now - fetched_at < max_age_s:
+            return cached
+        try:
+            value = self.gcs_client.call(method, timeout_s=2.0, **kwargs)
+        except Exception:  # noqa: BLE001 — unreachable: the last value
+            return cached
+        if not isinstance(value, kind):
+            return cached
+        self._head_stats[key] = (now, value)
+        return value
+
+    def gcs_persist_stats(self) -> dict | None:
+        """The head's persistence counters and epoch (5 s cache)."""
+        return self._head_call(5.0, "gcs_persist_stats", dict)
+
+    def gcs_shard_stats(self) -> list | None:
+        """One row per shard of a sharded head, [] for an unsharded one
+        (5 s cache)."""
+        return self._head_call(5.0, "gcs_shard_stats", list)
+
+    def metrics_history(self, window_s: float | None = None,
+                        node: str | None = None) -> dict | None:
+        """The head's per-node history over the window (1 s cache)."""
+        return self._head_call(1.0, "metrics_history", dict,
+                               window_s=window_s, node=node)
+
+    def cluster_health(self) -> dict | None:
+        """The head watchdog's verdicts (1 s cache)."""
+        return self._head_call(1.0, "cluster_health", dict)
+
     def fault_stats(self) -> dict:
         """This driver's failure counters, in the shape of a daemon's
         ``executor_stats()["faults"]``: how often each recovery path
@@ -1762,12 +1838,22 @@ class Runtime:
                     self._seal_deadline(spec, "admitted")
                     return
                 except NodeOverloadedError as exc:
-                    if spec.deadline is not None:
-                        raise SystemOverloadedError(
-                            f"node {node.node_id.hex()[:8]} shed the "
-                            f"task: {exc}") from None
                     with self._counter_lock:
                         self._admission_shed += 1
+                    if spec.deadline is not None:
+                        # Its budget would die waiting: it fails at once
+                        # with the retryable error, typed (never
+                        # wrapped, never retried here).
+                        err = SystemOverloadedError(
+                            f"node {node.node_id.hex()[:8]} shed the "
+                            f"task: {exc}")
+                        for rid in spec.return_ids:
+                            self.store.put_error(rid, err)
+                        self.gcs.record_task_event(TaskEvent(
+                            spec.task_id, spec.name, "FAILED",
+                            start_time=start, end_time=time.time(),
+                            error=f"shed: {exc}"))
+                        return
                     self._spillback_requeue(spec, node)
                     return
                 self.gcs.record_task_event(TaskEvent(
@@ -1782,10 +1868,15 @@ class Runtime:
                 _use_cards(spec.gpu_shares)
                 args, kwargs, _ = resolve_args(
                     spec.args, spec.kwargs, lambda ref: self.get([ref])[0])
+                sample = perf.sample_start() if perf.PERF_ON else None
                 with BlockedResourceContext(
                         self.cluster, node.node_id,
                         {} if bundled else spec.resources):
                     result = spec.func(*args, **kwargs)
+                if sample is not None:
+                    s = perf.sample_end(spec.name, sample)
+                    perf.record_task_resources(*s)
+                    perf.record_stage("exec_local", s[1])
                 self._store_task_result(spec, result)
             for rid in spec.return_ids:
                 self._record_location(rid, node.node_id)
@@ -2426,6 +2517,9 @@ class Runtime:
         return self.cluster.available_resources()
 
     def shutdown(self) -> None:
+        if self.metrics_agent is not None:
+            self.metrics_agent.shutdown()
+            self.metrics_agent = None
         with self._actors_changed:
             # An actor still being built sees this and is not started.
             self._shut_down = True
@@ -2629,14 +2723,17 @@ def init(*, num_cpus: float | None = None, num_gpus: float | None = None,
          namespace: str = "default", ignore_reinit_error: bool = False,
          system_config: dict | None = None,
          process_workers: int | None = None,
-         address: str | None = None) -> Runtime:
+         address: str | None = None,
+         metrics_port: int | None = None) -> Runtime:
     """Start the process's runtime. ``num_gpus`` sets the head node's
     ``GPU`` count (by default ``torch.cuda.device_count()``);
     ``process_workers`` starts that many worker processes (by default
     ``worker_pool_size``, 0); ``address`` connects to a cluster's head
     (``cluster_utils.Cluster.address``), whose worker-node daemons then
-    run tasks and actors. In a worker process the public API goes to the
-    driver's runtime, and this returns its proxy."""
+    run tasks and actors; ``metrics_port`` serves ``/metrics`` there (0:
+    a free port, ``runtime.metrics_agent.port``). In a worker process the
+    public API goes to the driver's runtime, and this returns its
+    proxy."""
     global _runtime, _atexit_registered
     if _in_worker_process():
         return worker_client.get_worker_runtime()
@@ -2653,7 +2750,7 @@ def init(*, num_cpus: float | None = None, num_gpus: float | None = None,
                            object_store_memory=object_store_memory,
                            namespace=namespace,
                            process_workers=process_workers,
-                           address=address)
+                           address=address, metrics_port=metrics_port)
         if not _atexit_registered:
             atexit.register(shutdown)
             _atexit_registered = True

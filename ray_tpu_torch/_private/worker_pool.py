@@ -48,6 +48,7 @@ import traceback
 from dataclasses import dataclass
 from typing import Any, Callable
 
+from ray_tpu_torch._private import perf_plane as perf
 from ray_tpu_torch._private import serialization
 from ray_tpu_torch._private.ids import ActorID, ObjectID
 from ray_tpu_torch._private.shm_store import (
@@ -292,9 +293,11 @@ def _exec_task_body(fields: tuple, func_cache: dict,
 
     digest, func_blob, args_blob, n_returns, renv, token = fields[:6]
     # A node daemon's task also names its driver (whose client server
-    # the nested API calls) and the driver's import paths.
+    # the nested API calls) and the driver's import paths; a sender
+    # with the performance plane armed asks for the attribution sample.
     client_addr = fields[6] if len(fields) > 6 else None
     sys_path = fields[7] if len(fields) > 7 else None
+    want_sample = bool(fields[8]) if len(fields) > 8 else False
     if client_addr:
         worker_client.use_address(client_addr)
     if sys_path:
@@ -307,11 +310,17 @@ def _exec_task_body(fields: tuple, func_cache: dict,
     # The token rides nested get()/wait() calls, so the driver gives this
     # task's CPU back while it blocks.
     worker_client.set_task_token(token)
+    sample = perf.sample_start() if want_sample else None
     try:
         with _runtime_env_ctx(renv):
             result = func(*args, **kwargs)
     finally:
         worker_client.set_task_token(None)
+    if sample is not None:
+        # (name, wall, cpu seconds, peak-RSS delta) around the function,
+        # rolled up by the process that owns the run.
+        sample = perf.sample_end(
+            getattr(func, "__qualname__", digest[:8]), sample)
     _settle_borrows()
     if n_returns == 0:
         values = []
@@ -322,7 +331,8 @@ def _exec_task_body(fields: tuple, func_cache: dict,
             raise ValueError(f"task declared num_returns={n_returns} but "
                              f"returned {type(result).__name__}")
         values = list(result)
-    return _pack_results(values, client.arena)
+    packed = _pack_results(values, client.arena)
+    return packed if sample is None else (packed, sample)
 
 
 def _settle_borrows() -> None:
@@ -370,8 +380,10 @@ def _serve(conn, client: ShmClient) -> None:
             elif kind == "ping":
                 conn.send(("pong", os.getpid()))
             elif kind == "task":
-                conn.send(("ok", _exec_task_body(msg[1:], func_cache,
-                                                 client)))
+                out = _exec_task_body(msg[1:], func_cache, client)
+                # A sampled task replies ("ok", packed, sample).
+                conn.send(("ok", *out) if isinstance(out, tuple)
+                          else ("ok", out))
             elif kind == "actor_new":
                 instance = _new_actor(msg, client)
                 conn.send(("ok", None))
@@ -397,6 +409,14 @@ def _serve(conn, client: ShmClient) -> None:
                 return
 
 
+def _hosted_engine_stats() -> "dict | None":
+    """The summed counters of this process's LLM engines (None when it
+    never imported the engine: a scrape does not import the serve
+    tier)."""
+    mod = sys.modules.get("ray_tpu_torch.serve.llm_engine.engine")
+    return None if mod is None else mod.merged_engine_stats()
+
+
 def _invoke_actor_method(instance, client: ShmClient, method_name: str,
                          args_blob: bytes, n_returns: int) -> tuple:
     """-> ("ok", packed results) | ("err", exception blob)."""
@@ -418,7 +438,10 @@ def _serve_actor_concurrent(conn, instance, client: ShmClient,
                             max_concurrency: int, groups: dict) -> None:
     """Multiplexed serving: up to ``max_concurrency`` calls at once on
     one thread pool, and a pool of its own for each concurrency group;
-    replies carry their call's id and share the pipe under a lock."""
+    replies carry their call's id and share the pipe under a lock. Each
+    reply also carries the counters of the LLM engines this process
+    hosts (None without one), which the daemon ships on its
+    heartbeat."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ray_tpu_torch._private.actor_runtime import method_groups
@@ -435,7 +458,10 @@ def _serve_actor_concurrent(conn, instance, client: ShmClient,
                                                args_blob, n_returns)
         try:
             with send_lock:
-                conn.send(("reply", call_id, status, payload))
+                # Read under the send lock: the daemon keeps the last
+                # counters it received, which are then the newest.
+                conn.send(("reply", call_id, status, payload,
+                           _hosted_engine_stats()))
         except OSError:
             pass  # the driver is gone; this process is about to exit
 
@@ -629,6 +655,9 @@ class PoolWorker:
         err = WorkerCrashedError(f"worker {self.index} (pid "
                                  f"{self.proc.pid}) died: {exc!r}")
         err.worker_pid = self.proc.pid
+        from ray_tpu_torch._private import flight_recorder
+
+        flight_recorder.record("worker.crash", str(err)[:120])
         return err
 
     def request(self, msg: tuple) -> tuple:
@@ -803,19 +832,27 @@ class WorkerPool:
                        runtime_env: dict | None = None,
                        task_token: str | None = None,
                        client_addr: str | None = None,
-                       sys_path: list[str] | None = None
+                       sys_path: list[str] | None = None,
+                       perf_sample: list | None = None
                        ) -> list[tuple[ObjectID, Any]]:
         """Run a task on a worker; [(return id, value)]. The function
         crosses the pipe the first time a worker meets its digest. On a
         node daemon, ``client_addr`` is the submitting driver's client
-        server and ``sys_path`` its import paths. Raises
+        server and ``sys_path`` its import paths. With ``perf_sample``
+        (a list) the worker samples the function's resources and the
+        (name, wall, cpu, rss) tuple is appended to it. Raises
         WorkerCrashedError (a system failure) or _RemoteTaskError (the
         task's own)."""
         from ray_tpu_torch._private.worker_factory import (
             import_sensitive_subset,
         )
 
-        extra = (client_addr, sys_path) if client_addr or sys_path else ()
+        if perf_sample is not None:
+            extra = (client_addr, sys_path, True)
+        elif client_addr or sys_path:
+            extra = (client_addr, sys_path)
+        else:
+            extra = ()
 
         env_vars = {str(k): str(v) for k, v in
                     ((runtime_env or {}).get("env_vars") or {}).items()}
@@ -835,7 +872,8 @@ class WorkerPool:
                 worker = self._new_worker(extra_env=env_vars)
                 return self._unpack_reply(worker.request(
                     ("task", digest, func_blob, args_blob, n_returns,
-                     runtime_env, task_token, *extra)), return_ids)
+                     runtime_env, task_token, *extra)), return_ids,
+                    perf_sample)
             finally:
                 if worker is not None:
                     worker.stop()
@@ -854,12 +892,15 @@ class WorkerPool:
             finally:
                 self._release(worker)
             worker.known_digests.add(digest)
-            return self._unpack_reply(reply, return_ids)
+            return self._unpack_reply(reply, return_ids, perf_sample)
 
-    def _unpack_reply(self, reply: tuple, return_ids: list[ObjectID]
+    def _unpack_reply(self, reply: tuple, return_ids: list[ObjectID],
+                      perf_sample: list | None = None
                       ) -> list[tuple[ObjectID, Any]]:
         if reply[0] == "err":
             raise _RemoteTaskError(*_remote_error(reply[1]))
+        if len(reply) > 2 and perf_sample is not None:
+            perf_sample.append(reply[2])
         return [(rid, unpack_result(packed, rid, self.directory,
                                     self.driver_client))
                 for rid, packed in zip(return_ids, reply[1])]
@@ -1098,7 +1139,8 @@ class ProcessActor:
                     msg = worker.conn.recv()
                 except (EOFError, OSError):
                     break
-                _, call_id, status, payload = msg
+                # The reply's engine counters are a daemon's to ship.
+                _, call_id, status, payload, _engine = msg
                 with pending_lock:
                     call = pending.pop(call_id, None)
                 if call is None:

@@ -13,9 +13,11 @@ only touch host state under the engine's lock. A step that raises (a
 failed kernel launch, a device fault) lands in ``_reset_after_failure``,
 which seals every in-flight request with the error and re-inits the pool.
 
-The reference's ``PAGED_ON`` gate (it picks the legacy slot server), its
-``llm.slow_step`` chaos hook and its process-wide engine registry belong
-to the runtime and are not ported yet.
+The process-wide registry of live engines (``merged_engine_stats``,
+``merged_engine_load``) is what a daemon hosting an engine ships on its
+heartbeat (the ``engine`` group) and what ``/metrics`` serves as
+``node_engine``. The reference's ``PAGED_ON`` gate (it picks the legacy
+slot server) and its ``llm.slow_step`` chaos hook are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import functools
 import queue as queue_mod
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -38,7 +41,8 @@ from ray_tpu_torch.serve.llm_engine.scheduler import (
     Scheduler,
 )
 
-__all__ = ["ENGINE_STAT_KEYS", "LLMEngine"]
+__all__ = ["ENGINE_STAT_KEYS", "LLMEngine", "merged_engine_stats",
+           "merged_engine_load"]
 
 # The reference's defaults (llm_block_size, llm_prefill_chunk and
 # llm_max_waiting in ray_tpu/_private/config.py).
@@ -56,6 +60,9 @@ ENGINE_STAT_KEYS = (
     "preemptions", "resumes", "finished", "deadline_expired",
     "slow_steps", "blocks_allocated", "blocks_freed",
 )
+
+# This process's live engines, for the stats of its heartbeat.
+_LIVE: "weakref.WeakSet" = weakref.WeakSet()
 
 
 class LLMEngine:
@@ -108,6 +115,7 @@ class LLMEngine:
             device=self.device)
         self._generator = torch.Generator(self.device).manual_seed(seed + 1)
         self._counters: "dict[str, int]" = {k: 0 for k in ENGINE_STAT_KEYS}
+        _LIVE.add(self)
         self._lock = threading.Condition()
         self._shutdown = threading.Event()
         self._loop_error: "BaseException | None" = None
@@ -494,3 +502,26 @@ class LLMEngine:
         shutdown = getattr(self, "_shutdown", None)  # None if __init__ raised
         if shutdown is not None:
             shutdown.set()
+
+
+def merged_engine_stats() -> "dict | None":
+    """``ENGINE_STAT_KEYS`` summed over this process's live engines, or
+    None when it hosts none (its heartbeat then has no ``engine``
+    group)."""
+    engines = list(_LIVE)
+    if not engines:
+        return None
+    out = {key: 0 for key in ENGINE_STAT_KEYS}
+    for engine in engines:
+        for key, value in engine.engine_stats().items():
+            out[key] += int(value)
+    return out
+
+
+def merged_engine_load() -> dict:
+    """The load of this process's live engines, summed."""
+    totals = {"depth": 0, "waiting": 0, "active": 0, "free_blocks": 0}
+    for engine in list(_LIVE):
+        for key, value in engine.engine_load().items():
+            totals[key] += int(value)
+    return totals

@@ -33,6 +33,7 @@ import torch
 
 import ray_tpu
 import ray_tpu_torch
+from torch_native import load_reference_native
 from torch_time_limit import time_limit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,6 +42,13 @@ RUNTIMES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
 # The driver's arena of each package, under /dev/shm.
 DRIVER_ARENA = {"ray_tpu": "ray_tpu_arena_{pid}",
                 "ray_tpu_torch": "ray_tpu_torch_arena_{pid}"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native library, loaded once its file is whole:
+    its in-place build races the other processes of the run."""
+    load_reference_native()
 
 
 def _store_cls(pkg: str):

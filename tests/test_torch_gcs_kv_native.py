@@ -9,6 +9,9 @@ Beyond the reference: a head's snapshot and WAL written with one engine
 restore into the other, both ways, so the durable head restarts across
 the ``gcs_kv_native`` knob.
 
+The JAX package's library is loaded through ``tests/torch_native.py``
+(its in-place build races the other processes of a run).
+
 Where the port deliberately differs: the native engine has no silent
 fallback. The reference skips these cases when its toolchain is missing
 (and its head then keeps the Python store); the port's build raises, so
@@ -21,8 +24,11 @@ from __future__ import annotations
 import importlib
 import pickle
 import struct
+import time
 
 import pytest
+
+from torch_native import load_reference_native
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 
@@ -31,8 +37,16 @@ def _mod(pkg: str, name: str):
     return importlib.import_module(f"{pkg}._private.{name}")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native library, loaded once its file is whole:
+    its in-place build races the other processes of the run."""
+    load_reference_native()
+
+
 def _native(pkg: str):
-    lib = importlib.import_module(f"{pkg}._native").load()
+    lib = load_reference_native() if pkg == "ray_tpu" \
+        else importlib.import_module(f"{pkg}._native").load()
     assert lib is not None and hasattr(lib, "gcs_kv_create")
     return _mod(pkg, "gcs_kv_native").NativeKVStore(lib)
 
@@ -209,3 +223,55 @@ def test_head_restarts_across_the_kv_engine_knob(tmp_path, first):
         "engines": engines if first else engines[::-1],
         "snap": b"in the snapshot", "wal": b"in the WAL", "deleted": False,
         "keys": [b"snap/key", b"wal/key"]}
+
+
+# ------------------------------------------- the reference's racy build
+
+
+@pytest.mark.parametrize("shape", ["cached_failure", "half_written_file"])
+def test_reference_loader_retries_after_a_concurrent_writer(
+        shape, tmp_path, monkeypatch):
+    """``load_reference_native`` gets the library where a plain load
+    caches a failure: a process that found the file before its writer
+    finished (here, the cached failure itself; and a copy of the
+    library that another thread is still writing) waits for the writer,
+    clears the failure and loads."""
+    import threading
+
+    native = importlib.import_module("ray_tpu._native")
+    real = load_reference_native()
+    assert real is not None
+    loads = []
+    plain_load = native.load
+
+    def counted_load():
+        lib = plain_load()
+        loads.append(lib is not None)
+        return lib
+
+    monkeypatch.setattr(native, "load", counted_load)
+    monkeypatch.setattr(native, "_lib", False)
+    writer = None
+    if shape == "half_written_file":
+        copy = tmp_path / "libray_tpu_native.so"
+        with open(native._LIB, "rb") as f:
+            blob = f.read()
+        copy.write_bytes(blob[:32])
+        monkeypatch.setattr(native, "_LIB", str(copy))
+        monkeypatch.setattr(native, "_lib", None)
+
+        def finish():
+            time.sleep(0.7)
+            with open(copy, "ab") as f:
+                f.write(blob[32:])
+
+        writer = threading.Thread(target=finish)
+        writer.start()
+    try:
+        lib = load_reference_native(native, deadline_s=30.0)
+    finally:
+        if writer is not None:
+            writer.join()
+    assert loads[0] is False and loads[-1] is True, loads
+    assert lib is not None and hasattr(lib, "gcs_kv_create")
+    assert lib._name == native._LIB

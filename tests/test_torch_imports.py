@@ -68,6 +68,14 @@ DIRECTORY_MODULES = (
     "ray_tpu_torch._private.object_ref", "ray_tpu_torch._private.config",
     "ray_tpu_torch._private.node_executor",
     "ray_tpu_torch._private.gcs_pubsub", "ray_tpu_torch.util.client.server")
+# The sharded head and the observability plane.
+OBSERVABILITY_MODULES = (
+    "ray_tpu_torch._private.gcs_shard",
+    "ray_tpu_torch._private.flight_recorder",
+    "ray_tpu_torch._private.perf_plane",
+    "ray_tpu_torch._private.metrics_history",
+    "ray_tpu_torch._private.metrics_agent", "ray_tpu_torch.util.metrics",
+    "ray_tpu_torch.serve.llm_engine.engine")
 # The data package: every module, imported where importing jax, ray_tpu
 # or cloudpickle raises.
 DATA_MODULES = tuple(
@@ -180,6 +188,21 @@ def test_directory_modules_import_without_jax_ray_tpu_or_cloudpickle():
         == ForeignActorHandle("127.0.0.1:1", "ab" * 16, "Other")
     assert GLOBAL_CONFIG.get("owner_sweep_period_ms") > 0
     assert GLOBAL_CONFIG.get("owner_dead_grace_s") > 0
+
+
+def test_observability_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"ray_tpu_torch/_private/gcs_shard.py",
+            "ray_tpu_torch/_private/flight_recorder.py",
+            "ray_tpu_torch/_private/metrics_agent.py",
+            "ray_tpu_torch/util/metrics.py"} <= checked
+    assert _import_blocked(OBSERVABILITY_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    assert GLOBAL_CONFIG.get("gcs_shards") == 1
+    assert GLOBAL_CONFIG.get("perf_plane") is True
+    assert GLOBAL_CONFIG.get("metrics_history") is True
 
 
 def test_same_host_plane_imports_without_jax_ray_tpu_or_cloudpickle():

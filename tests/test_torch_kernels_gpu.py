@@ -26,6 +26,7 @@ magnitude, and the tensor by a relative RMS of 4e-3; an f32 element by
 """
 
 import importlib
+import time
 
 import pytest
 import torch
@@ -1017,3 +1018,105 @@ def test_borrowed_fwd_result_is_normed_by_a_daemon_actor(cuda_device,
         cluster.shutdown()
     assert device == "cuda" and normed.device.type == "cuda"
     assert torch.equal(normed, want)
+
+
+@pytest.mark.gpu
+def test_node_results_survive_a_shard_kill(cuda_device, tmp_path):
+    """chip_smoke.py's node_cluster (a') on the card: a durable head with
+    four shards and two daemons on card 0; the flash forward in a
+    ``num_gpus=1`` task on A, RMSNorm over its output on B, the shard
+    that owns the output's id killed (it replays its records; its epoch
+    and restores move, no other shard's), and RMSNorm on B again over
+    the same output: bitwise the first, one kernel launch each."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import gcs_shard
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    # The tasks are defined here: they go to the daemons by value.
+    def _daemon_flash(seed: int):
+        """On daemon A: the flash forward on inputs made on its card
+        from ``seed``, and the forward kernel's launches there."""
+        import importlib
+
+        import torch
+
+        fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+        gen = torch.Generator("cuda").manual_seed(seed)
+        q, k, v = (torch.randn((1, 512, 4, 64), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        before = fa.launches["fwd"]
+        with torch.no_grad():
+            o = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        return o, fa.launches["fwd"] - before
+
+    def _daemon_norm(o):
+        """On daemon B: RMSNorm over the flash output as f32 rows, and
+        the kernel's launches there."""
+        import importlib
+
+        import torch
+
+        fused = importlib.import_module("ray_tpu_torch.ops.fused")
+        scale = torch.linspace(0.5, 1.5, o.shape[2] * o.shape[3],
+                               device=o.device)
+        before = fused.launches["rmsnorm"]
+        with torch.no_grad():
+            out = fused.rms_norm(o.float().reshape(o.shape[1], -1), scale)
+        torch.cuda.synchronize()
+        return out, fused.launches["rmsnorm"] - before
+
+    rt.shutdown()
+    # Past the first tick's snapshot the shards write only their WALs,
+    # so the kill replays the output's location.
+    GLOBAL_CONFIG.update({"gcs_shards": 4,
+                          "gcs_snapshot_interval_s": 3600.0})
+    cluster = Cluster(log_dir=str(tmp_path / "cluster"),
+                      persist_path=str(tmp_path / "gcs_snapshot.pkl"))
+    try:
+        cluster.add_node(num_cpus=1, resources={"GPU": 1, "node_a": 1})
+        cluster.add_node(num_cpus=1, resources={"GPU": 1, "node_b": 1})
+        assert cluster.wait_for_nodes(2, timeout=300)
+        rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        deadline = time.monotonic() + 120
+        while rt.cluster_resources().get("GPU", 0) < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        head = cluster.gcs
+        o_ref, fwd_ref = rt.remote(
+            num_gpus=1, num_returns=2, resources={"node_a": 1})(
+            _daemon_flash).remote(31)
+        norm = rt.remote(num_gpus=1, num_returns=2,
+                         resources={"node_b": 1})(_daemon_norm)
+        n_ref, n_launch_ref = norm.remote(o_ref)
+        assert rt.get(fwd_ref, timeout=300) == 1
+        assert rt.get(n_launch_ref, timeout=300) == 1
+        first = rt.get(n_ref, timeout=300)
+        o_hex = o_ref.hex()
+        victim = gcs_shard.shard_of(o_hex, 4)
+        deadline = time.monotonic() + 30
+        while o_hex not in head._shards[victim].directory.locations():
+            assert time.monotonic() < deadline, "o never published"
+            time.sleep(0.05)
+        before = head.shard_stats()
+        epoch = head.epoch
+        assert head._kill_shard(victim) >= 1
+        after = head.shard_stats()
+        assert head.epoch == epoch + 1
+        assert [a["restores"] - b["restores"]
+                for a, b in zip(after, before)] == \
+            [int(i == victim) for i in range(4)]
+        again_ref, again_launch_ref = norm.remote(o_ref)
+        assert rt.get(again_launch_ref, timeout=300) == 1
+        again = rt.get(again_ref, timeout=300)
+        assert again.device.type == "cuda" and torch.equal(again, first)
+        deadline = time.monotonic() + 60
+        while o_hex not in head._shards[victim].directory.locations():
+            assert time.monotonic() < deadline, "o's holder never re-synced"
+            time.sleep(0.05)
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+        GLOBAL_CONFIG.reset()
+        gcs_shard.init_from_config()

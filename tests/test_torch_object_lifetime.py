@@ -38,12 +38,20 @@ import pytest
 import ray_tpu
 import ray_tpu_torch
 from torch_cluster_sides import both, start_clusters, stop_clusters, wait_until
+from torch_native import load_reference_native
 from torch_time_limit import time_limit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
 # The config prefix each package reads its environment overrides under.
 ENV_PREFIX = {"ray_tpu": "RAY_TPU_", "ray_tpu_torch": "RAY_TPU_TORCH_"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native library, loaded once its file is whole:
+    its in-place build races the other processes of the run."""
+    load_reference_native()
 
 
 def _mod(name: str, sub: str):
@@ -53,7 +61,8 @@ def _mod(name: str, sub: str):
 def _node_store(name: str, impl: str = "python", **kwargs):
     if impl == "python":
         return _mod(name, "_private.node_executor").NodeObjectStore(**kwargs)
-    lib = importlib.import_module(f"{name}._native").load()
+    lib = load_reference_native() if name == "ray_tpu" \
+        else importlib.import_module(f"{name}._native").load()
     assert lib is not None
     return _mod(name, "_private.node_store_native").NativeNodeObjectStore(
         lib, **kwargs)
@@ -400,11 +409,34 @@ def two_borrowers(side) -> dict:
 
 
 @pytest.fixture(scope="module")
-def lifetime_cluster(tmp_path_factory):
+def _lifetime_sides(tmp_path_factory):
     sides = start_clusters(tmp_path_factory.mktemp("lifetime"),
                            [{"num_cpus": 2}])
     yield sides
     stop_clusters({name: side.cluster for name, side in sides.items()})
+
+
+def _drivers_up(sides: dict) -> dict:
+    """Each package's connected driver of the module's cluster, brought
+    back when a case in between started clusters of its own: each
+    package has one runtime per process, and ``start_clusters`` shuts
+    the one it finds down (a case on a shut-down side would run on a
+    fresh local runtime, away from the cluster)."""
+    for name, side in sides.items():
+        if _mod(name, "_private.worker")._runtime is side.runtime:
+            continue
+        side.rt.shutdown()
+        side.runtime = side.rt.init(num_cpus=0,
+                                    address=side.cluster.address)
+        assert wait_until(
+            lambda: side.rt.cluster_resources().get("CPU", 0) >= 2), \
+            f"{name}: the nodes never joined the new driver's view"
+    return sides
+
+
+@pytest.fixture
+def lifetime_cluster(_lifetime_sides):
+    return _drivers_up(_lifetime_sides)
 
 
 def test_gcs_object_location_table_tracks_primaries(lifetime_cluster):
@@ -476,6 +508,20 @@ def test_dead_borrower_lease_expires(tmp_path, monkeypatch):
             assert both(dead_borrower_lease, sides) == {
                 "held": "held", "borrowed": True, "pinned": True,
                 "expired": True}
+    finally:
+        stop_clusters({n: s.cluster for n, s in sides.items()})
+
+
+def test_a_case_with_clusters_of_its_own_between_module_cases(tmp_path):
+    """A case that starts clusters of its own (as the ``slow``
+    dead-borrower case does) between two cases of the module's cluster:
+    the next of those finds its drivers again (``_drivers_up``)."""
+    sides = start_clusters(tmp_path, [{"num_cpus": 1}])
+    try:
+        with time_limit(120):
+            assert both(lambda side: side.rt.get(
+                side.rt.remote(num_cpus=1)(lambda: "ran").remote(),
+                timeout=60), sides) == "ran"
     finally:
         stop_clusters({n: s.cluster for n, s in sides.items()})
 

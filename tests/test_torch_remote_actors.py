@@ -522,3 +522,60 @@ def test_actor_results_wait_for_the_actors_placement(actor_cluster,
     monkeypatch.setattr(runtime_cls, "_record_actor_placement", slow_record)
     assert placement(side) == {"remote_node": True, "remote_pid": True,
                                "local_on_driver_node": True}
+
+
+def test_an_actors_engine_counters_ride_its_daemons_heartbeat(
+        actor_cluster):
+    """Port only: an actor process's LLM-engine counters reach the head's
+    node-stats table as the ``engine`` group of its daemon's heartbeat,
+    carried on the actor's own replies (the daemon never calls into the
+    actor for them); a daemon whose actor hosts no engine ships none."""
+    side = actor_cluster["ray_tpu_torch"]
+    node_a, node_b = side.remote_node_ids()[:2]
+
+    @side.rt.remote(num_cpus=1, max_concurrency=2, scheduling_strategy=(
+        side.affinity(node_id=node_a.hex(), soft=False)))
+    class Served:
+        def __init__(self):
+            import dataclasses
+
+            import torch
+
+            from ray_tpu_torch.models import llama
+            from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+            config = dataclasses.replace(llama.LlamaConfig.tiny(),
+                                         dtype=torch.float32)
+            self.engine = LLMEngine(config, max_batch_size=2, max_seq_len=32,
+                                    block_size=8, prefill_chunk=8,
+                                    device="cpu")
+
+        def generate(self, prompt, n):
+            return self.engine.result(self.engine.submit(
+                prompt, max_new_tokens=n))
+
+        def stats(self):
+            return self.engine.engine_stats()
+
+    @side.rt.remote(num_cpus=1, max_concurrency=2, scheduling_strategy=(
+        side.affinity(node_id=node_b.hex(), soft=False)))
+    class Plain:
+        def ping(self):
+            return "ok"
+
+    served, plain = Served.remote(), Plain.remote()
+    try:
+        tokens = side.rt.get(served.generate.remote([5, 9, 2, 7], 6),
+                             timeout=120)
+        assert side.rt.get(plain.ping.remote(), timeout=60) == "ok"
+        stats = side.rt.get(served.stats.remote(), timeout=60)
+        assert stats["finished"] == 1 and len(tokens) == 6
+        head = side.cluster.gcs.gcs
+        assert wait_until(lambda: head.node_stats().get(
+            node_a.hex(), {}).get("engine") == stats, 30), \
+            head.node_stats().get(node_a.hex())
+        assert "tasks_executed" in head.node_stats()[node_b.hex()]
+        assert "engine" not in head.node_stats()[node_b.hex()]
+    finally:
+        side.rt.kill(served)
+        side.rt.kill(plain)

@@ -26,14 +26,23 @@ import os
 import time
 
 import numpy as np
+import pytest
 
 import ray_tpu
 import ray_tpu_torch
+from torch_native import load_reference_native
 from torch_time_limit import time_limit
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 ENV_PREFIX = {"ray_tpu": "RAY_TPU_", "ray_tpu_torch": "RAY_TPU_TORCH_"}
 RUNTIMES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native library, loaded once its file is whole:
+    its in-place build races the other processes of the run."""
+    load_reference_native()
 
 
 def _mod(pkg: str, name: str):

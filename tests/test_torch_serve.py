@@ -18,15 +18,16 @@ metrics registry behind its handles.
 """
 
 import gc
-import importlib.util
 import itertools
 import json
+import subprocess
 import sys
 import textwrap
 import threading
 import time
 import urllib.request
 import weakref
+from pathlib import Path
 
 import pytest
 
@@ -756,31 +757,54 @@ def test_shutdown_lets_go_of_the_arguments_and_gives_the_gpu_back():
         [[True] * 4, 0.0, 1.0, True, None, {}, {}]
 
 
+SERVE_WITHOUT_REGISTRY = textwrap.dedent("""
+    import json, sys, time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    rt.init(num_cpus=8)
+    GLOBAL_CONFIG.update({"serve_latency_report_s": 0.1})
+
+    @serve.deployment
+    def f(x):
+        return x + 1
+
+    serve.run(f.bind(), name="plain_app")
+    handle = serve.get_deployment_handle("f", "plain_app")
+    outs = [handle.remote(i).result(timeout_s=30.0) for i in range(3)]
+    controller = sys.modules["ray_tpu_torch.serve.api"]._get_controller()
+    deadline = time.monotonic() + 30.0
+    reported = False
+    while not reported and time.monotonic() < deadline:
+        reported = rt.get(controller.get_latency_report.remote(
+            "plain_app", "f")).get("count", 0) >= 1
+        time.sleep(0.05)
+    stats = sys.modules["ray_tpu_torch.serve.router"]._routers[
+        ("plain_app", "f")].latency_stats()
+    metrics = sorted(m for m in sys.modules if m.startswith("ray_tpu_torch")
+                     and "metrics" in m and "history" not in m)
+    serve.shutdown()
+    rt.shutdown()
+    print(json.dumps([outs, reported, stats["count"] >= 3, metrics]))
+""")
+
+
 def test_handles_need_no_metrics_registry():
     """The port's router keeps its latency histogram and report without
-    the reference's Prometheus registry, which the port does not have:
-    ``get_deployment_handle`` serves, and the windowed report reaches the
-    controller."""
-    assert importlib.util.find_spec("ray_tpu_torch.util.metrics") is None
-
-    def scenario(rt, serve):
-        @serve.deployment
-        def f(x):
-            return x + 1
-
-        serve.run(f.bind(), name="plain_app")
-        handle = serve.get_deployment_handle("f", "plain_app")
-        outs = [handle.remote(i).result(timeout_s=WAIT_S) for i in range(3)]
-        controller = sys.modules[serve.__name__ + ".api"]._get_controller()
-        reported = _until(lambda: rt.get(controller.get_latency_report.remote(
-            "plain_app", "f")).get("count", 0) >= 1)
-        stats = sys.modules[serve.__name__ + ".router"]._routers[
-            ("plain_app", "f")].latency_stats()
-        return [outs, reported, stats["count"] >= 3,
-                [m for m in sys.modules if m.startswith("ray_tpu_torch")
-                 and "metrics" in m and "history" not in m]]
-
-    assert _torch(scenario, config=LATENCY_CONFIG) == \
+    the metrics registry (``util.metrics``; serve's Prometheus collector
+    is not ported): ``get_deployment_handle`` serves, the windowed
+    report reaches the controller, and after serving no metrics module
+    of the port (the registry, the agent) was imported, lazily or not.
+    The scenario runs in a fresh interpreter, so modules that other
+    files in this process imported do not count."""
+    done = subprocess.run(
+        [sys.executable, "-c", SERVE_WITHOUT_REGISTRY],
+        capture_output=True, text=True, timeout=120,
+        cwd=str(Path(__file__).resolve().parents[1]))
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert json.loads(done.stdout.strip().splitlines()[-1]) == \
         [[1, 2, 3], True, True, []]
 
 

@@ -39,6 +39,7 @@ from ray_tpu_torch._private import spill_manager as torch_spill
 from ray_tpu_torch._private.config import GLOBAL_CONFIG as TORCH_CONFIG
 from ray_tpu_torch._private.ids import ObjectID as TorchObjectID
 from ray_tpu_torch._private.object_store import ObjectStore as TorchStore
+from torch_native import load_reference_native
 
 PACKAGES = {
     "ray_tpu": {"spill": jax_spill, "store": JaxStore, "oid": JaxObjectID,
@@ -62,6 +63,13 @@ def _reset(p) -> None:
     monitor._set_store_fraction_override(None)
     p["config"].reset()
     p["spill"].init_from_config()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native library, loaded once its file is whole:
+    its in-place build races the other processes of the run."""
+    load_reference_native()
 
 
 @pytest.fixture(autouse=True)
