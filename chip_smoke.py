@@ -107,7 +107,9 @@ source, all started together) and drives the port's two paths:
   both daemons and a one-process GPU gang on one training bench.py's
   Llama bitwise the train phase, 512 KiB RMSNorm inputs the driver put
   read on one daemon out of the driver's arena and normed bitwise (the
-  head's KV in the native engine), Llama-3-8B served from a remote actor
+  head's KV in the native engine), a burst of tiny tasks and RMSNorm
+  tasks through the driver's submit ring and batch RPCs (fused on a
+  third daemon with no card), Llama-3-8B served from a remote actor
   that restarts on the survivor when its node is killed (node_cluster);
 - the durable head and the node store's spill tier: a head process and
   a daemon with a 48 MiB store, the flash results spilled to its disk
@@ -3064,16 +3066,23 @@ def phase_placement_check(llama, train_step, fa) -> dict:
         gpu_back = _until(lambda: rt.available_resources().get("GPU") == 1.0)
         # Admission: a blocker holds the 8 CPUs, 3 tasks queue behind it
         # (depth 4, over a cap of 2): a deadline-armed submit is shed,
-        # the deadline-free ones complete.
-        GLOBAL_CONFIG.update({"admission_max_queue_depth": 2})
+        # the deadline-free ones complete. The cap is set once the
+        # submit ring has handed the backlog to the dispatcher: over the
+        # cap the ring holds deadline-free submits back (backpressure),
+        # and sheds a deadline-armed one at its flush, its error sealed
+        # on its ref.
         release = threading.Event()
         blocker = rt.remote(num_cpus=8)(release.wait).remote(60)
         backlog = [rt.remote(num_cpus=8)(_assigned).remote()
                    for _ in range(3)]
         runtime = worker.global_runtime()
+        _until(lambda: not any(runtime._submit_ring.holds(r.id())
+                               for r in (blocker, *backlog)))
+        GLOBAL_CONFIG.update({"admission_max_queue_depth": 2})
         depth = runtime.dispatcher.pending_count()
         try:
-            rt.remote(_assigned).options(_deadline_s=30).remote()
+            rt.get(rt.remote(_assigned).options(_deadline_s=30).remote(),
+                   timeout=30)
             shed = None
         except SystemOverloadedError as exc:
             shed = type(exc).__name__
@@ -4507,8 +4516,9 @@ def _store_torn(fa) -> dict:
         task = rt.remote(num_gpus=1)(_host_attention)
         with _LaunchCount(fa) as launched:
             ref = task.remote(LOST_SEED)
-            require(_until(lambda: runtime.store._entries[ref.id()]
-                           .spilled_path is not None, STORE_WAIT_S),
+            # The entry appears at the submit ring's flush.
+            require(_until(lambda: getattr(runtime.store._entries.get(
+                ref.id()), "spilled_path", None) is not None, STORE_WAIT_S),
                     "the host result was not spilled")
             path = runtime.store._entries[ref.id()].spilled_path
             size = os.path.getsize(path)
@@ -4595,7 +4605,10 @@ def _store_memory(fa) -> dict:
         memory_monitor._set_usage_override(0.95)
         try:
             try:
-                fwd.options(_deadline_s=60).remote(LOST_SEED)
+                # Shed at the submit ring's flush: the error is sealed on
+                # the ref.
+                rt.get(fwd.options(_deadline_s=60).remote(LOST_SEED),
+                       timeout=STORE_WAIT_S)
                 shed = None
             except SystemOverloadedError as exc:
                 shed = type(exc).__name__
@@ -5125,6 +5138,166 @@ NODE_GCS_SHARDS = 4
 NODE_FLUSH_S = 2.0
 
 
+PIPE_BURST = 2000
+PIPE_NORMS = 16
+PIPE_NORM_SHAPE = (8, 4096)
+PIPE_SEED = 43
+
+
+def _pipe_tick(i: int) -> int:
+    """A plain CPU task of (a'')'s burst: it fuses on C, and rides
+    pipelined worker leases on A and B (which hold a card)."""
+    return i * 3
+
+
+def _pipe_norm(x, scale):
+    """A ``num_gpus=1`` task of (a''): RMSNorm over the driver's input
+    with the kernel, and the launches it made."""
+    import importlib
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    fused = importlib.import_module("ray_tpu_torch.ops.fused")
+    with _LaunchCount(fa, fused) as launched, torch.no_grad():
+        out = fused.rms_norm(x, scale, RMS_EPS)
+        torch.cuda.synchronize()
+    return out, launched.counts["rmsnorm"]
+
+
+def _pipe_checksum(x) -> float:
+    """A CPU task of (a'') over an RMSNorm result (a ref argument): the
+    f64 sum of its host copy."""
+    return float(torch.as_tensor(x).cpu().double().sum())
+
+
+def _node_pipeline(rt, runtime, cluster, handles: dict, ids: dict, fused,
+                   task_us: dict) -> dict:
+    """(a'') The pipelined task path on the daemons: a burst of
+    PIPE_BURST plain CPU tasks through the submit ring, every result
+    right and sealed once. They go in batch RPCs to A and B, which hold
+    a card and so run them on pipelined worker leases (pool workers see
+    no card), and to C, a daemon with no card started for the burst and
+    removed after it, where they fuse. Then PIPE_NORMS ``num_gpus=1``
+    RMSNorm tasks pinned to B over inputs the driver put, submitted at
+    once through the ring, each bitwise the driver's own launch, and
+    PIPE_NORMS CPU tasks pinned to B taking those results as ref
+    arguments (the batch RPC's classic branch), their checksums the
+    driver's."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    start = time.perf_counter()
+    node_c = cluster.add_node(num_cpus=2)
+    require(cluster.wait_for_nodes(3, timeout=NODE_WAIT_S)
+            and _until(lambda: rt.cluster_resources().get("CPU") == 6.0,
+                       NODE_WAIT_S), "daemon C did not join")
+    c_join_s = time.perf_counter() - start
+    with runtime._remote_nodes_lock:
+        by_pid = {h.pool.call("exec_ping"): h
+                  for h in runtime._remote_nodes.values()}
+    burst_handles = {**handles, "C": by_pid[node_c.pid]}
+
+    def pipelines(names) -> dict:
+        return {name: burst_handles[name].pool.call(
+            "executor_stats")["pipeline"] for name in names}
+
+    def delta(after: dict, before: dict) -> dict:
+        return {name: {k: v - before[name][k] for k, v in row.items()}
+                for name, row in after.items()}
+
+    on_b = NodeAffinitySchedulingStrategy(ids["B"].hex(), soft=False)
+    stats0, pipe0 = runtime.execution_pipeline_stats(), pipelines("ABC")
+    tick = rt.remote(num_cpus=1)(_pipe_tick)
+    start = time.perf_counter()
+    refs = [tick.remote(i) for i in range(PIPE_BURST)]
+    out = rt.get(refs, timeout=NODE_WAIT_S)
+    burst_s = time.perf_counter() - start
+    sealed_once = len({r.id() for r in refs}) == PIPE_BURST and all(
+        runtime.store._entries[r.id()].sealed for r in refs)
+    del refs
+    stats1, pipe1 = runtime.execution_pipeline_stats(), pipelines("ABC")
+    burst_pipe = delta(pipe1, pipe0)
+    burst_driver = {group: {k: v - stats0[group][k]
+                            for k, v in stats1[group].items()}
+                    for group in ("submit", "dispatch", "seal", "fused")}
+    batch_rpcs = sum(row["batch_rpcs"] for row in burst_pipe.values())
+    cluster.remove_node(node_c)
+    require(_until(lambda: rt.cluster_resources().get("CPU") == 4.0,
+                   NODE_WAIT_S), "daemon C did not leave")
+
+    # The kernel on the new path.
+    gen = torch.Generator(DEVICE).manual_seed(PIPE_SEED)
+    xs = [torch.randn(PIPE_NORM_SHAPE, generator=gen, device=DEVICE)
+          for _ in range(PIPE_NORMS)]
+    scale = torch.randn(PIPE_NORM_SHAPE[1], generator=gen, device=DEVICE)
+    with torch.no_grad():
+        want = [fused.rms_norm(x, scale, RMS_EPS) for x in xs]
+    torch.cuda.synchronize()
+    want_sums = [float(w.cpu().double().sum()) for w in want]
+    x_refs = [rt.put(x) for x in xs]
+    scale_ref = rt.put(scale)
+    norm = rt.remote(num_gpus=1, num_returns=2, scheduling_strategy=on_b)(
+        _pipe_norm)
+    checksum = rt.remote(num_cpus=1, scheduling_strategy=on_b)(
+        _pipe_checksum)
+    ring0 = runtime.execution_pipeline_stats()["submit"]["ring_submits"]
+    b0 = pipelines("B")["B"]
+    start = time.perf_counter()
+    pairs = [norm.remote(x_ref, scale_ref) for x_ref in x_refs]
+    got = rt.get([p[0] for p in pairs], timeout=NODE_WAIT_S)
+    launches = rt.get([p[1] for p in pairs], timeout=NODE_WAIT_S)
+    norms_s = time.perf_counter() - start
+    start = time.perf_counter()
+    sums = rt.get([checksum.remote(p[0]) for p in pairs],
+                  timeout=NODE_WAIT_S)
+    sums_s = time.perf_counter() - start
+    b1 = pipelines("B")["B"]
+    ring1 = runtime.execution_pipeline_stats()["submit"]["ring_submits"]
+    result = {
+        "burst_tasks": PIPE_BURST, "burst_wall_s": burst_s,
+        "burst_tasks_per_s": PIPE_BURST / burst_s,
+        "burst_right": out == [3 * i for i in range(PIPE_BURST)],
+        "burst_sealed_once": sealed_once,
+        "burst_driver": burst_driver,
+        "burst_tasks_per_batch_rpc": (
+            sum(row["batch_tasks"] for row in burst_pipe.values())
+            / max(1, batch_rpcs)),
+        "burst_daemons": burst_pipe, "c_join_s": c_join_s,
+        "remote_task_round_trip_us": task_us,
+        "norm_shape": list(PIPE_NORM_SHAPE), "norms": PIPE_NORMS,
+        "norm_bitwise": [torch.equal(g, w) for g, w in zip(got, want)],
+        "norm_devices": sorted({g.device.type for g in got}),
+        "norm_ring_submits": ring1 - ring0,
+        "norms_s": norms_s, "checksums_s": sums_s,
+        "checksums_equal": sums == want_sums,
+        "b_batch_rpcs_grew": b1["batch_rpcs"] - b0["batch_rpcs"],
+        "launches": {"rmsnorm": int(sum(launches))}}
+    emit("node_cluster_pipeline", **result)
+    require(result["burst_right"] and sealed_once,
+            "the burst's results are wrong or not sealed once")
+    fused_ab = sum(burst_pipe[name]["fused_tasks"] for name in "AB")
+    require(0 < batch_rpcs < PIPE_BURST
+            and burst_pipe["C"]["fused_tasks"] > 0 and fused_ab == 0,
+            f"the burst rode {batch_rpcs} batch RPCs, with "
+            f"{burst_pipe['C']['fused_tasks']} fused tasks on C and "
+            f"{fused_ab} on A and B (which hold a card)")
+    require(all(result["norm_bitwise"]) and result["norm_devices"]
+            == [torch.device(DEVICE).type],
+            f"RMSNorm on B differs from the driver's: "
+            f"{result['norm_bitwise']}, {result['norm_devices']}")
+    require(result["norm_ring_submits"] >= 2 * PIPE_NORMS,
+            f"{result['norm_ring_submits']} ring submits for "
+            f"{2 * PIPE_NORMS} tasks")
+    require(result["checksums_equal"],
+            "the checksums over B's results differ from the driver's")
+    require(result["b_batch_rpcs_grew"] > 0,
+            "the ref-bearing tasks rode no batch RPC on B")
+    require(result["launches"]["rmsnorm"] == PIPE_NORMS,
+            f"RMSNorm launched {result['launches']['rmsnorm']} times on B, "
+            f"{PIPE_NORMS} expected")
+    return result
+
+
 def _directory_by_shard(head) -> dict:
     """{shard index: the object ids its directory holds}."""
     return {shard.index: set(shard.directory.locations())
@@ -5268,6 +5441,10 @@ def _node_scrape(runtime, ids: dict, streamed: dict) -> dict:
         for stage in ("exec", "admit_worker"):
             row[stage] = _series(body, f"{p}_stage_latency_count",
                                  stage=stage, node=h[:16])
+        # A fused task (a batch RPC's plain entry, run on the daemon's
+        # RPC thread) passes no admission: it has an exec sample only.
+        row["fused_tasks"] = _series(body, f"{p}_node_pipeline",
+                                     node=h[:16], key="fused_tasks") or 0.0
         stages[name] = row
     engine = {key: _series(body, f"{p}_node_engine", node=hexes["A"][:16],
                            key=key)
@@ -5291,7 +5468,8 @@ def _node_scrape(runtime, ids: dict, streamed: dict) -> dict:
     for name, row in stages.items():
         require(row["tasks_executed"] and row["exec"] and row["admit_worker"]
                 and row["exec"] >= row["tasks_executed"]
-                and row["admit_worker"] >= row["tasks_executed"],
+                and row["admit_worker"] + row["fused_tasks"]
+                >= row["tasks_executed"],
                 f"{name}'s stage histograms in the scrape: {row}")
     require(ready(body), f"A's engine counters in the scrape: {engine}, "
                          f"{want_tokens} tokens streamed")
@@ -5357,8 +5535,11 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     the driver's arena. The head is durable and sharded
     (``gcs_shards=4``) and the driver serves ``/metrics``: (a') a shard
     kill after (a), (b') a scrape after (b), (c') A's flight ring after
-    (c). Returns the kernels' launches on the nodes, in the GPU gang and
-    on the arena's input."""
+    (c). (a'') after (a'): the pipelined task path, a burst through the
+    submit ring to A, B and C (a daemon with no card, there for the
+    burst alone), then RMSNorm tasks on B through the ring and CPU tasks
+    over their results. Returns the kernels' launches on the nodes, in
+    the GPU gang, on the arena's input and on the pipelined path."""
     import shutil
     import tempfile
 
@@ -5417,6 +5598,10 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         del kept
         arena = _node_arena(rt, runtime, cluster, fused, handles, ids)
         task_us = _round_trips_us(rt, rt.remote(_noop).remote)
+        # (a'') The pipelined task path (the submit ring, batch RPCs,
+        # fused runs), with RMSNorm's tasks riding the ring.
+        pipeline = _node_pipeline(rt, runtime, cluster, handles, ids,
+                                  fused, task_us)
         torch.cuda.empty_cache()
         gangs = _daemon_gangs(nodes, train_phase,
                               bench_config(llama).num_layers)
@@ -5503,6 +5688,8 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         "daemons_registered_s": daemons_s, "nodes_joined_s": joined_s,
         "kernels": kernels, "shard_kill": shard_kill,
         "arena_input_on_b": arena,
+        "pipeline": {k: pipeline[k] for k in (
+            "burst_wall_s", "burst_tasks_per_s", "norms_s", "launches")},
         "daemon_gangs": gangs,
         "remote_task_round_trip_us": task_us,
         "thread_task_round_trip_us": runtime_phase["task_round_trip_us"],
@@ -5552,13 +5739,18 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
             == per_forward * served_here["forwards"] > 0,
             f"rmsnorm launched {served_here['rmsnorm_launches']} times in "
             f"the remote actor over {served_here['forwards']} forwards")
-    return launches, gangs["gpu_gang"]["launches"], arena["launches"]
+    return (launches, gangs["gpu_gang"]["launches"], arena["launches"],
+            pipeline["launches"])
 
 
 HEAD_SEED = 37
 HEAD_STORE_LIMIT_MB = 48  # under the four flash results' 100.7 MB
 HEAD_WAIT_S = 300.0
 HEAD_GREEDY = 4  # the serve phase's first greedy prompts sent before
+# The prompts the second driver sends at once through the foreign handle
+# (its proxy sends one call at a time): the first 2 of those, cut from 4
+# to keep the script inside its time limit.
+HEAD_FOREIGN = 2
 
 
 def _spawn_node(role: str, kwargs: dict, session: str, extra_env: dict,
@@ -5782,8 +5974,8 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
     actor's shutdown, (f): a second driver (a process with no card,
     connected to the restarted head) resolves the name through the
     head's directory to a ``ForeignActorHandle`` of this driver and
-    sends the first 4 greedy prompts together through it and one through
-    a pickled copy, token-identical; the name is withdrawn within 10 s
+    sends the first HEAD_FOREIGN greedy prompts together through it and
+    one through a pickled copy, token-identical; the name is withdrawn within 10 s
     of the actor's kill. After (d), (g): the driver's own ``fwd`` output
     ``put`` and handed to a ``num_gpus=1`` actor on A inside a list is
     borrowed there past every handle of the driver, normed on A bitwise
@@ -5974,7 +6166,7 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
         pickled_i = greedy[HEAD_GREEDY + 2]
         second.send(json.dumps({
             "name": "llama3-8b", "max_new_tokens": SERVE_NEW_TOKENS,
-            "together": [prompts[i] for i in greedy[:HEAD_GREEDY]],
+            "together": [prompts[i] for i in greedy[:HEAD_FOREIGN]],
             "pickled": prompts[pickled_i]}))
         foreign = second.answer("tokens", 900)
         second_up_s = foreign["init_s"]
@@ -6188,10 +6380,11 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
         "resolve_s": foreign["resolve_s"],
         "pickled_copy_equal": foreign["copy_equal"],
         "token_identical": [t == served_tokens[i] for t, i
-                            in zip(foreign["tokens"], greedy[:HEAD_GREEDY])]
+                            in zip(foreign["tokens"], greedy[:HEAD_FOREIGN])]
         + [foreign["pickled_tokens"] == served_tokens[pickled_i]],
-        # The 4 prompts sent at once: through the proxy one after the
-        # other; through the direct handle in (b), batched by the engine.
+        # The prompts sent at once: through the proxy one after the
+        # other; through the direct handle in (b) (4 of them), batched by
+        # the engine.
         "foreign_walls_s": foreign["walls_s"], "direct_walls_s": walls,
         "foreign_over_direct_wall": max(foreign["walls_s"])
         / max(max(walls), 1e-9),
@@ -6211,7 +6404,7 @@ def phase_head_restart(llama, fa, fused, served_tokens: list, device: dict,
             and cross["pickled_copy_equal"],
             f"the second driver resolved {cross['handle']} at "
             f"{foreign['owner_addr']}, not this driver's {owner_addr}")
-    require(len(cross["token_identical"]) == HEAD_GREEDY + 1
+    require(len(cross["token_identical"]) == HEAD_FOREIGN + 1
             and all(cross["token_identical"]),
             f"foreign outputs differ: {cross['token_identical']}")
     require(withdrawn is not None and withdrawn <= 10.0,
@@ -6304,9 +6497,11 @@ def main() -> int:
     store_launches = timed(phase_store_recovery, llama, train_step, fa,
                            fused, device, power)
     torch.cuda.empty_cache()
-    node_launches, gang_launches, node_arena_launches = timed(
-        phase_node_cluster, llama, fa, fused, served_result, served_tokens,
-        process_served["summary"], runtime_result, train, device, power)
+    node_launches, gang_launches, node_arena_launches, \
+        task_pipeline_launches = timed(
+            phase_node_cluster, llama, fa, fused, served_result,
+            served_tokens, process_served["summary"], runtime_result, train,
+            device, power)
     arena_launches["rmsnorm"] += node_arena_launches
     torch.cuda.empty_cache()
     restart_launches = timed(phase_head_restart, llama, fa, fused,
@@ -6358,6 +6553,11 @@ def main() -> int:
         # process_check's actor and in node_cluster's task on B (the
         # flash kernels' inputs are larger than the arena's cap).
         row["arena_launches"] = arena_launches.get(kind, 0)
+        # And through the pipelined task path (node_cluster's (a'')):
+        # RMSNorm in the num_gpus=1 tasks the submit ring carried to B
+        # (the flash kernels' task on A rides it too, counted in
+        # node_launches).
+        row["task_pipeline_launches"] = task_pipeline_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
                          f"{missing}")
@@ -6388,6 +6588,10 @@ def main() -> int:
             f"{rows['rmsnorm']['arena_launches']} launches, "
             f"{ARENA_TRIPS + 2} expected (process_check's 512 KiB trips, "
             f"node_cluster's two reads on B)")
+    require(rows["rmsnorm"]["task_pipeline_launches"] == PIPE_NORMS,
+            f"RMSNorm through the submit ring on B: "
+            f"{rows['rmsnorm']['task_pipeline_launches']} launches, "
+            f"{PIPE_NORMS} expected")
     missing = [k for k, row in rows.items() if not row["restart_launches"]]
     require(not missing, f"kernels not launched across the head restart: "
                          f"{missing}")

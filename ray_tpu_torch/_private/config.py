@@ -98,6 +98,32 @@ _DEFAULTS: dict[str, Any] = {
     "executor_inline_reply_kb": 256,
     "fetch_chunk_kb": 4096,
     "rpc_pipeline_depth": 8,
+    # Coalesced RPC frames: how long a burst lingers before its
+    # __batch__ frame goes (0: natural batching, no added latency) and
+    # the most calls one frame carries.
+    "rpc_batch_flush_ms": 0.0,
+    "rpc_batch_max_entries": 128,
+    # The pipelined task path: tasks per execute_task_batch RPC (the
+    # dispatcher fills an open batch past a node's free slots up to
+    # this, scaled by the backlog over the nodes) and the frames in
+    # flight on one multi-task worker lease.
+    "dispatch_batch_max": 128,
+    "worker_pipeline_depth": 4,
+    # Fused in-daemon execution: a run of plain CPU entries of a batch
+    # RPC (no refs, no runtime_env, no GPU) runs on the daemon's
+    # dispatch thread with no worker-pipe hop, at most
+    # fused_max_run_tasks per RPC; past fused_run_wall_budget_s the rest
+    # of the run takes the worker pipeline (counted in fused_fallbacks).
+    "fused_execution": True,
+    "fused_max_run_tasks": 256,
+    "fused_run_wall_budget_s": 0.25,
+    # The driver's submit ring: .remote() returns its refs at once and a
+    # submitter thread does the record-keeping for up to
+    # submit_flush_max records a pass; a full ring (submit_ring_size)
+    # blocks .remote(). Off, every submit takes the inline path.
+    "submit_pipeline": True,
+    "submit_ring_size": 65536,
+    "submit_flush_max": 1024,
     # A daemon's store of primary copies: past this cap the managed tier
     # spills them to checksummed files (spill_enabled), else the oldest
     # go inline to node_store_spill_dir.

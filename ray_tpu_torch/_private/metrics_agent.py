@@ -114,6 +114,19 @@ def install_runtime_collectors(runtime):
             lines.append(f'{P}_faults_total{{node="driver",'
                          f'kind="{_escape_label(key)}"}} {value}')
 
+        # The driver's submit ring and batched dispatch, as the
+        # node_submit and node_dispatch families under node="driver".
+        try:
+            pipeline_stats = runtime.execution_pipeline_stats()
+        except Exception:  # noqa: BLE001 — a runtime shutting down
+            pipeline_stats = {}
+        for family, group in (("node_submit", "submit"),
+                              ("node_dispatch", "dispatch")):
+            lines.append(f"# TYPE {P}_{family} counter")
+            for key, value in sorted(pipeline_stats.get(group, {}).items()):
+                lines.append(f'{P}_{family}{{node="driver",'
+                             f'key="{_escape_label(key)}"}} {int(value)}')
+
         lines.extend(_head_lines(runtime))
         by_node = _node_stats_table(runtime)
         lines.extend(_node_stat_lines(by_node))

@@ -27,10 +27,8 @@ become bounded per-interval history:
 
 ``fused_fallback_spike`` (with its ``fused_fallbacks`` history key and
 its ``health_fused_fallback_per_s`` threshold) reads a daemon's
-``pipeline`` group, which no daemon of the port ships: the port has no
-pipelined execute path, and its kernels never fall back. The rule is
-kept so the port's watchdog answers the reference's rule set, and is
-inert until a fused pipeline is ported.
+``pipeline`` group: the fused runs of its batch RPCs whose wall budget
+ran out and spilled entries to the worker path.
 
 Disarmed (``metrics_history`` off), the head's monitor tick pays one
 module-attribute branch (``HISTORY_ON``) and both RPCs answer

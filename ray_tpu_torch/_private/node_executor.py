@@ -57,9 +57,26 @@ The store is the native one (``node_store_native.py``) when
 ``node_store_native`` is on and the managed spill tier is off, else
 ``NodeObjectStore`` (``make_node_store``).
 
-Not ported: the pipelined ``execute_task_batch`` with its fused and
-columnar routes, speculation, chaos sites, perf traces and the flight
-ring (ROADMAP 10c): every task goes through ``execute_task``.
+The pipelined task path: ``execute_task_batch`` takes a run of tasks
+in one RPC and streams their completions back in groups as they finish
+(``results`` parts; ``started``/``started_many`` before an entry can
+have effects, ``parked``/``resumed`` when a frame waits behind a blocked
+lease head or in admission; then ``("done", n, fused stats)``). A
+ref-bearing entry, a ``GPU`` entry (which runs on this process's
+dispatch thread, on its card) and one whose runtime_env needs a fresh
+interpreter take the classic ``execute_task``; the rest ride pipelined
+multi-task worker leases (``WorkerPool.run_task_batch``), or, while
+``fused_execution`` is on and this node declares no ``GPU``, run right
+on the RPC's dispatch thread with no worker-pipe hop (``_run_fused``,
+its wall budget spilling the rest to the worker path). A node with a
+card runs its card tasks in this process, which sees the card, so its
+plain tasks stay in pool workers, which do not. ``executor_stats()``
+and ``stats_for_sync()`` carry the ``pipeline`` group of counters.
+
+Not ported (ROADMAP 10c): the columnar batch descriptor (``"col1"``)
+and the dispatch lanes that send it, speculation, the chaos sites of
+the batch RPC (``sched.straggle``, ``overload.saturate``) and the trace
+context of a batch entry (element 10 rides as ``None``).
 """
 
 from __future__ import annotations
@@ -82,6 +99,7 @@ from ray_tpu_torch._private.rpc import (
     RpcError,
     RpcMethodError,
     RpcServer,
+    TailPayload,
     breaker_stats,
     rpc_retry_count,
 )
@@ -110,6 +128,22 @@ def _pipeline_depth() -> int:
 
     return max(1, int(GLOBAL_CONFIG.rpc_pipeline_depth))
 
+
+# Fused in-daemon execution (fused_execution): a run of plain CPU entries
+# of a batch RPC runs on its dispatch thread, with no worker-pipe hop.
+# Daemons read RAY_TPU_TORCH_FUSED_EXECUTION at import.
+FUSED_ON: bool = True
+
+
+def init_fused_from_config() -> None:
+    """Arm or disarm fused in-daemon execution from the config."""
+    global FUSED_ON
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    FUSED_ON = bool(GLOBAL_CONFIG.fused_execution)
+
+
+init_fused_from_config()
 
 # An object of fewer chunks is pulled from its owner alone; a larger one
 # also from up to _CHUNK_FANOUT peers that pulled it.
@@ -605,6 +639,15 @@ class _PeerClients:
             client.close()
 
 
+def wrap_chunk_reply(reply: tuple):
+    """A large chunk ships as a tail payload: its bytes cross without a
+    pickle copy. A small one keeps the plain (total, bytes) shape."""
+    total, chunk = reply
+    if len(chunk) >= (1 << 16):
+        return TailPayload(total, chunk)
+    return total, bytes(chunk) if isinstance(chunk, memoryview) else chunk
+
+
 def fetch_blob(client, id_bytes: bytes) -> bytes:
     """Pull one object in ``fetch_chunk_kb`` chunks; on a multiplexed
     client up to ``rpc_pipeline_depth`` chunk requests are in flight, so
@@ -749,6 +792,102 @@ class _PartialBlob:
 # --------------------------------------------------------------------------
 # Actors on the node
 # --------------------------------------------------------------------------
+
+
+class _PipelineInflight:
+    """The order of each pipelined lease's frames, for parking: when the
+    task at a lease's head blocks in a nested get(), the frames queued
+    behind it are sent but not running, so their CPU goes back (here
+    through task_block, at the driver through a streamed "parked" part),
+    or a nested child that needs that CPU would wait on tasks that
+    cannot start until the head resumes."""
+
+    def __init__(self, service: "NodeExecutorService"):
+        self._service = service
+        self._lock = threading.Lock()
+        self._leases: dict = {}        # lease key -> [token, ...]
+        self._token_lease: dict = {}   # token -> lease key
+        self._parked: set = set()
+        # token -> notify(kind, token): streams a control part to the
+        # driver that owns the token (installed per batch RPC).
+        self._notify: dict = {}
+
+    def register_notify(self, tokens, notify) -> None:
+        with self._lock:
+            for token in tokens:
+                self._notify[token] = notify
+
+    def forget_notify(self, tokens) -> None:
+        with self._lock:
+            for token in tokens:
+                self._notify.pop(token, None)
+
+    def sent(self, key, token) -> None:
+        with self._lock:
+            self._leases.setdefault(key, []).append(token)
+            self._token_lease[token] = key
+        # The frame is in a worker's pipe: from here on the task may have
+        # started, and a death of this daemon retries it under the
+        # system-failure budget instead of requeueing it unseen.
+        self._fire(token, "started")
+
+    def done(self, key, token) -> None:
+        resumed = None
+        with self._lock:
+            order = self._leases.get(key)
+            if order is None:
+                return
+            try:
+                order.remove(token)
+            except ValueError:
+                pass
+            self._token_lease.pop(token, None)
+            self._parked.discard(token)
+            if not order:
+                self._leases.pop(key, None)
+            elif order[0] in self._parked:
+                # The next frame starts the moment this reply is written.
+                resumed = order[0]
+                self._parked.discard(resumed)
+        if resumed is not None:
+            self._service.task_unblock(resumed)
+            self._fire(resumed, "resumed")
+
+    def drop_lease(self, key) -> None:
+        """The lease died: unpark what it held (the unstarted frames are
+        requeued and tracked again on a new lease)."""
+        with self._lock:
+            order = self._leases.pop(key, [])
+            parked = [t for t in order if t in self._parked]
+            for token in order:
+                self._token_lease.pop(token, None)
+                self._parked.discard(token)
+        for token in parked:
+            self._service.task_unblock(token)
+            self._fire(token, "resumed")
+
+    def on_block(self, token) -> None:
+        """A running task blocked in a nested get(): park every frame
+        queued behind it on its lease."""
+        with self._lock:
+            key = self._token_lease.get(token)
+            order = self._leases.get(key) if key is not None else None
+            if not order or order[0] != token:
+                return
+            parked = [t for t in order[1:] if t not in self._parked]
+            self._parked.update(parked)
+        for queued in parked:
+            self._service.task_block(queued)
+            self._fire(queued, "parked")
+
+    def _fire(self, token, kind: str) -> None:
+        with self._lock:
+            notify = self._notify.get(token)
+        if notify is not None:
+            try:
+                notify(kind, token)
+            except Exception:  # noqa: BLE001 — the stream is gone
+                pass
 
 
 class _ActorNewError(Exception):
@@ -974,6 +1113,28 @@ class NodeExecutorService:
         self._stashed_args: dict[str, bytes] = {}
         self._driver_sys_path: list[str] = []
         self.tasks_executed = 0
+        # The batch RPCs' function blobs by digest: forwarded to pool
+        # workers as they came (this process never loads them unless an
+        # entry fuses).
+        self._func_blob_cache: dict[str, bytes] = {}
+        # The pipelined path: each lease's frame order (parking) and its
+        # counters: batch RPCs served, entries they carried, completion
+        # groups streamed, fused runs, fused tasks and fused entries
+        # that went to the worker path when a run's budget ran out.
+        self._pipeline_inflight = _PipelineInflight(self)
+        self.batch_rpcs = 0
+        self.batch_tasks_received = 0
+        self.reply_groups = 0
+        self.fused_runs = 0
+        self.fused_tasks = 0
+        self.fused_fallbacks = 0
+        self._fused_lock = threading.Lock()
+        # Long-lived runner threads drive the batches' worker leases.
+        from ray_tpu_torch._private.rpc import _ThreadRecycler
+
+        self._batch_runners = _ThreadRecycler(
+            "ray_tpu_torch-batch-runner", idle_s=30.0)
+        self._factory_warmed = False
         self._cancel_lock = threading.Lock()
         self._cancelled_tokens: "collections.OrderedDict" = \
             collections.OrderedDict()
@@ -1008,6 +1169,8 @@ class NodeExecutorService:
         # One multiplexed connection carries all of a driver's work in
         # flight: the long-running methods run off its thread.
         s.register("execute_task", self.execute_task, concurrent=True)
+        s.register("execute_task_batch", self.execute_task_batch,
+                   concurrent=True, streaming=True)
         s.register("fetch_object", self.fetch_object, concurrent=True)
         s.register("fetch_plan", self.fetch_plan, concurrent=True)
         s.register("unpin_object", self.unpin_object)
@@ -1354,6 +1517,9 @@ class NodeExecutorService:
             self._blocked_cpu[token] = cpu
             self._running[token] = ({**demand, "CPU": 0.0}, shares)
         self._notify_load()
+        # A pipelined lease's head blocked: the frames behind it hold CPU
+        # without running, so they are parked too.
+        self._pipeline_inflight.on_block(token)
         return True
 
     def task_unblock(self, token: str) -> bool:
@@ -1421,6 +1587,8 @@ class NodeExecutorService:
                     return ("err", _exc_blob(exc))
                 with self._func_lock:
                     self._func_cache[digest] = func
+                    # A batch entry of this digest comes without it.
+                    self._func_blob_cache[digest] = func_blob
             args, kwargs = serialization.deserialize_from_buffer(
                 memoryview(args_blob))
             on_card = demand.get("GPU", 0.0) > 0
@@ -1574,6 +1742,527 @@ class NodeExecutorService:
         perf.record_task_resources(*sample)
         perf.record_stage("exec", float(sample[1]))
 
+    # ------------------------------------------------------ pipelined path
+
+    def _try_reserve_many(self, wants: list) -> list[bool]:
+        """Admission for a batch in one lock pass: each (token, demand)
+        that fits is reserved, in order (a saturating batch admits its
+        prefix, and the rest is parked or spilled back). Only entries
+        without ``GPU`` come here."""
+        out = []
+        with self._running_lock:
+            used: dict[str, float] = {}
+            for demand, _ in self._running.values():
+                for key, value in demand.items():
+                    used[key] = used.get(key, 0.0) + float(value)
+            for token, demand in wants:
+                ok = all(k in self._resources or float(v) <= 0
+                         for k, v in demand.items()) and all(
+                    used.get(k, 0.0) + float(demand.get(k, 0.0))
+                    <= cap + 1e-9 for k, cap in self._resources.items())
+                if ok:
+                    self._running[token] = (dict(demand), {})
+                    for key, value in demand.items():
+                        used[key] = used.get(key, 0.0) + float(value)
+                out.append(ok)
+        if any(out):
+            self._notify_load()
+        return out
+
+    @staticmethod
+    def _needs_dedicated_worker(runtime_env: dict | None) -> bool:
+        """An entry whose runtime_env needs a fresh interpreter (variables
+        torch reads at import) cannot ride a shared lease."""
+        if not runtime_env:
+            return False
+        from ray_tpu_torch._private.worker_factory import (
+            import_sensitive_subset,
+        )
+
+        return bool(import_sensitive_subset(
+            {str(k): str(v) for k, v in
+             (runtime_env.get("env_vars") or {}).items()}))
+
+    def _warm_factory_once(self) -> None:
+        """At the first batch, start the fork server in the background,
+        so the first spawn pays only what is left of its boot (not at
+        the daemon's start: a node that never runs work never forks)."""
+        if self._factory_warmed:
+            return
+        self._factory_warmed = True
+
+        def warm():
+            try:
+                from ray_tpu_torch._private.worker_pool import _get_factory
+
+                _get_factory()
+            except Exception:  # noqa: BLE001 — spawns start it themselves
+                pass
+
+        threading.Thread(target=warm, daemon=True,
+                         name="ray_tpu_torch-factory-warm").start()
+
+    def _pipe_reply_to_task_reply(self, return_keys: list, status: str,
+                                  payload, owner: str | None) -> tuple:
+        """A worker lease's completion in the execute_task reply shape.
+        An inline result is a framed blob already, so it crosses with no
+        decode and encode here."""
+        from ray_tpu_torch._private.worker_pool import unpack_result
+        from ray_tpu_torch.exceptions import WorkerCrashedError
+
+        if status == "timeout":
+            # The worker found the frame's deadline past: nothing ran.
+            self.task_timeouts += 1
+            return ("timeout", "worker")
+        if status == "crash":
+            flight_recorder.record("worker.crash", str(payload)[:120])
+            if isinstance(payload, WorkerCrashedError):
+                exc = payload
+            else:
+                exc = WorkerCrashedError(str(payload))
+            return ("err", _exc_blob(exc))
+        if status == "err":
+            return ("err", payload)
+        out = []
+        for id_bytes, packed in zip(return_keys, payload):
+            if packed[0] == "inline":
+                out.append(self._blob_entry(id_bytes, packed[1], owner))
+            elif packed[0] == "shm":
+                rid = ObjectID(id_bytes)
+                try:
+                    value = unpack_result(packed, rid, self._shm_directory,
+                                          self._shm_client)
+                    out.append(self._reply_entry(id_bytes, value, owner))
+                finally:
+                    name = self._shm_directory.free(rid)
+                    if name is not None:
+                        self._shm_client.close_segment(name)
+            else:
+                out.append(packed)  # ("err", blob): this return failed
+        self.tasks_executed += 1
+        return ("ok", out)
+
+    def execute_task_batch(self, entries: list,
+                           client_addr: str | None = None,
+                           _emit_part=None) -> tuple:
+        """Run a batch of tasks leased to this node in one RPC, streaming
+        their completions back in groups as they finish (no wait for the
+        slowest).
+
+        Each entry: (digest, func_blob, args_blob, n_returns,
+        return_keys, runtime_env, resources, task_token, flags[, trace
+        context (None here), deadline]); flags bit 0: the arguments hold
+        FetchRefs, bit 2: the driver over-subscribed the entry past this
+        node's free slots. A ref-bearing entry, a ``GPU`` entry and one
+        whose runtime_env needs a fresh interpreter take the classic
+        ``execute_task`` on a dispatch thread of its own; the rest ride
+        pipelined worker leases, or fuse (below).
+
+        Parts: ("results", [(idx, reply), ...]) with the execute_task
+        reply shape, ("started", idx) or ("started_many", [idx, ...])
+        before an entry can have effects, ("parked", idx) and
+        ("resumed", idx) while a frame waits behind a blocked lease head
+        or in admission. Final reply: ("done", n, fused stats).
+
+        While ``FUSED_ON`` and on a node without a card, a run of plain
+        entries (no refs, no runtime_env) runs on this dispatch thread,
+        each reserved under its own token while it runs, at most
+        ``fused_max_run_tasks`` of them, and past
+        ``fused_run_wall_budget_s`` the rest takes the worker path. An
+        over-subscribed entry whose reservation fails parks in admission
+        (completions let it in) instead of answering busy."""
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+        from ray_tpu_torch._private.rpc import DISPATCH_POOL
+        from ray_tpu_torch._private.worker_pool import _BatchTask
+
+        self._warm_factory_once()
+        n = len(entries)
+        with self._fused_lock:
+            self.batch_rpcs += 1
+            self.batch_tasks_received += n
+        cond = threading.Condition()
+        completions: list = []
+        control: list = []
+
+        def complete(idx: int, reply: tuple) -> None:
+            with cond:
+                completions.append((idx, reply))
+                cond.notify()
+
+        with self._func_lock:
+            sys_path = list(self._driver_sys_path) or None
+        fused: list = []
+        # Over-subscribed entries whose reservation failed: [(task,
+        # demand)], admitted by the reply loop as capacity frees.
+        parked: list = []
+        reserve_wants: list = []
+        demand_by_idx: dict[int, dict] = {}
+        token_idx: dict[str, int] = {}
+        admit_ts: dict[int, float] = {}
+        # One shed decision per batch RPC.
+        shed_why = self._overload_reason()
+        now = time.time()
+        # A node with a card runs its card tasks in this process, which
+        # sees the card: its plain entries stay in pool workers, which
+        # do not.
+        fused_cap = max(1, int(GLOBAL_CONFIG.fused_max_run_tasks)) \
+            if FUSED_ON and not self.cards.capacity else 0
+        for idx, entry in enumerate(entries):
+            (digest, func_blob, args_blob, n_returns, return_keys,
+             runtime_env, resources, token, flags) = entry[:9]
+            deadline = entry[10] if len(entry) > 10 else None
+            if func_blob is not None:
+                with self._func_lock:
+                    self._func_blob_cache[digest] = func_blob
+            if deadline is not None and now > deadline:
+                self.task_timeouts += 1
+                complete(idx, ("timeout", "admitted"))
+                continue
+            if shed_why is not None:
+                self.admission_shed += 1
+                complete(idx, ("overloaded", shed_why))
+                continue
+            demand = {k: float(v) for k, v in (resources or {}).items()}
+            demand.setdefault("CPU", 1.0)
+            token = token or f"exec-{digest[:8]}-{os.urandom(4).hex()}"
+            if (flags & 1) or demand.get("GPU", 0.0) > 0 \
+                    or self._needs_dedicated_worker(runtime_env):
+                def classic(idx=idx, digest=digest, func_blob=func_blob,
+                            args_blob=args_blob, n_returns=n_returns,
+                            return_keys=return_keys,
+                            runtime_env=runtime_env, resources=resources,
+                            token=token, deadline=deadline):
+                    try:
+                        reply = self.execute_task(
+                            digest, func_blob, args_blob, n_returns,
+                            return_keys, runtime_env, resources, token,
+                            client_addr, deadline=deadline)
+                    except BaseException as exc:  # noqa: BLE001 — to the driver
+                        reply = ("err", _exc_blob(exc))
+                    complete(idx, reply)
+
+                # It may start the moment it is handed off.
+                with cond:
+                    control.append(("started", idx))
+                    cond.notify()
+                DISPATCH_POOL.submit(classic)
+                continue
+            blob = func_blob
+            if blob is None:
+                with self._func_lock:
+                    blob = self._func_blob_cache.get(digest)
+            if blob is None:
+                # This daemon restarted since the driver learned the
+                # digest: that task goes the single path.
+                complete(idx, ("need_func", None))
+                continue
+            if runtime_env:
+                # Its packages (working_dir, py_modules) are pulled into
+                # this node's cache, as the classic path does.
+                from ray_tpu_torch._private.runtime_env_packaging import (
+                    resolve_runtime_env,
+                )
+
+                try:
+                    runtime_env = resolve_runtime_env(runtime_env)
+                except BaseException as exc:  # noqa: BLE001 — this task's
+                    complete(idx, ("err", _exc_blob(exc)))
+                    continue
+            token_idx[token] = idx
+            demand_by_idx[idx] = demand
+            task = _BatchTask(
+                idx=idx, digest=digest, func_blob=blob, args_blob=args_blob,
+                n_returns=max(1, n_returns), runtime_env=runtime_env,
+                token=token, client_addr=client_addr, sys_path=sys_path,
+                deadline=deadline, overcommit=bool(flags & 2),
+                return_keys=return_keys)
+            if len(fused) < fused_cap and not runtime_env:
+                # Runs on this thread, which reserves each entry's demand
+                # only while it runs (_run_fused).
+                fused.append(task)
+                continue
+            reserve_wants.append((task, demand))
+
+        def notify(kind: str, token: str) -> None:
+            with cond:
+                control.append((kind, token_idx.get(token)))
+                cond.notify()
+
+        def on_result(task, status, payload, sample=None) -> None:
+            with self._running_lock:
+                self._running.pop(task.token, None)
+                self._blocked_cpu.pop(task.token, None)
+            if sample and perf.PERF_ON:
+                self._record_sample(sample)
+            try:
+                reply = self._pipe_reply_to_task_reply(
+                    task.return_keys, status, payload, client_addr)
+            except BaseException as exc:  # noqa: BLE001 — to the driver
+                reply = ("err", _exc_blob(exc))
+            complete(task.idx, reply)
+
+        notified: list = []
+
+        def launch(run: list) -> None:
+            tokens = [t.token for t in run]
+            self._pipeline_inflight.register_notify(tokens, notify)
+            notified.extend(tokens)
+            if perf.PERF_ON:
+                t_hand = time.time()
+                for t in run:
+                    perf.record_stage("admit_worker", max(
+                        0.0, t_hand - admit_ts.get(t.idx, t_hand)))
+            depth = max(1, int(GLOBAL_CONFIG.worker_pipeline_depth))
+            self._batch_runners.submit(
+                self.pool.run_task_batch, run, on_result, depth,
+                self._pipeline_inflight)
+
+        def reserve_or_park(wants: list) -> list:
+            """Admission for [(task, demand)]: the admitted are returned;
+            an over-subscribed entry that does not fit parks, any other
+            answers busy (the driver spills it back)."""
+            accepted = self._try_reserve_many(
+                [(t.token, d) for t, d in wants])
+            t_admit = time.time()
+            admitted = []
+            for (task, demand), ok in zip(wants, accepted):
+                if ok:
+                    admitted.append(task)
+                    admit_ts[task.idx] = t_admit
+                elif task.overcommit:
+                    parked.append((task, demand))
+                    _emit_part(("parked", task.idx))
+                else:
+                    complete(task.idx, ("busy",))
+            return admitted
+
+        if reserve_wants:
+            admitted = reserve_or_park(reserve_wants)
+            if admitted:
+                launch(admitted)
+        fused_stats = {"fused": 0, "fused_fallbacks": 0}
+
+        def spill_fused(rest: list) -> None:
+            # The run's budget ran out: the rest takes the worker path,
+            # through admission like any worker-path entry.
+            with self._fused_lock:
+                self.fused_fallbacks += len(rest)
+            fused_stats["fused_fallbacks"] += len(rest)
+            admitted = reserve_or_park(
+                [(t, demand_by_idx[t.idx]) for t in rest])
+            if admitted:
+                launch(admitted)
+
+        try:
+            done_n = 0
+            if fused:
+                done_n += self._run_fused(fused, demand_by_idx, client_addr,
+                                          _emit_part, spill_fused,
+                                          fused_stats)
+            while done_n < n:
+                with cond:
+                    while not completions and not control:
+                        if parked:
+                            # Capacity freed by other RPCs never signals
+                            # this condition: poll on a short beat.
+                            if not cond.wait(timeout=0.05):
+                                break
+                        else:
+                            cond.wait()
+                    group, completions = completions, []
+                    ctrl, control = control, []
+                for kind, idx in ctrl:
+                    if idx is not None:
+                        _emit_part((kind, idx))
+                if group:
+                    _emit_part(("results", group))
+                    self.reply_groups += 1
+                    done_n += len(group)
+                    self.store.notify_spill()
+                    self._notify_load()
+                if parked:
+                    self._admit_parked(parked, launch, _emit_part, complete,
+                                       admit_ts)
+        finally:
+            if notified:
+                self._pipeline_inflight.forget_notify(notified)
+        return ("done", n, fused_stats)
+
+    # Fused entries are announced in ("started_many", [idx, ...]) windows
+    # of this many before any of them can have effects: on this daemon's
+    # death, an announced entry retries under the system-failure budget,
+    # so the window bounds the budget a death can cost the unstarted.
+    # Results go back in groups of _FUSED_GROUP.
+    _FUSED_STARTED_WINDOW = 8
+    _FUSED_GROUP = 64
+
+    def _run_fused(self, tasks: list, demands: dict,
+                   client_addr: "str | None", emit, spill,
+                   fused_stats: dict) -> int:
+        """Run fused entries one after another on this thread, announcing
+        each window before it runs and streaming grouped results; returns
+        how many completed here. Past the wall budget the rest goes to
+        ``spill`` (the worker path) and completes through the reply loop.
+        A window's socket write completes before any of its functions
+        runs, and a killed daemon's kernel still sends what was written,
+        so the driver never requeues unseen an entry that may have
+        run."""
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        budget_s = float(GLOBAL_CONFIG.fused_run_wall_budget_s)
+        t0 = time.monotonic()
+        with self._fused_lock:
+            self.fused_runs += 1
+        group: list = []
+        done = 0
+        announced = 0
+        window = self._FUSED_STARTED_WINDOW
+        run_sample = perf.sample_start() if perf.PERF_ON else None
+        for pos, task in enumerate(tasks):
+            if budget_s > 0 and time.monotonic() - t0 > budget_s:
+                if group:
+                    emit(("results", group))
+                    self.reply_groups += 1
+                    done += len(group)
+                    group = []
+                spill(tasks[pos:])
+                break
+            if task.deadline is not None and time.time() > task.deadline:
+                self.task_timeouts += 1
+                group.append((task.idx, ("timeout", "admitted")))
+            elif self._cancelled_tokens \
+                    and self._token_cancelled(task.token):
+                group.append((task.idx, ("cancelled",)))
+            else:
+                if pos >= announced:
+                    emit(("started_many",
+                          [t.idx for t in
+                           tasks[announced:announced + window]]))
+                    announced += window
+                # The running entry alone holds its demand, under its
+                # own token: the node's availability and load pushes
+                # count it, and a nested get() there gives its CPU back
+                # (task_block). The entries queued behind it hold none.
+                with self._running_lock:
+                    self._running[task.token] = (demands[task.idx], {})
+                self._notify_load()
+                try:
+                    reply = self._exec_fused(task, client_addr)
+                finally:
+                    with self._running_lock:
+                        self._running.pop(task.token, None)
+                        self._blocked_cpu.pop(task.token, None)
+                group.append((task.idx, reply))
+                with self._fused_lock:
+                    self.fused_tasks += 1
+                fused_stats["fused"] += 1
+            if len(group) >= self._FUSED_GROUP:
+                emit(("results", group))
+                self.reply_groups += 1
+                done += len(group)
+                group = []
+        else:
+            if group:
+                emit(("results", group))
+                self.reply_groups += 1
+                done += len(group)
+        ran = fused_stats["fused"]
+        if run_sample is not None and ran:
+            # One resource sample brackets the run, attributed to its
+            # first function with the task count.
+            func = self._func_cache.get(tasks[0].digest)
+            name = getattr(func, "__qualname__", tasks[0].digest[:8])
+            _, wall, cpu, rss = perf.sample_end(name, run_sample)
+            perf.record_task_resources(name, wall, cpu, rss, count=ran)
+        self.store.notify_spill()
+        self._notify_load()
+        return done
+
+    def _exec_fused(self, task, client_addr: "str | None") -> tuple:
+        """Run one fused entry in this process: the execute_task reply
+        shape, for one args decode, the function and one encode per
+        result (both raw-framed when small and immutable)."""
+        from ray_tpu_torch._private import worker_client
+
+        # The function's public API calls (a nested task, a get) go to
+        # the task's driver, as from a pool worker, under its token: both
+        # are this thread's, as other batch RPCs run fused tasks of other
+        # drivers at the same time. Refs in its arguments and results
+        # belong to that driver too.
+        worker_client.enter_daemon_task(client_addr, task.token)
+        try:
+            return self._exec_fused_here(task, client_addr)
+        finally:
+            worker_client.leave_daemon_task()
+
+    def _exec_fused_here(self, task, client_addr: "str | None") -> tuple:
+        try:
+            func = self._func_cache.get(task.digest)
+            if func is None:
+                func = serialization.loads_function(task.func_blob)
+                with self._func_lock:
+                    self._func_cache[task.digest] = func
+            args, kwargs = serialization.deserialize_from_buffer(
+                memoryview(task.args_blob))
+            t_exec = time.time() if perf.PERF_ON else 0.0
+            result = func(*args, **kwargs)
+            if t_exec:
+                perf.record_stage("exec", max(0.0, time.time() - t_exec))
+            n_returns = task.n_returns
+            if n_returns == 1:
+                values = [result]
+            else:
+                if not isinstance(result, (tuple, list)) \
+                        or len(result) != n_returns:
+                    raise ValueError(
+                        f"task declared num_returns={n_returns} but "
+                        f"returned {type(result).__name__}")
+                values = list(result)
+        except BaseException as exc:  # noqa: BLE001 — to the driver
+            return ("err", _exc_blob(exc))
+        out = []
+        for id_bytes, value in zip(task.return_keys or (), values):
+            try:
+                blob = serialization.try_serialize_raw(value)
+                if blob is None:
+                    blob = serialization.serialize_framed(value)
+            except BaseException as exc:  # noqa: BLE001 — this return failed
+                out.append(("err", _exc_blob(exc)))
+                continue
+            out.append(self._blob_entry(id_bytes, blob, client_addr))
+        self.tasks_executed += 1
+        return ("ok", out)
+
+    def _admit_parked(self, parked: list, launch, emit, complete,
+                      admit_ts: dict) -> None:
+        """Try the over-subscribed entries this batch RPC parked again: a
+        past deadline seals a timeout, an admitted entry streams
+        ("resumed", idx) (the driver takes its CPU again) and joins the
+        worker path as a new run."""
+        now = time.time()
+        still: list = []
+        for task, demand in parked:
+            if task.deadline is not None and now > task.deadline:
+                self.task_timeouts += 1
+                complete(task.idx, ("timeout", "admitted"))
+            else:
+                still.append((task, demand))
+        parked[:] = []
+        if not still:
+            return
+        accepted = self._try_reserve_many([(t.token, d) for t, d in still])
+        t_admit = time.time()
+        go: list = []
+        for (task, demand), ok in zip(still, accepted):
+            if ok:
+                emit(("resumed", task.idx))
+                admit_ts[task.idx] = t_admit
+                go.append(task)
+            else:
+                parked.append((task, demand))
+        if go:
+            launch(go)
+
     # -------------------------------------------------------------- objects
 
     def fetch_object(self, id_bytes: bytes, offset: int, length: int):
@@ -1588,7 +2277,7 @@ class NodeExecutorService:
             if reply is None:
                 return None
             self.relay_chunks_served += 1
-        return reply
+        return wrap_chunk_reply(reply)
 
     def fetch_plan(self, id_bytes: bytes, puller_addr: str | None = None,
                    puller_host: str | None = None):
@@ -2115,8 +2804,26 @@ class NodeExecutorService:
                 "data_plane": self._data_plane_stats(),
                 "available": self.available_resources(),
                 "relay_chunks_served": self.relay_chunks_served,
+                "pipeline": self._pipeline_stats(),
                 "faults": self._fault_stats(),
                 "threads": _threading.active_count()}
+
+    def _pipeline_stats(self) -> dict:
+        """The pipelined path's counters, stage by stage: batch RPCs and
+        their entries, worker lease runs, tasks and frames, completion
+        groups, fused runs, tasks and fallbacks, and the batch runner
+        threads spawned and reused."""
+        return {"batch_rpcs": self.batch_rpcs,
+                "batch_tasks": self.batch_tasks_received,
+                "reply_groups": self.reply_groups,
+                "worker_lease_runs": self.pool.batch_runs,
+                "worker_lease_tasks": self.pool.batch_tasks,
+                "worker_pipelined_frames": self.pool.batch_frames,
+                "fused_runs": self.fused_runs,
+                "fused_tasks": self.fused_tasks,
+                "fused_fallbacks": self.fused_fallbacks,
+                "runner_spawns": self._batch_runners.spawns,
+                "runner_reuses": self._batch_runners.reuses}
 
     def _data_plane_stats(self) -> dict:
         with self._shm_args_lock:
@@ -2132,6 +2839,7 @@ class NodeExecutorService:
     def _fault_stats(self) -> dict:
         """The failure counters: how often each recovery path fired."""
         return {"rpc_retries": rpc_retry_count(),
+                "batch_requeues": self.pool.batch_requeues,
                 "peer_blacklists": self.peer_blacklists,
                 "task_timeouts": self.task_timeouts,
                 "admission_shed": self.admission_shed,
@@ -2171,6 +2879,7 @@ class NodeExecutorService:
         stats = {"tasks_executed": self.tasks_executed, "running": running,
                  "depth": depth, "stats_ts": time.time(),
                  "chunked_pulls": self.chunked_pulls,
+                 "pipeline": self._pipeline_stats(),
                  "data_plane": self._data_plane_stats(),
                  "faults": self._fault_stats()}
         if self._spill_mgr is not None:
@@ -2455,10 +3164,12 @@ class RemoteNodeHandle:
         with self._digest_lock:
             known = digest in self.known_digests
         extra = {} if deadline is None else {"deadline": deadline}
+        # Coalesced: a burst of single-path tasks to this node shares
+        # __batch__ frames; each reply is still its own.
         reply = self.pool.call(
             "execute_task", digest, None if known else func_blob,
             args_blob, n_returns, return_keys, runtime_env, resources,
-            task_token, client_addr, **extra)
+            task_token, client_addr, coalesce=True, **extra)
         if reply[0] == "need_func":
             # The node lost the function (it restarted): send it alone,
             # the node kept the arguments under the nonce.
@@ -2489,6 +3200,44 @@ class RemoteNodeHandle:
             exc.__ray_tpu_remote_tb__ = tb
             raise exc
         return reply[1]
+
+    def execute_batch(self, entries: list, on_results, on_parked=None,
+                      on_resumed=None, client_addr: str | None = None,
+                      on_started=None) -> tuple:
+        """One execute_task_batch RPC for a run of tasks leased to this
+        node. ``on_results(group)`` takes each streamed completion group,
+        [(idx, reply), ...] in the execute_task reply shape;
+        ``on_parked(idx)``/``on_resumed(idx)`` the frames waiting behind
+        a blocked lease head or in admission; ``on_started(idx)`` marks
+        an entry maybe started. Returns (replies delivered, the fused
+        stats of the final reply); the caller fails the indexes that
+        never came (a stream cut mid-batch). Raises RpcError or
+        RpcMethodError as ``execute`` does."""
+        self.ensure_sys_path()
+        slot = self.pool.call_streaming("execute_task_batch", entries,
+                                        client_addr)
+        delivered = 0
+        while True:
+            part = slot.next_part()
+            if part is None:
+                break
+            kind, payload = part
+            if kind == "results":
+                delivered += len(payload)
+                on_results(payload)
+            elif kind == "started" and on_started is not None:
+                on_started(payload)
+            elif kind == "started_many" and on_started is not None:
+                for idx in payload:
+                    on_started(idx)
+            elif kind == "parked" and on_parked is not None:
+                on_parked(payload)
+            elif kind == "resumed" and on_resumed is not None:
+                on_resumed(payload)
+        done = slot.result()  # raises what cut the stream
+        stats = done[2] if isinstance(done, tuple) and len(done) > 2 \
+            else {}
+        return delivered, stats
 
     def fetch(self, id_bytes: bytes) -> bytes:
         return fetch_blob(self.pool, id_bytes)

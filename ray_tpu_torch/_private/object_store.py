@@ -185,6 +185,9 @@ class ObjectStore:
         self._on_torn = None
         # Objects that failed to pickle once: never chosen again.
         self._unspillable: set[ObjectID] = set()
+        # Grouped seals (put_batch) and the objects they sealed.
+        self.batch_seals = 0
+        self.batch_sealed_objects = 0
 
     # ------------------------------------------------------- managed spill
 
@@ -294,43 +297,77 @@ class ObjectStore:
             if object_id not in self._entries:
                 self._entries[object_id] = ObjectEntry(object_id)
 
+    def create_pending_batch(self, object_ids) -> None:
+        """``create_pending`` for a submit-ring flush, in one lock pass."""
+        with self._lock:
+            entries = self._entries
+            for object_id in object_ids:
+                if object_id not in entries:
+                    entries[object_id] = ObjectEntry(object_id)
+
     def put(self, object_id: ObjectID, value: Any) -> None:
         self._seal(object_id, value=value, error=None)
 
     def put_error(self, object_id: ObjectID, error: BaseException) -> None:
         self._seal(object_id, value=None, error=error)
 
+    def put_batch(self, items: "list[tuple[ObjectID, Any]]") -> None:
+        """Seal a group of objects in one lock pass (a batch RPC's
+        streamed completion group), then fire the seal listeners."""
+        if not items:
+            return
+        # Sized outside the lock: _sizeof walks user containers.
+        sized = [(object_id, value, _sizeof(value), _on_device(value))
+                 for object_id, value in items]
+        with self._lock:
+            for object_id, value, size_bytes, on_device in sized:
+                self._seal_locked(object_id, value, None, size_bytes,
+                                  on_device)
+            self.batch_seals += 1
+            self.batch_sealed_objects += len(items)
+            self._lock.notify_all()
+            listeners = list(self._seal_listeners)
+        for object_id, _ in items:
+            for cb in listeners:
+                cb(object_id)
+        self._maybe_spill()
+
     def _seal(self, object_id: ObjectID, value: Any,
               error: BaseException | None):
-        # Sized outside the lock: _sizeof walks user containers.
         size_bytes = _sizeof(value) if error is None else 256
         on_device = error is None and _on_device(value)
         with self._lock:
-            entry = self._entries.get(object_id)
-            if entry is None:
-                entry = self._entries[object_id] = ObjectEntry(object_id)
-            if entry.sealed and not entry.freed:
-                # Idempotent reseal (a retried task recomputed it).
-                if entry.spilled_path is not None:
-                    self._unlink_spill(entry)
-                else:
-                    self._uncharge(entry)
-            entry.value = value
-            entry.error = error
-            entry.sealed = True
-            entry.freed = False
-            entry.lost = False
-            entry.size_bytes = size_bytes
-            entry.on_device = on_device
-            self._memory_used += size_bytes
-            if on_device:
-                self._device_used += size_bytes
-            self._unspillable.discard(object_id)
+            self._seal_locked(object_id, value, error, size_bytes,
+                              on_device)
             self._lock.notify_all()
             listeners = list(self._seal_listeners)
         for cb in listeners:
             cb(object_id)
         self._maybe_spill()
+
+    def _seal_locked(self, object_id: ObjectID, value: Any,
+                     error: BaseException | None, size_bytes: int,
+                     on_device: bool) -> None:
+        entry = self._entries.get(object_id)
+        if entry is None:
+            entry = self._entries[object_id] = ObjectEntry(object_id)
+        if entry.sealed and not entry.freed:
+            # Idempotent reseal (a retried task recomputed it).
+            if entry.spilled_path is not None:
+                self._unlink_spill(entry)
+            else:
+                self._uncharge(entry)
+        entry.value = value
+        entry.error = error
+        entry.sealed = True
+        entry.freed = False
+        entry.lost = False
+        entry.size_bytes = size_bytes
+        entry.on_device = on_device
+        self._memory_used += size_bytes
+        if on_device:
+            self._device_used += size_bytes
+        self._unspillable.discard(object_id)
 
     def add_free_listener(self, cb: Callable[[ObjectID], None]) -> None:
         with self._lock:

@@ -227,11 +227,14 @@ class RemoteActor:
             node_dead = False
             handle.ensure_sys_path()
             try:
+                # Coalesced: a wave of actor creations to one node shares
+                # __batch__ frames.
                 reply = handle.pool.call(
                     "create_actor", self._key, self._cls_blob, init_blob,
                     self._runtime_env, self._max_concurrency,
                     self._resources, client_addr,
-                    [p for p in sys.path if p and os.path.isdir(p)])
+                    [p for p in sys.path if p and os.path.isdir(p)],
+                    coalesce=True)
             except RpcMethodError as exc:
                 return ActorError(exc.cause, exc.remote_tb,
                                   f"{self._cls.__name__}.__init__")
@@ -329,7 +332,7 @@ class RemoteActor:
             reply = handle.pool.call(
                 "actor_call", self._key, call.method_name, args_blob,
                 len(call.return_ids), [r.binary() for r in call.return_ids],
-                pre_ack)
+                pre_ack, coalesce=True)
         except RpcMethodError as exc:
             self._fail_call(call, ActorError(exc.cause, exc.remote_tb, site))
             return

@@ -1,29 +1,30 @@
 """A small request/response RPC layer over TCP.
 
 The port of ``ray_tpu/_private/rpc.py``: the frame helpers,
-``RpcServer`` (registered callables, long-running ones dispatched off
-the connection's thread with out-of-order replies), ``MuxRpcClient``
-(one connection carrying many calls in flight), ``RpcClient`` (one call
-at a time, with one transparent reconnect before the request is sent),
-and the retry policy the node layer's idempotent control calls share:
-``classify_rpc_failure``, ``call_with_retry`` and its per-destination
-circuit breaker. Not ported: the coalesced batch frames, the streaming
-replies and the tail payloads of the reference's fast paths (ROADMAP
-item 10c).
+``RpcServer`` (registered callables; long-running ones dispatched on
+recycled threads with out-of-order replies, streaming methods that send
+``part`` frames before their reply, ``__batch__`` frames of many calls),
+``MuxRpcClient`` (one connection carrying many calls in flight, with
+per-destination coalescing into ``__batch__`` frames and streaming
+calls), ``RpcClient`` (one call at a time, with one transparent
+reconnect before the request is sent), and the retry policy the node
+layer's idempotent control calls share: ``classify_rpc_failure``,
+``call_with_retry`` and its per-destination circuit breaker.
 
 A frame is a little-endian uint64 length and a pickle of
 ``(seq, method, args, kwargs)`` (request) or ``(seq, status, value)``
-(reply, status ``"ok"`` or ``"err"``). A server with ``reply_meta_fn``
-tags each ``"ok"`` reply ``"okm"`` and sends ``(meta, result)``: the head
-stamps its epoch on every reply that way, and a client hands the meta to
-its ``on_reply_meta`` before the call returns.
+(reply, status ``"ok"``, ``"err"``, ``"part"`` or ``"tail"``). A tail
+reply's raw bytes follow its pickle in the same frame. A server with
+``reply_meta_fn`` tags each ``"ok"``, ``"part"`` and ``"tail"`` frame
+with an ``"m"`` and sends ``(meta, value)``: the head stamps its epoch on
+every reply that way, and a client hands the meta to its
+``on_reply_meta`` before the call returns.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
-import itertools
 import pickle
+import queue
 import select
 import socket
 import struct
@@ -104,12 +105,110 @@ def _error_reply(seq: int, exc: BaseException) -> bytes:
             protocol=5)
 
 
+class TailPayload:
+    """A reply whose ``tail`` (any buffer) follows the pickled ``head``
+    raw in the same frame: a chunk's bytes cross without a pickle copy
+    on either side. The caller receives ``(head, tail view)``."""
+
+    __slots__ = ("head", "tail")
+
+    def __init__(self, head: Any, tail):
+        self.head = head
+        self.tail = tail
+
+
+class _StreamEnd:
+    """Closes a streaming call's queue of parts (the final reply or a
+    failure resolved the call)."""
+
+
+_STREAM_END = _StreamEnd()
+
+
+class _Recycled:
+    """One reusable dispatch thread: it parks in its pool's LIFO free
+    list between jobs and ends after an idle timeout."""
+
+    __slots__ = ("_pool", "_event", "_job", "_thread")
+
+    def __init__(self, pool: "_ThreadRecycler"):
+        self._pool = pool
+        self._event = threading.Event()
+        self._job = None
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=pool.name)
+        self._thread.start()
+
+    def run(self, fn, args) -> None:
+        self._job = (fn, args)
+        self._event.set()
+
+    def _loop(self) -> None:
+        while True:
+            if not self._event.wait(self._pool.idle_s):
+                # Idle expiry, unless a submitter popped this thread off
+                # the free list meanwhile: then its job is on the way.
+                with self._pool._lock:
+                    try:
+                        self._pool._idle.remove(self)
+                        claimed = False
+                    except ValueError:
+                        claimed = True
+                if not claimed:
+                    return
+                self._event.wait()
+            self._event.clear()
+            fn, args = self._job
+            self._job = None
+            try:
+                fn(*args)
+            except BaseException:  # noqa: BLE001 — as a daemon thread would
+                traceback.print_exc()
+            with self._pool._lock:
+                self._pool._idle.append(self)
+
+
+class _ThreadRecycler:
+    """An unbounded thread pool with LIFO reuse and idle expiry: the
+    shape of a thread per request (no queue, so a nested call can never
+    wait behind its caller), without a thread spawn per request."""
+
+    def __init__(self, name: str, idle_s: float = 10.0):
+        self.name = name
+        self.idle_s = idle_s
+        self._lock = threading.Lock()
+        self._idle: list[_Recycled] = []
+        self.spawns = 0
+        self.reuses = 0
+
+    def submit(self, fn, *args) -> None:
+        with self._lock:
+            worker = self._idle.pop() if self._idle else None
+            if worker is None:
+                self.spawns += 1
+            else:
+                self.reuses += 1
+        if worker is None:
+            worker = _Recycled(self)
+        worker.run(fn, args)
+
+
+# Shared by the servers' concurrent methods and the driver's batch
+# launches.
+DISPATCH_POOL = _ThreadRecycler("ray_tpu_torch-rpc-dispatch")
+
+
 class RpcServer:
     """Serves registered callables, one thread per connection.
 
-    ``register(..., concurrent=True)`` runs a method on a thread of its
-    own with its reply sent when it returns, so a long poll does not hold
-    back the calls that follow it on the same connection."""
+    ``register(..., concurrent=True)`` runs a method on a recycled
+    thread with its reply sent when it returns, so a long call does not
+    hold back the calls behind it on the same connection (``"pooled"``
+    is accepted for the reference's short calls and runs the same way).
+    ``register(..., streaming=True)`` hands the method an ``_emit_part``
+    keyword that sends ``part`` frames before the final reply
+    (``MuxRpcClient.call_streaming`` reads them). A ``__batch__`` frame
+    carries many seq-tagged calls, each answered on its own."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -119,10 +218,12 @@ class RpcServer:
         self.host, self.port = self._sock.getsockname()[:2]
         self._methods: dict[str, Callable] = {}
         self._concurrent: set[str] = set()
+        self._streaming: set[str] = set()
         self._shutdown = threading.Event()
         self._conns: list[socket.socket] = []
         self._conns_lock = threading.Lock()
-        # () -> dict sent with every "ok" reply (tagged "okm").
+        # () -> dict sent with every "ok" reply and part (tagged "okm",
+        # "partm").
         self.reply_meta_fn: Callable[[], dict] | None = None
 
     @property
@@ -130,10 +231,13 @@ class RpcServer:
         return f"{self.host}:{self.port}"
 
     def register(self, name: str, fn: Callable,
-                 concurrent: bool = False) -> None:
+                 concurrent: "bool | str" = False,
+                 streaming: bool = False) -> None:
         self._methods[name] = fn
         if concurrent:
             self._concurrent.add(name)
+        if streaming:
+            self._streaming.add(name)
 
     def start(self) -> "RpcServer":
         self._accept_thread = threading.Thread(
@@ -182,40 +286,24 @@ class RpcServer:
 
     def _serve_conn(self, conn: socket.socket) -> None:
         send_lock = threading.Lock()
-
-        def reply(payload: bytes) -> None:
-            with send_lock:
-                try:
-                    _send_frame(conn, payload)
-                except OSError:
-                    pass  # the client is gone
-
-        def run(seq, name, args, kwargs) -> None:
-            try:
-                fn = self._methods.get(name)
-                if fn is None:
-                    raise RpcError(f"unknown rpc method {name!r}")
-                result = fn(*args, **kwargs)
-                if self.reply_meta_fn is not None:
-                    payload = pickle.dumps(
-                        (seq, "okm", (self.reply_meta_fn(), result)),
-                        protocol=5)
-                else:
-                    payload = pickle.dumps((seq, "ok", result), protocol=5)
-            except BaseException as exc:  # noqa: BLE001 — sent to the caller
-                payload = _error_reply(seq, exc)
-            reply(payload)
-
         try:
             while not self._shutdown.is_set():
                 seq, name, args, kwargs = pickle.loads(_recv_frame(conn))
-                if name in self._concurrent:
-                    threading.Thread(target=run, args=(seq, name, args,
-                                                       kwargs),
-                                     daemon=True,
-                                     name=f"ray_tpu_torch-rpc-{name}").start()
-                else:
-                    run(seq, name, args, kwargs)
+                if name == "__batch__":
+                    # Many calls in one frame: each runs as its method
+                    # says and is answered under its own seq.
+                    for bseq, blob in args[0]:
+                        try:
+                            bname, bargs, bkwargs = pickle.loads(blob)
+                        except Exception as exc:  # noqa: BLE001 — that entry's caller
+                            self._send(conn, send_lock, _error_reply(
+                                bseq, RpcError(f"bad batch entry: "
+                                               f"{exc!r}")))
+                            continue
+                        self._dispatch(conn, send_lock, bseq, bname, bargs,
+                                       bkwargs)
+                    continue
+                self._dispatch(conn, send_lock, seq, name, args, kwargs)
         except (RpcError, OSError, EOFError, pickle.UnpicklingError):
             pass
         finally:
@@ -227,11 +315,73 @@ class RpcServer:
             except OSError:
                 pass
 
+    def _dispatch(self, conn, send_lock, seq, name, args, kwargs) -> None:
+        if name in self._concurrent:
+            DISPATCH_POOL.submit(self._handle_one, conn, send_lock, seq,
+                                 name, args, kwargs)
+        else:
+            self._handle_one(conn, send_lock, seq, name, args, kwargs)
+
+    @staticmethod
+    def _send(conn, send_lock, payload: bytes) -> bool:
+        try:
+            with send_lock:
+                _send_frame(conn, payload)
+            return True
+        except OSError:
+            return False  # the client is gone
+
+    def _tagged(self, seq: int, status: str, value: Any) -> bytes:
+        """A reply frame; with ``reply_meta_fn`` an ``ok``, ``part`` or
+        ``tail`` one carries the meta (status + "m")."""
+        if self.reply_meta_fn is not None:
+            return pickle.dumps((seq, status + "m",
+                                 (self.reply_meta_fn(), value)), protocol=5)
+        return pickle.dumps((seq, status, value), protocol=5)
+
+    def _send_tail(self, conn, send_lock, seq: int,
+                   result: TailPayload) -> bool:
+        """[length][pickled (seq, "tail", (head, n))][n raw bytes]."""
+        tail = result.tail if isinstance(result.tail, memoryview) \
+            else memoryview(result.tail)
+        head = self._tagged(seq, "tail", (result.head, tail.nbytes))
+        try:
+            with send_lock:
+                conn.sendall(_LEN.pack(len(head) + tail.nbytes))
+                conn.sendall(head)
+                conn.sendall(tail)
+            return True
+        except OSError:
+            return False
+
+    def _handle_one(self, conn, send_lock, seq, name, args, kwargs) -> None:
+        try:
+            fn = self._methods.get(name)
+            if fn is None:
+                raise RpcError(f"unknown rpc method {name!r}")
+            if name in self._streaming:
+                def _emit_part(value) -> None:
+                    # A dead connection stops the producer.
+                    if not self._send(conn, send_lock,
+                                      self._tagged(seq, "part", value)):
+                        raise RpcError("connection lost mid-stream")
+
+                kwargs = dict(kwargs, _emit_part=_emit_part)
+            result = fn(*args, **kwargs)
+            if isinstance(result, TailPayload):
+                self._send_tail(conn, send_lock, seq, result)
+                return
+            payload = self._tagged(seq, "ok", result)
+        except BaseException as exc:  # noqa: BLE001 — sent to the caller
+            payload = _error_reply(seq, exc)
+        self._send(conn, send_lock, payload)
+
 
 def _take_meta(status: str, value: Any, observer) -> tuple[str, Any]:
-    """Strip the meta of an ``"okm"`` reply, handing it to ``observer``
-    (which must not raise; an exception there is dropped)."""
-    if status != "okm":
+    """Strip the meta of an ``"okm"`` (``"partm"``, ``"tailm"``) reply,
+    handing it to ``observer`` (which must not raise; an exception there
+    is dropped)."""
+    if not status.endswith("m"):
         return status, value
     meta, value = value
     if observer is not None:
@@ -239,7 +389,20 @@ def _take_meta(status: str, value: Any, observer) -> tuple[str, Any]:
             observer(meta)
         except Exception:  # noqa: BLE001 — an observer must not fail the call
             pass
-    return "ok", value
+    return status[:-1], value
+
+
+def _decode_reply(frame, observer) -> tuple[int, str, Any]:
+    """(seq, status, value) of a reply frame: meta handed to
+    ``observer``, a tail frame's value ``(head, tail view)``."""
+    seq, status, value = pickle.loads(frame)
+    status, value = _take_meta(status, value, observer)
+    if status == "tail":
+        head, tail_len = value
+        status = "ok"
+        value = (head, memoryview(frame)[len(frame) - tail_len:]
+                 if tail_len else b"")
+    return seq, status, value
 
 
 def _unpack_reply(status: str, value: Any) -> Any:
@@ -249,85 +412,323 @@ def _unpack_reply(status: str, value: Any) -> Any:
     raise RpcMethodError(exc, tb)
 
 
-class MuxRpcClient:
-    """One connection carrying many calls in flight: a reader thread
-    matches the replies, which may arrive out of order, to their calls."""
+class _MuxSlot:
+    """One call in flight: resolved by the reader thread or by the
+    failure of its connection. ``conn`` is None while the call waits in
+    the coalescing queue."""
 
-    def __init__(self, address: str, timeout_s: float = 60.0):
+    __slots__ = ("event", "reply", "error", "client", "conn", "seq",
+                 "method", "parts")
+
+    def __init__(self, client: "MuxRpcClient", method: str):
+        self.event = threading.Event()
+        self.reply = None
+        self.error: BaseException | None = None
+        self.client = client
+        self.conn: "_MuxConn | None" = None
+        self.seq = 0
+        self.method = method
+        # A streaming call's parts, closed by _STREAM_END.
+        self.parts = None
+
+    def done(self) -> bool:
+        return self.event.is_set()
+
+    def next_part(self, timeout_s: float | None = None):
+        """The next part of a streaming call, or None once the stream
+        ended (``result()`` then holds the final reply or raises).
+        Raises RpcError on timeout."""
+        try:
+            item = self.parts.get(timeout=self.client.timeout_s
+                                  if timeout_s is None else timeout_s)
+        except queue.Empty:
+            self.client._abandon(self)
+            raise RpcError(f"rpc {self.method} to {self.client.address} "
+                           f"stream timed out", maybe_executed=True) \
+                from None
+        return None if item is _STREAM_END else item
+
+    def result(self, timeout_s: float | None = None) -> Any:
+        client = self.client
+        wait_s = client.timeout_s if timeout_s is None else timeout_s
+        if not self.event.wait(wait_s):
+            client._abandon(self)
+            raise RpcError(f"rpc {self.method} to {client.address} timed "
+                           f"out after {wait_s}s", maybe_executed=True)
+        if self.error is not None:
+            maybe = not isinstance(self.error, RpcError) \
+                or self.error.maybe_executed
+            raise RpcError(f"rpc {self.method} to {client.address} failed: "
+                           f"{self.error}", maybe_executed=maybe) \
+                from self.error
+        return _unpack_reply(*self.reply)
+
+
+class _MuxConn:
+    """One live connection and the calls bound to it: a dead socket's
+    failure never touches calls already on its successor."""
+
+    __slots__ = ("sock", "pending")
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self.pending: dict[int, _MuxSlot] = {}
+
+
+class MuxRpcClient:
+    """One connection carrying many calls in flight: requests are
+    seq-tagged and a reader thread matches the replies, which may arrive
+    out of order. ``call_async(coalesce=True)`` queues a call for a
+    ``__batch__`` frame with whatever else is pending to this address.
+    No transparent retry: a lost connection fails exactly the calls
+    that rode it (maybe executed), and the next call reconnects."""
+
+    def __init__(self, address: str, timeout_s: float = 60.0,
+                 connect_timeout_s: float = 10.0):
         self.address = address
         self.timeout_s = timeout_s
-        self._lock = threading.Lock()
-        self._sock: socket.socket | None = None
-        self._pending: dict[int, concurrent.futures.Future] = {}
-        self._seq = itertools.count(1)
+        self._connect_timeout = connect_timeout_s
+        self._lock = threading.Lock()        # connection state and seq
+        self._send_lock = threading.Lock()   # frame writes
+        self._conn: _MuxConn | None = None
+        self._seq = 0
         self._closed = False
+        # Coalescing queue: (slot, pickled entry) pairs that the flusher
+        # packs into __batch__ frames.
+        self._batch_pending: list = []
+        self._batch_event = threading.Event()
+        self._batch_thread: threading.Thread | None = None
         # Called on the reader thread with each reply's meta, before the
         # call it answers returns.
         self.on_reply_meta: Callable[[dict], None] | None = None
 
-    def _connect(self) -> socket.socket:
-        # Caller holds the lock.
-        if self._sock is None:
-            if self._closed:
-                raise RpcError("client is closed")
+    def _ensure_conn_locked(self) -> _MuxConn:
+        if self._conn is None:
             sock = socket.create_connection(_parse_address(self.address),
-                                            timeout=self.timeout_s)
+                                            timeout=self._connect_timeout)
             sock.settimeout(None)
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            self._sock = sock
-            threading.Thread(target=self._read_loop, args=(sock,),
+            self._conn = _MuxConn(sock)
+            threading.Thread(target=self._reader_loop, args=(self._conn,),
                              daemon=True,
                              name="ray_tpu_torch-rpc-reader").start()
-        return self._sock
-
-    def _read_loop(self, sock: socket.socket) -> None:
-        error: BaseException = RpcError("connection closed")
-        try:
-            while True:
-                seq, status, value = pickle.loads(_recv_frame(sock))
-                status, value = _take_meta(status, value,
-                                           self.on_reply_meta)
-                with self._lock:
-                    fut = self._pending.pop(seq, None)
-                if fut is not None:
-                    fut.set_result((status, value))
-        except (RpcError, OSError, EOFError, pickle.UnpicklingError) as exc:
-            error = RpcError(f"connection to {self.address} lost: {exc!r}")
-        with self._lock:
-            if self._sock is sock:
-                self._sock = None
-            pending, self._pending = self._pending, {}
-        for fut in pending.values():
-            fut.set_exception(error)
+        return self._conn
 
     def call(self, method: str, *args, timeout_s: float | None = None,
-             **kwargs) -> Any:
+             coalesce: bool = False, **kwargs) -> Any:
         """One call; ``timeout_s`` (not sent) overrides the client's."""
-        return self.call_async(method, *args, **kwargs).result(
-            self.timeout_s if timeout_s is None else timeout_s)
+        return self.call_async(method, *args, coalesce=coalesce,
+                               **kwargs).result(timeout_s)
 
-    def call_async(self, method: str, *args, **kwargs) -> "_Slot":
-        """Send one call and return its slot at once: ``result()`` waits
-        for the reply (a chunked pull keeps several in flight)."""
-        payload_seq = next(self._seq)
-        payload = pickle.dumps((payload_seq, method, args, kwargs),
-                               protocol=5)
-        fut: concurrent.futures.Future = concurrent.futures.Future()
+    def call_async(self, method: str, *args, coalesce: bool = False,
+                   **kwargs) -> _MuxSlot:
+        """Send one call and return its slot at once (``result()`` waits
+        for the reply). ``coalesce``: ride a shared ``__batch__`` frame
+        when the socket is busy (chatty control calls)."""
+        if coalesce:
+            return self._submit_coalesced(method, args, kwargs)
+        return self._call_direct(method, args, kwargs)
+
+    def call_streaming(self, method: str, *args, **kwargs) -> _MuxSlot:
+        """A call to a streaming method: read ``slot.next_part()`` until
+        it returns None, then ``slot.result()``."""
+        return self._call_direct(method, args, kwargs,
+                                 parts=queue.SimpleQueue())
+
+    def _call_direct(self, method: str, args, kwargs,
+                     parts=None) -> _MuxSlot:
+        slot = _MuxSlot(self, method)
+        slot.parts = parts
         with self._lock:
-            sock = self._connect()
-            self._pending[payload_seq] = fut
+            if self._closed:
+                raise RpcError(f"client to {self.address} is closed")
             try:
-                _send_frame(sock, payload)
+                conn = self._ensure_conn_locked()
             except OSError as exc:
-                self._pending.pop(payload_seq, None)
-                raise RpcError(f"send to {self.address} failed: "
-                               f"{exc!r}") from exc
-        return _Slot(self, payload_seq, method, fut)
+                raise RpcError(f"cannot connect to {self.address}: "
+                               f"{exc}") from exc
+            self._seq += 1
+            slot.seq = self._seq
+        # Pickled before the slot is registered: an argument that cannot
+        # be pickled raises here and leaks nothing.
+        request = pickle.dumps((slot.seq, method, args, kwargs), protocol=5)
+        with self._lock:
+            if self._closed:
+                raise RpcError(f"client to {self.address} is closed")
+            slot.conn = conn
+            conn.pending[slot.seq] = slot
+        try:
+            with self._send_lock:
+                _send_frame(conn.sock, request)
+        except OSError as exc:
+            self._fail_conn(conn, exc)
+            raise RpcError(f"rpc {method} to {self.address} failed: {exc}",
+                           maybe_executed=True) from exc
+        return slot
+
+    def _abandon(self, slot: _MuxSlot) -> None:
+        """The caller gave up on ``slot`` (a timeout): unregister it."""
+        with self._lock:
+            if slot.conn is not None:
+                slot.conn.pending.pop(slot.seq, None)
+            else:
+                self._batch_pending = [(s, b) for s, b in self._batch_pending
+                                       if s is not slot]
+
+    # -- coalescing -------------------------------------------------------
+
+    def _submit_coalesced(self, method: str, args, kwargs) -> _MuxSlot:
+        # Pickled on the caller's thread: a bad argument fails its own
+        # caller, never the frame's other entries.
+        blob = pickle.dumps((method, args, kwargs), protocol=5)
+        slot = _MuxSlot(self, method)
+        with self._lock:
+            if self._closed:
+                raise RpcError(f"client to {self.address} is closed")
+            # An idle socket with nothing queued sends at once; under a
+            # burst (a writer mid-frame) entries queue for a shared
+            # frame. Nothing queued is required, so the order of calls
+            # to one destination holds.
+            direct = (not self._batch_pending
+                      and self._send_lock.acquire(blocking=False))
+            if direct:
+                try:
+                    conn = self._ensure_conn_locked()
+                except OSError as exc:
+                    self._send_lock.release()
+                    raise RpcError(f"cannot connect to {self.address}: "
+                                   f"{exc}") from exc
+                self._seq += 1
+                slot.seq = self._seq
+                slot.conn = conn
+                conn.pending[slot.seq] = slot
+            else:
+                self._batch_pending.append((slot, blob))
+                if self._batch_thread is None:
+                    self._batch_thread = threading.Thread(
+                        target=self._flush_loop, daemon=True,
+                        name="ray_tpu_torch-rpc-flusher")
+                    self._batch_thread.start()
+        if not direct:
+            self._batch_event.set()
+            return slot
+        frame = pickle.dumps((0, "__batch__", (((slot.seq, blob),),), {}),
+                             protocol=5)
+        try:
+            _send_frame(conn.sock, frame)
+        except OSError as exc:
+            self._send_lock.release()
+            self._fail_conn(conn, exc)
+            return slot
+        self._send_lock.release()
+        return slot
+
+    @staticmethod
+    def _batch_limits() -> tuple[float, int]:
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        return (float(GLOBAL_CONFIG.rpc_batch_flush_ms) / 1000.0,
+                max(1, int(GLOBAL_CONFIG.rpc_batch_max_entries)))
+
+    def _flush_loop(self) -> None:
+        while True:
+            self._batch_event.wait()
+            linger, max_entries = self._batch_limits()
+            if linger > 0:
+                time.sleep(linger)
+            with self._lock:
+                self._batch_event.clear()
+                pending, self._batch_pending = self._batch_pending, []
+                closed = self._closed
+            if closed:
+                for slot, _ in pending:
+                    slot.error = RpcError("client closed")
+                    slot.event.set()
+                return
+            while pending:
+                self._flush_batch(pending[:max_entries])
+                pending = pending[max_entries:]
+
+    def _flush_batch(self, pending: list) -> None:
+        error: BaseException = RpcError("client closed")
+        with self._lock:
+            conn = None
+            if not self._closed:
+                try:
+                    conn = self._ensure_conn_locked()
+                except OSError as exc:
+                    # Never sent: retryable.
+                    error = RpcError(f"cannot connect to {self.address}: "
+                                     f"{exc}")
+            if conn is None:
+                for slot, _ in pending:
+                    slot.error = error
+                    slot.event.set()
+                return
+            entries = []
+            for slot, blob in pending:
+                self._seq += 1
+                slot.seq = self._seq
+                slot.conn = conn
+                conn.pending[slot.seq] = slot
+                entries.append((slot.seq, blob))
+        frame = pickle.dumps((0, "__batch__", (entries,), {}), protocol=5)
+        try:
+            with self._send_lock:
+                _send_frame(conn.sock, frame)
+        except OSError as exc:
+            self._fail_conn(conn, exc)
+
+    def _reader_loop(self, conn: _MuxConn) -> None:
+        while True:
+            try:
+                frame = _recv_frame(conn.sock)
+                seq, status, value = _decode_reply(frame, self.on_reply_meta)
+            except (RpcError, OSError, EOFError,
+                    pickle.UnpicklingError) as exc:
+                self._fail_conn(conn, exc)
+                return
+            if status == "part":
+                # The call stays pending; its part goes to its queue.
+                with self._lock:
+                    slot = conn.pending.get(seq)
+                if slot is not None and slot.parts is not None:
+                    slot.parts.put(value)
+                continue
+            with self._lock:
+                slot = conn.pending.pop(seq, None)
+            if slot is not None:
+                slot.reply = (status, value)
+                slot.event.set()
+                if slot.parts is not None:
+                    slot.parts.put(_STREAM_END)
+
+    def _fail_conn(self, conn: _MuxConn, exc: BaseException) -> None:
+        """Fail exactly the calls riding ``conn`` (their requests were
+        written: maybe executed); a reconnected successor is
+        untouched."""
+        with self._lock:
+            if self._conn is conn:
+                self._conn = None  # the next call reconnects
+            pending = list(conn.pending.values())
+            conn.pending.clear()
+        try:
+            conn.sock.close()
+        except OSError:
+            pass
+        if not (isinstance(exc, RpcError) and exc.maybe_executed):
+            exc = RpcError(f"connection to {self.address} lost with the "
+                           f"call in flight: {exc!r}", maybe_executed=True)
+        for slot in pending:
+            slot.error = exc
+            slot.event.set()
+            if slot.parts is not None:
+                slot.parts.put(_STREAM_END)
 
     def num_connections(self) -> int:
         """Sockets open: one at most, whatever the calls in flight."""
         with self._lock:
-            return int(self._sock is not None)
+            return int(self._conn is not None)
 
     def ping(self) -> bool:
         try:
@@ -338,41 +739,23 @@ class MuxRpcClient:
     def close(self) -> None:
         with self._lock:
             self._closed = True
-            sock, self._sock = self._sock, None
-        if sock is not None:
+            conn, self._conn = self._conn, None
+            pending = list(conn.pending.values()) if conn else []
+            if conn:
+                conn.pending.clear()
+            queued, self._batch_pending = self._batch_pending, []
+        self._batch_event.set()  # the flusher sees _closed and ends
+        if conn is not None:
             try:
-                sock.shutdown(socket.SHUT_RDWR)
-                sock.close()
+                conn.sock.shutdown(socket.SHUT_RDWR)
+                conn.sock.close()
             except OSError:
                 pass
-
-
-class _Slot:
-    """The pending reply of one ``MuxRpcClient.call_async``."""
-
-    __slots__ = ("_client", "_seq", "_method", "_fut")
-
-    def __init__(self, client: MuxRpcClient, seq: int, method: str,
-                 fut: concurrent.futures.Future):
-        self._client = client
-        self._seq = seq
-        self._method = method
-        self._fut = fut
-
-    def result(self, timeout_s: float | None = None) -> Any:
-        timeout_s = self._client.timeout_s if timeout_s is None \
-            else timeout_s
-        try:
-            status, value = self._fut.result(timeout=timeout_s)
-        except concurrent.futures.TimeoutError:
-            with self._client._lock:
-                self._client._pending.pop(self._seq, None)
-            raise RpcError(f"rpc {self._method} timed out after "
-                           f"{timeout_s}s", maybe_executed=True) from None
-        except RpcError as exc:
-            # The connection dropped with the request sent.
-            raise RpcError(str(exc), maybe_executed=True) from None
-        return _unpack_reply(status, value)
+        for slot in pending + [s for s, _ in queued]:
+            slot.error = RpcError("client closed")
+            slot.event.set()
+            if slot.parts is not None:
+                slot.parts.put(_STREAM_END)
 
 
 class RpcClient:
@@ -436,8 +819,8 @@ class RpcClient:
                         self._sock = self._connect()
                     _send_frame(self._sock, request)
                     sent = True
-                    rseq, status, payload = pickle.loads(
-                        _recv_frame(self._sock))
+                    rseq, status, payload = _decode_reply(
+                        _recv_frame(self._sock), self.on_reply_meta)
                     if rseq != seq:
                         raise RpcError(f"out-of-order reply: {rseq} != "
                                        f"{seq}")
@@ -453,7 +836,6 @@ class RpcClient:
             else:
                 raise RpcError(f"rpc to {self.address} failed: "
                                f"{last_exc}") from last_exc
-        status, payload = _take_meta(status, payload, self.on_reply_meta)
         return _unpack_reply(status, payload)
 
     def ping(self) -> bool:

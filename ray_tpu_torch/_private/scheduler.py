@@ -19,6 +19,14 @@ The port of ``ray_tpu/_private/scheduler.py``:
   back until it wakes and keeps its GPU, so nested task graphs deeper
   than the CPU count cannot deadlock.
 
+With batch hooks set (``set_batch_hooks``), the tasks a dispatch pass
+claims for one remote node go out as one batch (one runner thread, one
+``execute_task_batch`` RPC) of up to ``dispatch_batch_max``; once a batch
+to a node is open, the pass keeps filling it past the node's free slots
+(``force_acquire``, counted in ``batch_overcommit``), so a deep backlog
+rides deep batches, and the node parks the excess in its admission.
+``submit_many`` queues a whole submit-ring flush under one lock.
+
 Not ported: the locality- and load-scored placement and the batched
 acquisitions of the dispatch lanes (ROADMAP item 10c).
 """
@@ -250,12 +258,35 @@ class ClusterState:
                 return None
             return node.acquire(demand)
 
+    def force_acquire(self, node_id: NodeID,
+                      demand: dict[str, float]) -> bool:
+        """Take ``demand`` on a live node even past what is free (a
+        batch filled past the node's slots; the node parks the excess).
+        Its availability may go negative until the releases come. Never
+        for a ``GPU`` demand."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is None or not node.alive or demand.get("GPU", 0.0):
+                return False
+            node.acquire(demand)
+            return True
+
     def release(self, node_id: NodeID, demand: dict[str, float],
                 shares: dict[int, float] | None = None) -> None:
         with self._lock:
             node = self._nodes.get(node_id)
             if node is not None:
                 node.release(demand, shares or {})
+            self._lock.notify_all()
+
+    def release_many(self, node_id: NodeID, demands: list) -> None:
+        """Give back a completion group's demands (no card shares) in
+        one lock pass."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is not None:
+                for demand in demands:
+                    node.release(demand, {})
             self._lock.notify_all()
 
     def notify_change(self) -> None:
@@ -306,6 +337,16 @@ class Dispatcher:
         self._deadline_armed = 0
         self._on_deadline = None
         self._on_unplaceable = None
+        # Batched dispatch (set_batch_hooks) and its counters.
+        self._batch_key = None
+        self._run_batch = None
+        from ray_tpu_torch._private.rpc import _ThreadRecycler
+
+        self._batch_runners = _ThreadRecycler("ray_tpu_torch-batch")
+        self.batches_launched = 0
+        self.batch_tasks_launched = 0
+        self.singles_launched = 0
+        self.batch_overcommit = 0
         self._shutdown = False
         self._dispatch_thread = threading.Thread(
             target=self._dispatch_loop, name="ray_tpu_torch-dispatcher",
@@ -334,6 +375,15 @@ class Dispatcher:
         small)."""
         self._on_unplaceable = on_unplaceable
 
+    def set_batch_hooks(self, batch_key, run_batch) -> None:
+        """Batched dispatch: ``batch_key(spec, node, run)`` gives a key
+        (the tasks of one pass with one key form one batch) or None for
+        a thread of its own; ``run_batch(specs, node, complete)`` runs a
+        batch and calls ``complete(spec)`` (or ``complete.many(specs)``)
+        as each task finishes."""
+        self._batch_key = batch_key
+        self._run_batch = run_batch
+
     def _enqueue_ready_locked(self, task: _QueuedTask) -> None:
         self._num_ready_live += 1
         self._ready_groups.setdefault(
@@ -344,26 +394,34 @@ class Dispatcher:
     def submit(self, spec: TaskSpec,
                run: Callable[[TaskSpec, NodeState], None],
                deps: list) -> None:
-        if perf.PERF_ON and not spec.submit_ts:
-            spec.submit_ts = time.time()
+        self.submit_many(((spec, run, deps),))
+
+    def submit_many(self, items) -> None:
+        """Queue (spec, run, deps) items under one lock, with one
+        wakeup (a submit-ring flush)."""
+        now = time.time() if perf.PERF_ON else 0.0
         with self._lock:
-            task = _QueuedTask(spec=spec, run=run)
-            # Checked under the lock: a dependency sealing concurrently
-            # either shows in contains() or finds the task indexed.
-            task.dep_ids = {d.id() for d in deps
-                            if not self._store.contains(d.id())}
-            if task.dep_ids:
-                self._waiting.add(task)
-                for dep_id in task.dep_ids:
-                    self._dep_index.setdefault(dep_id, set()).add(task)
-            else:
-                self._enqueue_ready_locked(task)
-            for rid in spec.return_ids:
-                self._by_return_id[rid] = task
-            if spec.deadline is not None:
-                heapq.heappush(self._deadline_heap,
-                               (spec.deadline, task.order, task))
-                self._deadline_armed += 1
+            for spec, run, deps in items:
+                if now and not spec.submit_ts:
+                    spec.submit_ts = now
+                task = _QueuedTask(spec=spec, run=run)
+                # Checked under the lock: a dependency sealing
+                # concurrently either shows in contains() or finds the
+                # task indexed.
+                task.dep_ids = {d.id() for d in deps
+                                if not self._store.contains(d.id())}
+                if task.dep_ids:
+                    self._waiting.add(task)
+                    for dep_id in task.dep_ids:
+                        self._dep_index.setdefault(dep_id, set()).add(task)
+                else:
+                    self._enqueue_ready_locked(task)
+                for rid in spec.return_ids:
+                    self._by_return_id[rid] = task
+                if spec.deadline is not None:
+                    heapq.heappush(self._deadline_heap,
+                                   (spec.deadline, task.order, task))
+                    self._deadline_armed += 1
             self._lock.notify_all()
 
     def _on_object_sealed(self, object_id) -> None:
@@ -412,19 +470,35 @@ class Dispatcher:
                 if self._shutdown:
                     return
             self._expire_deadlines()
-            if not self._drain_groups():
+            batches = {} if self._run_batch is not None else None
+            launched = self._drain_groups(batches)
+            if batches:
+                self._flush_batches(batches)
+            if not launched:
                 # Nothing admitted: wait for resources to free up.
                 self._cluster.wait_for_change(0.05)
 
-    def _drain_groups(self) -> int:
+    def _drain_groups(self, batches: dict | None = None) -> int:
         """One pass over the signature groups: each launches from its FIFO
-        head until its demand no longer fits."""
+        head until its demand no longer fits. With ``batches``, a claim
+        for a remote node joins that node's batch, and once a batch is
+        open the pass fills it past the node's free slots, up to the
+        backlog's share of ``dispatch_batch_max``."""
         launched = 0
         with self._lock:
             for sig in [s for s, dq in self._ready_groups.items() if not dq]:
                 del self._ready_groups[sig]
             groups = list(self._ready_groups.values())
+        n_nodes = max(1, len(self._cluster.nodes()))
         for dq in groups:
+            sticky: NodeState | None = None
+            staged_remote = False
+            fill_left = 0
+            fill_budget = 0
+            if batches is not None:
+                with self._lock:
+                    backlog = len(dq)
+                fill_budget = min(self._batch_max(), backlog // n_nodes)
             while True:
                 with self._lock:
                     while dq and (dq[0].claimed or dq[0].cancelled):
@@ -432,16 +506,127 @@ class Dispatcher:
                     if not dq:
                         break
                     task = dq[0]
-                node = self._try_admit(task)
+                spec = task.spec
+                node = None
+                overcommitted = False
+                if sticky is not None and staged_remote and fill_left > 0 \
+                        and spec.scheduling_strategy.kind == "DEFAULT":
+                    # Fill the open batch: the sticky node's real capacity
+                    # while it fits, else past it.
+                    shares = self._cluster.try_acquire(sticky.node_id,
+                                                       spec.resources)
+                    if shares is None and self._cluster.force_acquire(
+                            sticky.node_id, spec.resources):
+                        shares = {}
+                        overcommitted = True
+                        self.batch_overcommit += 1
+                    if shares is not None:
+                        spec.gpu_shares = shares
+                        node = sticky
+                        fill_left -= 1
                 if node is None:
-                    break  # this signature is saturated for this pass
+                    node = self._try_admit(task)
+                    if node is None:
+                        break  # this signature is saturated for this pass
+                    sticky = node
+                    staged_remote = False
+                    fill_left = fill_budget
                 with self._lock:
                     if dq and dq[0] is task:
                         dq.popleft()
-                if self._claim(task, node):
+                if not self._claim(task, node):
+                    continue
+                spec._overcommit = overcommitted
+                staged = None if batches is None \
+                    else self._stage_batch(batches, task, node)
+                if staged is None:
                     self._launch(task, node)
-                    launched += 1
+                elif not overcommitted:
+                    staged_remote = True
+                launched += 1
         return launched
+
+    @staticmethod
+    def _batch_max() -> int:
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        return max(1, int(GLOBAL_CONFIG.dispatch_batch_max))
+
+    def _stage_batch(self, batches: dict, task: _QueuedTask,
+                     node: NodeState):
+        """Put a claimed task into this pass's batch for its key; the
+        key, or None when the task takes a thread of its own."""
+        try:
+            key = self._batch_key(task.spec, node, task.run)
+        except Exception:  # noqa: BLE001 — never wedge dispatch
+            key = None
+        if key is None:
+            return None
+        entry = batches.get(key)
+        if entry is None:
+            entry = batches[key] = (node, [])
+        entry[1].append(task)
+        if len(entry[1]) >= self._batch_max():
+            del batches[key]
+            self._launch_batch(entry[1], entry[0])
+        return key
+
+    def _flush_batches(self, batches: dict) -> None:
+        # A batch of one rides the batch RPC too (the reference sends it
+        # on the single path, but its columnar lanes, not ported, carry
+        # such a task into a fused run): a plain task then runs fused on
+        # its daemon however the ring's flushes cut a burst.
+        for node, tasks in batches.values():
+            self._launch_batch(tasks, node)
+        batches.clear()
+
+    def _launch_batch(self, tasks: "list[_QueuedTask]",
+                      node: NodeState) -> None:
+        """One runner drives the whole batch; each task's resources come
+        back as its completion streams in (no wait for the slowest)."""
+        run_batch = self._run_batch
+        by_spec = {id(t.spec): (t, dict(t.spec.gpu_shares)) for t in tasks}
+        done_lock = threading.Lock()
+        self.batches_launched += 1
+        self.batch_tasks_launched += len(tasks)
+
+        def complete(spec) -> None:
+            with done_lock:
+                item = by_spec.pop(id(spec), None)
+            if item is None:
+                return  # completed already
+            self._release(item[0], node, item[1])
+            with self._lock:
+                self._num_running -= 1
+                self._lock.notify_all()
+
+        def complete_many(specs) -> None:
+            """A completion group: one ledger pass and one wakeup."""
+            with done_lock:
+                done = [item for item in (by_spec.pop(id(s), None)
+                                          for s in specs)
+                        if item is not None]
+            if not done:
+                return
+            self._cluster.release_many(
+                node.node_id, [t.spec.resources for t, _ in done])
+            with self._lock:
+                self._num_running -= len(done)
+                self._lock.notify_all()
+
+        complete.many = complete_many
+
+        def runner() -> None:
+            try:
+                run_batch([t.spec for t in tasks], node, complete)
+            finally:
+                # A runner that died must not leak its admissions.
+                with done_lock:
+                    leftover = [t.spec for t, _ in by_spec.values()]
+                for spec in leftover:
+                    complete(spec)
+
+        self._batch_runners.submit(runner)
 
     def _try_admit(self, task: _QueuedTask) -> NodeState | None:
         spec = task.spec
@@ -545,10 +730,20 @@ class Dispatcher:
                     self._num_running -= 1
                     self._lock.notify_all()
 
+        self.singles_launched += 1
         threading.Thread(target=runner, daemon=True,
                          name=f"ray_tpu_torch-task-{task.spec.name}").start()
 
     # --------------------------------------------------------------- control
+
+    def pipeline_stats(self) -> dict:
+        """Batched and single launches, and the claims that filled a
+        batch past a node's free slots."""
+        with self._lock:
+            return {"batches_launched": self.batches_launched,
+                    "batch_tasks_launched": self.batch_tasks_launched,
+                    "singles_launched": self.singles_launched,
+                    "batch_overcommit": self.batch_overcommit}
 
     def pending_count(self) -> int:
         """Tasks waiting on arguments, ready and running: the depth that
@@ -680,8 +875,11 @@ class BlockedResourceContext:
                 self._on_release()
 
     def unblock(self, force: bool = False):
-        """Take the CPU again once the last nested wait ends (``force``:
-        whatever the depth)."""
+        """Take the CPU again once the last nested wait ends. ``force``
+        (whatever the depth): take it at once even past what is free,
+        as the reference does: the caller is a stream's or a
+        connection's reader, and a reader that waited for capacity
+        would wait on the completions it is the one to read."""
         with self._depth_lock:
             if self._depth <= 0:
                 return
@@ -689,6 +887,9 @@ class BlockedResourceContext:
             reacquire = self._depth == 0 and bool(self._cpu_only)
         if reacquire and self._on_reacquire is not None:
             self._on_reacquire()
+        if reacquire and force:
+            self._cluster.force_acquire(self._node_id, self._cpu_only)
+            return
         # Spinning is fine: we only woke because our object sealed, so the
         # release that makes room is imminent. A node that died meanwhile
         # is left alone.

@@ -111,9 +111,12 @@ _KILL_WAIT_S = 10.0
 
 
 def _in_worker_process() -> bool:
+    """A worker process, or a node daemon's thread running a fused task:
+    the public API there is the proxy to the task's driver."""
     from ray_tpu_torch._private.worker_pool import IN_WORKER_ENV
 
-    return bool(os.environ.get(IN_WORKER_ENV))
+    return bool(os.environ.get(IN_WORKER_ENV)) \
+        or worker_client.in_daemon_task()
 
 
 def _use_cards(shares: dict[int, float]) -> None:
@@ -141,6 +144,158 @@ class RuntimeContext:
     @classmethod
     def clear(cls):
         cls._tls.ctx = None
+
+
+class _SubmitRecord:
+    """One buffered ``.remote()``: its ids and refs were handed out at
+    once, the rest waits for the submitter's flush."""
+
+    __slots__ = ("func", "args", "kwargs", "name", "num_returns",
+                 "resources", "max_retries", "retry_exceptions",
+                 "strategy", "runtime_env", "task_id", "return_ids",
+                 "cancelled", "state", "deadline", "submit_ts")
+
+    # Its state, changed under the ring's lock:
+    BUFFERED = 0   # in the ring: a cancel is sealed by the ring
+    DRAINING = 1   # claimed by a flush: the flush replays a cancel
+    SUBMITTED = 2  # handed to the dispatcher
+
+
+class _SubmitRing:
+    """The driver's bounded submit ring: ``.remote()`` pushes a record
+    and returns its refs; a submitter thread drains it in flushes, each
+    paying the TaskSpecs, the store, lineage and event record-keeping and
+    the dispatcher's wakeup once for the whole flush
+    (``Runtime._flush_submits``). A full ring blocks ``.remote()``:
+    backpressure, never loss."""
+
+    def __init__(self, runtime, capacity: int, flush_max: int):
+        self._runtime = runtime
+        self._capacity = max(2, int(capacity))
+        self._flush_max = max(1, int(flush_max))
+        self._cond = threading.Condition()
+        self._ring: collections.deque = collections.deque()
+        self._by_rid: dict = {}  # return id -> record, until submitted
+        self._stop = False
+        self._parked = False
+        # A test seam: cleared, it holds the drain, so a race against a
+        # BUFFERED record (a cancel, an overflow) is deterministic.
+        self._gate = threading.Event()
+        self._gate.set()
+        self.submits = 0
+        self.flushes = 0
+        self.flush_tasks = 0
+        self.ring_full_waits = 0
+        self.buffered_cancels = 0
+        self._thread = threading.Thread(target=self._drain_loop,
+                                        daemon=True,
+                                        name="ray_tpu_torch-submitter")
+        self._thread.start()
+
+    def holds(self, object_id) -> bool:
+        """Whether ``object_id`` is a return of a record not yet handed to
+        the dispatcher (attach_future treats it as pending)."""
+        with self._cond:
+            return object_id in self._by_rid
+
+    def push(self, rec: _SubmitRecord) -> None:
+        with self._cond:
+            if len(self._ring) >= self._capacity:
+                self.ring_full_waits += 1
+                while len(self._ring) >= self._capacity and not self._stop:
+                    self._cond.wait(0.1)
+            self._ring.append(rec)
+            for rid in rec.return_ids:
+                self._by_rid[rid] = rec
+            self.submits += 1
+            if self._parked:
+                self._cond.notify_all()
+
+    def cancel(self, object_id) -> "_SubmitRecord | None":
+        """Cancel a buffered or draining record: the record when the ring
+        owns the cancel (a BUFFERED one is sealed here, a DRAINING one by
+        its flush), None when the ring does not know ``object_id``."""
+        with self._cond:
+            rec = self._by_rid.get(object_id)
+            if rec is None:
+                return None
+            if rec.cancelled:
+                return rec  # cancelled already
+            rec.cancelled = True
+            buffered = rec.state == _SubmitRecord.BUFFERED
+            if buffered:
+                self.buffered_cancels += 1
+        if buffered:
+            # The flush skips it: this is the one place its error seals.
+            self._runtime._seal_cancelled_submit(rec)
+        return rec
+
+    def _drain_loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._ring and not self._stop:
+                    self._parked = True
+                    try:
+                        self._cond.wait(timeout=0.2)
+                    finally:
+                        self._parked = False
+                if not self._ring and self._stop:
+                    return
+            # Between wake and claim, so a cleared gate holds records
+            # BUFFERED.
+            self._gate.wait()
+            # In a burst (dozens buffered and more arriving) linger a
+            # little, so the producer fills a whole flush instead of
+            # trading the GIL record for record; a sustained stall ends
+            # the linger.
+            if len(self._ring) >= 64:
+                deadline = time.monotonic() + 0.05
+                last_depth, stalls = -1, 0
+                while not self._stop:
+                    depth = len(self._ring)
+                    if depth >= self._flush_max \
+                            or time.monotonic() >= deadline:
+                        break
+                    stalls = stalls + 1 if depth == last_depth else 0
+                    if stalls >= 2:
+                        break
+                    last_depth = depth
+                    time.sleep(0.002)
+            with self._cond:
+                n = min(len(self._ring), self._flush_max)
+                batch = [self._ring.popleft() for _ in range(n)]
+                self._cond.notify_all()  # wake blocked pushers
+            if not batch:
+                continue
+            try:
+                self._runtime._flush_submits(self, batch)
+            except BaseException as exc:  # noqa: BLE001 — the drain never dies
+                logger.exception("submit flush failed")
+                for rec in batch:
+                    with self._cond:
+                        for rid in rec.return_ids:
+                            self._by_rid.pop(rid, None)
+                        sealed = rec.cancelled \
+                            and rec.state == _SubmitRecord.BUFFERED
+                        rec.state = _SubmitRecord.SUBMITTED
+                    if not sealed:
+                        for rid in rec.return_ids:
+                            self._runtime.store.put_error(rid, exc)
+            with self._cond:
+                self.flushes += 1
+                self.flush_tasks += n
+
+    def depth(self) -> int:
+        with self._cond:
+            return len(self._ring)
+
+    def stop(self) -> None:
+        """Flush what is buffered, then join the submitter."""
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._gate.set()
+        self._thread.join(timeout=10.0)
 
 
 class Runtime:
@@ -206,6 +361,15 @@ class Runtime:
         self._counter_lock = threading.Lock()
         self._task_timeouts = 0
         self._admission_shed = 0
+        # The pipelined path's counters: fused runs, tasks and fallbacks
+        # the batch RPCs reported, batch entries requeued unseen after a
+        # node died, and the submit flushes' wall.
+        self._fused_runs = 0
+        self._fused_tasks = 0
+        self._fused_fallbacks = 0
+        self._batch_requeues = 0
+        self._flush_wall_us = 0
+        self._submit_ring = None
         self._actors: dict[ActorID, LocalActor] = {}
         # Signalled whenever an actor lands in _actors or dies: submit
         # queues wait on it.
@@ -259,6 +423,11 @@ class Runtime:
         self._init_connected_mode(
             address, float(num_cpus if num_cpus is not None
                            else cfg.num_cpus))
+        # The submit ring: .remote() returns its refs at once and the
+        # ring's thread does the record-keeping, a flush at a time.
+        if bool(cfg.submit_pipeline):
+            self._submit_ring = _SubmitRing(
+                self, int(cfg.submit_ring_size), int(cfg.submit_flush_max))
         # The pins lapse on time, not at the next submit: an idle driver
         # must still let its last ones go.
         self._arg_pin_thread = threading.Thread(
@@ -749,6 +918,10 @@ class Runtime:
             target=self._watch_remote_nodes, daemon=True,
             name="ray_tpu_torch-node-watcher")
         self._node_watcher.start()
+        # The tasks a dispatch pass claims for one node ride one
+        # execute_task_batch RPC.
+        self.dispatcher.set_batch_hooks(self._task_batch_key,
+                                        self._run_task_batch)
 
     def _export_fetch_object(self, id_bytes: bytes, offset: int,
                              length: int):
@@ -1423,15 +1596,348 @@ class Runtime:
         if perf.PERF_ON:
             perf.record_stage("rpc_seal", max(0.0, time.time() - t_send))
 
+    # ----------------------------------------------------- batched dispatch
+
+    def _task_batch_key(self, spec: TaskSpec, node: NodeState, run):
+        """The dispatcher's batch key: the tasks a pass claims for one
+        remote node ride one execute_task_batch RPC. A task on this
+        process, a ``GPU`` task (it runs on its daemon's dispatch thread,
+        on its card), a placement-group task and a custom run callable
+        take a thread of their own."""
+        if node is None or run != self._execute_task:
+            return None
+        if spec.resources.get("GPU", 0.0) > 0 \
+                or spec.scheduling_strategy.kind == "PLACEMENT_GROUP":
+            return None
+        with self._remote_nodes_lock:
+            if node.node_id not in self._remote_nodes:
+                return None
+        return node.node_id
+
+    def _collect_remote_results(self, return_ids, results, node_id,
+                                address, out_pairs: list) -> None:
+        """A task's reply entries as (return id, value) pairs appended to
+        ``out_pairs`` (the caller seals a whole completion group with one
+        ``put_batch``). Raises on an error entry, failing that task
+        alone."""
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.node_executor import RemoteBlob
+
+        for rid, packed in zip(return_ids, results):
+            if packed[0] == "inline":
+                out_pairs.append((rid, serialization.deserialize_from_buffer(
+                    memoryview(packed[1]))))
+            elif packed[0] == "stored":
+                out_pairs.append((rid, RemoteBlob(node_id.hex(), address,
+                                                  packed[1])))
+                self._record_location(rid, node_id)
+            else:  # ("err", blob): this return failed to pickle
+                exc, tb = serialization.deserialize_from_buffer(
+                    memoryview(packed[1]))
+                exc.__ray_tpu_remote_tb__ = tb
+                raise exc
+
+    def _shed_remote(self, spec: TaskSpec, node: NodeState, why: str,
+                     start: float) -> None:
+        """A node shed the task at admission: a deadline-armed task fails
+        at once with the retryable SystemOverloadedError (its budget
+        would die waiting), any other spills back."""
+        with self._counter_lock:
+            self._admission_shed += 1
+        if spec.deadline is None:
+            self._spillback_requeue(spec, node)
+            return
+        err = SystemOverloadedError(
+            f"node {node.node_id.hex()[:8]} shed the task: {why}")
+        for rid in spec.return_ids:
+            self.store.put_error(rid, err)
+        self.gcs.record_task_event(TaskEvent(
+            spec.task_id, spec.name, "FAILED", start_time=start,
+            end_time=time.time(), error=f"shed: {why}"))
+
+    def _run_task_batch(self, specs: list, node: NodeState,
+                        complete) -> None:
+        """The dispatcher's batch runner: one execute_task_batch RPC
+        carries the run to ``node``; each streamed completion group is
+        sealed with one ``put_batch`` and its claims released together
+        (``complete.many``), with no wait for the slowest task.
+
+        If the stream is cut (the daemon died), an entry the daemon never
+        marked started is requeued unseen (at most three times); one that
+        may have started fails with WorkerCrashedError, which retries
+        under its ``max_retries``."""
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.rpc import RpcError, RpcMethodError
+
+        with self._remote_nodes_lock:
+            handle = self._remote_nodes.get(node.node_id)
+        if handle is None:
+            # The node went between claim and launch: the single path
+            # does the unreachable-node bookkeeping.
+            for spec in specs:
+                try:
+                    self._execute_task(spec, node)
+                finally:
+                    complete(spec)
+            return
+        start = time.time()
+        client_addr = self._client_server_addr() or None
+        entries: list = []
+        ctx_by_idx: dict[int, BlockedResourceContext] = {}
+        spec_by_idx: dict[int, TaskSpec] = {}
+        fallback: list = []
+
+        def control(method, token):
+            def call():
+                try:
+                    handle._control.call(method, token)
+                except Exception:  # noqa: BLE001 — the node is gone
+                    pass
+            return call
+
+        for spec in specs:
+            if spec.deadline is not None and start > spec.deadline:
+                self._seal_deadline(spec, "execute")
+                complete(spec)
+                continue
+            try:
+                digest, func_blob = self._function_blob(spec.func)
+                args_blob = self._convert_remote_args(spec.args,
+                                                      spec.kwargs)
+                runtime_env = self._package_runtime_env(spec.runtime_env)
+            except Exception:  # noqa: BLE001 — the single path reports it
+                fallback.append(spec)
+                continue
+            has_refs = any(isinstance(a, ObjectRef) for a in spec.args) \
+                or any(isinstance(v, ObjectRef)
+                       for v in spec.kwargs.values())
+            token = spec.task_id.hex()
+            with handle._digest_lock:
+                known = digest in handle.known_digests
+                # Optimistic: a daemon that restarted answers need_func
+                # for that task, which then goes the single path.
+                handle.known_digests.add(digest)
+            idx = len(entries)
+            # Flags bit 0: the arguments hold FetchRefs; bit 2: the
+            # dispatcher filled this claim past the node's free slots.
+            entry = (digest, None if known else func_blob, args_blob,
+                     spec.num_returns,
+                     [rid.binary() for rid in spec.return_ids],
+                     runtime_env, spec.resources, token,
+                     (1 if has_refs else 0)
+                     | (2 if getattr(spec, "_overcommit", False) else 0))
+            if spec.deadline is not None:
+                # The 10th element is the trace context (not ported).
+                entry = entry + (None, spec.deadline)
+            entries.append(entry)
+            spec_by_idx[idx] = spec
+            ctx = BlockedResourceContext(
+                self.cluster, node.node_id, spec.resources,
+                on_release=control("task_block", token),
+                on_reacquire=control("task_unblock", token))
+            ctx_by_idx[idx] = ctx
+            with self._inflight_blocks_lock:
+                self._inflight_blocks[token] = ctx
+            self.gcs.record_task_event(TaskEvent(
+                spec.task_id, spec.name, "RUNNING", start_time=start,
+                node_id=node.node_id.hex()))
+        complete_many = getattr(complete, "many", None)
+
+        def finish_idx(idx: int, defer: "list | None" = None) -> None:
+            spec = spec_by_idx.pop(idx, None)
+            if spec is None:
+                return
+            ctx = ctx_by_idx.pop(idx, None)
+            if ctx is not None:
+                with self._inflight_blocks_lock:
+                    self._inflight_blocks.pop(spec.task_id.hex(), None)
+                ctx.drain()
+            if defer is not None:
+                defer.append(spec)
+            else:
+                complete(spec)
+
+        t_send = time.time()
+
+        def on_results(group) -> None:
+            pairs: list = []
+            deferred: "list | None" = [] if complete_many is not None \
+                else None
+            end = time.time()
+            for idx, reply in group:
+                spec = spec_by_idx.get(idx)
+                if spec is None:
+                    continue  # a duplicate
+                kind = reply[0]
+                if perf.PERF_ON and kind in ("ok", "err"):
+                    perf.record_stage("rpc_seal", max(0.0, end - t_send))
+                if kind == "ok":
+                    try:
+                        self._collect_remote_results(
+                            spec.return_ids, reply[1], node.node_id,
+                            handle.address, pairs)
+                        self.gcs.record_task_event(TaskEvent(
+                            spec.task_id, spec.name, "FINISHED",
+                            start_time=start, end_time=end,
+                            node_id=node.node_id.hex()))
+                    except BaseException as exc:  # noqa: BLE001 — this task's
+                        self._finish_task_failure(spec, exc, start)
+                    finish_idx(idx, deferred)
+                elif kind == "err":
+                    exc, tb = serialization.deserialize_from_buffer(
+                        memoryview(reply[1]))
+                    exc.__ray_tpu_remote_tb__ = tb
+                    self._finish_task_failure(spec, exc, start)
+                    finish_idx(idx, deferred)
+                elif kind == "busy":
+                    finish_idx(idx, deferred)
+                    self._spillback_requeue(spec, node)
+                elif kind == "timeout":
+                    self._seal_deadline(spec, reply[1] if len(reply) > 1
+                                        and reply[1] else "admitted")
+                    finish_idx(idx, deferred)
+                elif kind == "overloaded":
+                    finish_idx(idx, deferred)
+                    self._shed_remote(spec, node, str(reply[1]), start)
+                elif kind == "cancelled":
+                    self._finish_task_failure(
+                        spec, TaskCancelledError(spec.task_id), start)
+                    finish_idx(idx, deferred)
+                else:  # ("need_func", _): the single path resends it
+                    spec_by_idx.pop(idx, None)
+                    ctx = ctx_by_idx.pop(idx, None)
+                    if ctx is not None:
+                        with self._inflight_blocks_lock:
+                            self._inflight_blocks.pop(spec.task_id.hex(),
+                                                      None)
+                        ctx.drain()
+
+                    def redo(spec=spec):
+                        try:
+                            self._execute_task(spec, node)
+                        finally:
+                            complete(spec)
+
+                    threading.Thread(target=redo, daemon=True,
+                                     name="ray_tpu_torch-task-refunc").start()
+            if pairs:
+                self.store.put_batch(pairs)
+            if deferred:
+                # After the seal, so the backlog never undercounts.
+                complete_many(deferred)
+
+        def on_parked(idx: int) -> None:
+            # Its frame waits behind a blocked lease head or in the
+            # node's admission: its CPU goes back until it runs.
+            ctx = ctx_by_idx.get(idx)
+            if ctx is not None:
+                ctx.block()
+
+        def on_resumed(idx: int) -> None:
+            ctx = ctx_by_idx.get(idx)
+            if ctx is not None:
+                ctx.unblock(force=True)
+
+        started_idx: set[int] = set()
+        transport_exc: BaseException | None = None
+        if perf.PERF_ON:
+            for spec in spec_by_idx.values():
+                if spec.dispatch_ts:
+                    perf.record_stage("dispatch_rpc",
+                                      max(0.0, t_send - spec.dispatch_ts))
+        if entries:
+            try:
+                _, fused_stats = handle.execute_batch(
+                    entries, on_results, on_parked, on_resumed,
+                    client_addr, on_started=started_idx.add)
+                if fused_stats.get("fused") \
+                        or fused_stats.get("fused_fallbacks"):
+                    with self._counter_lock:
+                        if fused_stats.get("fused"):
+                            self._fused_runs += 1
+                            self._fused_tasks += int(fused_stats["fused"])
+                        self._fused_fallbacks += int(
+                            fused_stats.get("fused_fallbacks", 0))
+            except (RpcError, RpcMethodError, OSError) as exc:
+                transport_exc = exc
+        if spec_by_idx:
+            # The stream was cut (or came back short).
+            if transport_exc is not None and not handle.ping():
+                self._drop_remote_node(node.node_id)
+            for idx in list(spec_by_idx):
+                spec = spec_by_idx[idx]
+                invisible = getattr(spec, "_invisible_requeues", 0)
+                if idx not in started_idx and invisible < 3:
+                    spec._invisible_requeues = invisible + 1
+                    with self._counter_lock:
+                        self._batch_requeues += 1
+                    finish_idx(idx)
+                    self.dispatcher.submit(spec, self._execute_task,
+                                           ref_args(spec.args, spec.kwargs))
+                    continue
+                err = WorkerCrashedError(
+                    f"node {node.node_id.hex()[:8]} lost task {spec.name} "
+                    f"mid-batch: {transport_exc}")
+                self._finish_task_failure(spec, err, start)
+                finish_idx(idx)
+        for spec in fallback:
+            try:
+                self._execute_task(spec, node)
+            finally:
+                complete(spec)
+
+    def execution_pipeline_stats(self) -> dict:
+        """The driver's counters of the pipelined path, stage by stage
+        (each daemon's are in its ``executor_stats()["pipeline"]``):
+        ``submit`` the ring, ``dispatch`` the batching, ``seal`` the
+        grouped seals, ``fused`` the fused runs the batch RPCs reported.
+        The scheduling plane's ``sched`` group is not ported."""
+        ring = self._submit_ring
+        with self._counter_lock:
+            fused = {"fused_runs": self._fused_runs,
+                     "fused_tasks": self._fused_tasks,
+                     "fused_fallbacks": self._fused_fallbacks}
+        dispatch = self.dispatcher.pipeline_stats()
+        return {
+            "submit": {
+                "ring_submits": ring.submits if ring else 0,
+                "flushes": ring.flushes if ring else 0,
+                "flush_tasks": ring.flush_tasks if ring else 0,
+                "ring_full_waits": ring.ring_full_waits if ring else 0,
+                "buffered_cancels": ring.buffered_cancels if ring else 0,
+                "flush_wall_us": self._flush_wall_us},
+            "dispatch": {
+                "batches": dispatch["batches_launched"],
+                "batch_tasks": dispatch["batch_tasks_launched"],
+                "singles": dispatch["singles_launched"],
+                "batch_overcommit": dispatch["batch_overcommit"]},
+            "seal": {"batch_seals": self.store.batch_seals,
+                     "batch_sealed_objects":
+                         self.store.batch_sealed_objects},
+            "fused": fused,
+        }
+
     def _spillback_requeue(self, spec: TaskSpec, node: NodeState) -> None:
         """The node refused the lease: queue the task again, avoiding it.
-        Once every node refused, the avoid set starts over after a
-        growing delay, so a full cluster is polled, not hammered."""
+        Once every node refused, or no node outside the avoid set can
+        ever hold the task (a demand or a hard affinity only the refusing
+        node meets: avoiding it would park the task for good), the avoid
+        set starts over after a growing delay, so a full cluster is
+        polled, not hammered."""
         avoid = getattr(spec, "_avoid_nodes", None) or set()
         avoid.add(node.node_id)
         delay = 0.0
+        strategy = spec.scheduling_strategy
+        pinned = strategy.node_id \
+            if strategy.kind == "NODE_AFFINITY" and not strategy.soft \
+            else None
+        elsewhere = any(
+            n.alive and n.node_id not in avoid
+            and n.feasible(spec.resources)
+            and (pinned is None or n.node_id.hex() == pinned)
+            for n in self.cluster.nodes())
         with self._remote_nodes_lock:
-            if avoid >= set(self._remote_nodes):
+            if avoid >= set(self._remote_nodes) or not elsewhere:
                 avoid = set()
                 spec._spill_rounds = getattr(spec, "_spill_rounds", 0) + 1
                 delay = min(0.05 * (2 ** min(spec._spill_rounds, 6)), 2.0)
@@ -1770,15 +2276,65 @@ class Runtime:
                     deadline_s: float | None = None) -> list[ObjectRef]:
         """Queue one task; its refs come back at once. ``runtime_env``
         applies in a pool worker (a task on a thread ignores it).
-        ``deadline_s``
-        arms an end-to-end budget checked at every stage; a
-        deadline-armed submit over the admission cap raises
-        ``SystemOverloadedError`` instead of queueing (its budget would
-        die in the backlog)."""
+        ``deadline_s`` arms an end-to-end budget checked at every stage.
+
+        With the submit ring (``submit_pipeline``, the default) this only
+        makes the ids and pushes a record: the ring's flush does the
+        record-keeping, and a deadline-armed submit over the admission
+        cap is sealed with ``SystemOverloadedError`` there. Without it
+        (``_submit_task_inline``) such a submit raises at once."""
         from ray_tpu_torch._private.worker_pool import validate_runtime_env
 
         validate_runtime_env(runtime_env)
         deadline = self._absolute_deadline(deadline_s)
+        ring = self._submit_ring
+        if ring is None:
+            return self._submit_task_inline(
+                func, args, kwargs, name=name, num_returns=num_returns,
+                resources=resources, max_retries=max_retries,
+                retry_exceptions=retry_exceptions,
+                scheduling_strategy=scheduling_strategy,
+                runtime_env=runtime_env, deadline=deadline)
+        rec = _SubmitRecord()
+        rec.func = func
+        rec.args = args
+        rec.kwargs = kwargs
+        rec.name = name
+        rec.num_returns = num_returns
+        rec.resources = resources
+        rec.max_retries = max_retries
+        rec.retry_exceptions = retry_exceptions
+        rec.strategy = scheduling_strategy or SchedulingStrategy()
+        rec.runtime_env = runtime_env
+        rec.task_id = TaskID()
+        rec.return_ids = [ObjectID() for _ in range(num_returns)]
+        rec.cancelled = False
+        rec.deadline = deadline
+        rec.state = _SubmitRecord.BUFFERED
+        # The performance plane's submit stamp is the .remote() call's,
+        # so submit_dispatch counts the ring's wait too.
+        rec.submit_ts = time.time() if perf.PERF_ON else 0.0
+        add_ref = self.reference_counter.add_ref
+        refs = []
+        for rid in rec.return_ids:
+            ref = ObjectRef(rid, _register=False)
+            add_ref(rid)
+            ref._registered = True
+            refs.append(ref)
+        ring.push(rec)
+        return refs
+
+    def _submit_task_inline(self, func, args: tuple, kwargs: dict, *,
+                            name: str, num_returns: int,
+                            resources: dict[str, float], max_retries: int,
+                            retry_exceptions: bool | list,
+                            scheduling_strategy: SchedulingStrategy | None,
+                            runtime_env: dict | None,
+                            deadline: float | None) -> list[ObjectRef]:
+        """The per-task submit (``submit_pipeline`` off): a
+        deadline-armed submit over the admission cap raises
+        ``SystemOverloadedError`` instead of queueing (its budget would
+        die in the backlog)."""
         if deadline is not None:
             reason = self._admission_overload_reason()
             if reason is not None:
@@ -1802,6 +2358,136 @@ class Runtime:
         self.dispatcher.submit(spec, self._execute_task,
                                ref_args(args, kwargs))
         return refs
+
+    def _seal_cancelled_submit(self, rec: _SubmitRecord) -> None:
+        """A buffered submit was cancelled before any dispatch: seal the
+        cancellation onto its refs (``put_error`` makes their entries)."""
+        err = TaskCancelledError(rec.task_id)
+        for rid in rec.return_ids:
+            self.store.put_error(rid, err)
+        self.gcs.record_task_event(TaskEvent(
+            rec.task_id, rec.name, "FAILED", error="cancelled"))
+
+    def _cancel_registered(self, object_id: ObjectID) -> None:
+        """Cancel a task the dispatcher holds and not yet started."""
+        spec = self.dispatcher.cancel_by_return_id(object_id)
+        if spec is None:
+            return
+        err = TaskCancelledError(spec.task_id)
+        for rid in spec.return_ids:
+            self.store.put_error(rid, err)
+        self.gcs.record_task_event(TaskEvent(
+            spec.task_id, spec.name, "FAILED", error="cancelled"))
+
+    def _seal_overloaded(self, rec: _SubmitRecord, reason: str) -> None:
+        """Shed a deadline-armed submit at the flush: its refs get the
+        retryable SystemOverloadedError."""
+        err = SystemOverloadedError(reason)
+        for rid in rec.return_ids:
+            self.store.put_error(rid, err)
+        with self._counter_lock:
+            self._admission_shed += 1
+        self.gcs.record_task_event(TaskEvent(
+            rec.task_id, rec.name, "FAILED", end_time=time.time(),
+            error=f"shed: {reason}"))
+
+    def _flush_submits(self, ring: _SubmitRing, records: list) -> None:
+        """One flush of the submit ring: the TaskSpecs, then one
+        ``create_pending_batch``, one ``lineage.record_many`` and one
+        ``dispatcher.submit_many`` for the whole flush. ``ring`` comes
+        in as an argument: shutdown detaches the runtime's ring before
+        its last flush."""
+        t0 = time.perf_counter()
+        live: list = []
+        with ring._cond:
+            for rec in records:
+                if rec.cancelled:
+                    # Sealed by ring.cancel() while BUFFERED.
+                    for rid in rec.return_ids:
+                        ring._by_rid.pop(rid, None)
+                    continue
+                rec.state = _SubmitRecord.DRAINING
+                live.append(rec)
+        if not live:
+            return
+        # Admission at the flush: over the cap, a deadline-armed record is
+        # shed (its budget would die in the backlog) and the others wait
+        # here, which backs the ring up into .remote() (bounded
+        # blocking, never loss).
+        overload = self._admission_overload_reason()
+        if overload is not None:
+            armed = [rec for rec in live if rec.deadline is not None]
+            for rec in armed:
+                self._seal_overloaded(rec, overload)
+            if armed:
+                live = [rec for rec in live if rec.deadline is None]
+                with ring._cond:
+                    for rec in armed:
+                        rec.state = _SubmitRecord.SUBMITTED
+                        for rid in rec.return_ids:
+                            ring._by_rid.pop(rid, None)
+            while live and self._admission_overload_reason() is not None:
+                if ring._stop:
+                    break  # the last flush must not wedge
+                time.sleep(0.02)
+        now = time.time()
+        specs: list = []
+        failed: list = []
+        expired: list = []
+        for rec in live:
+            if rec.deadline is not None and now > rec.deadline:
+                expired.append(rec)  # its budget died in the ring
+                continue
+            try:
+                self._pin_nested_arg_refs(rec.args, rec.kwargs)
+                spec = TaskSpec(
+                    task_id=rec.task_id, name=rec.name, func=rec.func,
+                    args=rec.args, kwargs=rec.kwargs,
+                    num_returns=rec.num_returns, resources=rec.resources,
+                    max_retries=rec.max_retries,
+                    retry_exceptions=rec.retry_exceptions,
+                    scheduling_strategy=rec.strategy,
+                    return_ids=rec.return_ids, deadline=rec.deadline,
+                    runtime_env=rec.runtime_env, submit_ts=rec.submit_ts)
+            except BaseException as exc:  # noqa: BLE001 — sealed on its refs
+                failed.append((rec, exc))
+                continue
+            specs.append(spec)
+        # Every pending entry exists before any task of the flush reaches
+        # the dispatcher, so dependencies within a flush gate right.
+        self.store.create_pending_batch(
+            [rid for spec in specs for rid in spec.return_ids])
+        self.lineage.record_many(specs)
+        for spec in specs:
+            self.gcs.record_task_event(TaskEvent(spec.task_id, spec.name,
+                                                 "PENDING"))
+        # A placement-group task goes through the same queue: the
+        # dispatcher admits it to its bundle.
+        if specs:
+            self.dispatcher.submit_many(
+                [(spec, self._execute_task, ref_args(spec.args, spec.kwargs))
+                 for spec in specs])
+        for rec, exc in failed:
+            for rid in rec.return_ids:
+                self.store.put_error(rid, exc)
+            self.gcs.record_task_event(TaskEvent(
+                rec.task_id, rec.name, "FAILED", error=str(exc)))
+        for rec in expired:
+            self._seal_deadline(rec, "submit")
+        # Handed over: a cancel from here on goes to the dispatcher, and
+        # one that came while the record was DRAINING is replayed now.
+        post_cancel: list = []
+        with ring._cond:
+            for rec in live:
+                rec.state = _SubmitRecord.SUBMITTED
+                for rid in rec.return_ids:
+                    ring._by_rid.pop(rid, None)
+                if rec.cancelled:
+                    post_cancel.append(rec)
+        for rec in post_cancel:
+            if rec.return_ids:
+                self._cancel_registered(rec.return_ids[0])
+        self._flush_wall_us += int((time.perf_counter() - t0) * 1e6)
 
     def _execute_task(self, spec: TaskSpec, node: NodeState) -> None:
         start = time.time()
@@ -1838,23 +2524,7 @@ class Runtime:
                     self._seal_deadline(spec, "admitted")
                     return
                 except NodeOverloadedError as exc:
-                    with self._counter_lock:
-                        self._admission_shed += 1
-                    if spec.deadline is not None:
-                        # Its budget would die waiting: it fails at once
-                        # with the retryable error, typed (never
-                        # wrapped, never retried here).
-                        err = SystemOverloadedError(
-                            f"node {node.node_id.hex()[:8]} shed the "
-                            f"task: {exc}")
-                        for rid in spec.return_ids:
-                            self.store.put_error(rid, err)
-                        self.gcs.record_task_event(TaskEvent(
-                            spec.task_id, spec.name, "FAILED",
-                            start_time=start, end_time=time.time(),
-                            error=f"shed: {exc}"))
-                        return
-                    self._spillback_requeue(spec, node)
+                    self._shed_remote(spec, node, str(exc), start)
                     return
                 self.gcs.record_task_event(TaskEvent(
                     spec.task_id, spec.name, "FINISHED",
@@ -2474,15 +3144,13 @@ class Runtime:
 
     def cancel(self, ref: ObjectRef) -> None:
         """Best effort: a task that has not started is cancelled; a
-        running thread cannot be stopped and completes normally."""
-        spec = self.dispatcher.cancel_by_return_id(ref.id())
-        if spec is None:
+        running thread cannot be stopped and completes normally. A
+        submit still in the ring is the ring's to cancel (a buffered one
+        seals at once, a draining one when its flush ends)."""
+        ring = self._submit_ring
+        if ring is not None and ring.cancel(ref.id()) is not None:
             return
-        err = TaskCancelledError(spec.task_id)
-        for rid in spec.return_ids:
-            self.store.put_error(rid, err)
-        self.gcs.record_task_event(TaskEvent(
-            spec.task_id, spec.name, "FAILED", error="cancelled"))
+        self._cancel_registered(ref.id())
 
     def free(self, refs: Sequence[ObjectRef]) -> None:
         self.store.free([r.id() for r in refs])
@@ -2491,8 +3159,14 @@ class Runtime:
 
     def attach_future(self, ref: ObjectRef,
                       fut: concurrent.futures.Future) -> None:
+        ring = self._submit_ring
         with self._futures_lock:
-            if self.store.is_pending(ref.id()):
+            # A submit still in the ring has no store entry yet, but is
+            # pending: its flush makes the entry, and the seal resolves
+            # the future.
+            if self.store.is_pending(ref.id()) or (
+                    ring is not None and not self.store.contains(ref.id())
+                    and ring.holds(ref.id())):
                 self._futures.setdefault(ref.id(), []).append(fut)
                 return
         self._resolve_one_future(ref.id(), fut)
@@ -2517,6 +3191,11 @@ class Runtime:
         return self.cluster.available_resources()
 
     def shutdown(self) -> None:
+        if self._submit_ring is not None:
+            # Flush what is buffered (its owners may hold refs) and stop
+            # the submitter before the dispatcher stops.
+            ring, self._submit_ring = self._submit_ring, None
+            ring.stop()
         if self.metrics_agent is not None:
             self.metrics_agent.shutdown()
             self.metrics_agent = None

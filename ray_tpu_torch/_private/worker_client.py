@@ -38,6 +38,8 @@ _active: "WorkerModeRuntime | None" = None
 
 
 def current_task_token() -> str | None:
+    if in_daemon_task():
+        return _daemon_task.token
     return _current_task_token
 
 
@@ -46,7 +48,72 @@ def set_task_token(token: str | None) -> None:
     _current_task_token = token
 
 
+# Set on a node daemon's thread while it runs a task in the daemon's own
+# process (a fused run): the public API there goes to the task's driver,
+# under the task's token. Fused tasks of several drivers run at once on
+# the daemon's threads, so both are the thread's, and each driver keeps
+# its own proxy.
+_daemon_task = threading.local()
+_daemon_runtimes: "dict[str, WorkerModeRuntime]" = {}
+# Proxies to drivers with no task here any more are closed past this
+# many (a long-lived daemon outlives its drivers).
+_DAEMON_RUNTIMES_KEPT = 8
+_daemon_users: dict[str, int] = {}
+
+
+def enter_daemon_task(address: str | None, token: str | None) -> None:
+    _daemon_task.address = address
+    _daemon_task.token = token
+    _daemon_task.on = True
+    if address:
+        with _active_lock:
+            _daemon_users[address] = _daemon_users.get(address, 0) + 1
+
+
+def leave_daemon_task() -> None:
+    address = getattr(_daemon_task, "address", None)
+    _daemon_task.on = False
+    _daemon_task.address = _daemon_task.token = None
+    if address:
+        with _active_lock:
+            left = _daemon_users.get(address, 1) - 1
+            if left > 0:
+                _daemon_users[address] = left
+            else:
+                _daemon_users.pop(address, None)
+
+
+def in_daemon_task() -> bool:
+    return getattr(_daemon_task, "on", False)
+
+
+def _daemon_runtime() -> "WorkerModeRuntime":
+    """The proxy to the driver of the fused task on this thread."""
+    address = getattr(_daemon_task, "address", None)
+    if not address:
+        raise RuntimeError(
+            "the public API inside a task on a node daemon needs its "
+            "driver's client server (the task came with no address)")
+    stale = []
+    with _active_lock:
+        runtime = _daemon_runtimes.pop(address, None)
+        if runtime is None:
+            runtime = WorkerModeRuntime(address)
+        # Most recently used last.
+        _daemon_runtimes[address] = runtime
+        for other in list(_daemon_runtimes):
+            if len(_daemon_runtimes) <= _DAEMON_RUNTIMES_KEPT:
+                break
+            if other not in _daemon_users:
+                stale.append(_daemon_runtimes.pop(other))
+    for old in stale:
+        old.shutdown()
+    return runtime
+
+
 def active_worker_runtime() -> "WorkerModeRuntime | None":
+    if in_daemon_task():
+        return _daemon_runtime()
     return _active
 
 
@@ -64,8 +131,11 @@ def use_address(address: str) -> None:
 
 
 def get_worker_runtime() -> "WorkerModeRuntime":
-    """The process's proxy runtime, made at its first use."""
+    """The process's proxy runtime, made at its first use (on a daemon's
+    thread running a fused task, that task's driver's)."""
     global _active
+    if in_daemon_task():
+        return _daemon_runtime()
     with _active_lock:
         if _active is None:
             address = os.environ.get(ADDRESS_ENV)
@@ -423,3 +493,5 @@ class WorkerModeRuntime:
         with _active_lock:
             if _active is self:
                 _active = None
+            if _daemon_runtimes.get(self._rpc.address) is self:
+                del _daemon_runtimes[self._rpc.address]

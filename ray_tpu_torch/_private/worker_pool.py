@@ -103,6 +103,30 @@ class _ShmRef:
     desc: ShmDescriptor
 
 
+@dataclass
+class _BatchTask:
+    """One task of a pipelined batch run (``WorkerPool.run_task_batch``)."""
+
+    idx: int                    # its position in the caller's batch
+    digest: str
+    func_blob: bytes | None
+    args_blob: bytes
+    n_returns: int
+    runtime_env: dict | None = None
+    token: str | None = None
+    client_addr: str | None = None
+    sys_path: list | None = None
+    # The absolute end-to-end deadline: a frame whose budget died queued
+    # behind the lease's head is refused by the worker, never run.
+    deadline: float | None = None
+    # The driver over-subscribed this entry past the node's free slots
+    # (entry flags bit 2): a failed reservation parks it in the daemon's
+    # admission instead of answering busy.
+    overcommit: bool = False
+    # The return keys, which the fused in-daemon path needs.
+    return_keys: list | None = None
+
+
 # --------------------------------------------------------------------------
 # The worker process
 # --------------------------------------------------------------------------
@@ -384,6 +408,27 @@ def _serve(conn, client: ShmClient) -> None:
                 # A sampled task replies ("ok", packed, sample).
                 conn.send(("ok", *out) if isinstance(out, tuple)
                           else ("ok", out))
+            elif kind == "task_seq":
+                # A frame of a pipelined lease: the sender does not wait
+                # for replies, frames run in the order received, and each
+                # reply carries its call id, ("task_done", id, status,
+                # payload[, sample]). An optional 12th element is the
+                # absolute deadline: a frame whose budget died queued
+                # behind the lease's head is refused ("timeout").
+                call_id = msg[1]
+                deadline = msg[11] if len(msg) > 11 else None
+                if deadline is not None and time.time() > deadline:
+                    conn.send(("task_done", call_id, "timeout", None))
+                    continue
+                try:
+                    out = _exec_task_body(msg[2:], func_cache, client)
+                except BaseException as exc:  # noqa: BLE001 — this task's
+                    conn.send(("task_done", call_id, "err",
+                               _exception_blob(exc)))
+                    continue
+                conn.send(("task_done", call_id, "ok", *out)
+                          if isinstance(out, tuple)
+                          else ("task_done", call_id, "ok", out))
             elif kind == "actor_new":
                 instance = _new_actor(msg, client)
                 conn.send(("ok", None))
@@ -678,7 +723,9 @@ class PoolWorker:
                 raise self._crashed(exc) from exc
 
     def send(self, msg: tuple) -> None:
-        """Send without waiting for a reply (the multiplexed protocol)."""
+        """Send without waiting for a reply (the multiplexed protocol, and
+        a pipelined lease's frames, whose one reader matches the tagged
+        replies)."""
         with self._lock:
             try:
                 self.conn.send(msg)
@@ -686,6 +733,14 @@ class PoolWorker:
                 raise _WorkerUnavailable(
                     f"worker {self.index} (pid {self.proc.pid}) "
                     f"unreachable: {exc!r}") from exc
+
+    def recv_reply(self) -> tuple:
+        """The next reply of a pipelined lease. Raises WorkerCrashedError
+        when the process died."""
+        try:
+            return self.conn.recv()
+        except (EOFError, OSError) as exc:
+            raise self._crashed(exc) from exc
 
     def alive(self) -> bool:
         return self.proc.poll() is None
@@ -738,6 +793,13 @@ class WorkerPool:
         self._next_index = 0
         self._num_leased = 0
         self._shutdown = False
+        # The pipelined batches: lease runs, tasks that entered them,
+        # frames sent, and unstarted frames requeued after a crash.
+        self._batch_lock = threading.Lock()
+        self.batch_runs = 0
+        self.batch_tasks = 0
+        self.batch_frames = 0
+        self.batch_requeues = 0
         if size > 0:
             # In parallel: each spawn waits on its worker's start-up.
             with ThreadPoolExecutor(max_workers=min(size, 8)) as tpe:
@@ -805,6 +867,181 @@ class WorkerPool:
         if retire is not None:
             # A surplus worker of a burst: retire it off the lock.
             threading.Thread(target=retire.stop, daemon=True).start()
+
+    # ----------------------------------------------------- pipelined batches
+
+    def try_acquire_idle(self) -> "PoolWorker | None":
+        """Lease an idle worker if there is one: never grows the pool,
+        never waits (the extra lease runners of a batch)."""
+        with self._lock:
+            if self._shutdown:
+                return None
+            while self._idle:
+                worker = self._idle.pop()
+                if worker.alive():
+                    self._num_leased += 1
+                    return worker
+                worker.stop()
+        return None
+
+    def run_task_batch(self, tasks: "list[_BatchTask]", on_result,
+                       depth: int, tracker=None) -> None:
+        """Run a batch over pipelined multi-task worker leases, and return
+        when every task has completed.
+
+        One lease is taken up front; while tasks are queued and a
+        runner's pipe is full, idle workers are leased too, so short
+        tasks drain through one lease and long ones fan out. A lease
+        keeps up to ``depth`` call-id-tagged frames in flight.
+
+        ``on_result(task, status, payload, sample)`` fires once per task
+        from a runner thread: "ok" (packed results), "err" (an exception
+        blob), "timeout" (its deadline died before the worker took it)
+        or "crash" (a WorkerCrashedError: it may have started). A worker
+        that dies mid-pipeline fails only its oldest frame in flight; the
+        ones behind it never started and go to a fresh lease.
+        ``tracker`` sees each lease's frames: ``sent(key, token)``,
+        ``done(key, token)``, ``drop_lease(key)``."""
+        from collections import deque
+
+        if not tasks:
+            return
+        state = _BatchState(deque(tasks), on_result, max(1, depth),
+                            tracker, len(tasks))
+        with self._batch_lock:
+            self.batch_runs += 1
+            self.batch_tasks += len(tasks)
+        try:
+            worker = self._acquire()
+        except BaseException as exc:  # noqa: BLE001 — the pool is shut down
+            for task in tasks:
+                self._complete_one(state, task, "crash", exc)
+            return
+        self._batch_runner(worker, state)
+        # This runner is done; its siblings may still hold frames.
+        state.done.wait()
+
+    def _maybe_extra_runner(self, state: "_BatchState") -> None:
+        with state.lock:
+            if not state.queue:
+                return
+        worker = self.try_acquire_idle()
+        if worker is None:
+            return
+        threading.Thread(target=self._batch_runner, args=(worker, state),
+                         daemon=True,
+                         name="ray_tpu_torch-batch-lease").start()
+
+    def _batch_runner(self, worker: PoolWorker,
+                      state: "_BatchState") -> None:
+        from collections import deque
+
+        tracker = state.tracker
+        while True:  # one pass per lease (a crash takes a new worker)
+            lease_key = object()
+            inflight: deque = deque()  # (call id, task)
+            next_id = 0
+            crashed: BaseException | None = None
+            while True:
+                while len(inflight) < state.depth:
+                    with state.lock:
+                        task = state.queue.popleft() if state.queue \
+                            else None
+                    if task is None:
+                        break
+                    blob = None if task.digest in worker.known_digests \
+                        else task.func_blob
+                    next_id += 1
+                    frame = ("task_seq", next_id, task.digest, blob,
+                             task.args_blob, task.n_returns,
+                             task.runtime_env, task.token,
+                             task.client_addr,
+                             task.sys_path if blob is not None else None,
+                             perf.PERF_ON)
+                    if task.deadline is not None:
+                        frame = frame + (task.deadline,)
+                    try:
+                        worker.send(frame)
+                    except _WorkerUnavailable as exc:
+                        # Never delivered: it goes back with the unstarted.
+                        with state.lock:
+                            state.queue.appendleft(task)
+                        with self._batch_lock:
+                            self.batch_requeues += 1
+                        crashed = exc
+                        break
+                    worker.known_digests.add(task.digest)
+                    inflight.append((next_id, task))
+                    with self._batch_lock:
+                        self.batch_frames += 1
+                    if tracker is not None and task.token:
+                        tracker.sent(lease_key, task.token)
+                if crashed is not None:
+                    break
+                if not inflight:
+                    self._release(worker)
+                    return
+                with state.lock:
+                    more = bool(state.queue)
+                if more:
+                    self._maybe_extra_runner(state)
+                try:
+                    msg = worker.recv_reply()
+                except WorkerCrashedError as exc:
+                    crashed = exc
+                    break
+                if msg[0] != "task_done":
+                    continue
+                call_id, status, payload = msg[1], msg[2], msg[3]
+                sample = msg[4] if len(msg) > 4 else None
+                task = None
+                for i, (cid, queued) in enumerate(inflight):
+                    if cid == call_id:
+                        task = queued
+                        del inflight[i]
+                        break
+                if task is None:
+                    continue
+                if tracker is not None and task.token:
+                    tracker.done(lease_key, task.token)
+                self._complete_one(state, task, status, payload, sample)
+            # The worker died (or refused a frame). Its oldest frame was
+            # running and may have had effects: it fails. The ones behind
+            # it never started and go to a fresh lease.
+            if tracker is not None:
+                tracker.drop_lease(lease_key)
+            started = inflight.popleft() if inflight else None
+            if started is not None:
+                self._complete_one(state, started[1], "crash", crashed)
+            if inflight:
+                with self._batch_lock:
+                    self.batch_requeues += len(inflight)
+            with state.lock:
+                state.queue.extendleft(t for _, t in reversed(inflight))
+                remaining = bool(state.queue)
+            self._release(worker)
+            if not remaining:
+                return
+            try:
+                worker = self._acquire()
+            except BaseException:  # noqa: BLE001 — the pool is shut down
+                with state.lock:
+                    stranded = list(state.queue)
+                    state.queue.clear()
+                for task in stranded:
+                    self._complete_one(state, task, "crash", crashed)
+                return
+
+    @staticmethod
+    def _complete_one(state: "_BatchState", task: _BatchTask, status: str,
+                      payload, sample=None) -> None:
+        try:
+            state.on_result(task, status, payload, sample)
+        finally:
+            with state.lock:
+                state.remaining -= 1
+                if state.remaining <= 0:
+                    state.done.set()
 
     def marshal_args(self, args: tuple, kwargs: dict,
                      promote: Callable[[Any], Any]) -> bytes:
@@ -912,6 +1149,23 @@ class WorkerPool:
             self._lock.notify_all()
         for w in workers:
             w.stop()
+
+
+class _BatchState:
+    """One ``run_task_batch`` call's state: the queue its lease runners
+    take from, the completions still to come and the parking tracker."""
+
+    __slots__ = ("queue", "on_result", "depth", "tracker", "remaining",
+                 "lock", "done")
+
+    def __init__(self, queue, on_result, depth, tracker, n):
+        self.queue = queue
+        self.on_result = on_result
+        self.depth = depth
+        self.tracker = tracker
+        self.remaining = n
+        self.lock = threading.Lock()
+        self.done = threading.Event()
 
 
 def unpack_result(packed: tuple, rid: ObjectID, directory: ShmDirectory,

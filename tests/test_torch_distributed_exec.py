@@ -17,9 +17,11 @@ Where the port deliberately differs:
   daemon's own process, on the card its lease names, and a daemon that
   declares more ``GPU`` than it sees refuses to start (the port-only
   cases at the end; here ``RAY_TPU_TORCH_NUM_GPUS`` stands for a card);
-- there is no pipelined ``execute_task_batch`` (item 10c): every task
-  goes through ``execute_task``, so the spillback case makes only that
-  refuse once per node;
+- the tasks a dispatch pass claims for one node ride one
+  ``execute_task_batch`` RPC, a claim of one too (the reference sends
+  that on its single path, or in a columnar run of its dispatch lanes,
+  which are not ported), so the spillback case makes both paths refuse
+  once per node, as for the reference;
 - the node tag is ``RAY_TPU_TORCH_NODE_TAG`` and the package cache
   ``ray_tpu_torch_pkg_cache``.
 """
@@ -135,7 +137,9 @@ def test_executor_admission_rejects_over_capacity():
 def test_gpu_task_runs_in_the_daemon_process_on_its_leased_card(tmp_path):
     """A ``num_gpus=1`` task runs in the daemon's own process (not a
     pool worker), with its lease's card; a second one waits for it, as
-    the node has one card."""
+    the node has one card. Plain CPU tasks, alone or in a burst that
+    rides batch RPCs, run in pool workers, which see no card: a node
+    with a card fuses none of them into its own process."""
     sides = start_clusters(
         tmp_path, [{"num_cpus": 2, "resources": {"GPU": 1},
                     "env": {"RAY_TPU_TORCH_NUM_GPUS": "1"}}],
@@ -167,6 +171,14 @@ def test_gpu_task_runs_in_the_daemon_process_on_its_leased_card(tmp_path):
 
         pool_pid, pool_visible = rt.get(on_pool.remote(), timeout=60)
         assert pool_pid != daemon_pid and pool_visible == ""
+        handle = side.handles()[0]
+        rpcs0 = handle._control.call("executor_stats")["pipeline"][
+            "batch_rpcs"]
+        burst = rt.get([on_pool.remote() for _ in range(40)], timeout=60)
+        assert {visible for _, visible in burst} == {""}
+        assert daemon_pid not in {pid for pid, _ in burst}
+        pipe = handle._control.call("executor_stats")["pipeline"]
+        assert pipe["batch_rpcs"] > rpcs0 and pipe["fused_tasks"] == 0
         assert wait_until(lambda: rt.available_resources().get("GPU")
                            == 1.0)
     finally:
@@ -305,21 +317,19 @@ def spill_on_busy(side: Side) -> dict:
 
         handle.execute = flaky
         patched.append(handle)
-        if side.name == "ray_tpu":
-            # The reference may send the first task through its batch
-            # path instead; it refuses once there too.
-            orig_batch = handle.execute_batch
+        # The first task may go through the batch path instead; it
+        # refuses once there too.
+        orig_batch = handle.execute_batch
 
-            def flaky_batch(entries, on_results, *args, _orig=orig_batch,
-                            _addr=handle.address, **kwargs):
-                if busy_counts[_addr] < 1:
-                    busy_counts[_addr] += 1
-                    on_results([(i, ("busy",))
-                                for i in range(len(entries))])
-                    return len(entries)
-                return _orig(entries, on_results, *args, **kwargs)
+        def flaky_batch(entries, on_results, *args, _orig=orig_batch,
+                        _addr=handle.address, **kwargs):
+            if busy_counts[_addr] < 1:
+                busy_counts[_addr] += 1
+                on_results([(i, ("busy",)) for i in range(len(entries))])
+                return len(entries), {}
+            return _orig(entries, on_results, *args, **kwargs)
 
-            handle.execute_batch = flaky_batch
+        handle.execute_batch = flaky_batch
     try:
         @side.rt.remote
         def plus(x):

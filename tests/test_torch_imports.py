@@ -76,6 +76,15 @@ OBSERVABILITY_MODULES = (
     "ray_tpu_torch._private.metrics_history",
     "ray_tpu_torch._private.metrics_agent", "ray_tpu_torch.util.metrics",
     "ray_tpu_torch.serve.llm_engine.engine")
+# The pipelined task path: the transport, the store's grouped seal, the
+# worker leases, the batch RPC and its fused runs, batched dispatch and
+# the driver's submit ring.
+TASK_PIPELINE_MODULES = (
+    "ray_tpu_torch._private.rpc", "ray_tpu_torch._private.object_store",
+    "ray_tpu_torch._private.worker_pool",
+    "ray_tpu_torch._private.node_executor",
+    "ray_tpu_torch._private.scheduler", "ray_tpu_torch._private.worker",
+    "ray_tpu_torch._private.config")
 # The data package: every module, imported where importing jax, ray_tpu
 # or cloudpickle raises.
 DATA_MODULES = tuple(
@@ -203,6 +212,20 @@ def test_observability_modules_import_without_jax_ray_tpu_or_cloudpickle():
     assert GLOBAL_CONFIG.get("gcs_shards") == 1
     assert GLOBAL_CONFIG.get("perf_plane") is True
     assert GLOBAL_CONFIG.get("metrics_history") is True
+
+
+def test_task_pipeline_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    """The modules of the pipelined task path, where importing jax,
+    ray_tpu or cloudpickle raises; its knobs are armed by default."""
+    assert _import_blocked(TASK_PIPELINE_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+    from ray_tpu_torch._private import node_executor
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    assert GLOBAL_CONFIG.get("submit_pipeline") is True
+    assert GLOBAL_CONFIG.get("fused_execution") is True
+    assert node_executor.FUSED_ON is True
+    assert callable(node_executor.NodeExecutorService.execute_task_batch)
 
 
 def test_same_host_plane_imports_without_jax_ray_tpu_or_cloudpickle():

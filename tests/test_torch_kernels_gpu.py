@@ -1120,3 +1120,72 @@ def test_node_results_survive_a_shard_kill(cuda_device, tmp_path):
         cluster.shutdown()
         GLOBAL_CONFIG.reset()
         gcs_shard.init_from_config()
+
+
+@pytest.mark.gpu
+def test_rmsnorm_tasks_ride_the_submit_ring_to_a_daemon(cuda_device,
+                                                        tmp_path):
+    """chip_smoke.py's node_cluster (a'') on the card, on one daemon:
+    ``num_gpus=1`` RMSNorm tasks over inputs the driver put, submitted
+    at once through the submit ring, each bitwise the driver's own
+    launch with one kernel launch; then CPU tasks taking those results
+    as ref arguments, which ride execute_task_batch RPCs down its
+    classic branch, their checksums the driver's."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    # The tasks are defined here: they go to the daemon by value.
+    def _norm(x, scale):
+        import importlib
+
+        import torch
+
+        fused = importlib.import_module("ray_tpu_torch.ops.fused")
+        before = fused.launches["rmsnorm"]
+        with torch.no_grad():
+            out = fused.rms_norm(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        return out, fused.launches["rmsnorm"] - before
+
+    def _checksum(x):
+        import torch
+
+        return float(torch.as_tensor(x).cpu().double().sum())
+
+    gen = torch.Generator(cuda_device).manual_seed(43)
+    xs = [torch.randn(8, 4096, generator=gen, device=cuda_device)
+          for _ in range(8)]
+    scale = torch.randn(4096, generator=gen, device=cuda_device)
+    with torch.no_grad():
+        want = [fused.rms_norm(x, scale, 1e-5) for x in xs]
+    torch.cuda.synchronize()
+    rt.shutdown()
+    cluster = Cluster(log_dir=str(tmp_path / "cluster"))
+    try:
+        cluster.add_node(num_cpus=2, resources={"GPU": 1})
+        assert cluster.wait_for_nodes(1, timeout=300)
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        deadline = time.monotonic() + 120
+        while rt.cluster_resources().get("GPU", 0) < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        assert runtime._submit_ring is not None
+        handle = next(iter(runtime._remote_nodes.values()))
+        rpcs0 = handle.pool.call("executor_stats")["pipeline"]["batch_rpcs"]
+        ring0 = runtime.execution_pipeline_stats()["submit"]["ring_submits"]
+        scale_ref = rt.put(scale)
+        norm = rt.remote(num_gpus=1, num_returns=2)(_norm)
+        pairs = [norm.remote(rt.put(x), scale_ref) for x in xs]
+        got = rt.get([p[0] for p in pairs], timeout=300)
+        assert rt.get([p[1] for p in pairs], timeout=60) == [1] * 8
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        sums = rt.get([rt.remote(num_cpus=1)(_checksum).remote(p[0])
+                       for p in pairs], timeout=300)
+        assert sums == [float(w.cpu().double().sum()) for w in want]
+        stats = handle.pool.call("executor_stats")["pipeline"]
+        assert stats["batch_rpcs"] > rpcs0
+        assert runtime.execution_pipeline_stats()["submit"][
+            "ring_submits"] - ring0 >= 16
+    finally:
+        rt.shutdown()
+        cluster.shutdown()

@@ -601,6 +601,62 @@ def test_overload_chaos_fires_overload_verdict(tmp_path):
             "shed": 12, "value": True, "intervals": True, "window": 8.0}
 
 
+def fused_spike_live(pkg, tmp_path):
+    rt = importlib.import_module(pkg)
+    cluster_cls = importlib.import_module(f"{pkg}.cluster_utils").Cluster
+    _mod(pkg, "config").GLOBAL_CONFIG.update({
+        "metrics_history_interval_s": 0.3, "health_window_s": 8.0,
+        "health_fused_fallback_per_s": 0.2})
+    rt.shutdown()
+    cluster = cluster_cls(log_dir=str(tmp_path / pkg / "cluster"))
+    # A budget no fused run can keep: every run past its first task
+    # spills the rest to the worker path.
+    cluster.add_node(num_cpus=2, pool_size=1, heartbeat_period_s=0.3,
+                     env={ENV_PREFIX[pkg] + "FUSED_RUN_WALL_BUDGET_S":
+                          "0.001"})
+    runtime = None
+    try:
+        assert cluster.wait_for_nodes(1, timeout=60)
+        runtime = rt.init(num_cpus=0, address=cluster.address)
+        _wait_for(lambda: rt.cluster_resources().get("CPU", 0) >= 2, 60,
+                  "the worker node to join")
+
+        @rt.remote(num_cpus=1)
+        def nap(x):
+            time.sleep(0.01)
+            return x
+
+        out = []
+        for wave in range(4):
+            out += rt.get([nap.remote(wave * 10 + i) for i in range(10)],
+                          timeout=60)
+            time.sleep(1.0)
+        _wait_for(lambda: any(
+            v["rule"] == "fused_fallback_spike"
+            for v in (runtime.cluster_health() or {}).get("verdicts", [])),
+            30, "the fused_fallback_spike verdict")
+        verdict = next(v for v in runtime.cluster_health()["verdicts"]
+                       if v["rule"] == "fused_fallback_spike")
+        return {"out": out == list(range(40)),
+                "fallbacks": runtime.execution_pipeline_stats()["fused"]
+                ["fused_fallbacks"] > 0,
+                "value": verdict["value"] >= 0.2,
+                "window": verdict["window_s"]}
+    finally:
+        if runtime is not None:
+            rt.shutdown()
+        cluster.shutdown()
+
+
+def test_real_fused_fallbacks_fire_fused_fallback_spike(tmp_path):
+    """A daemon whose fused runs overrun a tiny fused_run_wall_budget_s
+    ships real fallbacks in its pipeline group, and the head's watchdog
+    raises fused_fallback_spike over them, in both packages."""
+    with time_limit(150):
+        assert _both(lambda pkg: fused_spike_live(pkg, tmp_path)) == {
+            "out": True, "fallbacks": True, "value": True, "window": 8.0}
+
+
 def disarmed_head(pkg, tmp_path):
     rt = importlib.import_module(pkg)
     cluster_cls = importlib.import_module(f"{pkg}.cluster_utils").Cluster

@@ -735,9 +735,11 @@ def test_free_and_managed_spill_restore():
 
 def test_dispatcher_wait_idle():
     """``Dispatcher.wait_idle`` returns False while a task runs and True
-    once every queued and running task has finished."""
+    once every queued and running task has finished. The task reaches
+    the dispatcher when the submit ring's flush hands it over."""
     def scenario(rt):
-        dispatcher = ray_tpu_torch._private.worker.global_runtime().dispatcher
+        runtime = ray_tpu_torch._private.worker.global_runtime()
+        dispatcher = runtime.dispatcher
         release = threading.Event()
 
         @rt.remote
@@ -745,6 +747,10 @@ def test_dispatcher_wait_idle():
             release.wait(WAIT_S)
 
         ref = hold.remote()
+        deadline = time.monotonic() + WAIT_S
+        while runtime._submit_ring.holds(ref.id()) \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
         busy = dispatcher.wait_idle(timeout=0.1)
         release.set()
         rt.get(ref)
