@@ -5298,6 +5298,189 @@ def _node_pipeline(rt, runtime, cluster, handles: dict, ids: dict, fused,
     return result
 
 
+TRACE_SEED = 53
+
+
+def _traced_fwd(seed: int):
+    """(a''') A node task: the flash forward at LOST_SHAPE (bf16, causal)
+    on inputs made on its card from ``seed``: o, the launches it made,
+    and the node's tag (its lane in the merged trace)."""
+    import importlib
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    q, k, v, _ = _lost_inputs(seed)
+    with _LaunchCount(fa) as launched, torch.no_grad():
+        o = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    return o, launched.counts, os.environ.get("RAY_TPU_TORCH_NODE_TAG", "")
+
+
+def _traced_norm(o, seed: int):
+    """(a''') A node task: RMSNorm over ``o`` as [B * L, H * D] in f32
+    (``_node_norm``), its launches, and the node's tag."""
+    out, counts = _node_norm(o, seed)
+    return out, counts, os.environ.get("RAY_TPU_TORCH_NODE_TAG", "")
+
+
+def _traced_task(tracing, runtime, suffix: str, submit, spans,
+                 lane: str) -> dict:
+    """One traced task of (a'''): its stages present in STAGES order,
+    and its daemon:execute spans on ``lane`` under the driver's submit
+    span ``submit``, in its trace."""
+    event = next(ev for ev in runtime.gcs.list_task_events()
+                 if ev.name.endswith(suffix))
+    present = [s for s in tracing.STAGES if s in event.stage_ts]
+    linked = [s.proc for s in spans if s.name == "daemon:execute"
+              and s.parent_id == submit.span_id
+              and s.trace_id == submit.trace_id]
+    return {"stages": present,
+            "stages_ordered": [event.stage_ts[s] for s in present]
+            == sorted(event.stage_ts[s] for s in present),
+            "stage_s": {s: event.stage_ts[s] - event.stage_ts[present[0]]
+                        for s in present},
+            "daemon_spans": linked, "linked_on_holder": linked == [lane]}
+
+
+def _node_traced(rt, runtime, handles: dict, ids: dict, fa, session: str,
+                 task_us: dict, kernels: dict) -> dict:
+    """(a''') Traced placement, on A and B of (a): with tracing armed in
+    the driver (the daemons need no flag: the context is their signal),
+    the ``fwd`` kernel in a ``num_gpus=1`` task pinned to A, its output
+    left there, then RMSNorm over it in a ``num_gpus=1`` task with the
+    DEFAULT strategy and no affinity, which locality must place on A;
+    both bitwise the driver's own launches. The merged chrome trace goes
+    to the phase's session directory: each task's stages in STAGES order
+    and its ``daemon:execute`` span on A's lane under the driver's submit
+    span. Then 200 empty tasks traced, one at a time, beside the
+    untraced ``task_us``. Speculation stays off: its counters are 0."""
+    from ray_tpu_torch.util import tracing
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    import gc
+
+    step_start = time.perf_counter()
+    allocated_before = torch.cuda.memory_allocated()
+    store_before = runtime.store.stats()["memory_used_bytes"]
+    q, k, v, _ = _lost_inputs(TRACE_SEED)
+    with torch.no_grad():
+        want_o = fa.flash_attention(q, k, v, causal=True)
+    want_n, _ = _node_norm(want_o, TRACE_SEED)
+    torch.cuda.synchronize()
+    del q, k, v
+    o_bytes = want_o.numel() * want_o.element_size()
+    node_a = runtime.cluster.get_node(ids["A"])
+    tracing.clear()
+    tracing.enable()
+    try:
+        fwd = rt.remote(num_gpus=1, num_returns=3,
+                        scheduling_strategy=NodeAffinitySchedulingStrategy(
+                            ids["A"].hex(), soft=False))(_traced_fwd)
+        with tracing.trace_span("submit:fwd") as fwd_span:
+            o_ref, fwd_counts_ref, a_tag_ref = fwd.remote(TRACE_SEED)
+        fwd_counts, a_tag = rt.get([fwd_counts_ref, a_tag_ref],
+                                   timeout=NODE_WAIT_S)
+        o_held = type(runtime.store._entries[o_ref.id()].value).__name__
+        # The fwd task's GPU is back in the ledger before the norm is
+        # placed: a node the demand does not fit now is not scored.
+        require(_until(lambda: node_a.available.get("GPU") == 1.0, 30),
+                "A's GPU did not come back after the fwd task")
+        before = runtime.execution_pipeline_stats()["sched"]
+        norm = rt.remote(num_gpus=1, num_returns=3)(_traced_norm)
+        start = time.perf_counter()
+        with tracing.trace_span("submit:norm") as norm_span:
+            n_ref, norm_counts_ref, norm_tag_ref = norm.remote(
+                o_ref, TRACE_SEED)
+        norm_counts, norm_tag = rt.get([norm_counts_ref, norm_tag_ref],
+                                       timeout=NODE_WAIT_S)
+        norm_wall_s = time.perf_counter() - start
+        after = runtime.execution_pipeline_stats()["sched"]
+        got_o, got_n = rt.get([o_ref, n_ref], timeout=NODE_WAIT_S)
+        bitwise = {"o": torch.equal(got_o, want_o),
+                   "n": torch.equal(got_n, want_n)}
+        # Every ref of the two tasks goes, so their lineage and the
+        # driver's copies of o and n go too.
+        del got_o, got_n, o_ref, n_ref, fwd_counts_ref, a_tag_ref
+        del norm_counts_ref, norm_tag_ref
+        path = os.path.join(session, "trace.json")
+        start = time.perf_counter()
+        n_events = tracing.export_chrome_trace(path)
+        export_ms = 1e3 * (time.perf_counter() - start)
+        spans = tracing.get_spans()
+        lane = f"node:{a_tag[:8]}"
+        tasks = {"fwd": _traced_task(tracing, runtime, "_traced_fwd",
+                                     fwd_span, spans, lane),
+                 "rmsnorm": _traced_task(tracing, runtime, "_traced_norm",
+                                         norm_span, spans, lane)}
+        n_spans = len(spans)
+        traced_us = _round_trips_us(rt, rt.remote(_noop).remote)
+    finally:
+        tracing.disable()
+        tracing.clear()
+    del want_o, want_n
+    # The driver's copies of o and n, and whatever reference cycles the
+    # reads left, go before the phase's later steps (its free-bytes
+    # check at teardown counts this process's cached blocks).
+    store_freed = _until(lambda: runtime.store.stats()[
+        "memory_used_bytes"] <= store_before, 30)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sched = runtime.execution_pipeline_stats()["sched"]
+    clocks = {name: {"offset_s": h.clock.offset,
+                     "rtt_s": h.clock.rtt if h.clock.samples else None,
+                     "samples": h.clock.samples}
+              for name, h in handles.items()}
+    result = {
+        "shape": list(LOST_SHAPE), "o_bytes": o_bytes,
+        "o_held_by_driver": o_held, "norm_on_a": norm_tag == a_tag,
+        "locality_hits": after["locality_hits"] - before["locality_hits"],
+        "locality_bytes_saved": after["locality_bytes_saved"]
+        - before["locality_bytes_saved"],
+        "bitwise": bitwise, "tasks": tasks,
+        "norm_wall_s": norm_wall_s,
+        # (a): the fwd and backward on A, then RMSNorm on B over o moved
+        # there by the same-host plane; and B's copy of o alone.
+        "a_tasks_s": kernels["tasks_s"],
+        "a_b_same_host_s": kernels["b_same_host_s"],
+        "trace_file_bytes": os.path.getsize(path), "trace_events": n_events,
+        "spans": n_spans, "export_ms": export_ms, "clock_sync": clocks,
+        "traced_task_us": traced_us, "untraced_task_us": task_us,
+        "speculation": {k: v for k, v in sched.items()
+                        if k.startswith("speculations_")},
+        "launches": {"fwd": fwd_counts["fwd"],
+                     "rmsnorm": norm_counts["rmsnorm"]},
+        "driver_allocated_before_after": [allocated_before,
+                                          torch.cuda.memory_allocated()],
+        "driver_store_bytes_before_after": [
+            store_before, runtime.store.stats()["memory_used_bytes"]],
+        "step_s": time.perf_counter() - step_start}
+    emit("node_cluster_traced", **result)
+    require(o_held == "RemoteBlob", f"o came to the driver: {o_held}")
+    require(store_freed, f"the driver's store kept "
+                         f"{result['driver_store_bytes_before_after']}")
+    require(result["norm_on_a"] and result["locality_hits"] >= 1
+            and result["locality_bytes_saved"] >= o_bytes,
+            f"RMSNorm ran on {norm_tag}, not A ({a_tag}), with "
+            f"{result['locality_hits']} locality hits and "
+            f"{result['locality_bytes_saved']} bytes saved")
+    require(all(bitwise.values()),
+            f"traced results differ from the driver's: {bitwise}")
+    for name, row in tasks.items():
+        require(row["stages_ordered"] and {
+            "submit", "dispatch", "rpc_sent", "admitted", "exec_start",
+            "exec_end", "seal"} <= set(row["stages"]),
+            f"{name}'s stages: {row['stages']}")
+        require(row["linked_on_holder"],
+                f"{name}'s daemon:execute spans {row['daemon_spans']}, "
+                f"one on {lane} expected")
+    require(not any(result["speculation"].values()),
+            f"speculation moved while off: {result['speculation']}")
+    require(result["launches"] == {"fwd": 1, "rmsnorm": 1},
+            f"(a''') launches {result['launches']}: one of each expected")
+    return result
+
+
 def _directory_by_shard(head) -> dict:
     """{shard index: the object ids its directory holds}."""
     return {shard.index: set(shard.directory.locations())
@@ -5538,8 +5721,10 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
     (c). (a'') after (a'): the pipelined task path, a burst through the
     submit ring to A, B and C (a daemon with no card, there for the
     burst alone), then RMSNorm tasks on B through the ring and CPU tasks
-    over their results. Returns the kernels' launches on the nodes, in
-    the GPU gang, on the arena's input and on the pipelined path."""
+    over their results. (a''') after (a''): traced placement, the fwd
+    kernel on A and RMSNorm placed on A by locality, under a merged
+    trace. Returns the kernels' launches on the nodes, in the GPU gang,
+    on the arena's input, on the pipelined path and in (a''')."""
     import shutil
     import tempfile
 
@@ -5602,6 +5787,9 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         # fused runs), with RMSNorm's tasks riding the ring.
         pipeline = _node_pipeline(rt, runtime, cluster, handles, ids,
                                   fused, task_us)
+        # (a''') Traced placement: the tracing and scheduling planes.
+        traced = _node_traced(rt, runtime, handles, ids, fa, session,
+                              task_us, kernels)
         torch.cuda.empty_cache()
         gangs = _daemon_gangs(nodes, train_phase,
                               bench_config(llama).num_layers)
@@ -5690,6 +5878,9 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
         "arena_input_on_b": arena,
         "pipeline": {k: pipeline[k] for k in (
             "burst_wall_s", "burst_tasks_per_s", "norms_s", "launches")},
+        "traced": {k: traced[k] for k in (
+            "norm_on_a", "norm_wall_s", "export_ms", "traced_task_us",
+            "launches", "step_s")},
         "daemon_gangs": gangs,
         "remote_task_round_trip_us": task_us,
         "thread_task_round_trip_us": runtime_phase["task_round_trip_us"],
@@ -5740,7 +5931,7 @@ def phase_node_cluster(llama, fa, fused, served: dict, served_tokens: list,
             f"rmsnorm launched {served_here['rmsnorm_launches']} times in "
             f"the remote actor over {served_here['forwards']} forwards")
     return (launches, gangs["gpu_gang"]["launches"], arena["launches"],
-            pipeline["launches"])
+            pipeline["launches"], traced["launches"])
 
 
 HEAD_SEED = 37
@@ -6498,7 +6689,7 @@ def main() -> int:
                            fused, device, power)
     torch.cuda.empty_cache()
     node_launches, gang_launches, node_arena_launches, \
-        task_pipeline_launches = timed(
+        task_pipeline_launches, traced_launches = timed(
             phase_node_cluster, llama, fa, fused, served_result,
             served_tokens, process_served["summary"], runtime_result, train,
             device, power)
@@ -6558,6 +6749,10 @@ def main() -> int:
         # (the flash kernels' task on A rides it too, counted in
         # node_launches).
         row["task_pipeline_launches"] = task_pipeline_launches.get(kind, 0)
+        # And under a merged trace (node_cluster's (a''')): the fwd kernel
+        # in the traced task pinned to A, RMSNorm in the one locality
+        # placed on A over its output.
+        row["traced_launches"] = traced_launches.get(kind, 0)
     missing = [k for k in HOPPER_KERNELS if not rows[k]["trainer_launches"]]
     require(not missing, f"kernels not launched through the trainer: "
                          f"{missing}")
@@ -6592,6 +6787,10 @@ def main() -> int:
             f"RMSNorm through the submit ring on B: "
             f"{rows['rmsnorm']['task_pipeline_launches']} launches, "
             f"{PIPE_NORMS} expected")
+    require(rows["fwd"]["traced_launches"] == 1
+            and rows["rmsnorm"]["traced_launches"] == 1,
+            f"(a''') traced launches: fwd {rows['fwd']['traced_launches']}, "
+            f"rmsnorm {rows['rmsnorm']['traced_launches']}, 1 each expected")
     missing = [k for k, row in rows.items() if not row["restart_launches"]]
     require(not missing, f"kernels not launched across the head restart: "
                          f"{missing}")

@@ -31,13 +31,18 @@ Sites wired in the port (``SITES``):
   ``RAY_TPU_TORCH_SHARD_STALL_S`` (default 2.0) x U[0.5, 1.5) seconds;
   reads serve its stale view, writes queue WAL-first and shed past
   ``gcs_shard_max_queued_writes``
+- ``sched.straggle`` daemon exec: delay this node's single-path
+  execution by ``RAY_TPU_TORCH_STRAGGLE_S`` seconds (default 2.0) before
+  the user function runs, in short slices, so a speculation loser's
+  cancel that lands mid-delay stops it before it runs; a batch RPC is
+  delayed once, before its entries are admitted
 
 Every fire is recorded in the process's flight-recorder ring
 (``chaos``, site).
 
 Not ported (ROADMAP item 10c): every other site of the reference (the
 transport's sever, drop, delay and stream kill, network partitions,
-heartbeat skips, daemon death, lease expiry, overload, stragglers, the
+heartbeat skips, daemon death, lease expiry, overload, the
 spill tier's torn write, disk full and restore delay, the LLM engine's
 slow step) and the trace pins a fire leaves.
 """
@@ -53,6 +58,7 @@ SITES: "tuple[str, ...]" = (
     "gcs.torn_wal",
     "gcs.shard_die",
     "gcs.shard_stall",
+    "sched.straggle",
 )
 
 CHAOS_ENV = "RAY_TPU_TORCH_CHAOS"

@@ -216,6 +216,53 @@ _DEFAULTS: dict[str, Any] = {
     "health_wedged_age_s": 10.0,
     "health_stale_shard_age_s": 3.0,
     "health_fused_fallback_per_s": 1.0,
+    # A daemon's cache of pulled copies, and the bound of its FIFO of
+    # shared-memory argument segments (pool tasks' arguments and the
+    # named twins of its large results).
+    "node_pull_cache_mb": 512,
+    # How long an actor creation waits for its resources to free up
+    # before the actor dies, and how long a restart waits for a node to
+    # relocate to.
+    "actor_lease_timeout_s": 300.0,
+    "actor_restart_relocate_timeout_s": 120.0,
+    # The serving engine's defaults: KV block size in tokens, prefill
+    # chunk in tokens, and the waiting-queue cap past which submits are
+    # refused.
+    "llm_block_size": 16,
+    "llm_prefill_chunk": 32,
+    "llm_max_waiting": 64,
+    # Threads of the bounded pool that runs the "pooled" RPC methods
+    # (fetch_object, fetch_plan) on daemons and on the driver's object
+    # server.
+    "rpc_io_pool_workers": 16,
+    # The tracing plane (util/tracing.py). Off, every instrumentation
+    # site costs one module-attribute branch (tracing.TRACE_ON). The
+    # span buffer cap holds for local records and for the outbox a
+    # daemon ships back; overflow counts in dropped_spans(). The stage
+    # stamps of a task (submit ... seal) are taken only while tracing
+    # is on; tracing_stage_timestamps turns them off on their own.
+    "tracing_enabled": False,
+    "tracing_buffer_max_spans": 4096,
+    "tracing_stage_timestamps": True,
+    # Locality- and load-aware placement (scheduler.LOCALITY_ON): a
+    # DEFAULT task goes to the node holding most bytes of its arguments
+    # of at least locality_min_arg_kb, and otherwise a skewed backlog in
+    # the node-stats feed moves it off the classic choice. Feed entries
+    # older than sched_stats_stale_s count as no report. Off, pick_node
+    # is the classic policy.
+    "locality_aware_scheduling": True,
+    "locality_min_arg_kb": 64,
+    "sched_stats_stale_s": 6.0,
+    # Straggler speculation (speculation.py): an in-flight task whose
+    # wall passes speculation_p99_factor x its function's p99 (once it
+    # has speculation_min_samples completions) gets a copy on another
+    # node, at most speculation_max_copies; the first seal wins. The
+    # watcher sweeps every speculation_watch_period_ms.
+    "speculation_enabled": False,
+    "speculation_p99_factor": 3.0,
+    "speculation_max_copies": 1,
+    "speculation_min_samples": 8,
+    "speculation_watch_period_ms": 200,
 }
 
 # The environment that hands a worker process its driver's arena.

@@ -380,6 +380,10 @@ class TaskEvent:
     node_id: str = ""
     error: str | None = None
     actor_id: str | None = None
+    # The task's stage stamps (util/tracing.STAGES, on the driver's clock,
+    # remote ones offset-corrected), taken only while tracing is on; a
+    # later state record of the task merges into the earlier one's.
+    stage_ts: dict = field(default_factory=dict)
 
 
 class GlobalControlService:
@@ -749,7 +753,23 @@ class GlobalControlService:
                     and event.task_id not in dom.events:
                 dom.dropped += 1
                 return
+            prior = dom.events.get(event.task_id)
+            if prior is not None and prior.stage_ts:
+                # The stamps of earlier states (submit, dispatch) survive
+                # the event's replacement.
+                event.stage_ts = {**prior.stage_ts, **event.stage_ts}
             dom.events[event.task_id] = event
+
+    def merge_stage_ts(self, task_id: TaskID, stages: dict) -> None:
+        """Fold late stage stamps (a reply's offset-corrected remote
+        stamps, the seal) into the task's event."""
+        if not stages:
+            return
+        dom = self._task_domain(task_id)
+        with dom.lock:
+            event = dom.events.get(task_id)
+            if event is not None:
+                event.stage_ts.update(stages)
 
     def list_task_events(self) -> list[TaskEvent]:
         out: list[TaskEvent] = []

@@ -264,6 +264,11 @@ class GcsServer:
         # The availability last published per node (change detection).
         self._last_published_avail: dict[str, dict] = {}
         self._avail_lock = threading.Lock()
+        # Daemon spans shipped on heartbeats, kept until a driver drains
+        # them into its merged timeline; bounded, so a traced cluster with
+        # no driver exporting does not grow it without limit.
+        self._trace_spans: list[dict] = []
+        self._trace_lock = threading.Lock()
         # The metrics history, sharded along the node-stats domains, and
         # the watchdog that sweeps it.
         self._history: metrics_history.HistoryStore | None = None
@@ -353,6 +358,7 @@ class GcsServer:
         s.register("list_jobs", self.jobs.list)
         s.register("cluster_resources", self._cluster_resources)
         s.register("node_stats", self.gcs.node_stats)
+        s.register("drain_trace_spans", self._drain_trace_spans)
         s.register("object_locations_update", self._object_locations_update)
         s.register("list_object_locations", self._list_object_locations)
         s.register("actor_update", self._actor_update)
@@ -427,8 +433,9 @@ class GcsServer:
                    epoch: int | None = None) -> bool:
         """False tells the agent its node is unknown or dead, and that
         it must register again. A beat stamped with an earlier epoch is
-        refused typed first. ``trace`` is the reference's span piggyback
-        (not ported: ignored)."""
+        refused typed first. ``trace`` ({"spans", "now"}) is the
+        daemon's buffered spans, kept with a one-way clock offset for
+        ``drain_trace_spans``."""
         self._check_epoch(epoch, "heartbeat")
         accepted = self.gcs.heartbeat(NodeID(node_id_bytes), available)
         if accepted and stats is not None:
@@ -446,6 +453,18 @@ class GcsServer:
                     else:
                         self.object_directory.clear_spilled(owner, obj_hex)
             self.gcs.record_node_stats(node_hex, stats)
+        if accepted and trace:
+            # A one-way offset (receipt minus the daemon's send stamp):
+            # coarser than a reply's, but these spans had no reply.
+            spans = trace.get("spans") or []
+            anchor = trace.get("now")
+            offset = (time.time() - float(anchor)) if anchor else 0.0
+            with self._trace_lock:
+                room = 65536 - len(self._trace_spans)
+                if room > 0:
+                    self._trace_spans.append(
+                        {"spans": spans[:room], "offset": offset,
+                         "node": node_id_bytes.hex()})
         if accepted and available is not None:
             # Only a change goes out: steady heartbeats publish nothing.
             hex_id = node_id_bytes.hex()
@@ -458,6 +477,13 @@ class GcsServer:
                 self.pubsub.publish("node_resources",
                                     (hex_id, dict(available)))
         return accepted
+
+    def _drain_trace_spans(self) -> list[dict]:
+        """Hand the heartbeat-shipped span batches to a draining driver
+        (once: drained batches are gone)."""
+        with self._trace_lock:
+            out, self._trace_spans = self._trace_spans, []
+            return out
 
     def _list_nodes(self) -> list[dict]:
         return [{"node_id": r.node_id.hex(), "address": r.address,

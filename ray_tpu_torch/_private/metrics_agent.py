@@ -9,7 +9,10 @@ collectors, served in the Prometheus text format over HTTP at
 
 - the driver's tables: tasks and actors by state, the object store, the
   spill tier, nodes alive, the export leases, available resources, task
-  events dropped, its failure counters;
+  events dropped, trace spans dropped at the tracing buffer's cap, its
+  failure counters and the scheduler's decisions
+  (``sched_decisions_total{kind=}``: locality hits and bytes saved, load
+  spillbacks, stale-stats skips, speculations launched, won and lost);
 - the head's (a connected driver): the persistence counters and epoch,
   one ``gcs_shard{shard=,key=}`` row per shard of a sharded head, the
   watchdog's ``health`` verdicts and each node's latest ``node_history``
@@ -21,9 +24,8 @@ collectors, served in the Prometheus text format over HTTP at
   ``stage_latency`` histograms and ``task_resources`` rows beside the
   driver's own.
 
-Not ported: the reference's tracing, submit-ring, dispatch-lane and
-scheduler-decision families, whose planes the port does not have yet
-(ROADMAP items 10c and 12).
+Not ported: the reference's dispatch-lane families, whose plane the
+port does not have yet (ROADMAP item 10c).
 """
 
 from __future__ import annotations
@@ -104,6 +106,11 @@ def install_runtime_collectors(runtime):
         lines.append(f"# TYPE {P}_task_events_dropped_total counter")
         lines.append(f"{P}_task_events_dropped_total "
                      f"{runtime.gcs.task_events_dropped}")
+        from ray_tpu_torch.util import tracing
+
+        lines.append(f"# TYPE {P}_trace_spans_dropped_total counter")
+        lines.append(f"{P}_trace_spans_dropped_total "
+                     f"{tracing.dropped_spans()}")
 
         try:
             faults = runtime.fault_stats()
@@ -120,6 +127,10 @@ def install_runtime_collectors(runtime):
             pipeline_stats = runtime.execution_pipeline_stats()
         except Exception:  # noqa: BLE001 — a runtime shutting down
             pipeline_stats = {}
+        lines.append(f"# TYPE {P}_sched_decisions_total counter")
+        for key, value in sorted(pipeline_stats.get("sched", {}).items()):
+            lines.append(f'{P}_sched_decisions_total'
+                         f'{{kind="{_escape_label(key)}"}} {value}')
         for family, group in (("node_submit", "submit"),
                               ("node_dispatch", "dispatch")):
             lines.append(f"# TYPE {P}_{family} counter")

@@ -44,6 +44,7 @@ import signal
 import socket
 import sys
 import threading
+import time
 
 from ray_tpu_torch._private import flight_recorder
 from ray_tpu_torch._private.rpc import (
@@ -184,13 +185,22 @@ class NodeAgent:
                 self._undelivered_events = []
                 if events:
                     stats["spill_events"] = events
+            trace = None
+            from ray_tpu_torch.util import tracing
+
+            if tracing.TRACE_ON:
+                # The spans no reply carried (user spans, orphans), with
+                # this daemon's clock for the head's offset estimate.
+                spans = tracing.drain_buffered()
+                if spans:
+                    trace = {"spans": spans, "now": time.time()}
             accepted = False
             try:
                 if self._epoch_stale.is_set():
                     self.node_id = self._register()
                 accepted = call_with_retry(
                     self.client.call, "heartbeat", self.node_id, available,
-                    stats, None, attempts=2,
+                    stats, trace, attempts=2,
                     timeout_s=max(3.0, self.heartbeat_period_s * 3),
                     epoch=self.gcs_epoch)
                 if not accepted:
@@ -300,6 +310,15 @@ def _start_executor_node(gcs_address: str, resources: dict,
     from ray_tpu_torch._private.node_executor import NodeExecutorService
 
     perf_plane.init_from_config()
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    if bool(GLOBAL_CONFIG.tracing_enabled):
+        # A daemon started with RAY_TPU_TORCH_TRACING_ENABLED collects
+        # the spans its tasks open and ships them on heartbeats; runtime
+        # spans need no flag here (a task's trace context is the signal).
+        from ray_tpu_torch.util import tracing
+
+        tracing.enable()
     executor = NodeExecutorService(pool_size=pool_size, resources=resources)
     executor.advertised_address = executor.address_for("127.0.0.1")
     executor.start()

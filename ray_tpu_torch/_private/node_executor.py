@@ -73,10 +73,23 @@ card runs its card tasks in this process, which sees the card, so its
 plain tasks stay in pool workers, which do not. ``executor_stats()``
 and ``stats_for_sync()`` carry the ``pipeline`` group of counters.
 
+Tracing: a task whose driver traces it carries the trace context (an
+``execute_task`` keyword, element 10 of a batch entry, the worker
+frame's last element). Its presence is the daemon's signal: the reply
+then carries a trace payload (the daemon's stage stamps, the spans
+buffered here and the daemon's clock), a ``daemon:execute`` span covers
+an in-daemon run, and a pool worker's stamps make a ``worker:execute``
+span. Spans no reply carried ride the next heartbeat to the head.
+
+Speculation: ``cancel_task(token)`` marks a loser, which is refused
+("cancelled") if it has not reached its function yet; the
+``sched.straggle`` chaos site delays a single-path execution before
+that check, in slices, so a cancel landing mid-delay stops it, and
+delays each batch RPC once before its entries are admitted.
+
 Not ported (ROADMAP 10c): the columnar batch descriptor (``"col1"``)
-and the dispatch lanes that send it, speculation, the chaos sites of
-the batch RPC (``sched.straggle``, ``overload.saturate``) and the trace
-context of a batch entry (element 10 rides as ``None``).
+and the dispatch lanes that send it, and the ``overload.saturate``
+chaos site of the batch RPC.
 """
 
 from __future__ import annotations
@@ -89,7 +102,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from ray_tpu_torch._private import flight_recorder, serialization
+from ray_tpu_torch._private import chaos, flight_recorder, serialization
 from ray_tpu_torch._private import perf_plane as perf
 from ray_tpu_torch._private.accelerators import CardLedger
 from ray_tpu_torch._private.ids import ObjectID
@@ -149,8 +162,6 @@ init_fused_from_config()
 # also from up to _CHUNK_FANOUT peers that pulled it.
 _MIN_P2P_CHUNKS = 4
 _CHUNK_FANOUT = 4
-# Pulled copies a node keeps.
-_PULL_CACHE_BYTES = 512 << 20
 # executor_stats()["data_plane"]: how a node's pulls went (a mapped peer
 # segment, one copy out of one, the chunked pull), the map sources it
 # serves, the peers' segments it holds and its leases' counters.
@@ -187,9 +198,20 @@ class NodeOverloadedError(Exception):
     a deadline-armed task fails fast instead of spilling."""
 
 
+class TaskSpeculationCancelled(Exception):
+    """The node refused the execution because its task token was
+    cancelled (a speculation sibling sealed first): nothing ran."""
+
+
 class TaskDeadlineExpired(Exception):
     """The node found the task's deadline already past and ran
     nothing."""
+
+
+def _proc_label() -> str:
+    """This daemon's process lane in merged timelines."""
+    tag = os.environ.get(NODE_TAG_ENV, "")
+    return f"node:{tag[:8]}" if tag else f"node:pid{os.getpid()}"
 
 
 def _exc_blob(exc: BaseException) -> bytes:
@@ -246,7 +268,7 @@ class NodeObjectStore:
     (``leased_fn``) are never spilled.
     """
 
-    def __init__(self, cache_limit_bytes: int = _PULL_CACHE_BYTES,
+    def __init__(self, cache_limit_bytes: int | None = None,
                  primary_limit_bytes: int | None = None,
                  spill_dir: str | None = None):
         from ray_tpu_torch._private.config import GLOBAL_CONFIG
@@ -254,7 +276,9 @@ class NodeObjectStore:
         self._lock = threading.Lock()
         self._blobs: dict[bytes, bytes] = {}  # insertion-ordered
         self._cached: dict[bytes, None] = {}  # pulled copies, FIFO
-        self._cache_limit = cache_limit_bytes
+        self._cache_limit = (
+            cache_limit_bytes if cache_limit_bytes is not None
+            else int(GLOBAL_CONFIG.node_pull_cache_mb) << 20)
         self._cache_bytes = 0
         self._primary_bytes = 0
         self._primary_limit = (
@@ -1019,9 +1043,6 @@ class NodeExecutorService:
     """A daemon's execution plane: admission, the worker pool, the
     actors, the object store and the RPC surface."""
 
-    # Pulled arguments kept in shared memory for pool tasks (FIFO).
-    _SHM_ARGS_MAX_BYTES = 2 << 30
-
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  pool_size: int | None = None,
                  resources: dict[str, float] | None = None):
@@ -1171,8 +1192,10 @@ class NodeExecutorService:
         s.register("execute_task", self.execute_task, concurrent=True)
         s.register("execute_task_batch", self.execute_task_batch,
                    concurrent=True, streaming=True)
-        s.register("fetch_object", self.fetch_object, concurrent=True)
-        s.register("fetch_plan", self.fetch_plan, concurrent=True)
+        # Short calls: a bounded pool (rpc_io_pool_workers), no thread
+        # per chunk.
+        s.register("fetch_object", self.fetch_object, concurrent="pooled")
+        s.register("fetch_plan", self.fetch_plan, concurrent="pooled")
         s.register("unpin_object", self.unpin_object)
         s.register("free_objects", self.free_objects)
         s.register("executor_stats", self.executor_stats)
@@ -1546,14 +1569,20 @@ class NodeExecutorService:
                      task_token: str | None = None,
                      client_addr: str | None = None,
                      args_ref: str | None = None,
-                     deadline: float | None = None) -> tuple:
+                     deadline: float | None = None,
+                     trace_ctx: tuple | None = None) -> tuple:
         """Run one task. Replies ("ok", [("inline", blob) | ("stored",
         size) | ("err", blob) per return]), ("err", blob), ("busy",)
         when it does not fit, ("overloaded", why) when admission sheds,
         ("timeout", stage) when its deadline is past, ("cancelled",), or
         ("need_func", nonce) when this node does not know the digest yet
         (the arguments wait under the nonce, so the retry ships the
-        function alone)."""
+        function alone).
+
+        ``trace_ctx`` (trace id, parent span id, anchor): the driver
+        traces this task. The daemon then stamps its stages, opens a
+        ``daemon:execute`` span linked to the context, and an "ok" reply
+        carries the trace payload as a third element."""
         demand = {k: float(v) for k, v in (resources or {}).items()}
         demand.setdefault("CPU", 1.0)
         token = task_token or f"exec-{digest[:8]}-{os.urandom(4).hex()}"
@@ -1573,8 +1602,15 @@ class NodeExecutorService:
         if shares is None:
             return ("busy",)
         t_admit = time.time()
+        stages = {"admitted": t_admit} if trace_ctx is not None else None
         try:
+            if chaos.ACTIVE is not None \
+                    and chaos.ACTIVE.should("sched.straggle"):
+                # The delay sits before the cancel check: a speculation
+                # loser's cancel that lands during it stops the task.
+                self._chaos_straggle(task_token)
             if self._token_cancelled(task_token):
+                # A speculation sibling sealed first: nothing runs.
                 return ("cancelled",)
             with self._func_lock:
                 func = self._func_cache.get(digest)
@@ -1598,9 +1634,16 @@ class NodeExecutorService:
                 resolve_runtime_env,
             )
 
-            values = self._run(func, digest, func_blob, args, kwargs,
-                               n_returns, resolve_runtime_env(runtime_env),
-                               on_card, shares, token, client_addr, t_admit)
+            renv = resolve_runtime_env(runtime_env)
+            if stages is None:
+                values = self._run(func, digest, func_blob, args, kwargs,
+                                   n_returns, renv, on_card, shares, token,
+                                   client_addr, t_admit)
+            else:
+                values = self._run_traced(
+                    func, digest, func_blob, args, kwargs, n_returns, renv,
+                    on_card, shares, token, client_addr, t_admit,
+                    trace_ctx, stages)
         except BaseException as exc:  # noqa: BLE001 — shipped to the driver
             return ("err", _exc_blob(exc))
         finally:
@@ -1609,7 +1652,67 @@ class NodeExecutorService:
         entries = [self._reply_entry(key, value, client_addr)
                    for key, value in zip(return_keys, values)]
         self.store.notify_spill()
+        if stages is not None:
+            return ("ok", entries, self._trace_payload(stages))
         return ("ok", entries)
+
+    def _run_traced(self, func, digest: str, func_blob, args, kwargs,
+                    n_returns: int, runtime_env, on_card: bool,
+                    shares: dict, token: str, client_addr,
+                    t_admit: float, trace_ctx: tuple,
+                    stages: dict) -> list:
+        """``_run`` under a ``daemon:execute`` span linked to the
+        driver's context. A pool worker's own stamps land in ``stages``
+        and make a ``worker:execute`` span; an in-daemon run (a ``GPU``
+        task) gets the daemon's envelope as its exec stages."""
+        from ray_tpu_torch.util import tracing
+
+        t_exec = time.time()
+        with tracing.remote_span("daemon:execute", trace_ctx,
+                                 _proc_label(), {"digest": digest[:8]}):
+            values = self._run(func, digest, func_blob, args, kwargs,
+                               n_returns, runtime_env, on_card, shares,
+                               token, client_addr, t_admit,
+                               trace=trace_ctx, stages_out=stages)
+        stages.setdefault("exec_start", t_exec)
+        stages.setdefault("exec_end", time.time())
+        wpid = stages.pop("pid", None)
+        if wpid is not None:
+            tracing.buffer_span({
+                "name": "worker:execute",
+                "span_id": os.urandom(8).hex(),
+                "parent_id": trace_ctx[1],
+                "trace_id": trace_ctx[0],
+                "start_time": stages["exec_start"],
+                "end_time": stages["exec_end"],
+                "thread": "task",
+                "proc": f"worker:{wpid}",
+                "attributes": {"token": token},
+            })
+        return values
+
+    @staticmethod
+    def _trace_payload(stages: dict) -> dict:
+        """A traced reply's payload: this task's stamps on the daemon's
+        clock, the spans buffered here, and the daemon's clock now (the
+        driver's ClockSync anchors its offset on it)."""
+        from ray_tpu_torch.util import tracing
+
+        return {"stages": stages, "spans": tracing.drain_buffered(),
+                "now": time.time()}
+
+    def _chaos_straggle(self, token: "str | None") -> None:
+        """The sched.straggle site: sleep RAY_TPU_TORCH_STRAGGLE_S in
+        short slices, returning early once ``token`` is cancelled (the
+        caller's cancel check then refuses the task)."""
+        total = float(os.environ.get("RAY_TPU_TORCH_STRAGGLE_S", "2.0"))
+        deadline = time.monotonic() + total
+        while time.monotonic() < deadline:
+            if token is not None:
+                with self._cancel_lock:
+                    if token in self._cancelled_tokens:
+                        return
+            time.sleep(0.05)
 
     def _stash_args(self, args_blob: bytes) -> tuple:
         """Keep the arguments of a task whose function must be resent;
@@ -1673,7 +1776,9 @@ class NodeExecutorService:
     def _run(self, func, digest: str, func_blob: bytes | None, args: tuple,
              kwargs: dict, n_returns: int, runtime_env: dict | None,
              on_card: bool, shares: dict, token: str,
-             client_addr: str | None, t_admit: float) -> list:
+             client_addr: str | None, t_admit: float,
+             trace: tuple | None = None,
+             stages_out: dict | None = None) -> list:
         """Run the function where it belongs. With the performance plane
         armed: ``admit_worker`` is admission to the hand-off (the call
         on this thread, or the pool's dispatch), ``exec`` the function's
@@ -1720,7 +1825,7 @@ class NodeExecutorService:
                 digest, func_blob, args_blob, n_returns, return_ids,
                 runtime_env=runtime_env, task_token=token,
                 client_addr=client_addr, sys_path=sys_path,
-                perf_sample=sample)
+                perf_sample=sample, trace=trace, stages_out=stages_out)
         except _RemoteTaskError as rte:
             rte.cause.__ray_tpu_remote_tb__ = rte.remote_tb
             raise rte.cause from None
@@ -1851,12 +1956,14 @@ class NodeExecutorService:
 
         Each entry: (digest, func_blob, args_blob, n_returns,
         return_keys, runtime_env, resources, task_token, flags[, trace
-        context (None here), deadline]); flags bit 0: the arguments hold
+        context[, deadline]]); flags bit 0: the arguments hold
         FetchRefs, bit 2: the driver over-subscribed the entry past this
         node's free slots. A ref-bearing entry, a ``GPU`` entry and one
         whose runtime_env needs a fresh interpreter take the classic
         ``execute_task`` on a dispatch thread of its own; the rest ride
-        pipelined worker leases, or fuse (below).
+        pipelined worker leases, or fuse (below). A traced entry's "ok"
+        reply carries its trace payload (``_batch_trace``) as a third
+        element.
 
         Parts: ("results", [(idx, reply), ...]) with the execute_task
         reply shape, ("started", idx) or ("started_many", [idx, ...])
@@ -1876,6 +1983,13 @@ class NodeExecutorService:
         from ray_tpu_torch._private.worker_pool import _BatchTask
 
         self._warm_factory_once()
+        if chaos.ACTIVE is not None \
+                and chaos.ACTIVE.should("sched.straggle"):
+            # A slow node: one delay per batch RPC, before any entry is
+            # admitted (a fused entry cancelled meanwhile then never
+            # runs; the single path's delay is the cancel-aware one).
+            time.sleep(float(os.environ.get("RAY_TPU_TORCH_STRAGGLE_S",
+                                            "2.0")))
         n = len(entries)
         with self._fused_lock:
             self.batch_rpcs += 1
@@ -1910,6 +2024,9 @@ class NodeExecutorService:
         for idx, entry in enumerate(entries):
             (digest, func_blob, args_blob, n_returns, return_keys,
              runtime_env, resources, token, flags) = entry[:9]
+            # Optional 10th and 11th elements: the driver's trace context
+            # and the absolute deadline.
+            trace_ctx = entry[9] if len(entry) > 9 else None
             deadline = entry[10] if len(entry) > 10 else None
             if func_blob is not None:
                 with self._func_lock:
@@ -1931,12 +2048,14 @@ class NodeExecutorService:
                             args_blob=args_blob, n_returns=n_returns,
                             return_keys=return_keys,
                             runtime_env=runtime_env, resources=resources,
-                            token=token, deadline=deadline):
+                            token=token, deadline=deadline,
+                            trace_ctx=trace_ctx):
                     try:
                         reply = self.execute_task(
                             digest, func_blob, args_blob, n_returns,
                             return_keys, runtime_env, resources, token,
-                            client_addr, deadline=deadline)
+                            client_addr, deadline=deadline,
+                            trace_ctx=trace_ctx)
                     except BaseException as exc:  # noqa: BLE001 — to the driver
                         reply = ("err", _exc_blob(exc))
                     complete(idx, reply)
@@ -1975,7 +2094,7 @@ class NodeExecutorService:
                 n_returns=max(1, n_returns), runtime_env=runtime_env,
                 token=token, client_addr=client_addr, sys_path=sys_path,
                 deadline=deadline, overcommit=bool(flags & 2),
-                return_keys=return_keys)
+                return_keys=return_keys, trace=trace_ctx)
             if len(fused) < fused_cap and not runtime_env:
                 # Runs on this thread, which reserves each entry's demand
                 # only while it runs (_run_fused).
@@ -1988,7 +2107,8 @@ class NodeExecutorService:
                 control.append((kind, token_idx.get(token)))
                 cond.notify()
 
-        def on_result(task, status, payload, sample=None) -> None:
+        def on_result(task, status, payload, sample=None,
+                      wtrace=None) -> None:
             with self._running_lock:
                 self._running.pop(task.token, None)
                 self._blocked_cpu.pop(task.token, None)
@@ -1999,6 +2119,9 @@ class NodeExecutorService:
                     task.return_keys, status, payload, client_addr)
             except BaseException as exc:  # noqa: BLE001 — to the driver
                 reply = ("err", _exc_blob(exc))
+            if task.trace is not None and reply[0] == "ok":
+                reply = (reply[0], reply[1], self._batch_trace(
+                    task, admit_ts.get(task.idx), wtrace))
             complete(task.idx, reply)
 
         notified: list = []
@@ -2204,10 +2327,12 @@ class NodeExecutorService:
                     self._func_cache[task.digest] = func
             args, kwargs = serialization.deserialize_from_buffer(
                 memoryview(task.args_blob))
-            t_exec = time.time() if perf.PERF_ON else 0.0
+            t_exec = time.time() \
+                if (perf.PERF_ON or task.trace is not None) else 0.0
             result = func(*args, **kwargs)
-            if t_exec:
-                perf.record_stage("exec", max(0.0, time.time() - t_exec))
+            t_end = time.time() if t_exec else 0.0
+            if t_exec and perf.PERF_ON:
+                perf.record_stage("exec", max(0.0, t_end - t_exec))
             n_returns = task.n_returns
             if n_returns == 1:
                 values = [result]
@@ -2231,7 +2356,56 @@ class NodeExecutorService:
                 continue
             out.append(self._blob_entry(id_bytes, blob, client_addr))
         self.tasks_executed += 1
+        if task.trace is not None:
+            # A fused run has no worker hop: admitted at its exec.
+            return ("ok", out, self._batch_trace(
+                task, t_exec, {"exec_start": t_exec, "exec_end": t_end,
+                               "pid": os.getpid()}))
         return ("ok", out)
+
+    def _batch_trace(self, task, admitted: float | None,
+                     wtrace: dict | None) -> dict:
+        """A traced batch entry's payload: the daemon's admission stamp
+        and the worker's pickup and exec stamps (same host, same clock),
+        with a ``worker:execute`` span and a ``daemon:task`` span so the
+        merged timeline shows the whole hop chain."""
+        from ray_tpu_torch.util import tracing
+
+        now = time.time()
+        stages: dict = {}
+        if admitted is not None:
+            stages["admitted"] = admitted
+        ctx = task.trace
+        if wtrace:
+            for key in ("worker_start", "exec_start", "exec_end"):
+                if key in wtrace:
+                    stages[key] = wtrace[key]
+            if "exec_start" in wtrace and "exec_end" in wtrace:
+                tracing.buffer_span({
+                    "name": "worker:execute",
+                    "span_id": os.urandom(8).hex(),
+                    "parent_id": ctx[1] if ctx else None,
+                    "trace_id": ctx[0] if ctx else "",
+                    "start_time": wtrace["exec_start"],
+                    "end_time": wtrace["exec_end"],
+                    "thread": "task_seq",
+                    "proc": f"worker:{wtrace.get('pid', '?')}",
+                    "attributes": {"token": task.token or ""},
+                })
+        if admitted is not None:
+            tracing.buffer_span({
+                "name": "daemon:task",
+                "span_id": os.urandom(8).hex(),
+                "parent_id": ctx[1] if ctx else None,
+                "trace_id": ctx[0] if ctx else "",
+                "start_time": admitted,
+                "end_time": now,
+                "thread": "batch",
+                "proc": _proc_label(),
+                "attributes": {"token": task.token or ""},
+            })
+        return {"stages": stages, "spans": tracing.drain_buffered(),
+                "now": now}
 
     def _admit_parked(self, parked: list, launch, emit, complete,
                       admit_ts: dict) -> None:
@@ -2422,10 +2596,14 @@ class NodeExecutorService:
         ``attached=(owner address, token)`` records a peer's segment
         instead: never a source, never unlinked here, and its lease is
         released at the owner when the entry goes."""
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
         from ray_tpu_torch._private.shm_store import ShmDescriptor
 
         if desc is None:
             desc = ShmDescriptor(seg.name, size)
+        # The FIFO is bounded by the pull cache's size, as in the
+        # reference.
+        limit = int(GLOBAL_CONFIG.node_pull_cache_mb) << 20
         oid = ObjectID(key)
         evicted = []
         with self._shm_args_lock:
@@ -2439,8 +2617,7 @@ class NodeExecutorService:
                     self._map_sources[key] = ("seg", seg.name, size)
                 self._shm_args_order[key] = size
                 total = sum(self._shm_args_order.values())
-                while total > self._SHM_ARGS_MAX_BYTES \
-                        and len(self._shm_args_order) > 1:
+                while total > limit and len(self._shm_args_order) > 1:
                     old_key, old_size = self._shm_args_order.popitem(
                         last=False)
                     total -= old_size
@@ -3130,6 +3307,12 @@ class RemoteNodeHandle:
         self._digest_lock = threading.Lock()
         self.known_digests: set[str] = set()
         self._sys_path_sent = False
+        # This node's clock offset, from the traced execute replies
+        # (util/tracing.ClockSync): merged timelines correct the
+        # daemon's stage stamps with it.
+        from ray_tpu_torch.util import tracing
+
+        self.clock = tracing.ClockSync()
 
     def ping(self) -> bool:
         try:
@@ -3154,16 +3337,21 @@ class RemoteNodeHandle:
                 runtime_env: dict | None, resources: dict[str, float],
                 task_token: str | None = None,
                 client_addr: str | None = None,
-                deadline: float | None = None) -> list:
+                deadline: float | None = None,
+                trace_ctx: tuple | None = None) -> tuple:
         """Lease, push and wait for the reply; the function crosses only
-        the first time this node meets its digest. Returns the result
-        entries. Raises NodeBusyError, NodeOverloadedError or
-        TaskDeadlineExpired when the node refused the lease, and the
-        task's own exception when it raised."""
+        the first time this node meets its digest. Returns (the result
+        entries, the trace payload or None). Raises NodeBusyError,
+        NodeOverloadedError or TaskDeadlineExpired when the node refused
+        the lease, TaskSpeculationCancelled when its token was cancelled
+        before it ran, and the task's own exception when it raised."""
         self.ensure_sys_path()
         with self._digest_lock:
             known = digest in self.known_digests
+        # The keywords ride only when armed: the plain call is unchanged.
         extra = {} if deadline is None else {"deadline": deadline}
+        if trace_ctx is not None:
+            extra["trace_ctx"] = trace_ctx
         # Coalesced: a burst of single-path tasks to this node shares
         # __batch__ frames; each reply is still its own.
         reply = self.pool.call(
@@ -3189,9 +3377,7 @@ class RemoteNodeHandle:
         if reply[0] == "timeout":
             raise TaskDeadlineExpired(reply[1])
         if reply[0] == "cancelled":
-            from ray_tpu_torch.exceptions import TaskCancelledError
-
-            raise TaskCancelledError()
+            raise TaskSpeculationCancelled(self.address)
         with self._digest_lock:
             self.known_digests.add(digest)
         if reply[0] == "err":
@@ -3199,7 +3385,7 @@ class RemoteNodeHandle:
                 memoryview(reply[1]))
             exc.__ray_tpu_remote_tb__ = tb
             raise exc
-        return reply[1]
+        return reply[1], (reply[2] if len(reply) > 2 else None)
 
     def execute_batch(self, entries: list, on_results, on_parked=None,
                       on_resumed=None, client_addr: str | None = None,

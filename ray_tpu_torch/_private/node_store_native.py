@@ -34,11 +34,10 @@ class NativeNodeObjectStore:
                  primary_limit_bytes: int | None = None,
                  spill_dir: str | None = None):
         from ray_tpu_torch._private.config import GLOBAL_CONFIG
-        from ray_tpu_torch._private.node_executor import _PULL_CACHE_BYTES
 
         self._lib = lib
         cache = (cache_limit_bytes if cache_limit_bytes is not None
-                 else _PULL_CACHE_BYTES)
+                 else int(GLOBAL_CONFIG.node_pull_cache_mb) << 20)
         primary = (primary_limit_bytes if primary_limit_bytes is not None
                    else int(GLOBAL_CONFIG.node_store_primary_limit_mb) << 20)
         self._spill_dir = spill_dir or GLOBAL_CONFIG.node_store_spill_dir

@@ -31,9 +31,6 @@ from ray_tpu_torch.exceptions import (
     TaskTimeoutError,
 )
 
-# How long a restarting actor waits for a node to host it.
-_RELOCATE_TIMEOUT_S = 120.0
-
 
 class RemoteActor:
     """An actor in a process of its own on a worker-node daemon."""
@@ -405,7 +402,10 @@ class RemoteActor:
             # The node lives: its copy goes before the new one is built,
             # or it is orphaned holding its reservation.
             self._kill_remote_copy(handle)
-        timeout = _RELOCATE_TIMEOUT_S
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        # How long a restarting actor waits for a node to host it.
+        timeout = float(GLOBAL_CONFIG.actor_restart_relocate_timeout_s)
         placed = self._runtime._relocate_actor_lease(
             self.actor_id, self._resources, exclude=exclude,
             timeout=timeout)

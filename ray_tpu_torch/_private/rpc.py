@@ -23,6 +23,7 @@ every reply that way, and a client hands the meta to its
 
 from __future__ import annotations
 
+import os
 import pickle
 import queue
 import select
@@ -203,8 +204,10 @@ class RpcServer:
 
     ``register(..., concurrent=True)`` runs a method on a recycled
     thread with its reply sent when it returns, so a long call does not
-    hold back the calls behind it on the same connection (``"pooled"``
-    is accepted for the reference's short calls and runs the same way).
+    hold back the calls behind it on the same connection;
+    ``concurrent="pooled"`` runs it on a bounded pool of
+    ``rpc_io_pool_workers`` threads instead (short calls such as chunk
+    fetches: no thread per chunk, and a flood of them queues).
     ``register(..., streaming=True)`` hands the method an ``_emit_part``
     keyword that sends ``part`` frames before the final reply
     (``MuxRpcClient.call_streaming`` reads them). A ``__batch__`` frame
@@ -217,8 +220,12 @@ class RpcServer:
         self._sock.listen(128)
         self.host, self.port = self._sock.getsockname()[:2]
         self._methods: dict[str, Callable] = {}
-        self._concurrent: set[str] = set()
+        # Method name -> "thread" (a recycled thread per call) or
+        # "pooled" (the bounded io pool, made at its first call).
+        self._concurrent: dict[str, str] = {}
         self._streaming: set[str] = set()
+        self._io_pool = None
+        self._io_pool_lock = threading.Lock()
         self._shutdown = threading.Event()
         self._conns: list[socket.socket] = []
         self._conns_lock = threading.Lock()
@@ -235,9 +242,22 @@ class RpcServer:
                  streaming: bool = False) -> None:
         self._methods[name] = fn
         if concurrent:
-            self._concurrent.add(name)
+            self._concurrent[name] = (
+                concurrent if isinstance(concurrent, str) else "thread")
         if streaming:
             self._streaming.add(name)
+
+    def _get_io_pool(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        with self._io_pool_lock:
+            if self._io_pool is None:
+                from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+                self._io_pool = ThreadPoolExecutor(
+                    max_workers=int(GLOBAL_CONFIG.rpc_io_pool_workers),
+                    thread_name_prefix="ray_tpu_torch-rpc-io")
+            return self._io_pool
 
     def start(self) -> "RpcServer":
         self._accept_thread = threading.Thread(
@@ -270,6 +290,10 @@ class RpcServer:
         accept = getattr(self, "_accept_thread", None)
         if accept is not None and accept is not threading.current_thread():
             accept.join(timeout=5.0)
+        with self._io_pool_lock:
+            pool, self._io_pool = self._io_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
 
     def _accept_loop(self) -> None:
         while not self._shutdown.is_set():
@@ -316,7 +340,15 @@ class RpcServer:
                 pass
 
     def _dispatch(self, conn, send_lock, seq, name, args, kwargs) -> None:
-        if name in self._concurrent:
+        mode = self._concurrent.get(name)
+        if mode == "pooled":
+            try:
+                self._get_io_pool().submit(self._handle_one, conn,
+                                           send_lock, seq, name, args,
+                                           kwargs)
+            except RuntimeError:
+                pass  # the server stopped: the connection is closing
+        elif mode is not None:
             DISPATCH_POOL.submit(self._handle_one, conn, send_lock, seq,
                                  name, args, kwargs)
         else:
@@ -978,6 +1010,20 @@ def overload_retry_after(exc: BaseException) -> "float | None":
     return None
 
 
+def _retry_pin() -> None:
+    """While tracing, a retried control call leaves a ``fault:rpc_retry``
+    pin at its time in the merged timeline: a daemon's is shipped back,
+    the driver's recorded here."""
+    from ray_tpu_torch.util import tracing
+
+    if tracing.TRACE_ON:
+        tag = os.environ.get("RAY_TPU_TORCH_NODE_TAG")
+        if tag:
+            tracing.buffer_instant("fault:rpc_retry", f"node:{tag[:8]}")
+        else:
+            tracing.instant("fault:rpc_retry")
+
+
 def rpc_retry_count() -> int:
     with _FAULTS_LOCK:
         return _RPC_RETRIES
@@ -1031,6 +1077,7 @@ def call_with_retry(call: Callable, method: str, *args,
                 raise
             with _FAULTS_LOCK:
                 _RPC_RETRIES += 1
+            _retry_pin()
             time.sleep(min(base_delay_s * (2 ** attempt), 2.0))
         else:
             if dest is not None:

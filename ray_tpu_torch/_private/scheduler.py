@@ -27,8 +27,18 @@ to a node is open, the pass keeps filling it past the node's free slots
 rides deep batches, and the node parks the excess in its admission.
 ``submit_many`` queues a whole submit-ring flush under one lock.
 
-Not ported: the locality- and load-scored placement and the batched
-acquisitions of the dispatch lanes (ROADMAP item 10c).
+Locality- and load-aware placement (``LOCALITY_ON``, armed from
+``locality_aware_scheduling``): the dispatcher asks its locality hook for
+the bytes of a task's large arguments on each node, and ``pick_node``
+gives a DEFAULT task to the node holding the most of them; otherwise the
+node-stats feed (``update_node_stats``: running, queue depth and wait,
+shipped on heartbeats) moves a task off the classic choice when that
+choice's backlog is measurably deeper or its report went stale.
+Disarmed, ``pick_node`` is the classic policy. ``sched_counters()``
+counts the decisions.
+
+Not ported: the batched acquisitions of the dispatch lanes (ROADMAP item
+10c).
 """
 
 from __future__ import annotations
@@ -45,13 +55,34 @@ from typing import Callable
 
 from ray_tpu_torch._private import perf_plane as perf
 from ray_tpu_torch._private.accelerators import CardLedger
+from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.ids import NodeID
 from ray_tpu_torch._private.task import TaskSpec
 from ray_tpu_torch.exceptions import PlacementGroupError
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger("ray_tpu_torch")
 
 _DISPATCH_ORDER = itertools.count(1).__next__
+
+# Locality- and load-aware placement. Every site reads this one module
+# attribute; disarmed, pick_node is the classic policy. Armed from
+# locality_aware_scheduling at Runtime init and at daemon boot.
+LOCALITY_ON: bool = True
+
+# How much deeper (in queued tasks) the classic choice's backlog must be
+# than another node's before the scorer moves a task: small deltas keep
+# the classic placement.
+_SPILL_MARGIN = 2.0
+
+
+def init_sched_from_config() -> None:
+    """Arm or disarm locality-aware placement from config."""
+    global LOCALITY_ON
+    LOCALITY_ON = bool(GLOBAL_CONFIG.locality_aware_scheduling)
+
+
+init_sched_from_config()
 
 # How long a node's own availability report stays authoritative. Reports
 # go out only on change, so a lost one would otherwise pin a stale low
@@ -83,6 +114,13 @@ class NodeState:
     reported_at: float = 0.0
     inflight: dict[str, float] = field(default_factory=dict)
     reported_inflight: dict[str, float] = field(default_factory=dict)
+    # The node's last stats report (running tasks, admission depth, the
+    # p50 wait of its admit and exec stages) and when it was received
+    # (monotonic; 0.0: never), for the load-aware scorer.
+    stats_running: float = 0.0
+    stats_depth: float = 0.0
+    stats_wait_s: float = 0.0
+    stats_at: float = 0.0
 
     def __post_init__(self):
         if self.cards is None:
@@ -138,6 +176,10 @@ class ClusterState:
         self._spread_threshold = spread_threshold
         self._rr_counter = 0
         self._infeasible_warned: set[str] = set()
+        # Placement decisions (under self._lock in pick_node), read by
+        # execution_pipeline_stats()["sched"] and /metrics.
+        self.sched = {"locality_hits": 0, "locality_bytes_saved": 0,
+                      "load_spillbacks": 0, "stale_stats_skips": 0}
 
     def add_node(self, node: NodeState) -> None:
         with self._lock:
@@ -201,12 +243,16 @@ class ClusterState:
             return self._nodes.get(node_id)
 
     def pick_node(self, demand: dict[str, float], strategy,
-                  exclude: set[NodeID] | None = None) -> NodeState | None:
+                  exclude: set[NodeID] | None = None,
+                  locality: dict | None = None) -> NodeState | None:
         """A node the demand fits on now, by policy; None if none fits.
         DEFAULT packs onto the nodes under the spread threshold, the
         least utilized first, and past it takes the least utilized of
         all; SPREAD round-robins over the nodes it fits; NODE_AFFINITY
-        takes its node (a soft one falls back to DEFAULT)."""
+        takes its node (a soft one falls back to DEFAULT). While
+        LOCALITY_ON, ``locality`` ({node hex: resident bytes of the
+        task's large arguments}) and the node-stats feed refine a
+        DEFAULT choice (``_pick_scored``)."""
         with self._lock:
             candidates = [n for n in self._nodes.values() if n.alive
                           and (exclude is None or n.node_id not in exclude)]
@@ -223,10 +269,113 @@ class ClusterState:
             if strategy is not None and strategy.kind == "SPREAD":
                 self._rr_counter += 1
                 return fitting[self._rr_counter % len(fitting)]
+            if LOCALITY_ON:
+                chosen = self._pick_scored(fitting, locality)
+                if chosen is not None:
+                    return chosen
             under = [n for n in fitting
                      if n.utilization() < self._spread_threshold]
             return min(under or fitting,
                        key=lambda n: (n.utilization(), n.node_id.hex()))
+
+    def _pick_scored(self, fitting: "list[NodeState]",
+                     locality: dict | None) -> NodeState | None:
+        """The locality- and load-aware refinement (caller holds the
+        lock): the chosen node, its decision counted, or None for the
+        classic ordering.
+
+        1. Locality wins outright: the fitting node holding the most
+           large-argument bytes; ties by load, then (utilization, hex).
+        2. Else the classic pool is ranked by the load score ``running +
+           depth + p50 wait`` of the node-stats feed, and the classic
+           choice loses only to a real skew (at least _SPILL_MARGIN) or
+           when its own report is stale (a wedged daemon looks idle)."""
+        now = time.monotonic()
+        try:
+            stale_s = float(GLOBAL_CONFIG.sched_stats_stale_s)
+        except Exception:  # noqa: BLE001 — config gone mid-teardown
+            stale_s = 6.0
+
+        def load(n: NodeState) -> "float | None":
+            if n.stats_at <= 0.0 or now - n.stats_at > stale_s:
+                return None  # never reported, or decayed out
+            return n.stats_running + n.stats_depth + n.stats_wait_s
+
+        if locality:
+            best = 0.0
+            best_nodes: list[NodeState] = []
+            for n in fitting:
+                b = float(locality.get(n.node_id.hex(), 0.0))
+                if b > best:
+                    best, best_nodes = b, [n]
+                elif b == best and best > 0.0:
+                    best_nodes.append(n)
+            if best > 0.0:
+                chosen = min(best_nodes, key=lambda n: (
+                    load(n) if load(n) is not None else float("inf"),
+                    n.utilization(), n.node_id.hex()))
+                self.sched["locality_hits"] += 1
+                self.sched["locality_bytes_saved"] += int(best)
+                return chosen
+        under = [n for n in fitting
+                 if n.utilization() < self._spread_threshold]
+        pool = under if under else fitting
+        loads = {id(n): load(n) for n in pool}
+        if all(v is None for v in loads.values()):
+            return None  # no live feed: the classic ordering
+        default = min(pool, key=lambda n: (n.utilization(),
+                                           n.node_id.hex()))
+        chosen = min(pool, key=lambda n: (
+            loads[id(n)] if loads[id(n)] is not None else float("inf"),
+            n.utilization(), n.node_id.hex()))
+        if chosen is default:
+            return default
+        default_load = loads[id(default)]
+        chosen_load = loads[id(chosen)]
+        if default_load is None:
+            # The classic choice went silent: a node with a fresh report.
+            self.sched["stale_stats_skips"] += 1
+            if tracing.TRACE_ON:
+                tracing.instant("sched:stale_stats_skip", {
+                    "skipped": default.node_id.hex()[:16],
+                    "chosen": chosen.node_id.hex()[:16]})
+            return chosen
+        if chosen_load is not None \
+                and default_load - chosen_load >= _SPILL_MARGIN:
+            self.sched["load_spillbacks"] += 1
+            if tracing.TRACE_ON:
+                tracing.instant("sched:load_spillback", {
+                    "from": default.node_id.hex()[:16],
+                    "to": chosen.node_id.hex()[:16],
+                    "load_delta": round(default_load - chosen_load, 3)})
+            return chosen
+        return default
+
+    def update_node_stats(self, node_id: NodeID, running: float,
+                          depth: float, wait_s: float,
+                          age_s: float = 0.0) -> None:
+        """Fold one node's stats report into the load view; ``age_s``
+        is its age at the head when fetched, so it keeps ageing
+        between syncs."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is None:
+                return
+            node.stats_running = float(running)
+            node.stats_depth = float(depth)
+            node.stats_wait_s = float(wait_s)
+            node.stats_at = time.monotonic() - max(0.0, float(age_s))
+
+    def record_locality_hit(self, bytes_saved: float) -> None:
+        """A placement outside the scored scan (a batch fill that kept
+        the holder) kept a task next to its bytes: count it as a hit."""
+        with self._lock:
+            self.sched["locality_hits"] += 1
+            self.sched["locality_bytes_saved"] += int(bytes_saved)
+
+    def sched_counters(self) -> dict:
+        with self._lock:
+            return dict(self.sched)
 
     def is_feasible(self, demand: dict[str, float]) -> bool:
         with self._lock:
@@ -337,6 +486,9 @@ class Dispatcher:
         self._deadline_armed = 0
         self._on_deadline = None
         self._on_unplaceable = None
+        # spec -> {node hex: resident bytes of its large arguments}
+        # (set_locality_hook).
+        self._locality_hook = None
         # Batched dispatch (set_batch_hooks) and its counters.
         self._batch_key = None
         self._run_batch = None
@@ -383,6 +535,23 @@ class Dispatcher:
         as each task finishes."""
         self._batch_key = batch_key
         self._run_batch = run_batch
+
+    def set_locality_hook(self, hook) -> None:
+        """``hook(spec)`` gives {node hex: resident bytes of the spec's
+        large arguments} (or a falsy value): the locality input that
+        pick_node scores while LOCALITY_ON."""
+        self._locality_hook = hook
+
+    def _locality(self, spec: TaskSpec) -> dict | None:
+        if not LOCALITY_ON:
+            return None
+        hook = self._locality_hook
+        if hook is None:
+            return None
+        try:
+            return hook(spec) or None
+        except Exception:  # noqa: BLE001 — never wedge dispatch
+            return None
 
     def _enqueue_ready_locked(self, task: _QueuedTask) -> None:
         self._num_ready_live += 1
@@ -509,10 +678,15 @@ class Dispatcher:
                 spec = task.spec
                 node = None
                 overcommitted = False
+                hints = self._locality(spec)
+                best = max(hints.values()) if hints else 0.0
                 if sticky is not None and staged_remote and fill_left > 0 \
-                        and spec.scheduling_strategy.kind == "DEFAULT":
+                        and spec.scheduling_strategy.kind == "DEFAULT" \
+                        and float((hints or {}).get(
+                            sticky.node_id.hex(), 0.0)) >= best:
                     # Fill the open batch: the sticky node's real capacity
-                    # while it fits, else past it.
+                    # while it fits, else past it. A task whose bytes are
+                    # mostly on another node takes the scored scan below.
                     shares = self._cluster.try_acquire(sticky.node_id,
                                                        spec.resources)
                     if shares is None and self._cluster.force_acquire(
@@ -524,8 +698,10 @@ class Dispatcher:
                         spec.gpu_shares = shares
                         node = sticky
                         fill_left -= 1
+                        if best > 0.0:
+                            self._cluster.record_locality_hit(best)
                 if node is None:
-                    node = self._try_admit(task)
+                    node = self._try_admit(task, hints)
                     if node is None:
                         break  # this signature is saturated for this pass
                     sticky = node
@@ -628,13 +804,15 @@ class Dispatcher:
 
         self._batch_runners.submit(runner)
 
-    def _try_admit(self, task: _QueuedTask) -> NodeState | None:
+    def _try_admit(self, task: _QueuedTask,
+                   locality: dict | None = None) -> NodeState | None:
         spec = task.spec
         if spec.scheduling_strategy.kind == "PLACEMENT_GROUP":
             return self._admit_to_bundle(task)
         node = self._cluster.pick_node(
             spec.resources, spec.scheduling_strategy,
-            exclude=getattr(spec, "_avoid_nodes", None) or None)
+            exclude=getattr(spec, "_avoid_nodes", None) or None,
+            locality=locality)
         if node is None:
             self._cluster.warn_if_infeasible(f"Task {spec.name}",
                                              spec.resources)
@@ -710,12 +888,14 @@ class Dispatcher:
                     self._by_return_id.pop(rid, None)
         if expired and self._on_deadline is not None:
             self._on_deadline(task.spec, "dispatch")
-        if not expired and perf.PERF_ON and task.spec.submit_ts:
-            # The submit-to-claim hop, on this process's clock (outside
-            # the scheduler's lock: the histogram has its own).
+        if not expired and (perf.PERF_ON or tracing.TRACE_ON):
+            # The claim's stamp: the trace's "dispatch" stage and the
+            # performance plane's submit-to-claim hop, on this process's
+            # clock (outside the scheduler's lock).
             task.spec.dispatch_ts = time.time()
-            perf.record_stage("submit_dispatch", max(
-                0.0, task.spec.dispatch_ts - task.spec.submit_ts))
+            if perf.PERF_ON and task.spec.submit_ts:
+                perf.record_stage("submit_dispatch", max(
+                    0.0, task.spec.dispatch_ts - task.spec.submit_ts))
         return not expired
 
     def _launch(self, task: _QueuedTask, node: NodeState) -> None:

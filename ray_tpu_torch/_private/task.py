@@ -74,3 +74,6 @@ class TaskSpec:
     # claimed by the scheduler; 0.0 while the plane is off.
     submit_ts: float = 0.0
     dispatch_ts: float = 0.0
+    # The driver's trace context, (trace id, parent span id, anchor),
+    # while tracing is on (util/tracing.py); None otherwise.
+    trace_ctx: tuple | None = None

@@ -43,6 +43,17 @@ notices), its objects are marked lost and rebuilt by re-running their
 tasks, arguments first, as is an object whose spill file tore. With
 worker processes, a memory monitor kills the largest worker under host
 memory pressure, and its task is retried on its own budget.
+
+The tracing plane (``util/tracing.py``): while it is armed, a submit
+takes a trace context and a ``submit`` stamp, the dispatcher's claim a
+``dispatch`` stamp, and a node's reply brings its stamps and spans, which
+the node's ``ClockSync`` moves onto this clock. The scheduling plane: the
+dispatcher's locality hook (``_locality_for_spec``) gives each task the
+bytes of its large arguments on each node, learned from results, from
+nodes that pulled them and from the head's holders, and the node watcher
+feeds the nodes' stats to the scorer every 2 s. Straggler speculation
+(``speculation.py``), once armed, tracks each eligible task, and every
+seal path asks ``claim_win`` before it writes.
 """
 
 from __future__ import annotations
@@ -62,6 +73,8 @@ import torch
 
 from ray_tpu_torch._private import accelerators, flight_recorder, worker_client
 from ray_tpu_torch._private import perf_plane as perf
+from ray_tpu_torch._private import scheduler as scheduler_mod
+from ray_tpu_torch._private import speculation as spec_mod
 from ray_tpu_torch._private.actor_runtime import LocalActor, _ActorCall
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.gcs import (
@@ -99,12 +112,10 @@ from ray_tpu_torch.exceptions import (
     TaskTimeoutError,
     WorkerCrashedError,
 )
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger("ray_tpu_torch")
 
-# How long an actor creation waits for its resources to free up before the
-# actor dies.
-_ACTOR_LEASE_TIMEOUT_S = 300.0
 # How long kill() waits for the killed actor's running calls to return;
 # past it, the actor's resources come back when they do.
 _KILL_WAIT_S = 10.0
@@ -153,7 +164,8 @@ class _SubmitRecord:
     __slots__ = ("func", "args", "kwargs", "name", "num_returns",
                  "resources", "max_retries", "retry_exceptions",
                  "strategy", "runtime_env", "task_id", "return_ids",
-                 "cancelled", "state", "deadline", "submit_ts")
+                 "cancelled", "state", "deadline", "submit_ts",
+                 "trace_ctx")
 
     # Its state, changed under the ring's lock:
     BUFFERED = 0   # in the ring: a cancel is sealed by the ring
@@ -317,6 +329,10 @@ class Runtime:
         # it is read live or dumped on demand.
         perf.init_from_config()
         perf.reset()
+        # The scheduling plane's gates, armed from their knobs as the
+        # performance plane's is.
+        scheduler_mod.init_sched_from_config()
+        spec_mod.init_from_config()
         flight_recorder.install("driver")
         # The head's stats for /metrics: (method, arguments) -> (fetched
         # at, value), kept briefly so scrapes do not become head calls.
@@ -356,6 +372,26 @@ class Runtime:
                                      self.placement_groups)
         self.dispatcher.set_deadline_hook(self._seal_deadline)
         self.dispatcher.set_unplaceable_hook(self._seal_unplaceable)
+        # Locality-aware placement's input: the dispatcher asks the hook
+        # for the bytes of a task's large arguments on each node
+        # (scheduler.LOCALITY_ON gates every call). The threshold is
+        # read once here, off the dispatch path.
+        self._locality_min_bytes = int(cfg.locality_min_arg_kb) * 1024
+        # Learned residency: a node that ran a task consuming a large
+        # argument holds a pulled copy of it (bounded LRU). With the
+        # head's view of holders and of the ones spilled to disk, synced
+        # by the node watcher.
+        self._arg_locality: collections.OrderedDict = \
+            collections.OrderedDict()
+        self._arg_locality_lock = threading.Lock()
+        self._holder_cache: dict = {}
+        self._spilled_holders: dict = {}
+        self._sched_feed_at = 0.0
+        self.dispatcher.set_locality_hook(self._locality_for_spec)
+        # Straggler speculation: the watcher exists only once armed.
+        self._spec_watcher = None
+        if spec_mod.SPEC_ON:
+            self._spec_watcher = spec_mod.SpeculationWatcher(self)
         # Failure counters (stats()): deadline-sealed tasks and
         # admission sheds.
         self._counter_lock = threading.Lock()
@@ -665,6 +701,9 @@ class Runtime:
             # The worker's (name, wall, cpu, rss) around the function.
             perf.record_task_resources(*sample[0])
             perf.record_stage("exec_local", float(sample[0][1]))
+        watcher = self._spec_watcher
+        if watcher is not None and not watcher.claim_win(spec):
+            return True  # a sibling sealed first: the loser writes nothing
         for rid, value in results:
             self.store.put(rid, value)
         return True
@@ -901,9 +940,9 @@ class Runtime:
         self._obj_server = RpcServer()
         self._obj_server.register("ping", lambda: "pong")
         self._obj_server.register("fetch_object", self._export_fetch_object,
-                                  concurrent=True)
+                                  concurrent="pooled")
         self._obj_server.register("fetch_plan", self._export_fetch_plan,
-                                  concurrent=True)
+                                  concurrent="pooled")
         self._obj_server.register("unpin_object",
                                   self._export_leases.release)
         self._obj_server.start()
@@ -1104,6 +1143,12 @@ class Runtime:
                     self._flush_object_locations()
                     self._flush_control_mirror()
                     now = time.monotonic()
+                    if scheduler_mod.LOCALITY_ON \
+                            and now - self._sched_feed_at >= 2.0:
+                        # The placement scorer's inputs: node-stats ages
+                        # and the head's holders.
+                        self._sched_feed_at = now
+                        self._sync_sched_feed()
                     if membership or now - last_sync >= 10.0:
                         self._sync_remote_nodes(call_with_retry(
                             self.gcs_client.call, "list_nodes",
@@ -1568,18 +1613,19 @@ class Runtime:
                 {} if bundled else spec.resources,
                 on_release=control("task_block"),
                 on_reacquire=control("task_unblock"))
+        trace_ctx = spec.trace_ctx if tracing.TRACE_ON else None
         t_send = time.time()
         if perf.PERF_ON and spec.dispatch_ts:
             perf.record_stage("dispatch_rpc",
                               max(0.0, t_send - spec.dispatch_ts))
         try:
-            results = handle.execute(
+            results, reply_trace = handle.execute(
                 digest, func_blob, args_blob, spec.num_returns,
                 [rid.binary() for rid in spec.return_ids],
                 self._package_runtime_env(spec.runtime_env),
                 spec.resources, task_token=token,
                 client_addr=self._client_server_addr() or None,
-                deadline=spec.deadline)
+                deadline=spec.deadline, trace_ctx=trace_ctx)
         except (RpcError, OSError) as exc:
             # A dead node, not one reset socket, loses its objects.
             if not handle.ping():
@@ -1591,10 +1637,65 @@ class Runtime:
             with self._inflight_blocks_lock:
                 ctx = self._inflight_blocks.pop(token)
             ctx.drain()
-        self._seal_remote_results(spec.return_ids, results, node.node_id,
-                                  handle.address)
+        watcher = self._spec_watcher
+        if watcher is None or watcher.claim_win(spec):
+            self._seal_remote_results(spec.return_ids, results,
+                                      node.node_id, handle.address)
+            if scheduler_mod.LOCALITY_ON:
+                # The node now caches this task's pulled large arguments.
+                self._learn_arg_locality(spec, node)
         if perf.PERF_ON:
             perf.record_stage("rpc_seal", max(0.0, time.time() - t_send))
+        if reply_trace is not None:
+            self._ingest_reply_trace(spec, handle, reply_trace, t_send,
+                                     time.time())
+
+    @staticmethod
+    def _dispatch_stages(spec: TaskSpec) -> dict:
+        """The stamps taken on this side before execution (the
+        scheduler's claim); {} untraced."""
+        if spec.trace_ctx is None or not spec.dispatch_ts \
+                or not bool(GLOBAL_CONFIG.tracing_stage_timestamps):
+            return {}
+        return {"dispatch": spec.dispatch_ts}
+
+    def _ingest_reply_trace(self, spec: TaskSpec, handle, trace,
+                            t_send: float, t_recv: float) -> None:
+        """Fold a reply's trace payload into the merged view: the
+        node's ClockSync observes the exchange, the daemon's stamps are
+        moved onto this clock and merged into the task's event (in
+        happened-before order), and the shipped spans are ingested."""
+        offset = 0.0
+        now_remote = trace.get("now")
+        if now_remote is not None:
+            # NTP's four stamps: the daemon's admission is its receive
+            # time, its "now" the reply's send time.
+            remote_recv = (trace.get("stages") or {}).get("admitted")
+            offset = handle.clock.observe(t_send, t_recv, float(now_remote),
+                                          remote_recv)
+        if bool(GLOBAL_CONFIG.tracing_stage_timestamps):
+            stages = {}
+            for key, value in (trace.get("stages") or {}).items():
+                if key in tracing.STAGES \
+                        and isinstance(value, (int, float)):
+                    stages[key] = float(value) + offset
+            stages["rpc_sent"] = t_send
+            stages["seal"] = time.time()
+            # A sub-millisecond offset error must not reorder stages
+            # across the clock boundary: each stage is floored at the
+            # one before it.
+            prev = None
+            for key in tracing.STAGES:
+                ts = stages.get(key)
+                if ts is None:
+                    continue
+                if prev is not None and ts < prev:
+                    stages[key] = ts = prev
+                prev = ts
+            self.gcs.merge_stage_ts(spec.task_id, stages)
+        spans = trace.get("spans")
+        if spans:
+            tracing.ingest_spans(spans, offset)
 
     # ----------------------------------------------------- batched dispatch
 
@@ -1726,11 +1827,17 @@ class Runtime:
                      runtime_env, spec.resources, token,
                      (1 if has_refs else 0)
                      | (2 if getattr(spec, "_overcommit", False) else 0))
+            trace_ctx = spec.trace_ctx if tracing.TRACE_ON else None
+            if trace_ctx is not None or spec.deadline is not None:
+                # Optional 10th and 11th elements: the trace context and
+                # the deadline (absent, the plain entry is unchanged).
+                entry = entry + (trace_ctx,)
             if spec.deadline is not None:
-                # The 10th element is the trace context (not ported).
-                entry = entry + (None, spec.deadline)
+                entry = entry + (spec.deadline,)
             entries.append(entry)
             spec_by_idx[idx] = spec
+            if spec_mod.SPEC_ON and self._spec_watcher is not None:
+                self._spec_watcher.track(spec, node)
             ctx = BlockedResourceContext(
                 self.cluster, node.node_id, spec.resources,
                 on_release=control("task_block", token),
@@ -1740,13 +1847,17 @@ class Runtime:
                 self._inflight_blocks[token] = ctx
             self.gcs.record_task_event(TaskEvent(
                 spec.task_id, spec.name, "RUNNING", start_time=start,
-                node_id=node.node_id.hex()))
+                node_id=node.node_id.hex(),
+                stage_ts=self._dispatch_stages(spec)
+                if trace_ctx is not None else {}))
         complete_many = getattr(complete, "many", None)
 
         def finish_idx(idx: int, defer: "list | None" = None) -> None:
             spec = spec_by_idx.pop(idx, None)
             if spec is None:
                 return
+            if self._spec_watcher is not None:
+                self._spec_watcher.untrack(spec)
             ctx = ctx_by_idx.pop(idx, None)
             if ctx is not None:
                 with self._inflight_blocks_lock:
@@ -1772,14 +1883,27 @@ class Runtime:
                 if perf.PERF_ON and kind in ("ok", "err"):
                     perf.record_stage("rpc_seal", max(0.0, end - t_send))
                 if kind == "ok":
+                    watcher = self._spec_watcher
+                    if watcher is not None and not watcher.claim_win(spec):
+                        # A sibling sealed first: release the claim only.
+                        finish_idx(idx, deferred)
+                        continue
                     try:
                         self._collect_remote_results(
                             spec.return_ids, reply[1], node.node_id,
                             handle.address, pairs)
+                        if watcher is not None:
+                            watcher.untrack(spec, completed=True)
+                        if scheduler_mod.LOCALITY_ON:
+                            self._learn_arg_locality(spec, node)
                         self.gcs.record_task_event(TaskEvent(
                             spec.task_id, spec.name, "FINISHED",
                             start_time=start, end_time=end,
                             node_id=node.node_id.hex()))
+                        if len(reply) > 2 and reply[2] is not None:
+                            # The daemon's stamps and spans for it.
+                            self._ingest_reply_trace(
+                                spec, handle, reply[2], t_send, end)
                     except BaseException as exc:  # noqa: BLE001 — this task's
                         self._finish_task_failure(spec, exc, start)
                     finish_idx(idx, deferred)
@@ -1800,8 +1924,14 @@ class Runtime:
                     finish_idx(idx, deferred)
                     self._shed_remote(spec, node, str(reply[1]), start)
                 elif kind == "cancelled":
-                    self._finish_task_failure(
-                        spec, TaskCancelledError(spec.task_id), start)
+                    watcher = self._spec_watcher
+                    if watcher is not None:
+                        # A speculation loser refused before it ran: the
+                        # sibling's seal carries the result.
+                        watcher.mark_cancelled(spec)
+                    else:
+                        self._finish_task_failure(
+                            spec, TaskCancelledError(spec.task_id), start)
                     finish_idx(idx, deferred)
                 else:  # ("need_func", _): the single path resends it
                     spec_by_idx.pop(idx, None)
@@ -1890,8 +2020,9 @@ class Runtime:
         """The driver's counters of the pipelined path, stage by stage
         (each daemon's are in its ``executor_stats()["pipeline"]``):
         ``submit`` the ring, ``dispatch`` the batching, ``seal`` the
-        grouped seals, ``fused`` the fused runs the batch RPCs reported.
-        The scheduling plane's ``sched`` group is not ported."""
+        grouped seals, ``fused`` the fused runs the batch RPCs reported,
+        ``sched`` the placement decisions (locality hits and bytes saved,
+        load spillbacks, stale-stats skips) and speculation's outcomes."""
         ring = self._submit_ring
         with self._counter_lock:
             fused = {"fused_runs": self._fused_runs,
@@ -1915,7 +2046,148 @@ class Runtime:
                      "batch_sealed_objects":
                          self.store.batch_sealed_objects},
             "fused": fused,
+            "sched": self._sched_stats(),
         }
+
+    def _sched_stats(self) -> dict:
+        out = dict(self.cluster.sched_counters())
+        watcher = self._spec_watcher
+        if watcher is not None:
+            out.update(watcher.counters())
+        else:
+            out.update({"speculations_launched": 0,
+                        "speculations_won": 0,
+                        "speculations_lost": 0})
+        return out
+
+    def configure_speculation(self, enabled: bool) -> None:
+        """Arm or disarm straggler speculation (init reads the
+        ``speculation_enabled`` knob). The watcher is made at the first
+        arm and outlives a disarm; SPEC_ON gates every site."""
+        GLOBAL_CONFIG.update({"speculation_enabled": bool(enabled)})
+        (spec_mod.enable if enabled else spec_mod.disable)()
+        if enabled and self._spec_watcher is None:
+            self._spec_watcher = spec_mod.SpeculationWatcher(self)
+
+    # ------------------------------------------ locality-aware placement
+
+    def _arg_bytes(self, object_id: ObjectID) -> "tuple[int, str | None]":
+        """(resident bytes, primary holder's hex) of a sealed argument: a
+        RemoteBlob names its node and size; an export of this driver's
+        has no single holder (nodes that pulled it are learned)."""
+        from ray_tpu_torch._private.node_executor import RemoteBlob
+
+        with self.store._lock:
+            entry = self.store._entries.get(object_id)
+            if entry is None or not entry.sealed \
+                    or entry.error is not None:
+                return 0, None
+            value = entry.value
+            size = entry.size_bytes
+        if isinstance(value, RemoteBlob):
+            return int(value.size), value.node_hex
+        if self._export_store is not None:
+            exported = self._export_store.size(object_id.binary())
+            if exported:
+                return int(exported), None
+        return int(size), None
+
+    def _locality_for_spec(self, spec: TaskSpec) -> dict | None:
+        """The dispatcher's locality hook: {node hex: resident bytes of
+        this task's arguments of at least locality_min_arg_kb}, from the
+        primary holder, the nodes that pulled a copy, and the head's
+        holders (a holder whose copy is on disk counts a quarter)."""
+        min_bytes = self._locality_min_bytes
+        if min_bytes <= 0:
+            return None
+        refs = ref_args(spec.args, spec.kwargs)
+        if not refs:
+            return None
+        out: dict[str, float] = {}
+        holder_cache = self._holder_cache
+        spilled = self._spilled_holders
+        for ref in refs:
+            oid = ref.id()
+            size, primary = self._arg_bytes(oid)
+            if size < min_bytes:
+                continue
+            holders: set[str] = set()
+            if primary:
+                holders.add(primary)
+            with self._arg_locality_lock:
+                learned = self._arg_locality.get(oid)
+                if learned:
+                    holders |= learned
+            extra = holder_cache.get(oid.hex())
+            if extra:
+                holders.update(extra)
+            spilled_at = spilled.get(oid.hex())
+            for node_hex in holders:
+                credit = size * (0.25 if node_hex == spilled_at else 1.0)
+                out[node_hex] = out.get(node_hex, 0.0) + credit
+        return out or None
+
+    def _learn_arg_locality(self, spec: TaskSpec, node: NodeState) -> None:
+        """A task consuming large arguments completed on ``node``: its
+        pull cache holds them now, so later placements score it."""
+        refs = ref_args(spec.args, spec.kwargs)
+        if not refs or node is None:
+            return
+        min_bytes = self._locality_min_bytes
+        eligible = [r.id() for r in refs
+                    if self._arg_bytes(r.id())[0] >= min_bytes]
+        if not eligible:
+            return
+        node_hex = node.node_id.hex()
+        with self._arg_locality_lock:
+            for oid in eligible:
+                holders = self._arg_locality.get(oid)
+                if holders is None:
+                    holders = self._arg_locality[oid] = set()
+                holders.add(node_hex)
+                self._arg_locality.move_to_end(oid)
+            while len(self._arg_locality) > 4096:
+                self._arg_locality.popitem(last=False)
+
+    def _sync_sched_feed(self) -> None:
+        """The node watcher's beat: fold the head's node-stats table
+        (with its receipt ages) into the scheduler's load view, and
+        refresh the head's view of object holders."""
+        if self.gcs_client is None:
+            return
+        try:
+            table = self.gcs_client.call("node_stats", timeout_s=5.0) or {}
+        except Exception:  # noqa: BLE001 — the head is gone: keep the last
+            return
+        for hex_id, stats in table.items():
+            if not isinstance(stats, dict):
+                continue
+            try:
+                node_id = NodeID(bytes.fromhex(hex_id))
+            except (ValueError, TypeError):
+                continue
+            hist = stats.get("stage_hist") or {}
+            wait = 0.0
+            for stage in ("admit_worker", "exec"):
+                snap = hist.get(stage)
+                if isinstance(snap, dict):
+                    wait += perf.quantile(snap, 0.5)
+            self.cluster.update_node_stats(
+                node_id,
+                running=float(stats.get("running", 0.0) or 0.0),
+                depth=float(stats.get(
+                    "depth", stats.get("running", 0.0)) or 0.0),
+                wait_s=wait,
+                age_s=float(stats.get("age_s", 0.0) or 0.0))
+        try:
+            locs = self.gcs_client.call("list_object_locations", None, True,
+                                        timeout_s=5.0)
+            if isinstance(locs, tuple) and len(locs) == 2:
+                self._holder_cache, self._spilled_holders = locs
+            elif isinstance(locs, dict):
+                self._holder_cache = locs
+        except Exception:  # noqa: BLE001 — the holder view is best-effort
+            pass
 
     def _spillback_requeue(self, spec: TaskSpec, node: NodeState) -> None:
         """The node refused the lease: queue the task again, avoiding it.
@@ -2311,9 +2583,16 @@ class Runtime:
         rec.cancelled = False
         rec.deadline = deadline
         rec.state = _SubmitRecord.BUFFERED
-        # The performance plane's submit stamp is the .remote() call's,
-        # so submit_dispatch counts the ring's wait too.
-        rec.submit_ts = time.time() if perf.PERF_ON else 0.0
+        # The submit stamp is the .remote() call's, so submit_dispatch
+        # counts the ring's wait too; the trace context links to the
+        # caller's open span (the flush thread has none).
+        rec.submit_ts = 0.0
+        rec.trace_ctx = None
+        if perf.PERF_ON or tracing.TRACE_ON:
+            rec.submit_ts = time.time()
+            if tracing.TRACE_ON:
+                rec.trace_ctx = tracing.make_trace_context(
+                    anchor=rec.submit_ts)
         add_ref = self.reference_counter.add_ref
         refs = []
         for rid in rec.return_ids:
@@ -2354,7 +2633,18 @@ class Runtime:
             self.store.create_pending(rid)
         refs = [ObjectRef(rid) for rid in return_ids]
         self.lineage.record(spec)
-        self.gcs.record_task_event(TaskEvent(spec.task_id, name, "PENDING"))
+        submit_stages = {}
+        if perf.PERF_ON or tracing.TRACE_ON:
+            spec.submit_ts = time.time()
+            if tracing.TRACE_ON:
+                # The root of this task's trace: the context rides the
+                # execute RPCs, so the daemon's spans link back here.
+                spec.trace_ctx = tracing.make_trace_context(
+                    anchor=spec.submit_ts)
+                if bool(GLOBAL_CONFIG.tracing_stage_timestamps):
+                    submit_stages = {"submit": spec.submit_ts}
+        self.gcs.record_task_event(TaskEvent(spec.task_id, name, "PENDING",
+                                             stage_ts=submit_stages))
         self.dispatcher.submit(spec, self._execute_task,
                                ref_args(args, kwargs))
         return refs
@@ -2430,6 +2720,8 @@ class Runtime:
                 if ring._stop:
                     break  # the last flush must not wedge
                 time.sleep(0.02)
+        stamp_stages = tracing.TRACE_ON \
+            and bool(GLOBAL_CONFIG.tracing_stage_timestamps)
         now = time.time()
         specs: list = []
         failed: list = []
@@ -2448,7 +2740,8 @@ class Runtime:
                     retry_exceptions=rec.retry_exceptions,
                     scheduling_strategy=rec.strategy,
                     return_ids=rec.return_ids, deadline=rec.deadline,
-                    runtime_env=rec.runtime_env, submit_ts=rec.submit_ts)
+                    runtime_env=rec.runtime_env, submit_ts=rec.submit_ts,
+                    trace_ctx=rec.trace_ctx)
             except BaseException as exc:  # noqa: BLE001 — sealed on its refs
                 failed.append((rec, exc))
                 continue
@@ -2459,8 +2752,10 @@ class Runtime:
             [rid for spec in specs for rid in spec.return_ids])
         self.lineage.record_many(specs)
         for spec in specs:
-            self.gcs.record_task_event(TaskEvent(spec.task_id, spec.name,
-                                                 "PENDING"))
+            self.gcs.record_task_event(TaskEvent(
+                spec.task_id, spec.name, "PENDING",
+                stage_ts={"submit": spec.submit_ts}
+                if stamp_stages and spec.submit_ts else {}))
         # A placement-group task goes through the same queue: the
         # dispatcher admits it to its bundle.
         if specs:
@@ -2496,7 +2791,9 @@ class Runtime:
             return
         self.gcs.record_task_event(TaskEvent(
             spec.task_id, spec.name, "RUNNING", start_time=start,
-            node_id=node.node_id.hex()))
+            node_id=node.node_id.hex(),
+            stage_ts=self._dispatch_stages(spec)
+            if tracing.TRACE_ON else {}))
         RuntimeContext.set(
             task_id=spec.task_id, task_name=spec.name, job_id=self.job_id,
             node_id=node.node_id, actor_id=None,
@@ -2507,12 +2804,16 @@ class Runtime:
         bundled = spec.scheduling_strategy.kind == "PLACEMENT_GROUP"
         with self._remote_nodes_lock:
             remote_handle = self._remote_nodes.get(node.node_id)
+        watcher = self._spec_watcher
+        tracked = spec_mod.SPEC_ON and watcher is not None \
+            and watcher.track(spec, node)
         try:
             if remote_handle is not None:
                 from ray_tpu_torch._private.node_executor import (
                     NodeBusyError,
                     NodeOverloadedError,
                     TaskDeadlineExpired,
+                    TaskSpeculationCancelled,
                 )
 
                 try:
@@ -2520,12 +2821,26 @@ class Runtime:
                 except NodeBusyError:
                     self._spillback_requeue(spec, node)
                     return
+                except TaskSpeculationCancelled:
+                    if watcher is None:
+                        raise TaskCancelledError(spec.task_id) from None
+                    # A speculation loser the node refused before it
+                    # ran: the sibling's seal carries the result.
+                    watcher.mark_cancelled(spec)
+                    self.gcs.record_task_event(TaskEvent(
+                        spec.task_id, spec.name, "FAILED",
+                        start_time=start, end_time=time.time(),
+                        error="speculation: cancelled before exec"))
+                    return
                 except TaskDeadlineExpired:
                     self._seal_deadline(spec, "admitted")
                     return
                 except NodeOverloadedError as exc:
                     self._shed_remote(spec, node, str(exc), start)
                     return
+                if tracked:
+                    # A completed wall for the speculation trigger's p99.
+                    watcher.untrack(spec, completed=True)
                 self.gcs.record_task_event(TaskEvent(
                     spec.task_id, spec.name, "FINISHED",
                     start_time=start, end_time=time.time(),
@@ -2550,17 +2865,30 @@ class Runtime:
                 self._store_task_result(spec, result)
             for rid in spec.return_ids:
                 self._record_location(rid, node.node_id)
+            if tracked:
+                watcher.untrack(spec, completed=True)
             self.gcs.record_task_event(TaskEvent(
                 spec.task_id, spec.name, "FINISHED", start_time=start,
                 end_time=time.time(), node_id=node.node_id.hex()))
         except BaseException as exc:  # noqa: BLE001 — sealed onto the task's refs, where it is reported
             self._finish_task_failure(spec, exc, start)
         finally:
+            if tracked:
+                watcher.untrack(spec)
             RuntimeContext.clear()
 
     def _finish_task_failure(self, spec: TaskSpec, exc: BaseException,
                              start: float) -> None:
-        """Retry when the policy allows, else seal the error."""
+        """Retry when the policy allows, else seal the error. A
+        speculation member whose sibling won, or may still win, absorbs
+        its failure instead (speculation hedges a node's death)."""
+        watcher = self._spec_watcher
+        if watcher is not None and watcher.absorb_failure(spec):
+            self.gcs.record_task_event(TaskEvent(
+                spec.task_id, spec.name, "FAILED", start_time=start,
+                end_time=time.time(),
+                error=f"speculation: absorbed {exc!r}"))
+            return
         if self._maybe_retry(spec, exc):
             return
         # A task error that is already typed (a failed dependency, a
@@ -2612,6 +2940,9 @@ class Runtime:
         return True
 
     def _store_task_result(self, spec: TaskSpec, result: Any) -> None:
+        watcher = self._spec_watcher
+        if watcher is not None and not watcher.claim_win(spec):
+            return  # a sibling sealed first: the loser writes nothing
         if spec.num_returns == 1:
             self.store.put(spec.return_ids[0], result)
             return
@@ -2794,11 +3125,11 @@ class Runtime:
                                exclude: set | None = None) -> tuple | None:
         """Take the actor's resources for its lifetime, from the node or
         from its placement group's bundle, waiting up to
-        _ACTOR_LEASE_TIMEOUT_S for them to free up: the lease (node,
+        ``actor_lease_timeout_s`` for them to free up: the lease (node,
         resources, (group id, bundle index) or None, card shares), or
         None if the actor is killed while it waits. A bundle that can
         never hold them raises PlacementGroupError."""
-        timeout = _ACTOR_LEASE_TIMEOUT_S
+        timeout = float(GLOBAL_CONFIG.actor_lease_timeout_s)
         deadline = time.monotonic() + timeout
         bundle = None
         if strategy.kind == "PLACEMENT_GROUP":
@@ -3191,6 +3522,8 @@ class Runtime:
         return self.cluster.available_resources()
 
     def shutdown(self) -> None:
+        if self._spec_watcher is not None:
+            self._spec_watcher.stop()
         if self._submit_ring is not None:
             # Flush what is buffered (its owners may hold refs) and stop
             # the submitter before the dispatcher stops.
@@ -3424,6 +3757,11 @@ def init(*, num_cpus: float | None = None, num_gpus: float | None = None,
                 "ray_tpu_torch.init() has already been called; pass "
                 "ignore_reinit_error=True to ignore")
         GLOBAL_CONFIG.update(system_config)
+        if bool(GLOBAL_CONFIG.tracing_enabled):
+            # Armed up front (RAY_TPU_TORCH_TRACING_ENABLED or
+            # system_config); daemons need no flag, a task's context is
+            # their signal.
+            tracing.enable()
         _runtime = Runtime(num_cpus=num_cpus, num_gpus=num_gpus,
                            resources=resources,
                            object_store_memory=object_store_memory,
@@ -3527,21 +3865,11 @@ def nodes() -> list[dict]:
 
 
 def timeline() -> list[dict]:
-    """Chrome-trace events, one complete ("X") slice per task that has
-    started and ended, on its node's lane."""
-    runtime = auto_init()
-    lanes: dict[str, int] = {}
-    events = []
-    for ev in runtime.gcs.list_task_events():
-        if not ev.start_time or not ev.end_time:
-            continue
-        events.append({
-            "name": ev.name, "cat": "task", "ph": "X",
-            "ts": ev.start_time * 1e6,
-            "dur": max(ev.end_time - ev.start_time, 1e-6) * 1e6,
-            "pid": lanes.setdefault(ev.node_id, len(lanes)), "tid": 0,
-            "args": {"task_id": ev.task_id.hex(), "state": ev.state,
-                     "node_id": ev.node_id},
-        })
-    return events
+    """Chrome-trace events of the tasks: one slice per task that has
+    started and ended, on its node's lane; with tracing on, each task
+    expands into its stage slices (submit, dispatch, rpc, admit, worker,
+    execute, seal) across one lane per node, linked by flow arrows.
+    ``util.tracing.export_chrome_trace(path)`` writes the same view,
+    with the spans, to a file."""
+    return tracing.build_task_events(auto_init())
 

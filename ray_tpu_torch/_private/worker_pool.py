@@ -125,6 +125,9 @@ class _BatchTask:
     overcommit: bool = False
     # The return keys, which the fused in-daemon path needs.
     return_keys: list | None = None
+    # The driver's trace context (util/tracing.py): its frame carries it
+    # and the worker stamps pickup and exec times into the reply.
+    trace: tuple | None = None
 
 
 # --------------------------------------------------------------------------
@@ -310,9 +313,10 @@ def _attach_driver_arena(client: ShmClient):
 
 
 def _exec_task_body(fields: tuple, func_cache: dict,
-                    client: ShmClient) -> list:
+                    client: ShmClient, stages: dict | None = None) -> list:
     """Run one task message (the fields after its kind) and return the
-    packed results."""
+    packed results. ``stages`` (a traced task's) receives the function's
+    ``exec_start`` and ``exec_end``."""
     from ray_tpu_torch._private import worker_client
 
     digest, func_blob, args_blob, n_returns, renv, token = fields[:6]
@@ -337,7 +341,11 @@ def _exec_task_body(fields: tuple, func_cache: dict,
     sample = perf.sample_start() if want_sample else None
     try:
         with _runtime_env_ctx(renv):
+            if stages is not None:
+                stages["exec_start"] = time.time()
             result = func(*args, **kwargs)
+            if stages is not None:
+                stages["exec_end"] = time.time()
     finally:
         worker_client.set_task_token(None)
     if sample is not None:
@@ -404,31 +412,54 @@ def _serve(conn, client: ShmClient) -> None:
             elif kind == "ping":
                 conn.send(("pong", os.getpid()))
             elif kind == "task":
-                out = _exec_task_body(msg[1:], func_cache, client)
+                # An optional 11th element is the driver's trace context:
+                # the reply then carries the frame's pickup and exec
+                # stamps, ("ok", packed, sample or None, stages).
+                traced = len(msg) > 10 and msg[10] is not None
+                stages = {"worker_start": time.time(),
+                          "pid": os.getpid()} if traced else None
+                out = _exec_task_body(msg[1:], func_cache, client, stages)
                 # A sampled task replies ("ok", packed, sample).
-                conn.send(("ok", *out) if isinstance(out, tuple)
-                          else ("ok", out))
+                packed, sample = out if isinstance(out, tuple) \
+                    else (out, None)
+                if traced:
+                    conn.send(("ok", packed, sample, stages))
+                else:
+                    conn.send(("ok", packed) if sample is None
+                              else ("ok", packed, sample))
             elif kind == "task_seq":
                 # A frame of a pipelined lease: the sender does not wait
                 # for replies, frames run in the order received, and each
                 # reply carries its call id, ("task_done", id, status,
-                # payload[, sample]). An optional 12th element is the
-                # absolute deadline: a frame whose budget died queued
-                # behind the lease's head is refused ("timeout").
+                # payload[, sample[, stages]]). An optional 12th element
+                # is the absolute deadline: a frame whose budget died
+                # queued behind the lease's head is refused ("timeout").
+                # An optional 13th is the driver's trace context: the
+                # reply then carries the frame's pickup and exec stamps.
                 call_id = msg[1]
                 deadline = msg[11] if len(msg) > 11 else None
                 if deadline is not None and time.time() > deadline:
                     conn.send(("task_done", call_id, "timeout", None))
                     continue
+                traced = len(msg) > 12 and msg[12] is not None
+                stages = {"worker_start": time.time(),
+                          "pid": os.getpid()} if traced else None
                 try:
-                    out = _exec_task_body(msg[2:], func_cache, client)
+                    out = _exec_task_body(msg[2:], func_cache, client,
+                                          stages)
                 except BaseException as exc:  # noqa: BLE001 — this task's
                     conn.send(("task_done", call_id, "err",
                                _exception_blob(exc)))
                     continue
-                conn.send(("task_done", call_id, "ok", *out)
-                          if isinstance(out, tuple)
-                          else ("task_done", call_id, "ok", out))
+                packed, sample = out if isinstance(out, tuple) \
+                    else (out, None)
+                if traced:
+                    conn.send(("task_done", call_id, "ok", packed, sample,
+                               stages))
+                elif sample is not None:
+                    conn.send(("task_done", call_id, "ok", packed, sample))
+                else:
+                    conn.send(("task_done", call_id, "ok", packed))
             elif kind == "actor_new":
                 instance = _new_actor(msg, client)
                 conn.send(("ok", None))
@@ -894,7 +925,8 @@ class WorkerPool:
         tasks drain through one lease and long ones fan out. A lease
         keeps up to ``depth`` call-id-tagged frames in flight.
 
-        ``on_result(task, status, payload, sample)`` fires once per task
+        ``on_result(task, status, payload, sample, stages)`` fires once
+        per task (``stages``: a traced frame's worker stamps, else None)
         from a runner thread: "ok" (packed results), "err" (an exception
         blob), "timeout" (its deadline died before the worker took it)
         or "crash" (a WorkerCrashedError: it may have started). A worker
@@ -958,8 +990,10 @@ class WorkerPool:
                              task.client_addr,
                              task.sys_path if blob is not None else None,
                              perf.PERF_ON)
-                    if task.deadline is not None:
+                    if task.deadline is not None or task.trace is not None:
                         frame = frame + (task.deadline,)
+                    if task.trace is not None:
+                        frame = frame + (task.trace,)
                     try:
                         worker.send(frame)
                     except _WorkerUnavailable as exc:
@@ -994,6 +1028,7 @@ class WorkerPool:
                     continue
                 call_id, status, payload = msg[1], msg[2], msg[3]
                 sample = msg[4] if len(msg) > 4 else None
+                stages = msg[5] if len(msg) > 5 else None
                 task = None
                 for i, (cid, queued) in enumerate(inflight):
                     if cid == call_id:
@@ -1004,7 +1039,8 @@ class WorkerPool:
                     continue
                 if tracker is not None and task.token:
                     tracker.done(lease_key, task.token)
-                self._complete_one(state, task, status, payload, sample)
+                self._complete_one(state, task, status, payload, sample,
+                                   stages)
             # The worker died (or refused a frame). Its oldest frame was
             # running and may have had effects: it fails. The ones behind
             # it never started and go to a fresh lease.
@@ -1034,9 +1070,9 @@ class WorkerPool:
 
     @staticmethod
     def _complete_one(state: "_BatchState", task: _BatchTask, status: str,
-                      payload, sample=None) -> None:
+                      payload, sample=None, stages=None) -> None:
         try:
-            state.on_result(task, status, payload, sample)
+            state.on_result(task, status, payload, sample, stages)
         finally:
             with state.lock:
                 state.remaining -= 1
@@ -1070,21 +1106,27 @@ class WorkerPool:
                        task_token: str | None = None,
                        client_addr: str | None = None,
                        sys_path: list[str] | None = None,
-                       perf_sample: list | None = None
+                       perf_sample: list | None = None,
+                       trace: tuple | None = None,
+                       stages_out: dict | None = None
                        ) -> list[tuple[ObjectID, Any]]:
         """Run a task on a worker; [(return id, value)]. The function
         crosses the pipe the first time a worker meets its digest. On a
         node daemon, ``client_addr`` is the submitting driver's client
         server and ``sys_path`` its import paths. With ``perf_sample``
         (a list) the worker samples the function's resources and the
-        (name, wall, cpu, rss) tuple is appended to it. Raises
+        (name, wall, cpu, rss) tuple is appended to it. With ``trace``
+        (the driver's trace context) the worker's pickup and exec stamps
+        and its pid land in ``stages_out``. Raises
         WorkerCrashedError (a system failure) or _RemoteTaskError (the
         task's own)."""
         from ray_tpu_torch._private.worker_factory import (
             import_sensitive_subset,
         )
 
-        if perf_sample is not None:
+        if trace is not None:
+            extra = (client_addr, sys_path, perf_sample is not None, trace)
+        elif perf_sample is not None:
             extra = (client_addr, sys_path, True)
         elif client_addr or sys_path:
             extra = (client_addr, sys_path)
@@ -1110,7 +1152,7 @@ class WorkerPool:
                 return self._unpack_reply(worker.request(
                     ("task", digest, func_blob, args_blob, n_returns,
                      runtime_env, task_token, *extra)), return_ids,
-                    perf_sample)
+                    perf_sample, stages_out)
             finally:
                 if worker is not None:
                     worker.stop()
@@ -1129,15 +1171,20 @@ class WorkerPool:
             finally:
                 self._release(worker)
             worker.known_digests.add(digest)
-            return self._unpack_reply(reply, return_ids, perf_sample)
+            return self._unpack_reply(reply, return_ids, perf_sample,
+                                      stages_out)
 
     def _unpack_reply(self, reply: tuple, return_ids: list[ObjectID],
-                      perf_sample: list | None = None
+                      perf_sample: list | None = None,
+                      stages_out: dict | None = None
                       ) -> list[tuple[ObjectID, Any]]:
         if reply[0] == "err":
             raise _RemoteTaskError(*_remote_error(reply[1]))
-        if len(reply) > 2 and perf_sample is not None:
+        if len(reply) > 2 and reply[2] is not None \
+                and perf_sample is not None:
             perf_sample.append(reply[2])
+        if len(reply) > 3 and stages_out is not None and reply[3]:
+            stages_out.update(reply[3])
         return [(rid, unpack_result(packed, rid, self.directory,
                                     self.driver_client))
                 for rid, packed in zip(return_ids, reply[1])]

@@ -44,12 +44,6 @@ from ray_tpu_torch.serve.llm_engine.scheduler import (
 __all__ = ["ENGINE_STAT_KEYS", "LLMEngine", "merged_engine_stats",
            "merged_engine_load"]
 
-# The reference's defaults (llm_block_size, llm_prefill_chunk and
-# llm_max_waiting in ray_tpu/_private/config.py).
-DEFAULT_BLOCK_SIZE = 16
-DEFAULT_PREFILL_CHUNK = 32
-DEFAULT_MAX_WAITING = 64
-
 # Counter contract: code increments exactly these keys and
 # engine_stats() serves them (the reference's keys; ``slow_steps`` stays 0
 # until the chaos hook is ported).
@@ -79,6 +73,7 @@ class LLMEngine:
                  prefill_chunk: "int | None" = None,
                  max_waiting: "int | None" = None,
                  seed: int = 0, device=None):
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
         from ray_tpu_torch.models import llama
 
         self.device = resolve_device(device)
@@ -94,8 +89,9 @@ class LLMEngine:
         self.params = params
         self.max_batch = int(max_batch_size)
         self.max_len = int(max_seq_len or self.config.max_seq_len)
-        self.block_size = int(block_size or DEFAULT_BLOCK_SIZE)
-        self.prefill_chunk_len = int(prefill_chunk or DEFAULT_PREFILL_CHUNK)
+        self.block_size = int(block_size or GLOBAL_CONFIG.llm_block_size)
+        self.prefill_chunk_len = int(
+            prefill_chunk or GLOBAL_CONFIG.llm_prefill_chunk)
         # Table width: blocks covering max_len, rounded up; one decode
         # shape at [max_batch, M * block_size] attention width.
         self.blocks_per_seq = -(-self.max_len // self.block_size)
@@ -108,7 +104,8 @@ class LLMEngine:
         cache = PagedKVCache(int(num_blocks), self.block_size,
                              self.blocks_per_seq)
         self._sched = Scheduler(
-            cache, self.max_batch, int(max_waiting or DEFAULT_MAX_WAITING),
+            cache, self.max_batch,
+            int(max_waiting or GLOBAL_CONFIG.llm_max_waiting),
             self.max_tokens)
         self._pool = PagedKVCache.init_pool(
             self.config, cache.num_blocks, self.block_size,

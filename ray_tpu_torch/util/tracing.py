@@ -1,0 +1,565 @@
+"""Distributed span tracing: OpenTelemetry-shaped spans over runtime
+activity, with the trace context carried across processes.
+
+The port of ``ray_tpu/util/tracing.py``. The tracer is built in:
+
+- ``enable()`` starts collecting; user code opens spans with
+  ``with trace_span("name"):`` (nesting gives parent/child links via a
+  contextvar, which propagates correctly across threads the runtime
+  starts per actor/task);
+- task submission/execution is traced automatically: the driver stamps
+  a compact trace context ``(trace_id, parent span_id, anchor)`` onto
+  every task submit; the context rides the ``execute_task`` /
+  ``execute_task_batch`` RPCs and the worker pipe ``task_seq`` frames,
+  so spans opened in daemons and pool workers link back to the
+  driver-side submit span. Remote spans are buffered locally
+  (``buffer_span``) and shipped back piggybacked on existing reply
+  frames and heartbeats — no new chatty RPCs;
+- per-process clock skew is corrected driver-side: every trace payload
+  carries the remote wall clock at send, and ``ClockSync`` keeps the
+  minimum-RTT half-RTT offset estimate per peer so merged timelines
+  line up;
+- ``export_chrome_trace(path)`` writes everything — user spans, remote
+  spans, per-stage task lifecycles, fault/chaos instants, and flow
+  arrows from submit→execute→seal — as one chrome://tracing / Perfetto
+  JSON file with one process lane per node/worker; ``get_spans()``
+  returns structured spans for programmatic use.
+
+Cost discipline: when tracing is disabled every instrumentation site
+pays one module-attribute branch (``if tracing.TRACE_ON:``) — the same
+contract as ``chaos.ACTIVE``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import json
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, Iterator
+
+_current_span: contextvars.ContextVar["Span | None"] = \
+    contextvars.ContextVar("ray_tpu_torch_current_span", default=None)
+
+# The ONE production branch: instrumentation sites across the runtime
+# (scheduler claim, RPC retry, chaos firings, worker frames) check this
+# module attribute and pay nothing else while tracing is off.
+TRACE_ON: bool = False
+
+# Canonical pipeline stage order (TaskEvent.stage_ts keys), driver
+# clock after offset correction. Used by the exporter to slice a task's
+# lifecycle and by tests asserting monotonic ordering.
+STAGES = ("submit", "dispatch", "rpc_sent", "admitted", "worker_start",
+          "exec_start", "exec_end", "seal")
+
+
+@dataclass
+class Span:
+    name: str
+    span_id: str
+    parent_id: str | None
+    start_time: float
+    end_time: float | None = None
+    attributes: dict = field(default_factory=dict)
+    thread: str = ""
+    trace_id: str = ""
+    # Process lane label ("driver", "node:<tag>", "worker:<pid>") for
+    # the merged timeline; empty = this process.
+    proc: str = ""
+
+    def duration_s(self) -> float | None:
+        if self.end_time is None:
+            return None
+        return self.end_time - self.start_time
+
+
+def _buffer_cap() -> int:
+    try:
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        return max(1, int(GLOBAL_CONFIG.tracing_buffer_max_spans))
+    except Exception:  # noqa: BLE001 — config unavailable mid-teardown
+        return 4096
+
+
+class _Tracer:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._spans: list[Span] = []
+        # Remote-shipping buffer (daemon/worker side): span dicts
+        # waiting to piggyback on the next reply frame / heartbeat.
+        self._outbox: list[dict] = []
+        self.dropped = 0
+        self.enabled = False
+
+    def record(self, span: Span) -> None:
+        with self._lock:
+            if len(self._spans) >= _buffer_cap():
+                self.dropped += 1
+                return
+            self._spans.append(span)
+
+    def buffer(self, span_dict: dict) -> None:
+        with self._lock:
+            if len(self._outbox) >= _buffer_cap():
+                self.dropped += 1
+                return
+            self._outbox.append(span_dict)
+
+    def drain(self) -> list[dict]:
+        with self._lock:
+            out, self._outbox = self._outbox, []
+            return out
+
+    def spans(self) -> list[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._outbox.clear()
+            self.dropped = 0
+
+
+_TRACER = _Tracer()
+
+
+def enable() -> None:
+    """Start collecting spans (reference: tracing startup hook)."""
+    global TRACE_ON
+    _TRACER.enabled = True
+    TRACE_ON = True
+
+
+def disable() -> None:
+    global TRACE_ON
+    _TRACER.enabled = False
+    TRACE_ON = False
+
+
+def is_enabled() -> bool:
+    return _TRACER.enabled
+
+
+def clear() -> None:
+    _TRACER.clear()
+
+
+def dropped_spans() -> int:
+    """Spans discarded because a buffer hit tracing_buffer_max_spans."""
+    return _TRACER.dropped
+
+
+@contextlib.contextmanager
+def trace_span(name: str, attributes: dict | None = None) -> Iterator[Span]:
+    """Open a span; nests under the current span in this context."""
+    parent = _current_span.get()
+    span = Span(
+        name=name,
+        span_id=uuid.uuid4().hex[:16],
+        parent_id=parent.span_id if parent else None,
+        start_time=time.time(),
+        attributes=dict(attributes or {}),
+        thread=threading.current_thread().name,
+        trace_id=(parent.trace_id if parent and parent.trace_id
+                  else uuid.uuid4().hex[:16]),
+    )
+    token = _current_span.set(span)
+    try:
+        yield span
+    except BaseException as exc:
+        span.attributes["error"] = f"{type(exc).__name__}: {exc}"
+        raise
+    finally:
+        span.end_time = time.time()
+        _current_span.reset(token)
+        if _TRACER.enabled:
+            _TRACER.record(span)
+
+
+def get_current_span() -> Span | None:
+    return _current_span.get()
+
+
+def get_spans() -> list[Span]:
+    """All completed spans collected since enable()/clear()."""
+    return _TRACER.spans()
+
+
+# --------------------------------------------------------------------------
+# Cross-process trace context
+# --------------------------------------------------------------------------
+#
+# A trace context is a compact picklable tuple riding the existing RPCs:
+#     (trace_id, parent_span_id, anchor)
+# ``anchor`` is the originating driver's wall clock at creation — remote
+# processes never use it for arithmetic directly (skew!), it only tags
+# the context's origin for debugging; real merge correction comes from
+# ClockSync half-RTT estimation on the reply path.
+
+
+def make_trace_context(name: str | None = None,
+                       anchor: float | None = None) -> tuple | None:
+    """Context for an outgoing task submit: links to the current span
+    when one is open, else roots a fresh trace. None when disabled —
+    the absence of a context IS the cross-process disable signal (the
+    remote side never needs its own tracing flag for runtime spans)."""
+    if not TRACE_ON:
+        return None
+    parent = _current_span.get()
+    if parent is not None:
+        trace_id = parent.trace_id or uuid.uuid4().hex[:16]
+        parent_id = parent.span_id
+    else:
+        trace_id = uuid.uuid4().hex[:16]
+        parent_id = None
+    return (trace_id, parent_id, anchor if anchor is not None
+            else time.time())
+
+
+@contextlib.contextmanager
+def remote_span(name: str, ctx: tuple | None, proc: str,
+                attributes: dict | None = None) -> Iterator[dict]:
+    """Daemon/worker-side span linked to a driver trace context.
+
+    The span is recorded as a plain dict into the local outbox
+    (``drain_buffered``) so it ships back piggybacked on the next reply
+    frame or heartbeat. Timestamps are THIS process's wall clock; the
+    driver corrects them with its ClockSync offset at ingest."""
+    span = {
+        "name": name,
+        "span_id": uuid.uuid4().hex[:16],
+        "parent_id": ctx[1] if ctx else None,
+        "trace_id": ctx[0] if ctx else uuid.uuid4().hex[:16],
+        "start_time": time.time(),
+        "end_time": None,
+        "thread": threading.current_thread().name,
+        "proc": proc,
+        "attributes": dict(attributes or {}),
+    }
+    try:
+        yield span
+    except BaseException as exc:
+        span["attributes"]["error"] = f"{type(exc).__name__}: {exc}"
+        raise
+    finally:
+        span["end_time"] = time.time()
+        _TRACER.buffer(span)
+
+
+def buffer_span(span_dict: dict) -> None:
+    """Queue one remote span dict for piggyback shipping."""
+    _TRACER.buffer(span_dict)
+
+
+def drain_buffered() -> list[dict]:
+    """Pop every span queued for shipping (reply-frame/heartbeat
+    piggyback). Returns [] when nothing is buffered — callers attach
+    the payload only when non-empty."""
+    return _TRACER.drain()
+
+
+def ingest_spans(span_dicts: list[dict], offset_s: float = 0.0) -> int:
+    """Driver-side merge of remote spans: apply the peer's clock offset
+    (remote ts + offset ≈ driver ts) and record them as first-class
+    spans. Returns the number ingested."""
+    n = 0
+    for d in span_dicts:
+        try:
+            end = d.get("end_time")
+            span = Span(
+                name=d["name"],
+                span_id=d.get("span_id", uuid.uuid4().hex[:16]),
+                parent_id=d.get("parent_id"),
+                start_time=float(d["start_time"]) + offset_s,
+                end_time=(float(end) + offset_s) if end else None,
+                attributes=dict(d.get("attributes") or {}),
+                thread=d.get("thread", ""),
+                trace_id=d.get("trace_id", ""),
+                proc=d.get("proc", ""),
+            )
+        except (KeyError, TypeError, ValueError):
+            continue  # malformed remote span: skip, never poison merge
+        _TRACER.record(span)
+        n += 1
+    return n
+
+
+def instant(name: str, attributes: dict | None = None,
+            proc: str = "") -> None:
+    """Record a zero-duration instant event (fault counters, chaos
+    firings). Shown as an 'i' pin in the merged timeline. Callers
+    gate on ``tracing.TRACE_ON`` so the disabled cost is one branch."""
+    if not TRACE_ON:
+        return
+    span = Span(
+        name=name,
+        span_id=uuid.uuid4().hex[:16],
+        parent_id=None,
+        start_time=time.time(),
+        end_time=None,
+        attributes={**(attributes or {}), "instant": True},
+        thread=threading.current_thread().name,
+        proc=proc,
+    )
+    _TRACER.record(span)
+
+
+def buffer_instant(name: str, proc: str,
+                   attributes: dict | None = None) -> None:
+    """Remote-process variant of ``instant``: queued for piggyback
+    shipping instead of recorded locally."""
+    if not TRACE_ON:
+        return
+    _TRACER.buffer({
+        "name": name,
+        "span_id": uuid.uuid4().hex[:16],
+        "parent_id": None,
+        "trace_id": "",
+        "start_time": time.time(),
+        "end_time": None,
+        "thread": threading.current_thread().name,
+        "proc": proc,
+        "attributes": {**(attributes or {}), "instant": True},
+    })
+
+
+class ClockSync:
+    """Per-peer monotonic→driver-clock offset estimation.
+
+    Classic NTP four-timestamp anchoring on existing exchanges (lease
+    replies, heartbeats): t0 = local request send, t1 = peer receive
+    (the daemon's admission stamp), t2 = peer reply send (the trace
+    payload's ``now``), t3 = local reply receive. Server processing
+    time (t2−t1) subtracts out of the RTT, so a long-running task
+    cannot bias the estimate; the minimum-RTT sample wins — it bounds
+    the path-asymmetry error the tightest. ``offset`` is defined so
+    that ``driver_time ≈ remote_time + offset``."""
+
+    __slots__ = ("offset", "rtt", "samples", "_lock")
+
+    def __init__(self):
+        self.offset = 0.0
+        self.rtt = float("inf")
+        self.samples = 0
+        self._lock = threading.Lock()
+
+    def observe(self, t_send: float, t_recv: float,
+                remote_ts: float,
+                remote_recv_ts: float | None = None) -> float:
+        """One exchange; ``remote_recv_ts`` (t1) defaults to
+        ``remote_ts`` (t2) — the degenerate half-RTT form for replies
+        that carry only one peer stamp. Returns the current best
+        offset."""
+        if remote_recv_ts is None:
+            remote_recv_ts = remote_ts
+        rtt = max(0.0, (t_recv - t_send) - (remote_ts - remote_recv_ts))
+        # NTP: θ = ((t1−t0)+(t2−t3))/2 is remote−local; negate for the
+        # remote→driver correction.
+        offset = -(((remote_recv_ts - t_send)
+                    + (remote_ts - t_recv)) / 2.0)
+        with self._lock:
+            self.samples += 1
+            if rtt <= self.rtt:
+                self.rtt = rtt
+                self.offset = offset
+            return self.offset
+
+
+# --------------------------------------------------------------------------
+# Merged timeline export
+# --------------------------------------------------------------------------
+
+
+class _LaneTable:
+    """Stable integer pid/tid assignment per process/thread label, plus
+    the 'M' metadata events Perfetto needs to group and name lanes
+    (string tids violate the chrome trace format and scatter events)."""
+
+    def __init__(self):
+        self._pids: dict[str, int] = {}
+        self._tids: dict[tuple[int, str], int] = {}
+        self.meta: list[dict] = []
+
+    def pid(self, proc: str) -> int:
+        proc = proc or "driver"
+        got = self._pids.get(proc)
+        if got is None:
+            got = len(self._pids) + 1
+            self._pids[proc] = got
+            self.meta.append({
+                "name": "process_name", "ph": "M", "pid": got, "tid": 0,
+                "args": {"name": proc}})
+            self.meta.append({
+                "name": "process_sort_index", "ph": "M", "pid": got,
+                "tid": 0, "args": {"sort_index": got}})
+        return got
+
+    def tid(self, pid: int, thread: str) -> int:
+        thread = thread or "main"
+        key = (pid, thread)
+        got = self._tids.get(key)
+        if got is None:
+            got = sum(1 for (p, _t) in self._tids if p == pid) + 1
+            self._tids[key] = got
+            self.meta.append({
+                "name": "thread_name", "ph": "M", "pid": pid, "tid": got,
+                "args": {"name": thread}})
+        return got
+
+
+# Stage slice layout for one task: (slice name, from stage, to stage,
+# lane). "remote" lanes land in the executing node's process lane.
+_STAGE_SLICES = (
+    ("stage:submit→dispatch", "submit", "dispatch", "driver"),
+    ("stage:dispatch→rpc", "dispatch", "rpc_sent", "driver"),
+    ("stage:rpc→admit", "rpc_sent", "admitted", "remote"),
+    ("stage:admit→worker", "admitted", "worker_start", "remote"),
+    ("stage:worker→exec", "worker_start", "exec_start", "remote"),
+    ("stage:execute", "exec_start", "exec_end", "remote"),
+    ("stage:exec→seal", "exec_end", "seal", "driver"),
+)
+
+
+def _task_lane(ev) -> str:
+    return f"node:{ev.node_id[:8]}" if ev.node_id else "driver"
+
+
+def build_task_events(runtime, lanes: "_LaneTable | None" = None
+                      ) -> list[dict]:
+    """Chrome-trace events for the runtime's task lifecycle records:
+    per-stage slices (one lane per node) with flow arrows linking the
+    driver-side submit to the remote execution and back to the seal.
+    Tasks without stage stamps degrade to the single-slice view."""
+    own_lanes = lanes is None
+    if own_lanes:
+        lanes = _LaneTable()
+    events: list[dict] = []
+    for ev in runtime.gcs.list_task_events():
+        stage_ts = getattr(ev, "stage_ts", None) or {}
+        present = [s for s in STAGES if s in stage_ts]
+        if len(present) >= 2:
+            flow_id = ev.task_id.hex()
+            prev_lane = None
+            for name, a, b, lane_kind in _STAGE_SLICES:
+                if a not in stage_ts or b not in stage_ts:
+                    continue
+                lane = ("driver" if lane_kind == "driver"
+                        else _task_lane(ev))
+                pid = lanes.pid(lane)
+                tid = lanes.tid(pid, "tasks")
+                ts = stage_ts[a] * 1e6
+                events.append({
+                    "name": f"{ev.name} {name}", "cat": "task_stage",
+                    "ph": "X", "ts": ts,
+                    "dur": max((stage_ts[b] - stage_ts[a]) * 1e6, 1.0),
+                    "pid": pid, "tid": tid,
+                    "args": {"task_id": flow_id, "state": ev.state},
+                })
+                if prev_lane is not None and prev_lane != lane:
+                    # Cross-lane hop: a flow arrow from the end of the
+                    # previous slice to the start of this one.
+                    prev_pid = lanes.pid(prev_lane)
+                    events.append({
+                        "name": "task_flow", "cat": "task_flow",
+                        "ph": "s", "id": flow_id, "ts": ts - 1.0,
+                        "pid": prev_pid,
+                        "tid": lanes.tid(prev_pid, "tasks")})
+                    events.append({
+                        "name": "task_flow", "cat": "task_flow",
+                        "ph": "f", "bp": "e", "id": flow_id, "ts": ts,
+                        "pid": pid, "tid": tid})
+                prev_lane = lane
+            continue
+        if not ev.start_time or not ev.end_time:
+            continue
+        pid = lanes.pid(_task_lane(ev))
+        tid = lanes.tid(pid, "tasks")
+        events.append({
+            "name": ev.name, "cat": "task", "ph": "X",
+            "ts": ev.start_time * 1e6,
+            "dur": max(ev.end_time - ev.start_time, 1e-6) * 1e6,
+            "pid": pid, "tid": tid,
+            "args": {"task_id": ev.task_id.hex(), "state": ev.state},
+        })
+    if own_lanes:
+        return lanes.meta + events
+    return events
+
+
+def _span_events(lanes: _LaneTable) -> list[dict]:
+    events: list[dict] = []
+    for span in _TRACER.spans():
+        pid = lanes.pid(span.proc or "driver")
+        tid = lanes.tid(pid, span.thread or "main")
+        if span.attributes.get("instant") or span.end_time is None:
+            events.append({
+                "name": span.name,
+                "cat": "fault" if span.name.startswith(
+                    ("fault:", "chaos:")) else "instant",
+                "ph": "i", "s": "p",
+                "ts": span.start_time * 1e6,
+                "pid": pid, "tid": tid,
+                "args": {**span.attributes, "span_id": span.span_id},
+            })
+            continue
+        events.append({
+            "name": span.name,
+            "cat": "span",
+            "ph": "X",
+            "ts": span.start_time * 1e6,
+            "dur": max(span.end_time - span.start_time, 1e-6) * 1e6,
+            "pid": pid, "tid": tid,
+            "args": {**span.attributes,
+                     "span_id": span.span_id,
+                     "trace_id": span.trace_id,
+                     "parent_id": span.parent_id},
+        })
+    return events
+
+
+def _drain_cluster_spans(runtime) -> None:
+    """Pull daemon spans that shipped to the head on heartbeats (the
+    piggyback fallback for spans no reply frame carried) into the local
+    tracer before exporting. Offsets here are one-way heartbeat
+    estimates — coarser than the half-RTT reply path, but these spans
+    had no reply to anchor on."""
+    if runtime is None or runtime.gcs_client is None:
+        return
+    try:
+        batches = runtime.gcs_client.call("drain_trace_spans",
+                                          timeout_s=5.0)
+    except Exception:  # noqa: BLE001 — head unreachable: local view only
+        return
+    for entry in batches or []:
+        try:
+            spans, offset = entry["spans"], float(entry.get("offset", 0.0))
+        except (TypeError, KeyError):
+            continue
+        ingest_spans(spans, offset)
+
+
+def export_chrome_trace(path: str) -> int:
+    """Write user spans + remote spans + per-stage task lifecycles as
+    one merged chrome trace (integer pid/tid + process_name metadata —
+    Perfetto groups one lane per node/worker process).
+
+    Returns the number of events written. Open in chrome://tracing or
+    https://ui.perfetto.dev.
+    """
+    from ray_tpu_torch._private.worker import global_runtime
+
+    runtime = global_runtime()
+    _drain_cluster_spans(runtime)
+    lanes = _LaneTable()
+    events = _span_events(lanes)
+    if runtime is not None:
+        events += build_task_events(runtime, lanes)
+    events = lanes.meta + events
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    return len(events)

@@ -85,6 +85,15 @@ TASK_PIPELINE_MODULES = (
     "ray_tpu_torch._private.node_executor",
     "ray_tpu_torch._private.scheduler", "ray_tpu_torch._private.worker",
     "ray_tpu_torch._private.config")
+# The tracing plane and the scheduling plane: the tracer, speculation,
+# and the modules that carry the trace context and the placement scorer.
+TRACE_SCHED_MODULES = (
+    "ray_tpu_torch.util.tracing", "ray_tpu_torch._private.speculation",
+    "ray_tpu_torch._private.scheduler", "ray_tpu_torch._private.worker",
+    "ray_tpu_torch._private.node_executor",
+    "ray_tpu_torch._private.worker_pool", "ray_tpu_torch._private.node",
+    "ray_tpu_torch._private.gcs_server",
+    "ray_tpu_torch._private.metrics_agent")
 # The data package: every module, imported where importing jax, ray_tpu
 # or cloudpickle raises.
 DATA_MODULES = tuple(
@@ -226,6 +235,21 @@ def test_task_pipeline_modules_import_without_jax_ray_tpu_or_cloudpickle():
     assert GLOBAL_CONFIG.get("fused_execution") is True
     assert node_executor.FUSED_ON is True
     assert callable(node_executor.NodeExecutorService.execute_task_batch)
+
+
+def test_trace_sched_modules_import_without_jax_ray_tpu_or_cloudpickle():
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"ray_tpu_torch/util/tracing.py",
+            "ray_tpu_torch/_private/speculation.py"} <= checked
+    assert _import_blocked(TRACE_SCHED_MODULES,
+                           FORBIDDEN + ("cloudpickle",)) == "[]"
+    from ray_tpu_torch._private import scheduler, speculation
+    from ray_tpu_torch.util import tracing
+
+    # The reference's defaults: placement armed, the rest disarmed.
+    assert scheduler.LOCALITY_ON is True
+    assert speculation.SPEC_ON is False
+    assert tracing.TRACE_ON is False
 
 
 def test_same_host_plane_imports_without_jax_ray_tpu_or_cloudpickle():

@@ -1189,3 +1189,72 @@ def test_rmsnorm_tasks_ride_the_submit_ring_to_a_daemon(cuda_device,
     finally:
         rt.shutdown()
         cluster.shutdown()
+
+
+@pytest.mark.gpu
+def test_traced_rmsnorm_task_links_its_daemon_span(cuda_device, tmp_path):
+    """chip_smoke.py's node_cluster (a''') on the card, on one daemon: a
+    traced ``num_gpus=1`` RMSNorm task, bitwise the driver's own launch
+    with one kernel launch; its ``daemon:execute`` span sits on the
+    daemon's lane under the driver's submit span, in its trace, and its
+    stages come in STAGES order."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util import tracing
+
+    def _norm(x, scale):
+        import importlib
+        import os
+
+        import torch
+
+        fused = importlib.import_module("ray_tpu_torch.ops.fused")
+        before = fused.launches["rmsnorm"]
+        with torch.no_grad():
+            out = fused.rms_norm(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        return (out, fused.launches["rmsnorm"] - before,
+                os.environ.get("RAY_TPU_TORCH_NODE_TAG", "?"))
+
+    gen = torch.Generator(cuda_device).manual_seed(47)
+    x = torch.randn(64, 4096, generator=gen, device=cuda_device)
+    scale = torch.randn(4096, generator=gen, device=cuda_device)
+    with torch.no_grad():
+        want = fused.rms_norm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    rt.shutdown()
+    tracing.clear()
+    tracing.enable()
+    cluster = Cluster(log_dir=str(tmp_path / "cluster"))
+    try:
+        cluster.add_node(num_cpus=2, resources={"GPU": 1})
+        assert cluster.wait_for_nodes(1, timeout=300)
+        runtime = rt.init(num_cpus=0, num_gpus=0, address=cluster.address)
+        deadline = time.monotonic() + 120
+        while rt.cluster_resources().get("GPU", 0) < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        norm = rt.remote(num_gpus=1, num_returns=3)(_norm)
+        with tracing.trace_span("submit:norm") as submit:
+            out_ref, n_ref, tag_ref = norm.remote(rt.put(x), rt.put(scale))
+        got = rt.get(out_ref, timeout=300)
+        assert rt.get(n_ref, timeout=60) == 1
+        assert torch.equal(got, want)
+        lane = f"node:{rt.get(tag_ref, timeout=60)[:8]}"
+        linked = [s for s in tracing.get_spans()
+                  if s.name == "daemon:execute"
+                  and s.parent_id == submit.span_id
+                  and s.trace_id == submit.trace_id]
+        assert [s.proc for s in linked] == [lane]
+        event = next(ev for ev in runtime.gcs.list_task_events()
+                     if ev.name.endswith("_norm"))
+        present = [s for s in tracing.STAGES if s in event.stage_ts]
+        assert {"submit", "dispatch", "rpc_sent", "admitted", "exec_start",
+                "exec_end", "seal"} <= set(present)
+        assert [event.stage_ts[s] for s in present] \
+            == sorted(event.stage_ts[s] for s in present)
+    finally:
+        tracing.disable()
+        tracing.clear()
+        rt.shutdown()
+        cluster.shutdown()

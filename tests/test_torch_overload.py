@@ -5,8 +5,7 @@ The tier-1 cases of tests/test_overload.py, each once through
 ``ray_tpu`` and once through ``ray_tpu_torch`` with the same operations,
 returning plain records (values, exception types and stages, counters);
 the two records must be equal, and equal to what the reference case
-asserts. Two cases are left out: :94 needs the buffered submit ring
-(ROADMAP item 10c) and :462 is ``slow``. Each case has a time limit of
+asserts. One case is left out: :462 is ``slow``. Each case has a time limit of
 its own. Where the reference sleeps for a deadline to pass in a queue,
 these sleep the same: the deadline is the subject.
 """
@@ -131,6 +130,29 @@ def test_get_timeout_vs_task_timeout_both_orderings():
     assert _tiny(both_orderings) == {
         "task_first": "TaskTimeoutError", "get_first": "GetTimeoutError",
         "blocker": "b", "later": 2}
+
+
+def ring_deadline_before_flush(pkg, rt, runtime, sleeper, quick) -> dict:
+    # The ring's drain is held, so the submit's budget dies BUFFERED.
+    ring = runtime._submit_ring
+    armed = ring is not None
+    ring._gate.clear()
+    try:
+        ref = quick.remote(1, _deadline_s=0.1)
+        time.sleep(0.3)
+    finally:
+        ring._gate.set()
+    kind, stage = _outcome(lambda: rt.get(ref, timeout=20))
+    # The seal came first: a get with its own short timeout still raises
+    # the task's error.
+    again = _outcome(lambda: rt.get(ref, timeout=0.01))[0]
+    return {"armed": armed, "kind": kind, "stage": stage, "again": again}
+
+
+def test_buffered_ring_submit_deadline_expires_before_flush():
+    assert _tiny(ring_deadline_before_flush) == {
+        "armed": True, "kind": "TaskTimeoutError", "stage": "submit",
+        "again": "TaskTimeoutError"}
 
 
 def default_deadline(pkg, rt, runtime, sleeper, quick) -> dict:
